@@ -1,0 +1,148 @@
+"""GraphSession — edge stream → CLUGP partition → layout → GAS, on PyTorch.
+
+Port of ``repro.session``'s core: a fluent session with a serializable
+config.
+
+    from repro_torch.core import CLUGPConfig, web_graph
+    from repro_torch.session import GraphSession, SessionConfig
+    g = web_graph(scale=20, edge_factor=8, seed=0)
+    sess = GraphSession(SessionConfig(clugp=CLUGPConfig.optimized(64,
+                                                                  restream=1),
+                                      backend="torch", exchange="halo",
+                                      iters=30))
+    pr = sess.partition(g.src, g.dst, g.num_vertices).layout().run("pagerank")
+
+The session runs on the card unless ``device=`` names another device;
+with no card and no ``device`` it raises.  ``backend="torch"`` is the
+counterpart of the reference's ``"jit"`` backend; the only exchange and
+program ported so far are ``"halo"`` and ``"pagerank"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass
+
+import numpy as np
+
+from .core.partitioner import BACKENDS, partition, resolve_device
+from .core.pipeline import CLUGPConfig, CLUGPResult
+from .dist.halo import EXCHANGE_NAMES
+from .graph.engine import GASProgram, PROGRAM_NAMES, get_program, simulate_gas
+from .graph.partition import PartitionLayout, build_layout
+
+EXCHANGES = EXCHANGE_NAMES
+PROGRAMS = PROGRAM_NAMES
+
+
+@dataclass(frozen=True)
+class SessionConfig:
+    """Everything a reproducible partition → layout → GAS run needs;
+    round-trips through ``to_json``/``from_json``."""
+    clugp: CLUGPConfig
+    backend: str = "torch"     # partitioner strategy
+    exchange: str = "halo"     # mirror wire format for run()
+    iters: int = 30            # default GAS iterations
+    pad_multiple: int = 8      # layout table padding
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; expected "
+                             f"one of {BACKENDS}")
+        if self.exchange not in EXCHANGES:
+            raise ValueError(f"unknown exchange {self.exchange!r}; "
+                             f"expected one of {EXCHANGES}")
+        if not isinstance(self.clugp, CLUGPConfig):
+            raise TypeError("SessionConfig.clugp must be a CLUGPConfig")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=1)
+
+    @classmethod
+    def from_json(cls, text: str) -> "SessionConfig":
+        d = json.loads(text)
+        clugp = CLUGPConfig(**d.pop("clugp"))
+        return cls(clugp=clugp, **d)
+
+
+class GraphSession:
+    """``GraphSession(cfg).partition(...).layout().run(...)``; the first
+    two return ``self``, ``run`` the program's dense (V,) master values."""
+
+    def __init__(self, cfg: SessionConfig | CLUGPConfig, *, device=None,
+                 **overrides):
+        if isinstance(cfg, CLUGPConfig):
+            cfg = SessionConfig(clugp=cfg, **overrides)
+        elif overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        if not isinstance(cfg, SessionConfig):
+            raise TypeError("GraphSession takes a SessionConfig or a "
+                            "CLUGPConfig (+ SessionConfig overrides)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.result: CLUGPResult | None = None
+        self._layout: PartitionLayout | None = None
+        self._src = self._dst = None
+        self._num_vertices: int | None = None
+
+    @property
+    def k(self) -> int:
+        return self.cfg.clugp.k
+
+    def to_json(self) -> str:
+        return self.cfg.to_json()
+
+    @classmethod
+    def from_json(cls, text: str, *, device=None) -> "GraphSession":
+        return cls(SessionConfig.from_json(text), device=device)
+
+    def partition(self, src, dst, num_vertices: int) -> "GraphSession":
+        """Run CLUGP on the edge stream."""
+        self._src = np.asarray(src)
+        self._dst = np.asarray(dst)
+        self._num_vertices = int(num_vertices)
+        self._layout = None
+        self.result = partition(self._src, self._dst, self._num_vertices,
+                                self.cfg.clugp, backend=self.cfg.backend,
+                                device=self.device)
+        return self
+
+    def _require_partition(self) -> None:
+        if self.result is None:
+            raise RuntimeError("GraphSession: no partition yet — call "
+                               "partition(src, dst, V) first")
+
+    @property
+    def assign(self) -> np.ndarray:
+        self._require_partition()
+        return self.result.assign
+
+    @property
+    def stats(self) -> dict:
+        self._require_partition()
+        return self.result.stats
+
+    def layout(self) -> "GraphSession":
+        """Build the vertex-cut tables for the current partition."""
+        self._require_partition()
+        self._layout = build_layout(
+            self._src, self._dst, self.result.assign, self._num_vertices,
+            self.k, self.cfg.pad_multiple)
+        return self
+
+    @property
+    def partition_layout(self) -> PartitionLayout:
+        if self._layout is None:
+            self.layout()
+        return self._layout
+
+    def run(self, program="pagerank", *, iters: int | None = None
+            ) -> np.ndarray:
+        """Run a GAS program (name or ``GASProgram``) on the layout over
+        the session's exchange."""
+        lay = self.partition_layout
+        prog = program if isinstance(program, GASProgram) \
+            else get_program(program, self._num_vertices)
+        return simulate_gas(prog, lay,
+                            iters=self.cfg.iters if iters is None else iters,
+                            exchange=self.cfg.exchange, device=self.device)
