@@ -5,25 +5,42 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. Print the card's name and power limit; build the four CUDA kernels
+1. Print the card's name and power limit; build the five CUDA kernels
    (one ``nvcc`` per source, in parallel, into ``build/repro_torch/``).
-2. The main path at full size: ``web_graph(scale=20)`` (1,048,576
+2. The graph path at full size: ``web_graph(scale=20)`` (1,048,576
    vertices, ~6.4 M edges) → ``GraphSession`` CLUGP partition at k = 64
    (one restream) → ``build_layout`` → 30 PageRank iterations over the
    halo exchange.  Launch counts are zeroed just before and read just
-   after: every kernel must have launched.  Checks: RF below a uniform
-   random assignment's, every partition load ≤ τ·E/k + 1, PageRank
-   finite and within L1 1e-4 of the float64 oracle.
-3. Every kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 on recorded blocks of the scale-20 stream, K2
-   at M = the run's m_cap and k = 64, K3 on the run's row-split ELL, T on
-   the scale-20 restream inputs), timed with CUDA events, beside the
+   after: every graph kernel (K1, K2, K3, T) must have launched, K4 not.
+   Checks: RF below a uniform random assignment's, every partition load
+   ≤ τ·E/k + 1, PageRank finite and within L1 1e-4 of the float64 oracle.
+3. Every graph kernel against its plain PyTorch version on the card at
+   the graph path's shapes (K1 on recorded blocks of the scale-20 stream,
+   K2 at M = the run's m_cap and k = 64, K3 on the run's row-split ELL, T
+   on the scale-20 restream inputs), timed with CUDA events, beside the
    least time the card could take for their bytes and operations (and,
    for K1 and T, whose dependent per-edge chain is what limits them, a
    latency floor) and, for K3, one PyTorch sparse call.
 4. At scale 16 the kernel path and the plain path on the card: the
    clustering state and the game-off assignment must match bit for bit.
-5. The ``kernels`` JSON line, then the device JSON line last.
+5. The LM serving path: qwen2-7b at full width and depth (28 layers,
+   7.6 B parameters) in bf16 from a seeded generator.  ``make_prefill_step``
+   on 4 prompts of 2,048 tokens with the counts zeroed before and read
+   after: K4 must launch once per layer, the graph kernels never; prefill
+   tokens/s.  Then the serving launcher's loop (``launch.serve.generate``:
+   4 prompts of 16 tokens by repeated decode, 32 greedy tokens), which
+   launches no K4; ms/token-step beside its floor, the 15.2 GB of weights
+   each step reads at 3.35 TB/s.  Logits finite throughout.
+6. Cross-check: qwen2-7b cut to 2 layers at full width in f32; the last
+   logits of ``prefill`` (K4) against the decode loop's logits at the last
+   prompt position (dense attention, no K4) within 2e-3, the JAX package's
+   own tolerance for decode against forward.
+7. K4 against its plain version at the prefill shape (q 4×28×2048×128,
+   k/v 4×4×2048×128, bf16, causal) within 2e-2 and at one f32 shape within
+   2e-5; timed with CUDA events beside its bound (tensor-core operations)
+   and ``scaled_dot_product_attention`` as a yardstick the port never
+   calls.
+8. The ``kernels`` JSON line (five rows), then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -41,6 +58,7 @@ SCALE, EDGE_FACTOR, K = 20, 8, 64
 SMALL_SCALE = 16
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 dense tensor cores
 K1_OPS_PER_EDGE = 150            # ALU operations of one edge's decisions
 T_OPS_PER_EDGE = 8               # compares/selects/increment of one edge
 K2_OPS_PER_LANE = 8              # flops of one (row, partition) cost
@@ -51,6 +69,12 @@ K2_OPS_PER_LANE = 8              # flops of one (row, partition) cost
 SMEM_STEP_CYCLES = 29
 K1_STEPS_PER_EDGE = 2            # slot read -> volume read at that slot
 T_STEPS_PER_EDGE = 1             # loads read -> +1 the next edge reads
+# the LM serving path: qwen2-7b at full width and depth
+LM_ARCH = "qwen2_7b"
+PREFILL_B, PREFILL_S = 4, 2048
+SERVE_B, SERVE_PROMPT, SERVE_TOKENS = 4, 16, 32
+CHECK_LAYERS, CHECK_B, CHECK_PROMPT = 2, 2, 100   # the f32 cross-check
+F32_S = 300                                       # K4's f32 shape: S
 
 
 def check(cond, msg):
@@ -62,14 +86,25 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def latency_ms(edges, steps_per_edge, sm_hz):
     return edges * steps_per_edge * SMEM_STEP_CYCLES / sm_hz * 1e3
+
+
+def check_path_launches(ops, launches, path):
+    """Every kernel of ``path`` launched in its run, no other kernel."""
+    for name in ops.KERNELS[path]:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched "
+              f"on the {path} path")
+    others = {n for p, names in ops.KERNELS.items() if p != path
+              for n in names}
+    check(not others & {n for n, c in launches.items() if c},
+          f"the {path} path launched another path's kernel: {launches}")
 
 
 def smi(query):
@@ -166,9 +201,7 @@ def main() -> int:
     t3 = time.perf_counter()
     launches = ops.launch_counts()
     log(f"[main] launches {json.dumps(launches)}")
-    for name in ops.KERNELS:
-        check(launches.get(name, 0) > 0, f"kernel {name} never launched "
-              "on the main path")
+    check_path_launches(ops, launches, "graph")
     t = time.perf_counter()
     sess.run("pagerank")
     torch.cuda.synchronize()
@@ -384,6 +417,144 @@ def main() -> int:
         f"kernel, {t_plain:.2f} s plain; rf {results['cuda'].stats['rf']:.4f})")
 
     # ---------------------------------------------------------- phase 5
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (init_params, param_count, prefill,
+                                    tree_leaves)
+    from repro_torch.train import make_prefill_step
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg), "parameter count differs")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    # a decode step reads every weight but the embedding table (B rows)
+    step_bytes = weight_bytes - params["embed"]["table"].numel() * 2
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {n_params} parameters "
+        f"({weight_bytes / 1e9:.3f} GB bf16) built in "
+        f"{time.perf_counter() - t:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lm_rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(lm_rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+    prefill_step(params, {"tokens": tokens})        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t
+    lm_launches = ops.launch_counts()
+    log(f"[prefill] launches {json.dumps(lm_launches)}")
+    check_path_launches(ops, lm_launches, "lm")
+    check(lm_launches["flash_attention"] == cfg.n_layers,
+          f"K4 launched {lm_launches['flash_attention']} times, not once "
+          "per layer")
+    check(logits.shape == (PREFILL_B, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    log(f"[prefill] B={PREFILL_B} S={PREFILL_S}: {t_prefill * 1e3:.3f} ms, "
+        f"{PREFILL_B * PREFILL_S / t_prefill:.1f} tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    prompt = torch.from_numpy(lm_rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)  # warm-up
+    ops.reset_launch_counts()
+    served = generate(params, cfg, prompt, SERVE_TOKENS, dtype=torch.bfloat16)
+    check(not any(ops.launch_counts().values()), "decode launched a kernel")
+    check(bool(torch.isfinite(served.prompt_logits).all())
+          and served.tokens.shape == (SERVE_B, SERVE_TOKENS)
+          and int(served.tokens.max()) < cfg.vocab, "decode output")
+    ms_step = served.seconds * 1e3 / served.steps
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[serve] B={SERVE_B}, prompt {SERVE_PROMPT} + {SERVE_TOKENS} tokens: "
+        f"{served.steps} steps in {served.seconds:.3f} s = {ms_step:.3f} "
+        f"ms/token-step (floor: {step_bytes / 1e9:.3f} GB of weights per "
+        f"step at 3.35 TB/s = {floor_ms:.3f} ms); first tokens "
+        f"{served.tokens[0][:16].tolist()}")
+    del params, logits, served
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 6
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(lm_rng.integers(
+        0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
+    ops.reset_launch_counts()
+    pre, _ = prefill(p32, {"tokens": prompt}, small, dtype=torch.float32)
+    check(ops.launch_counts().get("flash_attention") == CHECK_LAYERS,
+          "the f32 prefill did not run on K4")
+    dec = generate(p32, small, prompt, 1, dtype=torch.float32)
+    torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    log(f"[check] {CHECK_LAYERS} layers at full width, f32, B={CHECK_B}, "
+        f"prompt {CHECK_PROMPT}: prefill (K4) vs decode loop last logits "
+        f"max |d| {float((dec.prompt_logits - pre[:, -1]).abs().max()):.3e} "
+        f"(tolerance 2e-3)")
+    del p32, pre, dec
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 7
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def qkv(B, S, dtype):
+        return [torch.randn(B, h, S, D, generator=gen, device=dev,
+                            dtype=dtype) for h in (Hq, Hkv, Hkv)]
+
+    q, k, v = qkv(PREFILL_B, PREFILL_S, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    k4_err = float((got.float() - want.float()).abs().max())
+    ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                  20)
+    plain = event_ms(torch, lambda: ops.flash_attention_plain(
+        q, k, v, causal=True), 3, warmup=1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    torch.testing.assert_close(sdpa().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    lib = event_ms(torch, sdpa, 20)
+    pairs = PREFILL_S * (PREFILL_S + 1) // 2        # unmasked (q, k) pairs
+    flops = 4 * D * pairs * PREFILL_B * Hq
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())    # q, o, k, v in bf16
+    bms, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    rows.append(dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:70",
+                     launches=lm_launches["flash_attention"],
+                     max_abs_err=k4_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                     bound_by=by, library_ms=lib))
+    log(f"[K4] bf16 q {tuple(q.shape)} k/v {tuple(k.shape)} causal: max |d| "
+        f"{k4_err:.3e}; {ms:.4f} ms/launch = {flops / ms / 1e9:.1f} "
+        f"TFLOP/s; bound {bms:.4f} ms ({by}); plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention {lib:.4f} ms; {cfg.n_layers} launches "
+        f"= {cfg.n_layers * ms / (t_prefill * 1e3):.1%} of the prefill")
+    del q, k, v, got, want
+    q, k, v = qkv(CHECK_B, F32_S, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    ms32 = event_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                    20)
+    log(f"[K4] f32 q {tuple(q.shape)} k/v {tuple(k.shape)} causal: max |d| "
+        f"{float((got - want).abs().max()):.3e}; {ms32:.4f} ms/launch")
+
+    # ---------------------------------------------------------- phase 8
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the CLUGP partitioner and vertex-cut GAS engine.
+"""PyTorch/CUDA port of the CLUGP partitioner, the vertex-cut GAS engine
+and the dense LM serving stack.
 
 The JAX package ``repro`` is the reference; this package imports nothing
 of it and nothing of JAX.  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; the four TPU-era hot loops (clustering block
-scan, game best response, PageRank gather, transform scan) are
-hand-written CUDA kernels under ``csrc/``.
+passes ``device="cpu"``; the five TPU-era hot loops (clustering block
+scan, game best response, PageRank gather, transform scan, prefill flash
+attention) are hand-written CUDA kernels under ``csrc/``.
 """

@@ -1,10 +1,10 @@
 """Carry state across from the JAX package.
 
-This system has no model weights.  What a run of the reference carries
-is its config blob (``repro.session.SessionConfig.to_json()``), its
-edge → partition assignment (a plain array both packages share) and its
-layout tables.  Both converters take plain JSON / numpy input, so this
-module imports nothing of the reference.
+What a graph run of the reference carries is its config blob
+(``repro.session.SessionConfig.to_json()``), its edge → partition
+assignment (a plain array both packages share) and its layout tables; an
+LM carries its parameter tree.  Every converter takes plain JSON / numpy
+input, so this module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -12,9 +12,12 @@ import dataclasses
 import json
 
 import numpy as np
+import torch
 
 from .core.pipeline import CLUGPConfig
 from .graph.partition import PartitionLayout
+from .models.config import ModelConfig
+from .models.lm import param_count, require_dense, tree_leaves
 from .session import SessionConfig
 
 _BACKENDS = {"jit": "torch", "np": "torch", "torch": "torch"}
@@ -76,3 +79,38 @@ def layout_from_reference(obj) -> PartitionLayout:
         fields[f.name] = (np.array(value) if f.name in PartitionLayout.TABLES
                           else int(value))
     return PartitionLayout(**fields)
+
+
+def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
+    """The reference's LM parameter tree as numpy arrays (``{"embed",
+    "lm_head", "ln_f", "g_dense": {leaves stacked on a leading layer
+    axis}}``, weights (d_in, d_out) as in ``repro.models.layers``) → the
+    port's parameters: CPU tensors in the tree's dtypes, ``g_dense`` split
+    into one dict per layer.  Raises for a configuration the port cannot
+    run and for a tree that does not fit ``cfg``."""
+    require_dense(cfg)
+    if set(tree) != {"embed", "lm_head", "ln_f", "g_dense"}:
+        raise ValueError(f"not a dense LM tree: keys {sorted(tree)}")
+
+    def walk(x, pick):
+        if isinstance(x, dict):
+            return {k: walk(v, pick) for k, v in x.items()}
+        return torch.from_numpy(np.array(pick(np.asarray(x))))
+
+    out = {k: walk(tree[k], lambda a: a)
+           for k in ("embed", "lm_head", "ln_f")}
+    out["g_dense"] = [walk(tree["g_dense"], lambda a, i=i: a[i])
+                      for i in range(cfg.n_layers)]
+    want = {"embed": (cfg.padded_vocab, cfg.d_model),
+            "lm_head": (cfg.d_model, cfg.padded_vocab)}
+    got = {"embed": tuple(out["embed"]["table"].shape),
+           "lm_head": tuple(out["lm_head"]["w"].shape)}
+    layers = {np.asarray(a).shape[0]
+              for a in tree_leaves(tree["g_dense"])}
+    total = sum(t.numel() for t in tree_leaves(out))
+    if got != want or layers != {cfg.n_layers} or total != param_count(cfg):
+        raise ValueError(f"tree does not fit {cfg.name}: {got} vs {want}, "
+                         f"layer axis {layers} vs {cfg.n_layers}, "
+                         f"{total} vs {param_count(cfg)} parameters")
+    return out
+

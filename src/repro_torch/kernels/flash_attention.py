@@ -1,0 +1,111 @@
+"""K4 — flash attention (causal or not, GQA) and its plain version.
+
+Port of ``repro.kernels.flash_attention``: q (B, Hq, Sq, D), k/v
+(B, Hkv, Skv, D), Hq % Hkv == 0, q head h reads KV head h // (Hq // Hkv);
+online softmax with f32 state, masked scores −1e30, l clamped at 1e-20,
+output in q's dtype.  ``flash_attention`` runs the plain version on CPU
+tensors and launches ``csrc/flash_attention.cu`` on CUDA tensors (f32 or
+bf16; D in 32, 64, 128; any Sq and Skv).
+
+The kernel reads q, k, v and writes o through their element strides, so
+a (B, S, H, D) activation passes as its ``transpose(1, 2)`` view without
+a copy; the output keeps q's layout (``torch.empty_like``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+_INT_MAX = 2**31 - 1
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          sm_scale: float | None = None,
+                          block_kv: int = 1024, p_dtype=None):
+    """The same function in PyTorch, by KV blocks like the reference's
+    ``chunked_attention``, with GQA folded (k/v stay at Hkv heads) and q
+    scaled in f32 as the TPU kernel does; p stays f32.  With ``block_kv=64,
+    p_dtype=torch.bfloat16`` p is rounded before P·V as the kernel's bf16
+    path rounds it (against the same running max), so a reference can carry
+    that difference."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qf = (q.to(torch.float32) * scale).reshape(B, Hkv, group, Sq, D)
+    kf = k.to(torch.float32)[:, :, None]
+    vf = v.to(torch.float32)[:, :, None]
+    qpos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, Hkv, group, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, group, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    for start in range(0, Skv, block_kv):
+        kblk = kf[:, :, :, start:start + block_kv]
+        s = qf @ kblk.transpose(-1, -2)
+        if causal:
+            kpos = start + torch.arange(kblk.shape[3], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if p_dtype is not None:
+            p = p.to(p_dtype).to(torch.float32)
+        acc = acc * alpha[..., None] + p @ vf[:, :, :, start:start + block_kv]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q (B, Hq, Sq, D), k and v "
+                         "(B, Hkv, Skv, D)")
+    B, Hq, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] == 0 \
+            or Hq % k.shape[1]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not pair (Hq % Hkv != 0?)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError("flash_attention: q, k, v must share f32 or bf16")
+    align = 16 // q.element_size()       # the kernel's 16-byte row loads
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention: inputs must lie on one CUDA "
+                             "device (CPU inputs take the plain version)")
+        if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError("flash_attention: the head dim must be "
+                             "contiguous and rows 16-byte aligned")
+        if max((n - 1) * s for n, s in zip(t.shape, t.stride())) > _INT_MAX:
+            raise ValueError("flash_attention: offsets exceed int32")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None):
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) → (B, Hq, Sq, D) in q's
+    dtype and layout."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+    _check(q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    fn = "k4_flash_attention_bf16" if q.dtype == torch.bfloat16 \
+        else "k4_flash_attention_f32"
+    strides = [int(s) for t in (q, k, v, o) for s in t.stride()[:3]]
+    _build.launch("flash_attention", fn, q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                  int(causal), float(scale), *strides)
+    return o

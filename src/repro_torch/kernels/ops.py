@@ -8,8 +8,12 @@ from __future__ import annotations
 from ._build import build_all, launch_counts, reset_launch_counts  # noqa: F401
 from .cluster_scatter import cluster_scatter, cluster_scatter_plain  # noqa: F401
 from .ell_spmv import ell_spmv, ell_spmv_plain, row_split_ell  # noqa: F401
+from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .game_bestresponse import game_bestresponse, game_bestresponse_plain  # noqa: F401
 from .transform_scan import transform_inputs, transform_scan, transform_scan_plain  # noqa: F401
 
-KERNELS = ("cluster_scatter", "game_bestresponse", "ell_spmv",
-           "transform_scan")
+# the kernels of each path, by the path that launches them: the graph path
+# (partition → layout → PageRank) and the LM serving path (prefill)
+KERNELS = {"graph": ("cluster_scatter", "game_bestresponse", "ell_spmv",
+                     "transform_scan"),
+           "lm": ("flash_attention",)}

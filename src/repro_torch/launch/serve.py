@@ -1,0 +1,93 @@
+"""Serving launcher: a prompt batch by repeated decode, then greedy decode
+(port of ``repro.launch.serve``).
+
+``python -m repro_torch.launch.serve --arch qwen2-7b --no-reduced`` serves
+the full-width model with random weights from ``--seed`` and reports the
+time per token-step.  It runs on ``cuda`` unless ``--device cpu`` is
+given.  ``--reduced`` (the default) serves the smoke-test variant; unlike
+the reference, whose ``--reduced`` cannot be switched off, ``--no-reduced``
+serves the published widths.  Weights and cache are f32, as in the
+reference's launcher.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..core.partitioner import resolve_device
+from ..models import init_cache, init_params
+from ..models.config import ModelConfig
+from ..train import make_decode_fn
+
+
+class Generation(NamedTuple):
+    tokens: torch.Tensor         # (B, new_tokens) greedy tokens
+    prompt_logits: torch.Tensor  # (B, V) logits after the last prompt token
+    seconds: float               # wall time of all steps, synchronized
+    steps: int                   # decode steps: prompt + new tokens
+
+
+def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
+             dtype=torch.float32) -> Generation:
+    """The reference launcher's loop: ``prompt`` (B, P) integer tokens go
+    in one decode step each (exact; the batched prefill is
+    ``train.make_prefill_step``), then ``new_tokens`` greedy tokens, each
+    the argmax over the unpadded vocabulary, each decoded in turn."""
+    B, P = prompt.shape
+    dev = prompt.device
+    cache = init_cache(cfg, B, P + new_tokens, dtype=dtype, device=dev)
+    step = make_decode_fn(cfg, dtype=dtype)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for t in range(P):
+        logits, cache = step(params, cache, prompt[:, t:t + 1], t)
+    prompt_logits = logits[:, -1]
+    out = []
+    for t in range(new_tokens):
+        nxt = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
+        out.append(nxt)
+        logits, cache = step(params, cache, nxt, P + t)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return Generation(torch.cat(out, 1), prompt_logits,
+                      time.perf_counter() - t0, P + new_tokens)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; fails without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed))
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
+    g = generate(params, cfg, prompt, args.tokens)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"arch={cfg.name} batch={args.batch} {g.steps} steps in "
+          f"{g.seconds:.2f}s ({1000 * g.seconds / g.steps:.1f} "
+          f"ms/token-step) on {where}")
+    print("sample:", g.tokens[0][:16].tolist())
+
+
+if __name__ == "__main__":
+    main()

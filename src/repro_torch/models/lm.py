@@ -1,0 +1,215 @@
+"""Decoder LM of the dense family (port of the dense half of
+``repro.models.lm``): GQA attention with optional QKV bias and RoPE,
+RMSNorm or LayerNorm, SwiGLU or GELU FFN — qwen2, qwen1.5, command-r,
+stablelm.
+
+Entry points:
+  init_params(cfg, gen, dtype)        — random weights from a Generator
+  forward(params, batch, cfg, dtype)  — final hidden states (B, S, D)
+  prefill(params, batch, cfg, dtype)  — (last-position logits, hidden)
+  init_cache(cfg, B, max_len, ...)    — zeroed KV cache (on ``cuda``
+                                        unless a device is named)
+  decode_step(params, cache, ...)     — one token; writes the cache in place
+
+Prefill attention runs through K4 (``kernels.flash_attention``), decode
+attention through ``dist.decode``.  Parameters are the reference's tree
+with the stacked group ``g_dense`` (a leading layer axis, walked by
+``lax.scan``) as a list of per-layer dicts walked by a Python loop.  The
+reference's lowering knobs (head padding ``mp``, ``block_kv``, ``remat``,
+``unroll``) and its ``shard`` constraints have no counterpart on one card.
+Other families (MoE, MLA, SSM, hybrid, encdec, vlm) raise; training
+(``lm_loss``, ``forward_train``) waits (ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..core.partitioner import resolve_device
+from ..dist import decode as DEC
+from ..kernels.flash_attention import flash_attention
+from . import attention as A
+from . import layers as L
+from .config import ModelConfig
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------- structure
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
+    if cfg.family == "encdec":
+        return [("enc", cfg.n_encoder_layers), ("dec", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        assert cfg.n_layers % cfg.attn_period == 0
+        return [("hyb", cfg.n_layers // cfg.attn_period)]
+    if cfg.family == "ssm":
+        return [("ssd", cfg.n_layers)]
+    if cfg.moe is not None:
+        fk = cfg.moe.first_k_dense
+        out = []
+        if fk:
+            out.append(("dense", fk))
+        out.append(("moe", cfg.n_layers - fk))
+        return out
+    return [("dense", cfg.n_layers)]
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise for every configuration the port cannot run yet."""
+    if cfg.family == "dense" and cfg.mla is None and cfg.moe is None:
+        return
+    if cfg.family in ("ssm", "hybrid"):
+        item = "SSM and hybrid (models/mamba.py)"
+    elif cfg.mla is not None:
+        item = "MLA with its latent decode"
+    elif cfg.moe is not None:
+        item = "MoE (models/moe.py)"
+    else:
+        item = "encdec and vlm"
+    raise ValueError(f"{cfg.name} ({cfg.family}) is not ported yet "
+                     f"(ROADMAP, Queue 1: {item})")
+
+
+def _gated(cfg: ModelConfig) -> bool:
+    return cfg.norm == "rmsnorm"
+
+
+def _norm_init(cfg, d, device):
+    return (L.rmsnorm_init(d, device) if cfg.norm == "rmsnorm"
+            else L.layernorm_init(d, device))
+
+
+def _norm(cfg, p, x):
+    return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                dtype=torch.float32) -> Params:
+    """Random weights on ``gen``'s device.  Matrices take ``dtype`` (the
+    reference serves with weights in the compute type, ``abstract_params
+    (dtype=...)``); norm scales and biases stay f32."""
+    require_dense(cfg)
+    dev = gen.device
+    d = cfg.d_model
+    p: Params = {
+        "embed": L.embedding_init(gen, cfg.padded_vocab, d, dtype),
+        "lm_head": L.linear_init(gen, d, cfg.padded_vocab, dtype=dtype),
+        "ln_f": _norm_init(cfg, d, dev),
+    }
+    p["g_dense"] = [{
+        "ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
+        "attn": A.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.qkv_bias, dtype),
+        "ffn": L.ffn_init(gen, d, cfg.d_ff, gated=_gated(cfg), dtype=dtype),
+    } for _ in range(cfg.n_layers)]
+    return p
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Number of parameters of ``init_params(cfg, ...)``, from the config
+    alone."""
+    require_dense(cfg)
+    d, hd = cfg.d_model, cfg.hd
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    attn = d * q + 2 * d * kv + q * d
+    if cfg.qkv_bias:
+        attn += q + 2 * kv
+    ffn = (3 if _gated(cfg) else 2) * d * cfg.d_ff
+    norm = d if cfg.norm == "rmsnorm" else 2 * d
+    return (2 * cfg.padded_vocab * d + norm
+            + cfg.n_layers * (attn + ffn + 2 * norm))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------- blocks
+
+def _self_attention(p, x, cfg: ModelConfig, positions, causal: bool = True):
+    B, S, _ = x.shape
+    q, k, v = A.gqa_project(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=cfg.hd, positions=positions,
+                            rope_theta=cfg.rope_theta)
+    # K4 takes (B, H, S, D); the transposed views are read in place and the
+    # output keeps q's layout, so it is (B, S, H, D) again below
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal).transpose(1, 2)
+    return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
+
+
+def _dense_body(x, lp, cfg: ModelConfig, positions):
+    x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
+                            positions)
+    return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln2"], x))
+
+
+# ---------------------------------------------------------------- forward
+
+def forward(params, batch, cfg: ModelConfig,
+            dtype=torch.bfloat16) -> torch.Tensor:
+    """batch {"tokens": (B, S) integer} → final hidden states (B, S, D)."""
+    require_dense(cfg)
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, dtype)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    for lp in params["g_dense"]:
+        x = _dense_body(x, lp, cfg, pos)
+    return _norm(cfg, params["ln_f"], x)
+
+
+# ---------------------------------------------------------------- serving
+
+def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, index: int):
+    """x (B, 1, D); ck/cv (B, Smax, Hkv, Dh), written in place at index."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q, k, v = A.gqa_project(lp, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=cfg.hd, positions=pos,
+                            rope_theta=cfg.rope_theta)
+    ck = DEC.sp_cache_update(ck, k, index)
+    cv = DEC.sp_cache_update(cv, v, index)
+    out = DEC.sp_decode_attention(q, ck, cv, index)
+    return L.linear(lp["o"], out.reshape(B, 1, cfg.n_heads * cfg.hd))
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Zeroed K/V of every layer, (L, B, max_len, Hkv, Dh), on ``device``:
+    ``cuda`` unless the caller names another; raises without a card."""
+    require_dense(cfg)
+    device = resolve_device(device)
+    kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"dense": {"k": torch.zeros(kv, dtype=dtype, device=device),
+                      "v": torch.zeros(kv, dtype=dtype, device=device)}}
+
+
+def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
+                dtype=torch.bfloat16):
+    """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
+    position being written; unlike the reference, the cache's tensors are
+    written in place and the same dict is returned."""
+    require_dense(cfg)
+    x = L.embed(params["embed"], tokens, dtype)
+    ck, cv = cache["dense"]["k"], cache["dense"]["v"]
+    for i, lp in enumerate(params["g_dense"]):
+        x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), ck[i],
+                             cv[i], cfg, index)
+        x = x + L.ffn(lp["ffn"], _norm(cfg, lp["ln2"], x))
+    x = _norm(cfg, params["ln_f"], x)
+    return L.linear(params["lm_head"], x), cache
+
+
+def prefill(params, batch, cfg: ModelConfig, dtype=torch.bfloat16):
+    """Forward pass returning (last-position logits (B, 1, V), final
+    hidden (B, S, D)), as the reference's code does (its module docstring
+    speaks of emitted caches; the code emits none)."""
+    x = forward(params, batch, cfg, dtype)
+    return L.linear(params["lm_head"], x[:, -1:]), x

@@ -1,10 +1,11 @@
-"""Where the port's main path spends its time on the card.
+"""Where the port's paths spend their time on the card.
 
     python -m repro_torch.profile [--scale 20] [--k 64] [--blocks 2000]
+    python -m repro_torch.profile --path lm
 
-Partitions ``web_graph(scale)`` once through ``GraphSession`` (not
-profiled), then runs ``torch.profiler`` (CPU and CUDA activities) over
-four windows of the main path at full size:
+The graph path: partitions ``web_graph(scale)`` once through
+``GraphSession`` (not profiled), then runs ``torch.profiler`` (CPU and
+CUDA activities) over four windows of the graph path at full size:
 
 - ``cluster``: the first ``--blocks`` 128-edge blocks of the clustering
   pass (the same per-block work the full pass repeats ⌈E/128⌉ times);
@@ -12,6 +13,13 @@ four windows of the main path at full size:
   cluster graph;
 - ``transform``: one transform walk (T);
 - ``pagerank``: 30 PageRank iterations on the cached device tables.
+
+The LM path (``--path lm``): qwen2-7b at full width and depth in bf16
+from a seeded generator, then two windows, each after a warm-up:
+
+- ``prefill``: one ``make_prefill_step`` call on 4 prompts of 2,048
+  tokens (K4 once per layer);
+- ``decode``: 8 decode steps at batch 4 (positions 16–23 of the cache).
 
 For each window it prints the wall time, the device busy time (the union
 of the device-side kernel, copy and fill events, so no work is counted
@@ -25,6 +33,7 @@ import collections
 import json
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -89,8 +98,35 @@ def _profile(name: str, fn, top: int = 6) -> dict:
     return out
 
 
+def _profile_lm(dev) -> None:
+    from .configs import get_config
+    from .models import init_cache, init_params
+    from .train import make_decode_fn, make_prefill_step
+    cfg = get_config("qwen2_7b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    B, S, P, steps = 4, 2048, 16, 8
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    prefill = make_prefill_step(cfg, dtype=torch.bfloat16)
+    prefill(params, {"tokens": tokens})                  # warm-up
+    _profile("prefill", lambda: prefill(params, {"tokens": tokens}))
+    decode = make_decode_fn(cfg, dtype=torch.bfloat16)
+    cache = init_cache(cfg, B, P + steps, dtype=torch.bfloat16, device=dev)
+    for t in range(P):                                   # warm-up
+        decode(params, cache, tokens[:, t:t + 1], t)
+
+    def decode_steps():
+        for t in range(P, P + steps):
+            decode(params, cache, tokens[:, t:t + 1], t)
+    _profile("decode", decode_steps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("graph", "lm"), default="graph")
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--k", type=int, default=64)
     ap.add_argument("--blocks", type=int, default=2000)
@@ -98,6 +134,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile needs a CUDA device")
     dev = torch.device("cuda")
+    if args.path == "lm":
+        _profile_lm(dev)
+        return 0
     g = web_graph(scale=args.scale, edge_factor=8, seed=0)
     cfg = CLUGPConfig.optimized(args.k, restream=1)
     sess = GraphSession(SessionConfig(clugp=cfg, iters=30))

@@ -110,3 +110,119 @@ def test_partition_kernel_path_matches_plain_path(dev):
                                     cluster_kernel=mode)
         out[mode] = partition(g.src, g.dst, g.num_vertices, cfg, device=dev)
     np.testing.assert_array_equal(out["cuda"].assign, out["torch"].assign)
+
+
+# the shapes of tests/test_kernels.py's flash sweep, then qwen2-7b's heads
+# (Hq = 28, Hkv = 4: group 7) at a ragged length
+FLASH_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 4, 2, 128, 256, 64),
+                (1, 8, 1, 256, 256, 128), (2, 6, 2, 128, 128, 32),
+                (1, 28, 4, 300, 300, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (*s, c) for s in FLASH_SHAPES for c in (True, False)
+    if not (c and s[3] != s[4])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_card(dev, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    """K4 against its plain version: 2e-5 in f32 (no TF32 on either side),
+    2e-2 in bf16 (the kernel rounds p to bf16 before P·V)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(Sq + D)
+    q = torch.randn(B, Hq, Sq, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Hkv, Skv, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Hkv, Skv, D, generator=gen, device=dev).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views(dev):
+    """The model passes (B, S, H, D) activations as transposed views; the
+    output keeps that layout."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(2, 77, 28, 128, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(2, 2, 77, 4, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), causal=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 4, 16, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="share"):
+        ops.flash_attention(q, q.half(), q.half())
+
+
+def _params_to(tree, device, dtype):
+    """A parameter tree on ``device``, its matrices in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, device, dtype) for v in tree]
+    return tree.to(device, dtype if tree.dim() >= 2 else tree.dtype)
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_qwen2_prefill_on_card_matches_cpu(dev, dtype, monkeypatch):
+    """The reduced qwen2-7b prefill on the card (K4, cuBLAS without TF32)
+    against the same on the CPU, same weights, last logits elementwise:
+    1e-4 in f32, 2e-2 in bf16 (the kernel tests' bf16 tolerance).  In
+    bf16 K4 rounds p to bf16 before P·V, which moves these logits by about
+    1e-2 relative L2, so the CPU's attention rounds p the same way (its
+    plain version over 64-row KV blocks, the kernel's running max).  The
+    readings are printed: the drift against the CPU with p in f32, and
+    with the plain version in K4's place on the card."""
+    from functools import partial
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, lm, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2_7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+
+    def run(device, attention=None):
+        if attention is not None:
+            monkeypatch.setattr(lm, "flash_attention", attention)
+        out, _ = prefill(_params_to(params, device, dtype),
+                         {"tokens": toks.to(device)}, cfg, dtype=dtype)
+        monkeypatch.undo()
+        return out.float().cpu()
+
+    ops.reset_launch_counts()
+    got = run(dev)
+    assert ops.launch_counts().get("flash_attention") == cfg.n_layers
+    assert torch.isfinite(got).all()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    want = run("cpu", partial(ops.flash_attention_plain, block_kv=64,
+                              p_dtype=torch.bfloat16)
+               if dtype == torch.bfloat16 else None)
+    line = (f"{dtype}: card vs cpu max |d| {float((got - want).abs().max()):.4e}"
+            f" rel L2 {_rel_l2(got, want):.4e}")
+    if dtype == torch.bfloat16:
+        cpu = run("cpu")
+        line += (f"; with p in f32 on the cpu: rel L2 {_rel_l2(got, cpu):.4e}; "
+                 f"plain in K4's place on the card: rel L2 "
+                 f"{_rel_l2(run(dev, ops.flash_attention_plain), cpu):.4e}")
+    print(line)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)

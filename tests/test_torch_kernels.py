@@ -1,5 +1,6 @@
 """The port's kernels (K1 cluster scatter, K2 game best response, K3 ELL
-SpMV, T transform scan) held against the JAX package on the same inputs.
+SpMV, K4 flash attention, T transform scan) held against the JAX package
+on the same inputs.
 
 On the CPU every wrapper runs its plain PyTorch version; the reference's
 Pallas kernels run in interpret mode, as ``tests/test_kernels.py`` runs
@@ -134,6 +135,83 @@ def test_row_split_ell_splits_hubs():
     assert ell.vals.shape[0] < 100 + 200          # no row padded to 100
     want = np.bincount(dst, weights=x[src], minlength=50)
     np.testing.assert_allclose(ell.spmv(_t(x)).numpy(), want, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ K4
+
+def _qkv(shape_q, shape_kv, seed, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in (shape_q, shape_kv, shape_kv)]
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" \
+        else (jnp.bfloat16, torch.bfloat16)
+    return [jnp.asarray(a, jd) for a in arrs], [_t(a, td) for a in arrs]
+
+
+FLASH_SHAPES = [
+    (1, 4, 4, 128, 128, 64),
+    (2, 4, 2, 128, 256, 64),
+    (1, 8, 1, 256, 256, 128),   # MQA
+    (2, 6, 2, 128, 128, 32),    # GQA group 3
+]
+
+
+# causal only on the square shapes, as tests/test_kernels.py's sweep runs
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (*s, c) for s in FLASH_SHAPES for c in (True, False)
+    if not (c and s[3] != s[4])])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_reference(B, Hq, Hkv, Sq, Skv, D, causal,
+                                           dtype):
+    """The plain version against the Pallas kernel in interpret mode on
+    ``tests/test_kernels.py``'s sweep, at that file's tolerances."""
+    (jq, jk, jv), (q, k, v) = _qkv((B, Hq, Sq, D), (B, Hkv, Skv, D), Sq + D,
+                                   dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_kv=64, interpret=True)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_matches_reference(dtype, causal):
+    """Sq = Skv = 100, which the Pallas kernel's block asserts refuse but
+    the model's prompts need: the plain version against the reference's
+    einsum oracle, qwen2-7b's head grouping (group 7)."""
+    (jq, jk, jv), (q, k, v) = _qkv((1, 28, 100, 128), (1, 4, 100, 128), 11,
+                                   dtype)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    got = ops.flash_attention_plain(q, k, v, causal=causal, block_kv=32)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_with_kernel_rounding_matches_reference(
+        causal):
+    """The plain version rounding p to bf16 before P·V over 64-row KV
+    blocks, as K4's bf16 path does, against the Pallas kernel in interpret
+    mode (p in f32): the rounding stays within the bf16 tolerance, and
+    with ``p_dtype=float32`` the plain version is unchanged."""
+    (jq, jk, jv), (q, k, v) = _qkv((2, 6, 256, 32), (2, 2, 256, 32), 13,
+                                   "bfloat16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_kv=64, interpret=True)
+    got = ops.flash_attention_plain(q, k, v, causal=causal, block_kv=64,
+                                    p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(
+        ops.flash_attention_plain(q, k, v, causal=causal, block_kv=64,
+                                  p_dtype=torch.float32),
+        ops.flash_attention_plain(q, k, v, causal=causal, block_kv=64))
 
 
 # ------------------------------------------------------------------- T
