@@ -11,31 +11,50 @@
 // prefill shape (B=4, Hq=28, Hkv=4, S=2048, D=128, causal) the unmasked
 // (q, k) pairs need 4·D FLOP each, about 1.2e11 FLOP, 0.12 ms at the
 // 989 TFLOP/s bf16 dense peak, while q, k, v and o are 134 MB, 0.04 ms at
-// 3.35 TB/s.
+// 3.35 TB/s.  Only wgmma reaches the tensor cores' rate on Hopper, and it
+// needs its operands in shared memory ahead of time.
 //
-// Design.  The TPU grid walks the KV blocks in order with m, l, acc in VMEM
-// scratch; here one CTA of 4 warps owns one (b, h, 64-row q tile) and loops
-// over the KV tiles itself, so the softmax state never leaves registers.
-// K and V tiles (64 rows) are staged in shared memory, rows padded by 16
-// bytes so the fragment reads hit 32 distinct banks.  The loop ends at the
-// diagonal when causal (the TPU kernel's skip of fully masked blocks), and
-// the CTAs with the most tiles start first.  GQA: the CTA reads KV head
-// h / g (any g, not only powers of two); K/V are never expanded in device
-// memory.  Any Sq and Skv: rows past Sq are computed on zeros and not
-// stored, KV rows past Skv are zero-filled and masked.
+// bf16 design (Hopper: TMA, mbarriers, wgmma, setmaxnreg).  The TPU grid
+// walks the KV blocks in order with m, l, acc in VMEM scratch; here one
+// CTA of 384 threads owns a 128-row q tile of one (b, h) and loops over the
+// 128-row KV tiles itself, so the softmax state never leaves registers:
+// - warp 8 is the producer: its warpgroup (warps 8-11) gives registers up
+//   (setmaxnreg.dec; the pool that setmaxnreg.inc draws from is only what
+//   the CTA's own warps released), and one lane loads the Q tile once and
+//   K, V tiles into a ring of STAGES shared-memory stages with TMA
+//   (cp.async.bulk.tensor), each completing on its stage's "full"
+//   mbarrier; a stage is refilled once the 8 consumer warps have arrived
+//   on its "empty" mbarrier;
+// - warps 0-7 are two consumer warpgroups (setmaxnreg.inc) of 64 q rows
+//   each.  Per KV tile: S = Q·K^T on wgmma m64n128k16 with both operands
+//   in shared memory (K-major); the f32 scores are scaled, masked and
+//   turned into p by the online softmax in registers; p is rounded to bf16
+//   and the accumulator fragments of S become the A fragments of P in
+//   registers (the two layouts coincide); O += P·V on wgmma m64nDk16 with
+//   A from registers and V from shared memory as an MN-major operand (the
+//   descriptor's transpose bit), so V is never transposed.  The two
+//   warpgroups run independently, so one's softmax can overlap the
+//   other's products; a warpgroup's own softmax does not overlap its
+//   products (each waits for its wgmma group before going on).
+// - TMA writes each tile with the 128-byte swizzle (64-byte for D = 32,
+//   whose rows are 64 bytes) in panels of 64 head-dim columns, and the
+//   wgmma descriptors name the same swizzle; rows past Sq / Skv are
+//   zero-filled by TMA, KV rows past Skv are masked, q rows past Sq are
+//   not stored.
+// - The loop ends at the diagonal when causal (the TPU kernel's skip of
+//   fully masked blocks); the grid runs the tiles with the most KV tiles
+//   first over all heads (the tile index is the slowest grid dimension).
+// - GQA: the KV head is h / g (any g); K/V are never expanded.  The tensor
+//   maps describe the (B, S, H, D) activations through their strides, as
+//   dims (D, S, H, B), so the model's transposed views are read in place.
+// The scale multiplies the f32 scores (the TPU kernel scales q in f32
+// before the product: the two differ by rounding only); p is rounded to
+// bf16 before P·V (the TPU kernel keeps it in f32) while l sums the f32 p.
 //
-// bf16 inputs: each warp owns 16 q rows and runs mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) for S = Q·K^T and O += P·V; V fragments come from
-// ldmatrix.trans.  The scale is applied to the f32 scores (the TPU kernel
-// scales q in f32 before the product, so the two differ by rounding only),
-// and p is rounded to bf16 before P·V (the TPU kernel keeps it in f32); l
-// sums the f32 p.  f32 inputs take a plain FMA path with no TF32: a CTA of
-// 4 warps owns 16 q rows, one lane per KV column for the scores and one
-// lane per output column for P·V.
-//
-// q, k, v, o are addressed by element strides (batch, head, sequence; the
-// head dim is contiguous), so the model's (B, S, H, D) activations are read
-// in place.  Later: wgmma, TMA and a producer warp (cuda_guide.md).
+// f32 inputs take a plain FMA path with no TF32 (kept exact enough for
+// the 2e-3 prefill-vs-decode check): a CTA of 4 warps owns 16 q rows, one
+// lane per KV column for the scores and one lane per output column for P·V.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include "common.cuh"
@@ -51,188 +70,440 @@ struct Layout {
 
 // ------------------------------------------------------------------- bf16
 
+constexpr int BQ = 128;       // q rows per CTA: two warpgroups of 64
+constexpr int BKV = 128;      // KV rows per tile
+// two consumer warpgroups and a producer warpgroup, of which one warp
+// issues the loads and all four hand their registers to the consumers:
+// 128 x (168 - 24) registers released = 256 x (240 - 168) taken
+constexpr int THREADS = 384;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int STAGES = 2;     // the K/V ring
+
+template <int D>
+struct Tiles {
+  static constexpr int PW = D >= 64 ? 64 : 32;  // panel width (elements)
+  static constexpr int ROWB = 2 * PW;           // bytes of one panel row
+  static constexpr int KPP = PW / 16;           // k16 steps per panel
+  static constexpr int LAYOUT = PW == 64 ? 1 : 2;  // wgmma: B128 / B64
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // + 1024: the base is rounded up to the swizzle atom's alignment
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed; a
+// phase that never completes (a load that never lands) traps after about
+// ten seconds instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000ll) __trap();
+  } while (!done);
+}
+
+// one TMA box (PW x 128 x 1 x 1) of a 4-d map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
       : "memory");
 }
 
-// two bf16 of row `row`, columns c and c+1 (0 past the last row)
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base,
-                                              int row, int rows, int ss,
-                                              int c) {
-  if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + (size_t)row * ss + c);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from touching registers that an asynchronous wgmma
+// still reads or writes: every use of r is ordered after this point
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// D (64 x 128, f32) += A (64 x 16) * B (16 x 128), both bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers) * B (16 x 32, bf16 in
+// shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, bf16 in
+// shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16 in
+// shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 32)
+    wgmma_rs_n32(d, a, db);
+  else if constexpr (D == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                  const __grid_constant__ CUtensorMap tmk,
+                  const __grid_constant__ CUtensorMap tmv,
                   __nv_bfloat16* __restrict__ o, int group, int Sq, int Skv,
-                  int causal, float scale, Layout lq, Layout lk, Layout lv,
-                  Layout lo) {
-  constexpr int BQ = 64, BKV = 64, LD = D + 8, NT = BKV / 8, DT = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[BKV * LD];
-  __shared__ __align__(16) __nv_bfloat16 sV[BKV * LD];
+                  int causal, float scale, Layout lo) {
+  using T = Tiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + T::Q_BYTES;             // + stage * KV_BYTES
+  const uint32_t sV = sK + STAGES * T::KV_BYTES;   // + stage * KV_BYTES
+  const uint32_t q_full = sQ + T::BAR_OFF;
+  // k_full[s] = q_full + 8 (1 + s), v_full[s] = q_full + 8 (1 + STAGES + s),
+  // empty[s] = q_full + 8 (1 + 2 STAGES + s)
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * STAGES + s); };
 
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_kv = (kv_end + BKV - 1) / BKV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = tile * BQ + warp * 16;  // this warp's first q row
-  const __nv_bfloat16* qb = q + (size_t)b * lq.sb + (size_t)h * lq.sh;
-  const __nv_bfloat16* kb = k + (size_t)b * lk.sb + (size_t)hk * lk.sh;
-  const __nv_bfloat16* vb = v + (size_t)b * lv.sb + (size_t)hk * lv.sh;
-  const float scale2 = scale * LOG2E;  // scores in log2 units: exp2 below
 
-  uint32_t qf[D / 16][4];  // A fragments of this warp's 16 q rows
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(qb, row0 + g, Sq, lq.ss, c);
-    qf[kk][1] = load_pair(qb, row0 + g + 8, Sq, lq.ss, c);
-    qf[kk][2] = load_pair(qb, row0 + g, Sq, lq.ss, c + 8);
-    qf[kk][3] = load_pair(qb, row0 + g + 8, Sq, lq.ss, c + 8);
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};  // rows g and g + 8, log2 units
-  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
-
-  const int kv_end = causal ? min(Skv, tile * BQ + BQ) : Skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < BKV * D / 8; i += blockDim.x) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
-      if (kv0 + r < Skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)(kv0 + r) * lk.ss + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)(kv0 + r) * lv.ss + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = kx;
-      *reinterpret_cast<uint4*>(sV + r * LD + c) = vx;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q·K^T: 16 rows x 64 columns, B[k][n] = K[n][k] read as pairs
-    float s[NT][4];
+  if (warp >= CONSUMER_WARPS) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      const int hk = h / group;
+      mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + 2 * t;
+      for (int p = 0; p < D / T::PW; ++p)
+        tma_load(sQ + p * BQ * T::ROWB, &tmq, q_full, p * T::PW, q0, h, b);
+      for (int i = 0; i < n_kv; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), T::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < D / T::PW; ++p)
+          tma_load(sK + s * T::KV_BYTES + p * BKV * T::ROWB, &tmk, k_full(s),
+                   p * T::PW, i * BKV, hk, b);
+        mbar_expect_tx(v_full(s), T::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < D / T::PW; ++p)
+          tma_load(sV + s * T::KV_BYTES + p * BKV * T::ROWB, &tmv, v_full(s),
+                   p * T::PW, i * BKV, hk, b);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp >> 2;
+    const int row0 = q0 + wg * 64 + (warp & 3) * 16;  // this warp's rows
+    const int ra = row0 + (lane >> 2);                // rows ra and ra + 8
+    const float scale2 = scale * LOG2E;  // scores in log2 units: exp2 below
+    const uint32_t qa = sQ + wg * 64 * T::ROWB;  // this warpgroup's Q rows
+
+    float acc[D / 2];  // O: 64 x D over the warpgroup's 128 threads
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};  // rows ra and ra + 8, log2 units
+    float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int kv0 = i * BKV;
+
+      // S = Q·K^T (64 x 128), both operands K-major in shared memory
+      float sc[BKV / 2];
+      mbar_wait(k_full(s), ph);
+      const uint32_t kb = sK + s * T::KV_BYTES;
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
+        const uint32_t koff = (kk % T::KPP) * 32;
+        const uint64_t da = make_desc(
+            qa + (kk / T::KPP) * BQ * T::ROWB + koff, 16, 8 * T::ROWB,
+            T::LAYOUT);
+        const uint64_t db = make_desc(
+            kb + (kk / T::KPP) * BKV * T::ROWB + koff, 16, 8 * T::ROWB,
+            T::LAYOUT);
+        wgmma_ss_n128(sc, da, db, kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+
+      // online softmax on the accumulator fragments: element 4n + e is
+      // row ra + 8 (e >> 1), column kv0 + 8n + 2 (lane & 3) + (e & 1)
+      const bool edge = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > row0);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e] * scale2;
+          if (edge) {
+            const int col = kv0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            const int row = ra + (e >> 1) * 8;
+            if (col >= Skv || (causal && col > row)) x = NEG_INF;
+          }
+          sc[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      // P's A fragments: columns 16kk.. of rows ra, ra + 8 are accumulator
+      // chunks 2kk and 2kk + 1, packed to bf16 pairs
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        float p[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          p[j] = exp2f(sc[8 * kk + j] - m[(j >> 1) & 1]);
+          l[(j >> 1) & 1] += p[j];
+        }
+        pa[kk][0] = pack_bf16(p[0], p[1]);
+        pa[kk][1] = pack_bf16(p[2], p[3]);
+        pa[kk][2] = pack_bf16(p[4], p[5]);
+        pa[kk][3] = pack_bf16(p[6], p[7]);
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n + 0] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+
+      // O += P·V: V (128 x D) is the MN-major B operand; LBO steps from
+      // one 64-column panel to the next, SBO from 8 KV rows to the next
+      mbar_wait(v_full(s), ph);
+      const uint32_t vb = sV + s * T::KV_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t db = make_desc(vb + kk * 16 * T::ROWB,
+                                      BKV * T::ROWB, 8 * T::ROWB, T::LAYOUT);
+        wgmma_rs<D>(acc, pa[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      reg_fence(pa);
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with s
     }
 
-    const bool edge = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > row0);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale2;
-        if (edge) {
-          const int col = kv0 + n * 8 + 2 * t + (e & 1);
-          const int row = row0 + g + (e >> 1) * 8;
-          if (col >= Skv || (causal && col > row)) x = NEG_INF;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-20f);
     }
+    __nv_bfloat16* ob = o + (size_t)b * lo.sb + (size_t)h * lo.sh;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + r * 8;
+      if (row >= Sq) continue;
+      __nv_bfloat16* orow = ob + (size_t)row * lo.ss + 2 * (lane & 3);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8) =
+            pack_bf16(acc[4 * n + 2 * r] * inv[r],
+                      acc[4 * n + 2 * r + 1] * inv[r]);
     }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P·V: P's C fragments are A fragments once packed to bf16; V's B
-    // fragments (k = kv, n = d) come transposed out of row-major sV
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mi = lane >> 3;
-      const __nv_bfloat16* vr =
-          sV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < DT; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vr + n * 8);
-        mma_bf16(acc[n], pa, vf[0], vf[1]);
-        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.f / fmaxf(l[r], 1e-20f);
-  }
-  __nv_bfloat16* ob = o + (size_t)b * lo.sb + (size_t)h * lo.sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + r * 8;
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = ob + (size_t)row * lo.ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
   }
 }
 
@@ -336,21 +607,106 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int BQ, typename Kernel>
-int launch(Kernel kernel, const T* q, const T* k, const T* v, T* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-           Layout lq, Layout lk, Layout lv, Layout lo, cudaStream_t stream) {
+
+// --------------------------------------------------------------- launches
+
+constexpr int TENSOR_MAP_ERROR = 10000;  // + the CUresult; see common.cuh
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no
+// -lcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, S, H, D) bf16 activation with element strides l as a 4-d map of
+// dims (D, S, H, B) and boxes of (PW, 128, 1, 1), swizzled as the kernel's
+// descriptors read it; rows past S load as zeros
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
+           Layout l) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return TENSOR_MAP_ERROR;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {2ull * (cuuint64_t)l.ss, 2ull * (cuuint64_t)l.sh,
+                           2ull * (cuuint64_t)l.sb};
+  // a dimension of extent 1 is never stepped; give it a stride TMA takes
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = i ? strides[i - 1] * dims[i] : 2 * D;
+  cuuint32_t box[4] = {(cuuint32_t)Tiles<D>::PW, 128, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      Tiles<D>::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+template <int D>
+int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq,
+                int Hkv, int Sq, int Skv, int causal, float scale, Layout lq,
+                Layout lk, Layout lv, Layout lo, cudaStream_t stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
+  CUtensorMap mq, mk, mv;
+  int err = encode<D>(&mq, q, B, Hq, Sq, lq);
+  if (err == 0) err = encode<D>(&mk, k, B, Hkv, Skv, lk);
+  if (err == 0) err = encode<D>(&mv, v, B, Hkv, Skv, lv);
+  if (err != 0) return err;
+  constexpr int smem = Tiles<D>::SMEM;
+  static bool sized = false;  // above 48 KB shared memory must be asked for
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  flash_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, o, Hq / Hkv, Sq, Skv, causal, scale, lo);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+               float scale, Layout lq, Layout lk, Layout lv, Layout lo,
+               cudaStream_t stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
-    dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-    kernel<<<grid, 128, 0, stream>>>(q, k, v, o, Hq / Hkv, Sq, Skv, causal,
-                                     scale, lq, lk, lv, lo);
+    dim3 grid((Sq + 15) / 16, Hq, B);
+    flash_f32_kernel<D><<<grid, 128, 0, stream>>>(
+        q, k, v, o, Hq / Hkv, Sq, Skv, causal, scale, lq, lk, lv, lo);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define K4_ENTRY(NAME, T, KERNEL, BQ)                                        \
+#define K4_ENTRY(NAME, T, LAUNCH)                                            \
   extern "C" int NAME(const T* q, const T* k, const T* v, T* o, int B,       \
                       int Hq, int Hkv, int Sq, int Skv, int D, int causal,   \
                       float scale, int qsb, int qsh, int qss, int ksb,       \
@@ -360,18 +716,19 @@ int launch(Kernel kernel, const T* q, const T* k, const T* v, T* o, int B,
         lo{osb, osh, oss};                                                   \
     switch (D) {                                                             \
       case 32:                                                               \
-        return launch<T, BQ>(KERNEL<32>, q, k, v, o, B, Hq, Hkv, Sq, Skv,    \
-                             causal, scale, lq, lk, lv, lo, stream);         \
+        return LAUNCH<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,    \
+                          lq, lk, lv, lo, stream);                           \
       case 64:                                                               \
-        return launch<T, BQ>(KERNEL<64>, q, k, v, o, B, Hq, Hkv, Sq, Skv,    \
-                             causal, scale, lq, lk, lv, lo, stream);         \
+        return LAUNCH<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,    \
+                          lq, lk, lv, lo, stream);                           \
       case 128:                                                              \
-        return launch<T, BQ>(KERNEL<128>, q, k, v, o, B, Hq, Hkv, Sq, Skv,   \
-                             causal, scale, lq, lk, lv, lo, stream);         \
+        return LAUNCH<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,   \
+                           lq, lk, lv, lo, stream);                          \
       default:                                                               \
         return (int)cudaErrorInvalidValue;                                   \
     }                                                                        \
   }
 
-K4_ENTRY(k4_flash_attention_bf16, __nv_bfloat16, flash_bf16_kernel, 64)
-K4_ENTRY(k4_flash_attention_f32, float, flash_f32_kernel, 16)
+K4_ENTRY(k4_flash_attention_bf16, __nv_bfloat16, launch_bf16)
+K4_ENTRY(k4_flash_attention_f32, float, launch_f32)
+

@@ -1,18 +1,24 @@
-"""K1 — the clustering fused-scatter kernel and its plain version.
+"""K1 — the streaming-clustering scan and its plain versions.
 
 Port of ``repro.kernels.cluster_scatter``: one block of B edges of the
 streaming-clustering scan (paper Alg. 2), run edge by edge over a fused
 int32 table ``buf`` of 10·B entries ([0, 2B) vertex slot → local cluster
-slot, [2B, 4B) streamed degree, [4B, 10B) cluster volumes).
+slot, [2B, 4B) streamed degree, [4B, 10B) cluster volumes); and the whole
+pass over the stream, each block localized, walked and written back as
+``repro.core.clustering._block_step`` does.
 
-- ``cluster_scatter`` is the wrapper: CPU tensors run the plain version,
-  CUDA tensors launch ``csrc/cluster_scatter.cu`` (no fallback).
+- ``cluster_pass`` is the pass the clustering runs: CPU tensors run
+  ``cluster_pass_plain``, CUDA tensors launch ``k1_cluster_pass`` of
+  ``csrc/cluster_scatter.cu`` once for the whole stream (no fallback).
+- ``cluster_scatter`` is the one-block entry: CPU tensors run
+  ``cluster_scatter_plain``, CUDA tensors launch ``k1_cluster_scatter``.
 - ``cluster_scatter_plain`` walks the block in Python scalars over a
   host copy of the table, with ``edge_decisions`` — a line-by-line copy of
   the reference's decision math.  f32 semantics are kept exactly:
   ``_f32`` rounds a Python float to float32, and an f32 product or
   quotient of two f32 values computed in double and rounded once is the
-  correctly rounded f32 result.
+  correctly rounded f32 result.  ``cluster_pass_plain`` runs it block by
+  block between PyTorch gathers and scatters.
 """
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ import numpy as np
 import torch
 
 from . import _build
+
+BIG_ID = 2 ** 31 - 1     # the reference's _BIG_ID: an empty cluster slot
+PASS_BLOCK = 128         # edges per block of the pass kernel
 
 
 def _f32(x) -> float:
@@ -166,3 +175,99 @@ def cluster_scatter(ints, buf, scal, vmax: float, *, allow_split=True,
                   buf_out, scal_out, packed, int(B), float(vmax),
                   bool(allow_split), float(split_degree_factor))
     return buf_out, scal_out, packed
+
+
+def _check_pass(ints, uvg, clu, deg, vol, scal):
+    nb, B = uvg.shape[0], ints.shape[1]
+    if (ints.shape != (nb, B, 3) or uvg.shape != (nb, 2 * B) or scal.shape
+            != (4,) or clu.dim() != 1 or deg.shape != clu.shape
+            or vol.dim() != 1 or clu.shape[0] < 2 or vol.shape[0] < 1):
+        raise ValueError(f"cluster_pass: bad shapes ints {tuple(ints.shape)}"
+                         f", uvg {tuple(uvg.shape)}, clu {tuple(clu.shape)}, "
+                         f"deg {tuple(deg.shape)}, vol {tuple(vol.shape)}, "
+                         f"scal {tuple(scal.shape)}")
+    if {t.dtype for t in (ints, uvg, clu, deg, vol, scal)} != {torch.int32}:
+        raise ValueError("cluster_pass: inputs must be int32")
+
+
+def cluster_pass_plain(ints, uvg, clu, deg, vol, scal, vmax: float, *,
+                       allow_split=True, split_degree_factor=0.0):
+    """Plain version of the pass: per block, PyTorch gathers build the
+    fused table, ``cluster_scatter_plain`` walks it, and PyTorch scatters
+    write it back.  Updates ``clu``, ``deg``, ``vol`` and ``scal`` in
+    place, like ``cluster_pass``; returns ``packed`` (nb·B,)."""
+    _check_pass(ints, uvg, clu, deg, vol, scal)
+    nb, B = ints.shape[0], ints.shape[1]
+    V, cap = clu.shape[0] - 1, vol.shape[0]
+    scrap = cap - 1
+    i32 = dict(dtype=torch.int32, device=clu.device)
+    uv_read = uvg.clamp(0, V - 1)             # gathers of real vertices
+    uv_real = uvg < V
+    uv_write = uvg.long()                     # pad slot V absorbs writes
+    zeros4 = torch.zeros(4 * B, **i32)
+    fresh = torch.arange(4 * B, **i32)
+    start_of_block = torch.tensor([0, 0, 2, 3], device=clu.device)
+    fires = []
+    # index_select / index_copy_ keep each step off PyTorch's slower
+    # advanced-indexing path
+    for b in range(nb):
+        rd = uv_read[b]
+        cids = clu.index_select(0, rd)
+        validc = uv_real[b] & (cids >= 0)
+        keyc = torch.where(validc, cids, BIG_ID)
+        ucl = torch.sort(keyc).values
+        lc = torch.where(validc, torch.searchsorted(ucl, keyc,
+                                                    out_int32=True), -1)
+        lvol0 = torch.where(ucl < BIG_ID,
+                            vol.index_select(0, ucl.clamp(0, scrap)), 0)
+        buf = torch.cat([lc, deg.index_select(0, rd), lvol0, zeros4])
+        scal0 = scal.index_select(0, start_of_block)     # nid0 := nid
+        out, scal1, packed = cluster_scatter_plain(
+            ints[b], buf, scal0, vmax, allow_split=allow_split,
+            split_degree_factor=split_degree_factor)
+        scal.copy_(scal1)
+        fires.append(packed)
+        lclu, ldeg, lvol = out[:2 * B], out[2 * B:4 * B], out[4 * B:]
+        glob_of = torch.cat([ucl, scal[1] + fresh])
+        newclu = torch.where(
+            lclu >= 0, glob_of.index_select(0, lclu.clamp(0, 6 * B - 1)), -1)
+        wr = uv_write[b]
+        clu.index_copy_(0, wr, newclu)
+        deg.index_copy_(0, wr, ldeg)
+        dvol = lvol - torch.cat([lvol0, zeros4])
+        keep = torch.cat([ucl < BIG_ID, dvol[2 * B:] != 0])
+        ids = torch.where(keep, glob_of.clamp(0, scrap), scrap)
+        vol.index_add_(0, ids, dvol)
+    return torch.cat(fires)
+
+
+def cluster_pass(ints, uvg, clu, deg, vol, scal, vmax: float, *,
+                 allow_split=True, split_degree_factor=0.0):
+    """The whole clustering pass over nb blocks of B edges, **in place**.
+
+    ``ints`` (nb, B, 3) int32 rows of (local u slot, local v slot, live)
+    and ``uvg`` (nb, 2B) int32, the global vertex of each local slot (pad
+    = V), come from the batched localization; ``clu`` and ``deg`` (V + 1,)
+    carry the extra slot V that absorbs the pad slots' writes, ``vol``
+    (cap,) the cluster volumes (scrap id cap − 1), ``scal`` (4,) = (nid,
+    nid0, seen_v, seen_deg).  ``clu``, ``deg``, ``vol`` and ``scal`` are
+    updated in place; returns ``packed`` (nb·B,) = fire_u + 2·fire_v per
+    edge.  CUDA tensors launch ``k1_cluster_pass`` once (B = 128)."""
+    if clu.device.type == "cpu":
+        return cluster_pass_plain(ints, uvg, clu, deg, vol, scal, vmax,
+                                  allow_split=allow_split,
+                                  split_degree_factor=split_degree_factor)
+    _check_pass(ints, uvg, clu, deg, vol, scal)
+    nb, B = ints.shape[0], ints.shape[1]
+    if B != PASS_BLOCK:
+        raise ValueError(f"cluster_pass: the kernel walks blocks of "
+                         f"{PASS_BLOCK} edges, not {B}")
+    if max(clu.shape[0], vol.shape[0]) > 2 ** 31 - 1:
+        raise ValueError("cluster_pass: tables exceed int32 indexing")
+    _build.require_cuda(ints, uvg, clu, deg, vol, scal)
+    packed = torch.empty(nb * B, dtype=torch.int32, device=clu.device)
+    _build.launch("cluster_scatter", "k1_cluster_pass", ints, uvg, clu, deg,
+                  vol, scal, packed, int(nb), int(clu.shape[0] - 1),
+                  int(vol.shape[0]), float(vmax), bool(allow_split),
+                  float(split_degree_factor))
+    return packed

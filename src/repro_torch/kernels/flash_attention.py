@@ -5,11 +5,15 @@ Port of ``repro.kernels.flash_attention``: q (B, Hq, Sq, D), k/v
 online softmax with f32 state, masked scores −1e30, l clamped at 1e-20,
 output in q's dtype.  ``flash_attention`` runs the plain version on CPU
 tensors and launches ``csrc/flash_attention.cu`` on CUDA tensors (f32 or
-bf16; D in 32, 64, 128; any Sq and Skv).
+bf16; D in 32, 64, 128; any Sq and Skv).  bf16 runs the Hopper kernel: a
+producer warp loads Q and a ring of K/V tiles with TMA, two consumer
+warpgroups run both products on wgmma (128-row q and KV tiles); f32 runs
+a plain FMA kernel (no TF32).
 
-The kernel reads q, k, v and writes o through their element strides, so
-a (B, S, H, D) activation passes as its ``transpose(1, 2)`` view without
-a copy; the output keeps q's layout (``torch.empty_like``).
+The kernel reads q, k, v (through TMA tensor maps in bf16) and writes o
+through their element strides, so a (B, S, H, D) activation passes as its
+``transpose(1, 2)`` view without a copy; the output keeps q's layout
+(``torch.empty_like``).  A tensor map that cannot be encoded raises.
 """
 from __future__ import annotations
 
@@ -29,10 +33,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           block_kv: int = 1024, p_dtype=None):
     """The same function in PyTorch, by KV blocks like the reference's
     ``chunked_attention``, with GQA folded (k/v stay at Hkv heads) and q
-    scaled in f32 as the TPU kernel does; p stays f32.  With ``block_kv=64,
+    scaled in f32 as the TPU kernel does; p stays f32.  With ``block_kv=128,
     p_dtype=torch.bfloat16`` p is rounded before P·V as the kernel's bf16
-    path rounds it (against the same running max), so a reference can carry
-    that difference."""
+    path rounds it (against the same running max, over its 128-row KV
+    tiles), so a reference can carry that difference."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     group = Hq // Hkv
@@ -78,7 +82,7 @@ def _check(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError("flash_attention: q, k, v must share f32 or bf16")
-    align = 16 // q.element_size()       # the kernel's 16-byte row loads
+    align = 16 // q.element_size()       # 16-byte rows and TMA strides
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention: inputs must lie on one CUDA "

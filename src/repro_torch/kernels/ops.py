@@ -6,7 +6,8 @@ CPU tensors and launches its hand-written CUDA kernel on CUDA tensors;
 from __future__ import annotations
 
 from ._build import build_all, launch_counts, reset_launch_counts  # noqa: F401
-from .cluster_scatter import cluster_scatter, cluster_scatter_plain  # noqa: F401
+from .cluster_scatter import (cluster_pass, cluster_pass_plain,  # noqa: F401
+                              cluster_scatter, cluster_scatter_plain)
 from .ell_spmv import ell_spmv, ell_spmv_plain, row_split_ell  # noqa: F401
 from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .game_bestresponse import game_bestresponse, game_bestresponse_plain  # noqa: F401

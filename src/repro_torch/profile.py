@@ -1,14 +1,15 @@
 """Where the port's paths spend their time on the card.
 
-    python -m repro_torch.profile [--scale 20] [--k 64] [--blocks 2000]
+    python -m repro_torch.profile [--scale 20] [--k 64] [--blocks N]
     python -m repro_torch.profile --path lm
 
 The graph path: partitions ``web_graph(scale)`` once through
 ``GraphSession`` (not profiled), then runs ``torch.profiler`` (CPU and
 CUDA activities) over four windows of the graph path at full size:
 
-- ``cluster``: the first ``--blocks`` 128-edge blocks of the clustering
-  pass (the same per-block work the full pass repeats ⌈E/128⌉ times);
+- ``cluster``: the clustering pass over the whole stream (or its first
+  ``--blocks`` 128-edge blocks): the batched localization, the one K1
+  launch that walks every block, and the replica count;
 - ``game``: four rounds of the batched best-response game on the run's
   cluster graph;
 - ``transform``: one transform walk (T);
@@ -129,7 +130,8 @@ def main(argv=None) -> int:
     ap.add_argument("--path", choices=("graph", "lm"), default="graph")
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--k", type=int, default=64)
-    ap.add_argument("--blocks", type=int, default=2000)
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="cluster window: the first N blocks (0: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile needs a CUDA device")
@@ -146,7 +148,7 @@ def main(argv=None) -> int:
     src = torch.from_numpy(g.src).to(dev)
     dst = torch.from_numpy(g.dst).to(dev)
     E, V = g.num_edges, g.num_vertices
-    n = min(E, args.blocks * 128)
+    n = min(E, args.blocks * 128) if args.blocks > 0 else E
     vmax = max(2.0, E / float(args.k))
     print(json.dumps({"scale": args.scale, "V": V, "E": E, "k": args.k,
                       "device": torch.cuda.get_device_name(0),

@@ -75,6 +75,41 @@ def test_clustering_no_split_matches_reference(g10):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+# (web_graph seed, split_degree_factor, allow_split, id_cap, edges cut
+# off the end): both seeds, a degree-triggered split, no split, an id_cap
+# that overflows; the uncut streams (E = 2,496 and 2,482) end in a block
+# padded with dead edges, the cut one fills its last block
+PASS_CASES = [(5, 0.0, True, None, 0), (6, 0.0, True, None, 0),
+              (5, 3.0, True, None, 0), (6, 3.0, True, None, 0),
+              (5, 0.0, False, None, 0), (6, 0.0, True, 700, 0),
+              (5, 3.0, True, None, 64)]
+
+
+@pytest.mark.parametrize("seed,sdf,split,id_cap,cut", PASS_CASES)
+def test_cluster_pass_matches_reference(seed, sdf, split, id_cap, cut):
+    """The K1 pass's plain version (``streaming_clustering(kernel=
+    "torch")``: per block the localize, the walk and the write-back of
+    ``_block_step``) against ``streaming_clustering_jax`` bit for bit:
+    clu, deg, divided, replicas, next_id."""
+    g = graphgen.web_graph(scale=9, edge_factor=6, seed=seed)
+    E = g.num_edges - cut
+    src, dst = g.src[:E], g.dst[:E]
+    assert (E % 128 == 0) == (cut != 0)
+    vmax = default_vmax(E, 8)
+    want = streaming_clustering_jax(src, dst, g.num_vertices, vmax,
+                                    allow_split=split,
+                                    split_degree_factor=sdf, id_cap=id_cap)
+    got = streaming_clustering(_t(src), _t(dst), g.num_vertices, vmax,
+                               allow_split=split, split_degree_factor=sdf,
+                               id_cap=id_cap, kernel="torch")
+    for w, r in zip(want, got):
+        np.testing.assert_array_equal(r.numpy(), np.asarray(w))
+    if id_cap is not None:
+        assert int(got[4]) > id_cap - 2        # the overflow is visible
+    if split:
+        assert bool(got[2].any())              # some vertex was split
+
+
 @pytest.fixture(scope="module")
 def game_inputs():
     """Cluster graph of a scale-9 stream at k = 8, contracted by the JAX

@@ -53,6 +53,54 @@ def test_cluster_scatter_on_card(dev, seed, sdf, split):
         assert torch.equal(g.cpu(), w)
 
 
+# the CPU test's cases (tests/test_torch_core.py): web_graph seed,
+# split_degree_factor, allow_split, id_cap (700 overflows), edges cut off
+# the end (64 fills the last block; the others end in a padded block)
+PASS_CASES = [(5, 0.0, True, None, 0), (6, 0.0, True, None, 0),
+              (5, 3.0, True, None, 0), (6, 3.0, True, None, 0),
+              (5, 0.0, False, None, 0), (6, 0.0, True, 700, 0),
+              (5, 3.0, True, None, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,sdf,split,id_cap,cut", PASS_CASES)
+def test_cluster_pass_on_card(dev, seed, sdf, split, id_cap, cut):
+    """The K1 pass (one launch over the whole stream) against its plain
+    version on the same localized blocks: clu, deg, vol, scal and packed
+    bit for bit, and the whole clustering through both."""
+    from repro_torch.core import web_graph
+    from repro_torch.core.clustering import (default_vmax, localize_stream,
+                                             streaming_clustering)
+    g = web_graph(scale=9, edge_factor=6, seed=seed)
+    E, V = g.num_edges - cut, g.num_vertices
+    src = torch.from_numpy(g.src[:E]).to(dev)
+    dst = torch.from_numpy(g.dst[:E]).to(dev)
+    vmax = default_vmax(E, 8)
+    cap = id_cap or V + 2 * E + 2
+    ints, uvg = localize_stream(src, dst, V)
+    state = []
+    for run in (ops.cluster_pass, ops.cluster_pass_plain):
+        clu = torch.full((V + 1,), -1, dtype=torch.int32, device=dev)
+        deg = torch.zeros(V + 1, dtype=torch.int32, device=dev)
+        vol = torch.zeros(cap, dtype=torch.int32, device=dev)
+        scal = torch.zeros(4, dtype=torch.int32, device=dev)
+        ops.reset_launch_counts()
+        packed = run(ints, uvg, clu, deg, vol, scal, vmax, allow_split=split,
+                     split_degree_factor=sdf)
+        state.append((clu, deg, vol, scal, packed))
+        if run is ops.cluster_pass:
+            assert ops.launch_counts() == {"cluster_scatter": 1}
+    for a, b in zip(*state):
+        assert torch.equal(a, b)
+    a = streaming_clustering(src, dst, V, vmax, allow_split=split,
+                             split_degree_factor=sdf, id_cap=id_cap)
+    b = streaming_clustering(src, dst, V, vmax, allow_split=split,
+                             split_degree_factor=sdf, id_cap=id_cap,
+                             kernel="torch")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,kpad,k", [(512, 128, 64), (256, 256, 200)])
 def test_game_bestresponse_on_card(dev, M, kpad, k):
@@ -140,6 +188,49 @@ def test_flash_attention_on_card(dev, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(100, 100), (300, 300), (100, 300),
+                                    (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_bf16_ragged_gqa(dev, D, causal, Sq, Skv):
+    """The bf16 kernel (wgmma, TMA) at every head dim on qwen2-7b's head
+    split (28/4) and lengths that are no multiple of its 128-row tiles:
+    2e-2 against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(Sq * 7 + Skv + D)
+    q = torch.randn(2, 28, Sq, D, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = torch.randn(2, 2, 4, Skv, D, generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_bf16_strided_views_match_contiguous(dev, D):
+    """(B, S, H, D) activations as transposed views: the tensor maps read
+    them through their strides, with the same result as contiguous
+    copies, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn(3, 200, 28, D, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(3, 200, 2, 4, D, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    qt, kt, vt = (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+                  kv[:, :, 1].transpose(1, 2))
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    want = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), causal=True)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got.float(), ops.flash_attention_plain(qt, kt, vt).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
 def test_flash_attention_reads_strided_views(dev):
     """The model passes (B, S, H, D) activations as transposed views; the
     output keeps that layout."""
@@ -187,7 +278,7 @@ def test_reduced_qwen2_prefill_on_card_matches_cpu(dev, dtype, monkeypatch):
     1e-4 in f32, 2e-2 in bf16 (the kernel tests' bf16 tolerance).  In
     bf16 K4 rounds p to bf16 before P·V, which moves these logits by about
     1e-2 relative L2, so the CPU's attention rounds p the same way (its
-    plain version over 64-row KV blocks, the kernel's running max).  The
+    plain version over 128-row KV blocks, the kernel's running max).  The
     readings are printed: the drift against the CPU with p in f32, and
     with the plain version in K4's place on the card."""
     from functools import partial
@@ -214,7 +305,7 @@ def test_reduced_qwen2_prefill_on_card_matches_cpu(dev, dtype, monkeypatch):
     assert ops.launch_counts().get("flash_attention") == cfg.n_layers
     assert torch.isfinite(got).all()
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    want = run("cpu", partial(ops.flash_attention_plain, block_kv=64,
+    want = run("cpu", partial(ops.flash_attention_plain, block_kv=128,
                               p_dtype=torch.bfloat16)
                if dtype == torch.bfloat16 else None)
     line = (f"{dtype}: card vs cpu max |d| {float((got - want).abs().max()):.4e}"
