@@ -1,4 +1,4 @@
-"""T — the transform scan (paper Alg. 1) and its plain version.
+"""T — the transform scan (paper Alg. 1) and its plain versions.
 
 The reference runs ``repro.core.transform._transform_step`` under a
 ``lax.scan`` over every edge and has no Pallas kernel for it.  The port
@@ -6,7 +6,14 @@ splits the step in two: ``transform_inputs`` computes, vectorized, what
 does not depend on the running loads (each edge's endpoint partitions and
 its Alg. 1 lines 15-22 choice), and ``transform_scan`` walks the stream
 against the load table — ``csrc/transform_scan.cu`` on CUDA tensors, the
-plain Python loop on CPU tensors.
+plain Python loop ``transform_scan_plain`` on CPU tensors.
+
+The kernel decides the stream in chunks of ``CHUNK`` edges, each in the
+cheapest exact tier (parallel, frozen-F warp walk, exact warp walk; see
+the source's header).  ``transform_scan_tiered_plain`` emulates those
+tiers on the host, chunk size and decisions included, and counts them as
+the kernel does: it is what the tests hold against the reference, since
+the kernel cannot run on the CPU.
 """
 from __future__ import annotations
 
@@ -15,7 +22,13 @@ import torch
 
 from . import _build
 
-MAX_K = 16384        # the load table lives in the kernel's shared memory
+MAX_K = 1024         # the warp walk keeps the loads in registers, ⌈k/32⌉ a lane
+CHUNK = 4096         # csrc/transform_scan.cu kChunk
+# the kernel's stats slots, in order: chunks decided in parallel, by a
+# frozen-F walk, by an exact walk; frozen walks redone exactly; edges in
+# frozen walks (redone ones included) and in exact walks; both-full edges
+TIER_KEYS = ("parallel", "frozen", "exact", "redone", "frozen_edges",
+             "exact_edges", "both_edges")
 
 
 def transform_inputs(src, dst, vertex_part, deg, divided, live=None):
@@ -41,42 +54,124 @@ def transform_scan_plain(pu, pv, normal, k: int, lmax: float):
     """The walk in Python over host copies; returns on the inputs'
     device.  The cap test is an f32 compare, as in the reference's jit
     path: loads below 2**24 are exact in f32."""
-    lmax = float(np.float32(lmax))
-    loads = [0] * k
-    out = []
-    for a, b, nm in zip(pu.cpu().tolist(), pv.cpu().tolist(),
-                        normal.cpu().tolist()):
-        if nm < 0:
-            out.append(0)
-            continue
-        la, lb = loads[a], loads[b]
-        full_u = (la if la < 16777216 else float(np.float32(la))) >= lmax
-        full_v = (lb if lb < 16777216 else float(np.float32(lb))) >= lmax
-        p = nm
-        if full_u or full_v:
-            if not full_u:
-                p = a
-            elif not full_v:
-                p = b
-            else:
-                p = loads.index(min(loads))
-        out.append(p)
-        loads[p] += 1
+    out = _walk(pu.cpu().tolist(), pv.cpu().tolist(), normal.cpu().tolist(),
+                [0] * k, float(np.float32(lmax)))
     return torch.tensor(out, dtype=torch.int32, device=pu.device)
 
 
-def transform_scan(pu, pv, normal, k: int, lmax: float):
-    """Edge → partition under the balance cap ``lmax`` (rounded to f32).
-    Returns (E,) int32."""
-    if pu.device.type == "cpu":
-        return transform_scan_plain(pu, pv, normal, k, lmax)
+def _full(load, lmax):
+    """(float)load >= lmax in f32: loads below 2**24 are exact in f32."""
+    return (load if load < 16777216 else float(np.float32(load))) >= lmax
+
+
+def _walk(a, b, nm, loads, lmax, frozen=None):
+    """The walk over lists from ``loads`` (updated in place); ``frozen``
+    replaces the running full test by a fixed full set."""
+    out = []
+    for x, y, n in zip(a, b, nm):
+        if n < 0:
+            out.append(0)
+            continue
+        if frozen is None:
+            fu, fv = _full(loads[x], lmax), _full(loads[y], lmax)
+        else:
+            fu, fv = frozen[x], frozen[y]
+        p = n
+        if fu or fv:
+            p = y if fu and not fv else x if not fu else \
+                loads.index(min(loads))
+        out.append(p)
+        loads[p] += 1
+    return out
+
+
+def transform_scan_tiered_plain(pu, pv, normal, k: int, lmax: float):
+    """The kernel's tiered walk on the host, chunk by chunk: speculate
+    every choice from the chunk's starting full set F; keep them when no
+    edge is both-full and no partition outside F fills (parallel); else
+    walk with F frozen and keep that when no partition filled (frozen);
+    else walk exactly.  Returns ((E,) int32 on the inputs' device, the
+    tier counts keyed by ``TIER_KEYS``)."""
+    lmax = float(np.float32(lmax))
+    a_all, b_all, n_all = (t.cpu().numpy() for t in (pu, pv, normal))
+    loads = np.zeros(k, np.int64)
+    out = np.zeros(a_all.shape[0], np.int32)
+    tiers = dict.fromkeys(TIER_KEYS, 0)
+
+    def full(x):
+        return x.astype(np.float32) >= lmax
+    for base in range(0, a_all.shape[0], CHUNK):
+        sl = slice(base, base + CHUNK)
+        a, b, nm = a_all[sl], b_all[sl], n_all[sl]
+        f = full(loads)
+        live = nm >= 0
+        fu, fv = f[np.where(live, a, 0)], f[np.where(live, b, 0)]
+        spec = np.where(~fu, np.where(fv, a, nm), b)
+        both = live & fu & fv
+        hist = np.bincount(spec[live & ~both], minlength=k)
+        fill = bool((~f & full(loads + hist)).any())
+        n_both = int(both.sum())
+        tiers["both_edges"] += n_both
+        if not fill and n_both == 0:
+            tiers["parallel"] += 1
+            out[sl] = np.where(live, spec, 0)
+            loads += hist
+            continue
+        args = (a.tolist(), b.tolist(), nm.tolist())
+        if not fill:
+            walked = loads.tolist()
+            got = _walk(*args, walked, lmax, frozen=f.tolist())
+            tiers["frozen_edges"] += len(got)
+            if not (~f & full(np.array(walked))).any():
+                tiers["frozen"] += 1
+                out[sl] = got
+                loads = np.array(walked, np.int64)
+                continue
+            tiers["redone"] += 1
+        walked = loads.tolist()
+        out[sl] = _walk(*args, walked, lmax)
+        loads = np.array(walked, np.int64)
+        tiers["exact"] += 1
+        tiers["exact_edges"] += len(nm)
+    return torch.from_numpy(out).to(pu.device), tiers
+
+
+def _check(pu, pv, normal, k):
     E = pu.shape[0]
-    if pv.shape != (E,) or normal.shape != (E,) or not 0 < k <= MAX_K:
-        raise ValueError("transform_scan: inconsistent shapes or k")
+    if pv.shape != (E,) or normal.shape != (E,):
+        raise ValueError("transform_scan: inconsistent shapes")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"transform_scan: k={k} is outside 1..{MAX_K} (the "
+                         "walk keeps the loads in a warp's registers)")
+
+
+def _launch(pu, pv, normal, k, lmax):
+    E = pu.shape[0]
     if {pu.dtype, pv.dtype, normal.dtype} != {torch.int32}:
         raise ValueError("transform_scan: inputs must be int32")
     _build.require_cuda(pu, pv, normal)
+    if any(t.data_ptr() % 16 for t in (pu, pv, normal)):
+        raise ValueError("transform_scan: inputs must be 16-byte aligned "
+                         "(the kernel stages them with 16-byte copies)")
     out = torch.empty(E, dtype=torch.int32, device=pu.device)
+    stats = torch.zeros(len(TIER_KEYS), dtype=torch.int64, device=pu.device)
     _build.launch("transform_scan", "t_transform_scan", pu, pv, normal, out,
-                  int(E), int(k), float(lmax))
-    return out
+                  stats, int(E), int(k), float(lmax))
+    return out, stats
+
+
+def transform_scan(pu, pv, normal, k: int, lmax: float):
+    """Edge → partition under the balance cap ``lmax`` (rounded to f32),
+    for 1 ≤ k ≤ ``MAX_K``.  Returns (E,) int32."""
+    _check(pu, pv, normal, k)
+    if pu.device.type == "cpu":
+        return transform_scan_plain(pu, pv, normal, k, lmax)
+    return _launch(pu, pv, normal, k, lmax)[0]
+
+
+def transform_scan_tiers(pu, pv, normal, k: int, lmax: float):
+    """``transform_scan`` on CUDA tensors that also returns the kernel's
+    tier counts (keyed by ``TIER_KEYS``): where a run's walk went."""
+    _check(pu, pv, normal, k)
+    out, stats = _launch(pu, pv, normal, k, lmax)
+    return out, dict(zip(TIER_KEYS, stats.tolist()))

@@ -11,8 +11,9 @@ CUDA activities) over four windows of the graph path at full size:
   ``--blocks`` 128-edge blocks): the batched localization, the one K1
   launch that walks every block, and the replica count;
 - ``game``: four rounds of the batched best-response game on the run's
-  cluster graph;
-- ``transform``: one transform walk (T);
+  cluster graph: the CSR built once, then one fused K2 launch over each
+  batch's rows where the batch holds a live cluster;
+- ``transform``: one transform walk (T, its chunks in tiers);
 - ``pagerank``: 30 PageRank iterations on the cached device tables.
 
 The LM path (``--path lm``): qwen2-7b at full width and depth in bf16

@@ -146,12 +146,17 @@ def test_contraction_drops_sentinel_lanes(game_inputs):
 
 
 @pytest.mark.parametrize("mode,use_pallas", [("torch", False),
-                                             ("cuda", True)])
+                                             ("cuda", True),
+                                             ("cuda", False)])
 def test_game_rounds_match_reference(game_inputs, mode, use_pallas):
     """Batched Jacobi rounds with the reference's own random draws
     injected (start assignment and per-batch damping masks): assignment
     and round count equal.  No near-tie flip shows up at this size, so
-    the comparison is exact, not on Φ."""
+    the comparison is exact, not on Φ.  ``mode="torch"`` is the dense
+    per-batch form; ``"cuda"`` the CSR form over each batch's rows (its
+    plain version here), against the reference with and without the
+    Pallas sweep.  The fixture's 105 clusters fill two of its four
+    64-row batches, so the CSR form also skips batches with no live row."""
     g, k, compact, m_cap, jg, lam = game_inputs
     seed, batch = 3, 64
     want, want_rounds = jax_game_rounds(

@@ -147,6 +147,133 @@ def test_transform_scan_on_card(dev):
                        ops.transform_scan_plain(pu, pv, nm, k, 1.1 * E / k))
 
 
+def _tier_stream(name, seed=0):
+    """(pu, pv, normal, k, lmax) of tests/test_torch_kernels.py's
+    ``_tier_case`` streams (the same builder in partition space, without
+    JAX): each reaches the tiers that file names for it."""
+    from repro_torch.kernels.transform_scan import CHUNK as C
+    rng = np.random.default_rng(seed)
+
+    def rand(n, k, zipf=False):
+        if zipf:
+            return [(rng.zipf(1.5, n) - 1) % k for _ in range(2)]
+        return [rng.integers(0, k, n) for _ in range(2)]
+
+    def const(n, p, q):
+        return [np.full(n, p), np.full(n, q)]
+    exact_from = 0
+    if name == "tiny_lmax":
+        k, parts, lmax = 64, [rand(3 * C + 100, 64)], 3.0
+    elif name == "both_stretch":
+        k, lmax = 3, 2000.0
+        parts = [const(C // 2, 0, 0), const(C // 2, 1, 1),
+                 const(C, 0, 1), rand(2000, 3)]
+        exact_from = 2 * C
+    elif name in ("fill_at_chunk_end", "fill_at_next_chunk"):
+        k, lmax = 4, float(C if name == "fill_at_chunk_end" else C + 1)
+        parts, exact_from = [const(C + 64, 0, 0), rand(3 * C, 4)], C + 64
+    elif name == "k1":
+        k, parts, lmax = 1, [rand(2 * C + 7, 1)], float(C)
+    elif name == "k200":
+        k, parts, lmax = 200, [rand(5 * C, 200)], 1.05 * 5 * C / 200
+    else:
+        k, parts = 64, [rand(6 * C + 333, 64, zipf=True)]
+        lmax = 1.1 * (6 * C + 333) / 64 * 8
+    a = np.concatenate([p[0] for p in parts])
+    b = np.concatenate([p[1] for p in parts])
+    E = a.shape[0]
+    src = torch.from_numpy(4 * a + rng.integers(0, 4, E))
+    dst = torch.from_numpy(4 * b + rng.integers(0, 4, E))
+    vp = torch.from_numpy(np.repeat(np.arange(k), 4).astype(np.int32))
+    deg = torch.from_numpy(rng.integers(1, 20, 4 * k).astype(np.int32))
+    divided = torch.from_numpy(rng.random(4 * k) < 0.2)
+    mask = rng.random(E) > 0.08
+    mask[:exact_from] = True
+    pu, pv, nm = ops.transform_inputs(src, dst, vp, deg, divided,
+                                      torch.from_numpy(mask))
+    return pu, pv, nm, k, lmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_lmax", "both_stretch",
+                                  "fill_at_chunk_end", "fill_at_next_chunk",
+                                  "k1", "k200", "k64"])
+def test_transform_tiers_on_card(dev, name):
+    """T's tiered kernel against the plain walk bit for bit, and its tier
+    counts against the host emulation's, on streams built to reach every
+    tier (early and late fills, several fills in one chunk, a fill on a
+    chunk boundary, both-full stretches, a frozen walk redone, padding
+    lanes, k = 1, 3, 4, 64, 200)."""
+    pu, pv, nm, k, lmax = _tier_stream(name)
+    got, tiers = ops.transform_scan_tiers(pu.to(dev), pv.to(dev), nm.to(dev),
+                                          k, lmax)
+    want, want_tiers = ops.transform_scan_tiered_plain(pu, pv, nm, k, lmax)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, ops.transform_scan_plain(pu, pv, nm, k, lmax))
+    assert tiers == want_tiers
+
+
+@pytest.mark.cuda
+def test_transform_scan_scale16_on_card(dev):
+    """T on a scale-16 web graph's transform inputs (a random prior, the
+    optimized profile's cap τ = 1.1) against the plain walk."""
+    from repro_torch.core import web_graph
+    g = web_graph(scale=16, edge_factor=8, seed=0)
+    k = 64
+    rng = np.random.default_rng(1)
+    vp = torch.from_numpy(rng.integers(0, k, g.num_vertices).astype(np.int32))
+    deg = torch.from_numpy(np.bincount(g.src, minlength=g.num_vertices)
+                           + np.bincount(g.dst, minlength=g.num_vertices)
+                           ).to(torch.int32)
+    divided = torch.from_numpy(rng.random(g.num_vertices) < 0.05)
+    pu, pv, nm = ops.transform_inputs(torch.from_numpy(g.src).long(),
+                                      torch.from_numpy(g.dst).long(), vp,
+                                      deg, divided)
+    lmax = 1.1 * g.num_edges / k
+    got, tiers = ops.transform_scan_tiers(pu.to(dev), pv.to(dev), nm.to(dev),
+                                          k, lmax)
+    want, want_tiers = ops.transform_scan_tiered_plain(pu, pv, nm, k, lmax)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, ops.transform_scan_plain(pu, pv, nm, k, lmax))
+    assert tiers == want_tiers
+    print(tiers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 64, 200])
+def test_game_bestresponse_csr_on_card(dev, k):
+    """The fused K2 against its plain version on a skewed cluster graph
+    (a hub row, rows without cross edges, empty rows), over batch-sized
+    row ranges: best, cost and the game's current cost bit for bit."""
+    from repro_torch.core.game import cluster_csr
+    rng = np.random.default_rng(k)
+    m = 3000
+    xs = rng.integers(0, 2500, 40000)
+    xd = (rng.zipf(1.3, 40000) - 1) % 2500     # row 0 is the hub
+    keep = xs != xd
+    xs = torch.from_numpy(xs[keep]).to(dev)
+    xd = torch.from_numpy(xd[keep]).to(dev)
+    rowptr, col = cluster_csr(xs, xd, m)
+    row_tot = (rowptr[1:] - rowptr[:-1]).float()
+    sizes = row_tot + torch.from_numpy(rng.integers(0, 30, m)).to(dev)
+    sizes[2800:] = 0.0
+    assign = torch.from_numpy(rng.integers(0, k, m).astype(np.int32)).to(dev)
+    loads = torch.zeros(k, device=dev).index_add_(0, assign.long(), sizes)
+    lam = torch.tensor([0.37], device=dev)
+    assert int(row_tot[0]) > 5000
+    for row0, row1 in ((0, 640), (640, 1280), (2400, 3000), (0, 1), (5, 7)):
+        ops.reset_launch_counts()
+        got = ops.game_bestresponse_csr(rowptr, col, assign, sizes, row_tot,
+                                        loads, lam=lam, k=k, row0=row0,
+                                        row1=row1)
+        assert ops.launch_counts() == {"game_bestresponse_csr": 1}
+        want = ops.game_bestresponse_csr_plain(rowptr, col, assign, sizes,
+                                               row_tot, loads, lam=lam, k=k,
+                                               row0=row0, row1=row1)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+
+
 @pytest.mark.cuda
 def test_partition_kernel_path_matches_plain_path(dev):
     """The whole game-off pipeline on the card: kernels vs plain."""
@@ -157,6 +284,29 @@ def test_partition_kernel_path_matches_plain_path(dev):
         cfg = CLUGPConfig.optimized(8, restream=1, game=False, kernel=mode,
                                     cluster_kernel=mode)
         out[mode] = partition(g.src, g.dst, g.num_vertices, cfg, device=dev)
+    np.testing.assert_array_equal(out["cuda"].assign, out["torch"].assign)
+
+
+@pytest.mark.cuda
+def test_partition_with_game_kernel_path_matches_plain_path(dev):
+    """The whole pipeline with the game on the card: the CSR game on the
+    fused K2 and T's tiered walk against the dense plain game and the
+    plain walk, the same seeded draws on both (assignment and rounds)."""
+    from repro_torch.core import CLUGPConfig, partition, web_graph
+    g = web_graph(scale=12, edge_factor=6, seed=2)
+    out = {}
+    for mode in ("cuda", "torch"):
+        cfg = CLUGPConfig.optimized(16, restream=1, batch_size=256,
+                                    kernel=mode, cluster_kernel=mode)
+        ops.reset_launch_counts()
+        out[mode] = partition(g.src, g.dst, g.num_vertices, cfg, device=dev)
+        if mode == "cuda":
+            launched = ops.launch_counts()
+            assert launched["game_bestresponse_csr"] > 0
+            assert "game_bestresponse" not in launched
+    assert out["cuda"].game_rounds == out["torch"].game_rounds > 1
+    np.testing.assert_array_equal(out["cuda"].cluster_assign,
+                                  out["torch"].cluster_assign)
     np.testing.assert_array_equal(out["cuda"].assign, out["torch"].assign)
 
 

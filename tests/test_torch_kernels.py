@@ -1,6 +1,6 @@
-"""The port's kernels (K1 cluster scatter, K2 game best response, K3 ELL
-SpMV, K4 flash attention, T transform scan) held against the JAX package
-on the same inputs.
+"""The port's kernels (K1 cluster scatter, K2 game best response and its
+CSR form, K3 ELL SpMV, K4 flash attention, T transform scan and its
+tiered emulation) held against the JAX package on the same inputs.
 
 On the CPU every wrapper runs its plain PyTorch version; the reference's
 Pallas kernels run in interpret mode, as ``tests/test_kernels.py`` runs
@@ -97,6 +97,87 @@ def test_game_bestresponse_ties_take_first_index():
                                      _t(cur), _t(loads),
                                      lam=torch.tensor([1.0]), k=k)
     np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+
+
+def _csr_game_case(m=384, k=16, kpad=128, seed=0):
+    """A cluster graph with a hub row (row 7, ~40% of the cross edges),
+    rows with a size but no cross edge (200..219) and empty padding rows
+    (300..): cross edges as (xs, xd) padded with the sentinel m, as the
+    contraction emits them, plus integer sizes, loads and current
+    partitions."""
+    rng = np.random.default_rng(seed)
+    pool = np.setdiff1d(np.arange(300), np.arange(200, 220))
+    xs = rng.choice(pool, 3000)
+    xd = rng.choice(pool, 3000)
+    xd[:1200] = rng.choice(pool[pool != 7], 1200)
+    xs[:1200] = 7
+    keep = xs != xd
+    xs, xd = xs[keep], xd[keep]
+    xs = np.concatenate([xs, np.full(50, m)]).astype(np.int32)
+    xd = np.concatenate([xd, np.full(50, m)]).astype(np.int32)
+    row_tot = (np.bincount(xs, minlength=m + 1)
+               + np.bincount(xd, minlength=m + 1))[:m].astype(np.float32)
+    sizes = (rng.integers(1, 40, m) + row_tot).astype(np.float32)
+    sizes[300:] = 0.0
+    assign = rng.integers(0, k, m).astype(np.int32)
+    loads = np.zeros(kpad, np.float32)
+    np.add.at(loads, assign, sizes)
+    return xs, xd, sizes, row_tot, assign, loads, k, kpad
+
+
+@pytest.mark.parametrize("row0,row1", [(0, 64), (7, 8), (190, 260),
+                                       (280, 384), (0, 384)])
+def test_game_bestresponse_csr_matches_reference(row0, row1):
+    """The CSR form's plain version on a row range against the
+    reference's dense scatter (``mode="drop"`` on the sentinel) swept by
+    ``ref.game_bestresponse_ref`` and by the Pallas kernel in interpret
+    mode, bit for bit on best, cost and the game's cost at the current
+    partition; the ranges hold the hub, rows without cross edges and
+    empty rows."""
+    from repro_torch.core.game import cluster_csr
+    xs, xd, sizes, row_tot, assign, loads, k, kpad = _csr_game_case()
+    m = sizes.shape[0]
+    lam = 2.5
+    ja = jnp.asarray(assign)
+    aff = (jnp.zeros((m, kpad), jnp.float32)
+           .at[xs, ja[jnp.clip(xd, 0, m - 1)]].add(1.0, mode="drop")
+           .at[xd, ja[jnp.clip(xs, 0, m - 1)]].add(1.0, mode="drop"))
+    args = (aff, jnp.asarray(sizes), jnp.asarray(row_tot), ja,
+            jnp.asarray(loads))
+    want_b, want_c = jref.game_bestresponse_ref(*args, lam=lam, k=k)
+    pal_b, pal_c = jops.game_best_response(*args, lam=lam, k=k, block_m=128,
+                                           interpret=True)
+    want_cur = (jnp.float32(lam) / jnp.float32(k)) * args[1] * args[4][ja] \
+        + 0.5 * (args[2] - aff[jnp.arange(m), ja])
+    real = (xs < m) & (xd < m)
+    rowptr, col = cluster_csr(_t(xs[real]).long(), _t(xd[real]).long(), m)
+    assert int((rowptr[1:] - rowptr[:-1])[7]) > 1000     # the hub
+    got_b, got_c, got_cur = ops.game_bestresponse_csr(
+        rowptr, col, _t(assign), _t(sizes), _t(row_tot), _t(loads[:k]),
+        lam=torch.tensor([lam]), k=k, row0=row0, row1=row1)
+    sl = slice(row0, row1)
+    for want in (want_b, pal_b):
+        np.testing.assert_array_equal(got_b.numpy(), np.asarray(want)[sl])
+    for want in (want_c, pal_c):
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want)[sl])
+    np.testing.assert_array_equal(got_cur.numpy(), np.asarray(want_cur)[sl])
+
+
+def test_game_bestresponse_csr_rejects_bad_ranges():
+    from repro_torch.kernels.game_bestresponse import CSR_MAX_K
+    xs, xd, sizes, row_tot, assign, loads, k, _ = _csr_game_case()
+    rowptr = torch.zeros(sizes.shape[0] + 1, dtype=torch.int32)
+    col = torch.zeros(0, dtype=torch.int32)
+    base = (rowptr, col, _t(assign), _t(sizes), _t(row_tot))
+    lam = torch.tensor([1.0])
+    for row0, row1 in ((5, 5), (-1, 3), (0, sizes.shape[0] + 1)):
+        with pytest.raises(ValueError, match="row range"):
+            ops.game_bestresponse_csr(*base, _t(loads[:k]), lam=lam, k=k,
+                                      row0=row0, row1=row1)
+    big = CSR_MAX_K + 1
+    with pytest.raises(ValueError, match="outside"):
+        ops.game_bestresponse_csr(*base, torch.zeros(big), lam=lam, k=big,
+                                  row0=0, row1=1)
 
 
 # ------------------------------------------------------------------ K3
@@ -259,3 +340,89 @@ def test_majority_vertex_map_matches_reference(use_mask):
     got = majority_vertex_map(_t(src), _t(dst), _t(assign), 400, k,
                               mask=None if m is None else _t(m))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _tier_case(name, seed=0):
+    """Edge streams built to send the tiered walk through each tier: the
+    endpoints' partitions (a, b) are drawn in partition space and mapped
+    to four vertices a partition.  Returns (src, dst, vertex_part, deg,
+    divided, mask, k, lmax); ``mask`` pads ~8% of the lanes except where
+    a case counts loads exactly."""
+    from repro_torch.kernels.transform_scan import CHUNK as C
+    rng = np.random.default_rng(seed)
+
+    def rand(n, k, zipf=False):
+        if zipf:
+            return [(rng.zipf(1.5, n) - 1) % k for _ in range(2)]
+        return [rng.integers(0, k, n) for _ in range(2)]
+
+    def const(n, p, q):
+        return [np.full(n, p), np.full(n, q)]
+    exact_from = 0                    # lanes before this are never padded
+    if name == "tiny_lmax":           # all 64 fill inside the first chunk
+        k, parts, lmax = 64, [rand(3 * C + 100, 64)], 3.0
+    elif name == "both_stretch":      # two fills, a both-full chunk whose
+        k, lmax = 3, 2000.0           # argmins fill partition 2, then all
+        parts = [const(C // 2, 0, 0), const(C // 2, 1, 1),
+                 const(C, 0, 1), rand(2000, 3)]
+        exact_from = 2 * C
+    elif name in ("fill_at_chunk_end", "fill_at_next_chunk"):
+        k, lmax = 4, float(C if name == "fill_at_chunk_end" else C + 1)
+        parts, exact_from = [const(C + 64, 0, 0), rand(3 * C, 4)], C + 64
+    elif name == "k1":
+        k, parts, lmax = 1, [rand(2 * C + 7, 1)], float(C)
+    elif name == "k200":
+        k, parts, lmax = 200, [rand(5 * C, 200)], 1.05 * 5 * C / 200
+    else:                             # "k64": skewed, a few late fills
+        k, parts = 64, [rand(6 * C + 333, 64, zipf=True)]
+        lmax = 1.1 * (6 * C + 333) / 64 * 8
+    a = np.concatenate([p[0] for p in parts])
+    b = np.concatenate([p[1] for p in parts])
+    E = a.shape[0]
+    src = (4 * a + rng.integers(0, 4, E)).astype(np.int32)
+    dst = (4 * b + rng.integers(0, 4, E)).astype(np.int32)
+    vp = np.repeat(np.arange(k), 4).astype(np.int32)
+    deg = rng.integers(1, 20, 4 * k).astype(np.int32)
+    divided = rng.random(4 * k) < 0.2
+    mask = rng.random(E) > 0.08
+    mask[:exact_from] = True
+    return src, dst, vp, deg, divided, mask, k, lmax
+
+
+# the tiers each case must reach (beyond agreeing with the reference)
+TIER_CASES = {"tiny_lmax": ("exact", "frozen"),
+              "both_stretch": ("exact", "redone", "frozen"),
+              "fill_at_chunk_end": ("exact", "frozen"),
+              "fill_at_next_chunk": ("parallel", "exact"),
+              "k1": ("parallel", "exact", "frozen"),
+              "k200": ("parallel", "exact"),
+              "k64": ("parallel", "exact")}
+
+
+@pytest.mark.parametrize("name", list(TIER_CASES))
+def test_transform_tiered_walk_matches_reference(name):
+    """The kernel's tiered walk, emulated on the host with its chunk size
+    and tier decisions, against ``transform_jax`` (and the plain walk)
+    bit for bit, on streams that reach the tiers the case names."""
+    from repro.core.transform import transform_jax
+    src, dst, vp, deg, divided, mask, k, lmax = _tier_case(name)
+    want = np.asarray(transform_jax(src, dst, vp, deg, divided, k,
+                                    mask=mask, lmax=lmax))
+    pu, pv, nm = ops.transform_inputs(_t(src).long(), _t(dst).long(),
+                                      _t(vp), _t(deg), _t(divided),
+                                      _t(mask))
+    got, tiers = ops.transform_scan_tiered_plain(pu, pv, nm, k, lmax)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ops.transform_scan(pu, pv, nm, k, lmax).numpy(), want)
+    for tier in TIER_CASES[name]:
+        assert tiers[tier] > 0, (tier, tiers)
+    assert tiers["exact"] <= k + tiers["redone"]
+
+
+def test_transform_scan_rejects_k_above_max():
+    from repro_torch.kernels.transform_scan import MAX_K
+    pu = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        ops.transform_scan(pu, pu, pu, MAX_K + 1, 4.0)
+    assert ops.transform_scan(pu, pu, pu, MAX_K, 4.0).shape == (8,)
