@@ -16,7 +16,22 @@ Phases (any failure raises and exits non-zero):
    clustering pass (its pass walks the whole stream in one launch).
    Checks: RF below a uniform random assignment's, every partition load
    ≤ τ·E/k + 1, PageRank finite and within L1 1e-4 of the float64 oracle.
-3. Every graph kernel against its plain PyTorch version on the card at
+3. The GAS program library on the same scale-20 layout (``[gas]``): all
+   eight programs through ``sess.run`` on the halo and the dense
+   exchange (f32 programs 30 iterations, min programs 40, degree 1, cc to
+   its fixed point under a cap), each against its numpy oracle (integer
+   programs equal, pagerank and ppr L1 ≤ 1e-4, centrality L1 relative to
+   the oracle's ≤ 1e-4) and the integer ones equal across the exchanges;
+   the fused bundles (pagerank, ppr, centrality) and (cc, labelprop,
+   sssp, bfs) against their single runs and timed against them; pagerank
+   and labelprop with early exit, then warm-started from their result
+   (labelprop must end after one iteration with identical output,
+   pagerank in fewer iterations than cold).  Every run is counted on its
+   own: K3 exactly once an iteration for each program that gathers on it
+   (pagerank, ppr, centrality), no other kernel.  ms/iteration of every
+   program and bundle (the second, synchronized run on the cached
+   tables) and the oracles' host seconds.
+4. Every graph kernel against its plain PyTorch version on the card at
    the graph path's shapes (K1's pass on the first 2,048 blocks of the
    scale-20 stream: clu, deg, vol, scal and packed bit for bit, then timed
    over the whole stream; the dense K2 at M = the run's m_cap and k = 64;
@@ -31,11 +46,11 @@ Phases (any failure raises and exits non-zero):
    least time the card could take for their bytes and operations (and,
    for K1 and T, whose dependent chains are what limits them, a latency
    floor) and, for K3, one PyTorch sparse call.
-4. At scale 16 the kernel path and the plain path on the card: the
+5. At scale 16 the kernel path and the plain path on the card: the
    clustering state, the game-off assignment and the game-on assignment
    (the CSR game on the fused K2 against the dense plain game) must match
    bit for bit.
-5. The LM serving path: qwen2-7b at full width and depth (28 layers,
+6. The LM serving path: qwen2-7b at full width and depth (28 layers,
    7.6 B parameters) in bf16 from a seeded generator.  ``make_prefill_step``
    on 4 prompts of 2,048 tokens with the counts zeroed before and read
    after: K4 must launch once per layer, the graph kernels never; prefill
@@ -43,16 +58,17 @@ Phases (any failure raises and exits non-zero):
    4 prompts of 16 tokens by repeated decode, 32 greedy tokens), which
    launches no K4; ms/token-step beside its floor, the 15.2 GB of weights
    each step reads at 3.35 TB/s.  Logits finite throughout.
-6. Cross-check: qwen2-7b cut to 2 layers at full width in f32; the last
+7. Cross-check: qwen2-7b cut to 2 layers at full width in f32; the last
    logits of ``prefill`` (K4) against the decode loop's logits at the last
    prompt position (dense attention, no K4) within 2e-3, the JAX package's
    own tolerance for decode against forward.
-7. K4 against its plain version at the prefill shape (q 4×28×2048×128,
+8. K4 against its plain version at the prefill shape (q 4×28×2048×128,
    k/v 4×4×2048×128, bf16, causal) within 2e-2 and at one f32 shape within
    2e-5; timed with CUDA events beside its bound (tensor-core operations)
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
-8. The ``kernels`` JSON line (six rows), then the device JSON line last.
+9. The ``kernels`` JSON line (six rows; K3's row also carries the
+   ``[gas]`` phase's launches), then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -87,6 +103,21 @@ T_ONE_THREAD_MS = 744.63         # T when one thread walked every edge (PERF.md 
 SMEM_STEP_CYCLES = 29
 K1_STEPS_PER_EDGE = 2            # slot read -> volume read at that slot
 T_WALK_STEP = 32                 # edges a walk step decides together
+# the GAS phase on the graph path's layout: iterations per program (the
+# min programs need their frontier to move; degree is exact after one),
+# the programs that gather on K3, the fused bundles, the caps of the runs
+# that end at a fixed point or a residual, and pagerank's tolerance
+GAS_ITERS = {"pagerank": 30, "ppr": 30, "centrality": 30, "labelprop": 40,
+             "sssp": 40, "bfs": 40, "degree": 1}
+GAS_K3 = ("pagerank", "ppr", "centrality")
+GAS_F32_BUNDLE = ("pagerank", "ppr", "centrality")
+GAS_I32_BUNDLE = ("cc", "labelprop", "sssp", "bfs")
+CC_CAP = GAS_CAP = 200
+# pagerank's tolerance stays clear of the f32 noise of the hub's rank
+# (191,269 in-edges summed by float atomics in a varying order): on an
+# H100 at 1e-7, a restart from a vector converged to 1e-7 took 8
+# iterations, the residual meeting the tolerance by chance
+PR_TOL = 1e-6
 # the LM serving path: qwen2-7b at full width and depth
 LM_ARCH = "qwen2_7b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -120,7 +151,7 @@ def check_path_launches(ops, launches, path):
         check(launches.get(name, 0) > 0, f"kernel {name} never launched "
               f"on the {path} path")
     others = {n for p, names in ops.KERNELS.items() if p != path
-              for n in names}
+              for n in names} - set(ops.KERNELS[path])
     check(not others & {n for n, c in launches.items() if c},
           f"the {path} path launched another path's kernel: {launches}")
 
@@ -177,6 +208,242 @@ def host_ms(torch, fn, reps=1):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def gas_phase(torch, ops, sess, g) -> dict:
+    """The GAS program library on the session's scale-20 layout: every
+    program through ``sess.run`` on both exchanges against its numpy
+    oracle (sssp and bfs also from the vertex of largest out-degree), the
+    fused bundles against their single runs, early exit and warm start.
+    Each run is counted on its own: K3 exactly once an iteration for each
+    program that gathers on it, no other kernel.  ms/iteration is the
+    device loop alone (init and the iterations on the cached tables,
+    synchronized), beside ``sess.run``'s end-to-end time, which adds the
+    collection of the master values to the host.  Returns the phase's K3
+    launches and its timings."""
+    import numpy as np
+    from repro_torch.dist.halo import get_exchange
+    from repro_torch.graph import engine as eng
+    V = g.num_vertices
+    lay = sess.partition_layout
+    hub = int(np.bincount(g.src, minlength=V).argmax())
+    oracles = {
+        "pagerank": lambda: eng.reference_pagerank(g.src, g.dst, V,
+                                                   GAS_ITERS["pagerank"]),
+        "ppr": lambda: eng.reference_ppr(g.src, g.dst, V, GAS_ITERS["ppr"]),
+        "centrality": lambda: eng.reference_centrality(
+            g.src, g.dst, V, GAS_ITERS["centrality"]),
+        "cc": lambda: eng.reference_cc(g.src, g.dst, V),
+        "labelprop": lambda: eng.reference_labelprop(g.src, g.dst, V,
+                                                     GAS_ITERS["labelprop"]),
+        "sssp": lambda: eng.reference_sssp(g.src, g.dst, V,
+                                           GAS_ITERS["sssp"]),
+        "bfs": lambda: eng.reference_bfs(g.src, g.dst, V, GAS_ITERS["bfs"]),
+        "degree": lambda: eng.reference_degree(g.src, g.dst, V),
+        "sssp@hub": lambda: eng.reference_sssp(g.src, g.dst, V,
+                                               GAS_ITERS["sssp"], hub),
+        "bfs@hub": lambda: eng.reference_bfs(g.src, g.dst, V,
+                                             GAS_ITERS["bfs"], hub)}
+    refs, oracle_s = {}, {}
+    for name, fn in oracles.items():
+        t = time.perf_counter()
+        refs[name] = fn()
+        oracle_s[name] = time.perf_counter() - t
+    log("[gas] oracle host seconds " + json.dumps(
+        {k: round(v, 3) for k, v in oracle_s.items()}))
+    k3_total = 0
+
+    def counted(fn, k3, what):
+        """``fn()`` with the counts zeroed before and read after: K3
+        exactly ``k3`` times (or ``k3(out)``), no other kernel."""
+        nonlocal k3_total
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        if callable(k3):
+            k3 = k3(out)
+        launched = {n: c for n, c in ops.launch_counts().items() if c}
+        check(set(launched) <= set(ops.KERNELS["gas"]),
+              f"{what} launched a kernel off the gas path: {launched}")
+        check(launched.get("ell_spmv", 0) == k3, f"{what}: K3 launched "
+              f"{launched.get('ell_spmv', 0)} times, not {k3}")
+        k3_total += k3
+        return out
+
+    def timed(fn, k3, what):
+        """``counted`` on an idle card, synchronized: (out, ms)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = counted(fn, k3, what)
+        return out, (time.perf_counter() - t) * 1e3
+
+    def loop(prog, it, ex, tol=None):
+        """The device loop alone on the cached tables: (values, iters)."""
+        dev = eng.stack_dev(lay, ex, sess.device)
+        run = eng._sim_gas_many if isinstance(prog, eng.FusedGAS) \
+            else eng._sim_gas
+        return run(prog, dev, it, get_exchange(ex), tol)
+
+    def per_iter(out):
+        return out[1]
+
+    ms_iter, iters_run, results = {}, {}, {}
+    for ex in ("halo", "dense"):
+        for name in ("pagerank", "ppr", "centrality", "labelprop", "sssp",
+                     "bfs", "degree", "cc"):
+            k3 = name in GAS_K3
+            if name == "cc":
+                def run(ex=ex):
+                    return sess.run("cc", iters=CC_CAP, tol=0.0,
+                                    exchange=ex, return_iters=True)
+                out, it = counted(run, 0, f"cc on {ex}")
+                check(it < CC_CAP, f"cc on {ex} did not reach its fixed "
+                      f"point in {CC_CAP} iterations")
+                (out2, _), run_ms = timed(run, 0, f"cc on {ex}")
+            else:
+                it = GAS_ITERS[name]
+
+                def run(name=name, ex=ex, it=it):
+                    return sess.run(name, iters=it, exchange=ex)
+                out = counted(run, k3 * it, f"{name} on {ex}")
+                out2, run_ms = timed(run, k3 * it, f"{name} on {ex}")
+            _, loop_ms = timed(lambda: loop(eng.get_program(name, V), it, ex),
+                               k3 * it, f"{name}'s loop on {ex}")
+            check(out.shape == (V,), f"{name} on {ex}: shape {out.shape}")
+            if name in GAS_K3:
+                check(bool(np.isfinite(out).all()), f"{name} not finite")
+            else:
+                check(np.array_equal(out, out2), f"{name} on {ex} differs "
+                      "between two runs")
+            results[name, ex] = out
+            iters_run[name, ex] = it
+            ms_iter[name, ex] = loop_ms / it
+            ref = refs[name]
+            if name in GAS_K3:
+                l1 = float(np.abs(out.astype(np.float64) - ref).sum())
+                if name == "centrality":
+                    l1 /= float(np.abs(ref).sum())
+                check(l1 <= 1e-4, f"{name} on {ex}: L1 {l1:.3e} > 1e-4")
+                err = f"L1 {l1:.3e}" + (" (relative)" if name == "centrality"
+                                        else "")
+            else:
+                check(np.array_equal(out, ref), f"{name} on {ex} differs "
+                      "from its numpy oracle")
+                err = "equal to the oracle"
+                if name != "degree":
+                    err += (f"; {int((out != eng.CC_SENTINEL).sum())} of {V}"
+                            " reached")
+            log(f"[gas] {name} on {ex}: {it} iterations, {ms_iter[name, ex]:.4f}"
+                f" ms/iteration (device loop {loop_ms:.3f} ms; sess.run "
+                f"{run_ms:.3f} ms end to end), {err}")
+        for name in ("sssp", "bfs"):
+            prog = getattr(eng, f"{name}_program")(hub)
+            out = counted(lambda prog=prog, ex=ex: sess.run(
+                prog, iters=GAS_ITERS[name], exchange=ex), 0,
+                f"{name} from {hub} on {ex}")
+            check(np.array_equal(out, refs[f"{name}@hub"]), f"{name} from "
+                  f"vertex {hub} on {ex} differs from its numpy oracle")
+            log(f"[gas] {name} from vertex {hub} (largest out-degree) on "
+                f"{ex}: equal to the oracle; "
+                f"{int((out != eng.CC_SENTINEL).sum())} of {V} reached")
+    for name in ("cc", "labelprop", "sssp", "bfs", "degree"):
+        check(np.array_equal(results[name, "halo"], results[name, "dense"]),
+              f"{name}: halo and dense differ")
+    check(iters_run["cc", "halo"] == iters_run["cc", "dense"],
+          "cc: halo and dense reach the fixed point in different counts")
+    lanes = {ex: eng.stack_dev(lay, ex, sess.device)[route].numel()
+             for ex, route in (("halo", "mirror"), ("dense", "gathered"))}
+    log(f"[gas] every integer program equal on halo and dense; cc's fixed "
+        f"point after {iters_run['cc', 'halo']} iterations; lanes a phase: "
+        f"halo {lanes['halo']} (k^2 x H_max = {lay.k}^2 x {lay.h_max}) for "
+        f"{lay.mirrors_total} mirrors, dense reduce {lanes['dense']} (one a "
+        f"replica), dense broadcast {lay.k * lay.l_max} (k x L_max)")
+
+    # the fused bundles: one exchange per phase for the whole bundle
+    fused_ms = {}
+    for ex in ("halo", "dense"):
+        cc40 = counted(lambda ex=ex: sess.run(
+            "cc", iters=GAS_ITERS["labelprop"], exchange=ex), 0, f"cc on {ex}")
+        for bundle, it in ((GAS_F32_BUNDLE, 30), (GAS_I32_BUNDLE, 40)):
+            k3 = it * sum(p in GAS_K3 for p in bundle)
+            what = f"{'+'.join(bundle)} on {ex}"
+            outs = counted(lambda bundle=bundle, it=it, ex=ex: sess.run_many(
+                bundle, iters=it, exchange=ex), k3, what)
+            fused = eng.fuse_programs([eng.get_program(p, V) for p in bundle])
+            _, ms = timed(lambda fused=fused, it=it, ex=ex: loop(fused, it, ex),
+                          k3, f"{what}, its loop")
+            for name, out in zip(bundle, outs):
+                single = cc40 if name == "cc" else results[name, ex]
+                if name in GAS_K3:
+                    d = float(np.abs(out.astype(np.float64) - single).sum()
+                              / np.abs(single.astype(np.float64)).sum())
+                    check(d <= 1e-5, f"fused {name} on {ex}: relative L1 "
+                          f"{d:.3e} from its single run")
+                else:
+                    check(np.array_equal(out, single), f"fused {name} on "
+                          f"{ex} differs from its single run")
+            sep = sum(ms_iter[p, ex] for p in bundle)
+            fused_ms["+".join(bundle), ex] = (ms / it, sep)
+            log(f"[gas] fused {'+'.join(bundle)} on {ex}: {ms / it:.4f} "
+                f"ms/iteration against {sep:.4f} run separately "
+                f"({ms / it / sep:.2f}x); "
+                + ("within relative L1 1e-5 of" if bundle == GAS_F32_BUNDLE
+                   else "equal to") + " the single runs")
+
+    # early exit and warm start: K3 once for each iteration run
+    pr, pr_it = counted(lambda: sess.run("pagerank", iters=GAS_CAP,
+                                         tol=PR_TOL, return_iters=True),
+                        per_iter, "pagerank with tol")
+    check(pr_it < GAS_CAP, f"pagerank did not reach tol {PR_TOL} in "
+          f"{GAS_CAP} iterations")
+    _, pr_wit = counted(lambda: sess.run("pagerank", iters=GAS_CAP,
+                                         tol=PR_TOL, init_values=pr,
+                                         return_iters=True),
+                        per_iter, "warm pagerank")
+    check(pr_wit < pr_it, f"warm pagerank took {pr_wit} iterations, cold "
+          f"{pr_it}")
+    lp, lp_it = counted(lambda: sess.run("labelprop", iters=GAS_CAP, tol=0.0,
+                                         return_iters=True), 0,
+                        "labelprop to its fixed point")
+    check(lp_it < GAS_CAP, "labelprop did not reach its fixed point")
+    lp_w, lp_wit = counted(lambda: sess.run(
+        "labelprop", iters=GAS_CAP, tol=0.0, init_values=lp,
+        return_iters=True), 0, "warm labelprop")
+    check(lp_wit == 1 and np.array_equal(lp_w, lp),
+          f"labelprop from its fixed point: {lp_wit} iterations, output "
+          f"{'identical' if np.array_equal(lp_w, lp) else 'changed'}")
+    log(f"[gas] early exit: pagerank at tol {PR_TOL} after {pr_it} "
+        f"iterations, from its converged vector after {pr_wit}; labelprop's "
+        f"fixed point after {lp_it} iterations, from it after {lp_wit} with "
+        "identical output")
+    (_, it), pr_ms = timed(lambda: loop(eng.get_program("pagerank", V),
+                                        GAS_CAP, "halo", PR_TOL),
+                           per_iter, "pagerank's loop with tol")
+    check(it == pr_it, "pagerank's loop with tol ran another count")
+    (_, it), lp_ms = timed(lambda: loop(eng.get_program("labelprop", V),
+                                        GAS_CAP, "halo", 0.0),
+                           0, "labelprop's loop with tol")
+    check(it == lp_it, "labelprop's loop with tol ran another count")
+    tol_ms = {"pagerank": pr_ms / pr_it, "labelprop": lp_ms / lp_it}
+    log(f"[gas] early exit reads the residual back once an iteration: "
+        f"pagerank {tol_ms['pagerank']:.4f} ms/iteration with tol against "
+        f"{ms_iter['pagerank', 'halo']:.4f} without, labelprop "
+        f"{tol_ms['labelprop']:.4f} against {ms_iter['labelprop', 'halo']:.4f}")
+    log(f"[gas] K3 launches in the phase {k3_total}")
+    # what only this phase built goes (the dense exchange's tables, the
+    # bundles' routes), so the later phases' memory readings hold what
+    # they held before it
+    lay.cache.pop((str(sess.device), "dense"))
+    lay.cache[(str(sess.device), "halo")]["routes"].clear()
+    torch.cuda.empty_cache()
+    return dict(k3=k3_total, ms_iter={f"{n}/{e}": v
+                                      for (n, e), v in ms_iter.items()},
+                fused={f"{n}/{e}": v for (n, e), v in fused_ms.items()},
+                tol_ms_iter=tol_ms,
+                iters={"cc": iters_run["cc", "halo"], "pagerank_tol": pr_it,
+                       "pagerank_warm": pr_wit, "labelprop_fixed": lp_it,
+                       "labelprop_warm": lp_wit},
+                oracle_s=oracle_s)
 
 
 def main() -> int:
@@ -286,6 +553,9 @@ def main() -> int:
     check(l1 <= 1e-4, f"PageRank L1 {l1} > 1e-4")
 
     # ---------------------------------------------------------- phase 3
+    gas = gas_phase(torch, ops, sess, g)
+
+    # ---------------------------------------------------------- phase 4
     rows = []
     vmax = max(2.0, E / float(K))
     src_t = torch.from_numpy(g.src).to(dev)
@@ -526,7 +796,8 @@ def main() -> int:
                      replaces="src/repro/kernels/ell_spmv.py:30",
                      launches=launches["ell_spmv"], max_abs_err=k3_err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=lib, limited_by="bytes", launch_ms=launch_ms))
+                     library_ms=lib, limited_by="bytes", launch_ms=launch_ms,
+                     gas_launches=gas["k3"]))
     log(f"[K3] R={R} W={W} N={N}: max |d| {k3_err:.3e}; {ms:.4f} ms/launch "
         f"on the device ({launch_ms:.4f} ms a call back to back), "
         f"torch.sparse.mm {lib:.4f} ms")
@@ -591,7 +862,7 @@ def main() -> int:
     log(f"[T] mean over the path's two walks {ms:.3f} ms/launch; bound "
         f"{bms:.4f} ms ({by}) plus the walks' dependent steps {lat:.3f} ms")
 
-    # ---------------------------------------------------------- phase 4
+    # ---------------------------------------------------------- phase 5
     gs = web_graph(scale=SMALL_SCALE, edge_factor=EDGE_FACTOR, seed=0)
     ss = torch.from_numpy(gs.src).to(dev)
     sd = torch.from_numpy(gs.dst).to(dev)
@@ -626,7 +897,7 @@ def main() -> int:
         f"{results[True, 'torch'].stats['stage_seconds']['game']:.3f} s "
         f"dense plain)")
 
-    # ---------------------------------------------------------- phase 5
+    # ---------------------------------------------------------- phase 6
     import dataclasses
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -695,7 +966,7 @@ def main() -> int:
     del params, logits, served
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- phase 6
+    # ---------------------------------------------------------- phase 7
     small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
     p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
     prompt = torch.from_numpy(lm_rng.integers(
@@ -714,7 +985,7 @@ def main() -> int:
     del p32, pre, dec
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- phase 7
+    # ---------------------------------------------------------- phase 8
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -775,7 +1046,7 @@ def main() -> int:
     log(f"[K4] f32 q {tuple(q.shape)} k/v {tuple(k.shape)} causal: max |d| "
         f"{float((got - want).abs().max()):.3e}; {ms32:.4f} ms/launch")
 
-    # ---------------------------------------------------------- phase 8
+    # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.pipeline import CLUGPConfig
+from .dist.halo import EXCHANGE_NAMES
 from .graph.partition import PartitionLayout
 from .models.config import ModelConfig
 from .models.lm import param_count, require_dense, tree_leaves
@@ -35,16 +36,17 @@ def config_from_reference(json_text: str) -> SessionConfig:
     """A reference ``SessionConfig.to_json()`` blob → the port's config:
     backend ``jit``/``np`` → ``torch``, game/cluster kernel ``pallas`` →
     ``cuda`` and ``xla`` → ``torch``.  Raises on what the port does not
-    have yet (the scan game, the sharded backend, other exchanges)."""
+    have yet (the scan game, the sharded backend, the quantized and
+    ragged exchanges)."""
     d = json.loads(json_text)
     backend = d.get("backend", "np")
     if backend not in _BACKENDS:
         raise _not_ported(f"backend {backend!r}",
                           "the sharded partitioner and multi-GPU engine")
     exchange = d.get("exchange", "halo")
-    if exchange != "halo":
+    if exchange not in EXCHANGE_NAMES:
         raise _not_ported(f"exchange {exchange!r}",
-                          "dense, quantized and ragged exchanges")
+                          "the quantized and ragged exchanges")
     if int(d.get("nodes", 1)) != 1:
         raise _not_ported("nodes > 1",
                           "the sharded partitioner and multi-GPU engine")
@@ -59,7 +61,7 @@ def config_from_reference(json_text: str) -> SessionConfig:
             raise ValueError(f"unknown {key} {value!r}")
         clugp[key] = _KERNELS[value]
     return SessionConfig(clugp=CLUGPConfig(**clugp), backend="torch",
-                         exchange="halo",
+                         exchange=exchange,
                          iters=int(d.get("iters", 30)),
                          pad_multiple=int(d.get("pad_multiple", 8)))
 

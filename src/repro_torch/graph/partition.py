@@ -59,7 +59,8 @@ class PartitionLayout:
     # per-device tables every exchange needs, and each wire format's own
     COMMON_TABLES = ("edge_src", "edge_dst", "edge_mask", "vert_gid",
                      "vert_mask", "is_master", "out_deg")
-    EXCHANGE_TABLES = {"halo": ("halo_send", "halo_recv")}
+    EXCHANGE_TABLES = {"dense": ("owner", "own_slot", "red_index"),
+                       "halo": ("halo_send", "halo_recv")}
 
     def device_arrays(self, exchange: str = "halo") -> dict:
         """The numpy tables one exchange needs (leading k axis)."""

@@ -19,8 +19,11 @@ from .transform_scan import (transform_inputs, transform_scan,  # noqa: F401
                              transform_scan_tiers)
 
 # the kernels of each path, by the path that launches them: the graph path
-# (partition → layout → PageRank) and the LM serving path (prefill).  The
-# dense game_bestresponse is on neither: the game runs the CSR form.
+# (partition → layout → PageRank), the GAS program library on a built
+# layout (pagerank, ppr and centrality gather on K3; the other programs
+# launch no kernel) and the LM serving path (prefill).  The dense
+# game_bestresponse is on none: the game runs the CSR form.
 KERNELS = {"graph": ("cluster_scatter", "game_bestresponse_csr", "ell_spmv",
                      "transform_scan"),
+           "gas": ("ell_spmv",),
            "lm": ("flash_attention",)}

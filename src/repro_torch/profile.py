@@ -1,6 +1,7 @@
 """Where the port's paths spend their time on the card.
 
     python -m repro_torch.profile [--scale 20] [--k 64] [--blocks N]
+    python -m repro_torch.profile --path gas [--scale 20] [--k 64]
     python -m repro_torch.profile --path lm
 
 The graph path: partitions ``web_graph(scale)`` once through
@@ -15,6 +16,14 @@ CUDA activities) over four windows of the graph path at full size:
   batch's rows where the batch holds a live cluster;
 - ``transform``: one transform walk (T, its chunks in tiers);
 - ``pagerank``: 30 PageRank iterations on the cached device tables.
+
+The GAS path (``--path gas``): the same partition and layout, then two
+windows on the halo exchange, each run once before it is profiled (the
+device tables and routes are built then):
+
+- ``labelprop``: 40 labelprop iterations (min combine, no kernel);
+- ``fused_f32``: 30 iterations of the fused (pagerank, ppr, centrality)
+  bundle (three K3 launches an iteration, one exchange per phase).
 
 The LM path (``--path lm``): qwen2-7b at full width and depth in bf16
 from a seeded generator, then two windows, each after a warm-up:
@@ -126,9 +135,21 @@ def _profile_lm(dev) -> None:
     _profile("decode", decode_steps)
 
 
+def _profile_gas(sess, g) -> None:
+    bundle = ("pagerank", "ppr", "centrality")
+    sess.run("labelprop", iters=40)                      # warm-up
+    sess.run_many(bundle, iters=30)
+    print(json.dumps({"V": g.num_vertices, "E": g.num_edges,
+                      "k": sess.k, "exchange": sess.cfg.exchange,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    _profile("labelprop", lambda: sess.run("labelprop", iters=40))
+    _profile("fused_f32", lambda: sess.run_many(bundle, iters=30))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("graph", "lm"), default="graph")
+    ap.add_argument("--path", choices=("graph", "gas", "lm"),
+                    default="graph")
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--k", type=int, default=64)
     ap.add_argument("--blocks", type=int, default=0,
@@ -145,6 +166,9 @@ def main(argv=None) -> int:
     sess = GraphSession(SessionConfig(clugp=cfg, iters=30))
     sess.partition(g.src, g.dst, g.num_vertices).layout()
     sess.run("pagerank")                       # builds the device tables
+    if args.path == "gas":
+        _profile_gas(sess, g)
+        return 0
     st = sess.stats
     src = torch.from_numpy(g.src).to(dev)
     dst = torch.from_numpy(g.dst).to(dev)

@@ -12,10 +12,15 @@ config.
                                       iters=30))
     pr = sess.partition(g.src, g.dst, g.num_vertices).layout().run("pagerank")
 
+    cc = sess.run("cc", tol=0, iters=100)           # int64 labels
+    pr, ppr = sess.run_many(["pagerank", "ppr"])   # one fused loop
+
 The session runs on the card unless ``device=`` names another device;
 with no card and no ``device`` it raises.  ``backend="torch"`` is the
-counterpart of the reference's ``"jit"`` backend; the only exchange and
-program ported so far are ``"halo"`` and ``"pagerank"``.
+counterpart of the reference's ``"jit"`` backend; ``run`` takes any of
+``PROGRAMS`` (the ``repro_torch.graph.engine`` library) or a
+``GASProgram``, over the ``"dense"`` or ``"halo"`` exchange, on one
+device: the reference's ``mesh`` and ``overlap`` are not ported.
 """
 from __future__ import annotations
 
@@ -28,11 +33,31 @@ import numpy as np
 from .core.partitioner import BACKENDS, partition, resolve_device
 from .core.pipeline import CLUGPConfig, CLUGPResult
 from .dist.halo import EXCHANGE_NAMES
-from .graph.engine import GASProgram, PROGRAM_NAMES, get_program, simulate_gas
+from .graph.engine import (GASProgram, PROGRAM_NAMES, get_program,
+                           simulate_gas, simulate_gas_many)
 from .graph.partition import PartitionLayout, build_layout
 
 EXCHANGES = EXCHANGE_NAMES
 PROGRAMS = PROGRAM_NAMES
+
+
+def resolve_program(program, num_vertices: int) -> GASProgram:
+    """Name → library GASProgram (a GASProgram passes through)."""
+    if isinstance(program, GASProgram):
+        return program
+    return get_program(program, num_vertices)
+
+
+def _check_one_device(mesh) -> None:
+    if mesh is not None:
+        raise ValueError("mesh= is not ported yet (ROADMAP, Queue 1: the "
+                         "sharded partitioner and the multi-GPU engine); "
+                         "run on one device with mesh=None")
+
+
+def _as_int64(out):
+    return out.astype(np.int64) if np.issubdtype(out.dtype, np.integer) \
+        else out
 
 
 @dataclass(frozen=True)
@@ -136,13 +161,44 @@ class GraphSession:
             self.layout()
         return self._layout
 
-    def run(self, program="pagerank", *, iters: int | None = None
-            ) -> np.ndarray:
-        """Run a GAS program (name or ``GASProgram``) on the layout over
-        the session's exchange."""
+    def run(self, program="pagerank", *, iters: int | None = None,
+            exchange: str | None = None, mesh=None, tol: float | None = None,
+            overlap: bool = False, init_values=None,
+            return_iters: bool = False):
+        """Run a GAS program (name or ``GASProgram``) on the layout and
+        return its dense (V,) master values, int64 for the integer
+        programs.  ``tol`` makes ``iters`` a cap: the loop ends once the
+        master residual max-norm drops to ``tol`` (``return_iters=True``
+        also returns the iterations run); ``init_values`` warm-starts from
+        a dense (V_old,) vector."""
+        _check_one_device(mesh)
         lay = self.partition_layout
-        prog = program if isinstance(program, GASProgram) \
-            else get_program(program, self._num_vertices)
-        return simulate_gas(prog, lay,
-                            iters=self.cfg.iters if iters is None else iters,
-                            exchange=self.cfg.exchange, device=self.device)
+        prog = resolve_program(program, self._num_vertices)
+        iters = self.cfg.iters if iters is None else iters
+        out = simulate_gas(prog, lay, iters=iters,
+                           exchange=exchange or self.cfg.exchange, tol=tol,
+                           overlap=overlap, init_values=init_values,
+                           return_iters=True, device=self.device)
+        out, iters_run = _as_int64(out[0]), out[1]
+        return (out, iters_run) if return_iters else out
+
+    def run_many(self, programs, *, iters: int | None = None,
+                 exchange: str | None = None, mesh=None,
+                 tol: float | None = None, overlap: bool = False,
+                 init_values=None, return_iters: bool = False):
+        """Run N programs of one (combine, dtype) cell as one fused GAS
+        loop: one exchange per phase carries every program's lanes
+        (``repro_torch.graph.engine.FusedGAS``).  Returns one dense (V,)
+        array per program, in input order; ``tol``, ``init_values`` (one
+        dense vector or None per program) and ``return_iters`` as in
+        ``run``."""
+        _check_one_device(mesh)
+        lay = self.partition_layout
+        progs = [resolve_program(p, self._num_vertices) for p in programs]
+        iters = self.cfg.iters if iters is None else iters
+        outs, iters_run = simulate_gas_many(
+            progs, lay, iters=iters, exchange=exchange or self.cfg.exchange,
+            tol=tol, overlap=overlap, init_values=init_values,
+            return_iters=True, device=self.device)
+        outs = [_as_int64(o) for o in outs]
+        return (outs, iters_run) if return_iters else outs

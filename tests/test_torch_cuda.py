@@ -467,3 +467,74 @@ def test_reduced_qwen2_prefill_on_card_matches_cpu(dev, dtype, monkeypatch):
                  f"{_rel_l2(run(dev, ops.flash_attention_plain), cpu):.4e}")
     print(line)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def gas_layout():
+    """A scale-14 web graph under a seeded random assignment, k = 16 (the
+    layout is host numpy; each test moves its tables to its device)."""
+    from repro_torch.core import web_graph
+    from repro_torch.graph import build_layout
+    g = web_graph(scale=14, edge_factor=8, seed=0)
+    assign = np.random.default_rng(0).integers(0, 16, g.num_edges) \
+        .astype(np.int32)
+    return g, build_layout(g.src, g.dst, assign, g.num_vertices, 16)
+
+
+GAS_ITERS = {"pagerank": 30, "cc": 40, "labelprop": 40, "sssp": 40,
+             "bfs": 40, "degree": 1, "centrality": 30, "ppr": 30}
+K3_PROGRAMS = ("pagerank", "ppr", "centrality")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ("dense", "halo"))
+@pytest.mark.parametrize("name", tuple(GAS_ITERS))
+def test_gas_program_on_card_matches_cpu(dev, gas_layout, name, exchange):
+    """Every GAS program on the card against its plain run on the CPU:
+    the integer programs bit for bit (min and integer sums are exact in
+    any order), the f32 ones (K3 and float atomics) within rtol 1e-5.
+    K3 launches once an iteration for the programs that gather on it and
+    never for the others."""
+    from repro_torch.graph import get_program, simulate_gas
+    g, lay = gas_layout
+    prog = get_program(name, g.num_vertices)
+    ops.reset_launch_counts()
+    got = simulate_gas(prog, lay, GAS_ITERS[name], exchange=exchange,
+                       device=dev)
+    launched = ops.launch_counts()
+    want = simulate_gas(prog, lay, GAS_ITERS[name], exchange=exchange,
+                        device="cpu")
+    k3 = GAS_ITERS[name] if name in K3_PROGRAMS else 0
+    assert launched.get("ell_spmv", 0) == k3
+    assert not {n for n, c in launched.items() if c} - {"ell_spmv"}
+    if np.issubdtype(want.dtype, np.integer):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ("dense", "halo"))
+def test_gas_fused_bundles_on_card_match_cpu(dev, gas_layout, exchange):
+    """The fused bundles on the card against the CPU, with early exit:
+    the i32 bundle to its fixed point bit for bit (the same iteration
+    count), the f32 bundle 30 iterations within rtol 1e-5 with K3 launched
+    three times an iteration."""
+    from repro_torch.graph import get_program, simulate_gas_many
+    g, lay = gas_layout
+    i32 = [get_program(p, g.num_vertices)
+           for p in ("cc", "labelprop", "sssp", "bfs")]
+    got, git = simulate_gas_many(i32, lay, 200, exchange=exchange, tol=0.0,
+                                 return_iters=True, device=dev)
+    want, wit = simulate_gas_many(i32, lay, 200, exchange=exchange, tol=0.0,
+                                  return_iters=True, device="cpu")
+    assert git == wit < 200
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    f32 = [get_program(p, g.num_vertices) for p in K3_PROGRAMS]
+    ops.reset_launch_counts()
+    got = simulate_gas_many(f32, lay, 30, exchange=exchange, device=dev)
+    assert ops.launch_counts().get("ell_spmv") == 30 * len(f32)
+    want = simulate_gas_many(f32, lay, 30, exchange=exchange, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-10)
