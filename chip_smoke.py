@@ -26,7 +26,9 @@ Phases (any failure raises and exits non-zero):
    sssp, bfs) against their single runs and timed against them; pagerank
    and labelprop with early exit, then warm-started from their result
    (labelprop must end after one iteration with identical output,
-   pagerank in fewer iterations than cold).  Every run is counted on its
+   pagerank in fewer iterations than cold; the timed device loop of
+   pagerank to tol within one iteration of ``sess.run``'s count and L1
+   1e-4 of its vector).  Every run is counted on its
    own: K3 exactly once an iteration for each program that gathers on it
    (pagerank, ppr, centrality), no other kernel.  ms/iteration of every
    program and bundle (the second, synchronized run on the cached
@@ -46,6 +48,29 @@ Phases (any failure raises and exits non-zero):
    least time the card could take for their bytes and operations (and,
    for K1 and T, whose dependent chains are what limits them, a latency
    floor) and, for K3, one PyTorch sparse call.
+4b. Graph serving on the same resident session (``[graph-serve]``): a
+   ``GraphServer`` answers the reference launcher's query mix (64 score
+   queries over pagerank, degree, cc and labelprop, 4 vertices each, 4
+   owner and 4 neighbors queries; microbatches of 16, 30 iterations),
+   takes 3 windows of 65,536 uniformly random arrivals (each flush
+   assigned on T from the resident loads under the grown cap; a
+   restream of 2 passes whenever RF passes 1.02 × its baseline), serves
+   the grown graph, then the same score mix cold and warm to tol 1e-6
+   (cap 200).  Counts zeroed before and read after: T once a flush plus
+   2 a restream, K3 once an iteration of every pagerank run, no other
+   kernel.  Checks: integer replies equal direct runs and the host
+   tables, pagerank within rtol 1e-5 (L1 1e-4 at tol; float atomics on
+   the card), every load ≤ τ·E/k + 1 after each swap, RF after a
+   restream ≤ the drift, warm fewer iterations than cold.  Then T from
+   seeded loads on the first flush's inputs (under the grown cap and
+   under the resident one, where the partitions at the balance start
+   full) against its plain walk and the tiered emulation, tier counts
+   included; and the kill/resume check at scale 16, k 64, through the
+   launcher's child (``--child-snapshot``), which must die by SIGKILL.
+   Prints the query ms, each swap's assign / RF / layout seconds, the RF
+   trace, cold and warm iterations and ms, each round split into seed
+   tables, device loop and collection, and the phase's peak memory; then
+   drops the grown session, so the later phases hold no graph state.
 5. At scale 16 the kernel path and the plain path on the card: the
    clustering state, the game-off assignment and the game-on assignment
    (the CSR game on the fused K2 against the dense plain game) must match
@@ -68,12 +93,15 @@ Phases (any failure raises and exits non-zero):
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
 9. The ``kernels`` JSON line (six rows; K3's row also carries the
-   ``[gas]`` phase's launches), then the device JSON line last.
+   ``[gas]`` phase's launches, T's the seeded walk of ``[graph-serve]``),
+   then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -118,6 +146,18 @@ CC_CAP = GAS_CAP = 200
 # H100 at 1e-7, a restart from a vector converged to 1e-7 took 8
 # iterations, the residual meeting the tolerance by chance
 PR_TOL = 1e-6
+# the graph-serving phase on the same resident session: the reference
+# launcher's query mix (64 score queries over its four programs, 4
+# vertices each, plus 4 owner and 4 neighbors queries; microbatches of 16,
+# 30 iterations), then 3 windows of 65,536 uniformly random arrivals fed in
+# quarter-window chunks (RF watermark 1.02, 2 restream passes), then the
+# same score mix cold and warm to tol 1e-6 under a cap of 200; the
+# kill/resume check runs the launcher's child at scale 16
+SERVE_QUERIES, SERVE_BATCH, SERVE_ITERS = 64, 16, 30
+SERVE_WINDOW, SERVE_WINDOWS = 65536, 3
+SERVE_WATERMARK, SERVE_PASSES = 1.02, 2
+SERVE_TOL, SERVE_CAP = 1e-6, 200
+RESUME_SCALE = 16
 # the LM serving path: qwen2-7b at full width and depth
 LM_ARCH = "qwen2_7b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -416,17 +456,27 @@ def gas_phase(torch, ops, sess, g) -> dict:
         f"iterations, from its converged vector after {pr_wit}; labelprop's "
         f"fixed point after {lp_it} iterations, from it after {lp_wit} with "
         "identical output")
-    (_, it), pr_ms = timed(lambda: loop(eng.get_program("pagerank", V),
-                                        GAS_CAP, "halo", PR_TOL),
-                           per_iter, "pagerank's loop with tol")
-    check(it == pr_it, "pagerank's loop with tol ran another count")
+    (pr_loop, pr_loop_it), pr_ms = timed(
+        lambda: loop(eng.get_program("pagerank", V), GAS_CAP, "halo",
+                     PR_TOL), per_iter, "pagerank's loop with tol")
+    # the hub's rank is summed by float atomics in a varying order on the
+    # card, so two runs of one f32 early-exit loop may stop an iteration
+    # apart (the port's rule for f32 tol exits, ROADMAP Queue 3); the
+    # vector it stops at is held to sess.run's at the rule's L1 1e-4
+    pr_loop_l1 = float(np.abs(eng.collect_master_values(lay, pr_loop)
+                              .astype(np.float64) - pr).sum())
+    check(abs(pr_loop_it - pr_it) <= 1 and pr_loop_l1 <= 1e-4,
+          f"pagerank's loop with tol ran {pr_loop_it} iterations to L1 "
+          f"{pr_loop_l1:.3e} of sess.run's vector, sess.run {pr_it}")
     (_, it), lp_ms = timed(lambda: loop(eng.get_program("labelprop", V),
                                         GAS_CAP, "halo", 0.0),
                            0, "labelprop's loop with tol")
     check(it == lp_it, "labelprop's loop with tol ran another count")
-    tol_ms = {"pagerank": pr_ms / pr_it, "labelprop": lp_ms / lp_it}
+    tol_ms = {"pagerank": pr_ms / pr_loop_it, "labelprop": lp_ms / lp_it}
     log(f"[gas] early exit reads the residual back once an iteration: "
-        f"pagerank {tol_ms['pagerank']:.4f} ms/iteration with tol against "
+        f"pagerank {tol_ms['pagerank']:.4f} ms/iteration with tol ({pr_loop_it}"
+        f" iterations this run, sess.run {pr_it}, L1 {pr_loop_l1:.3e} to its "
+        f"vector) against "
         f"{ms_iter['pagerank', 'halo']:.4f} without, labelprop "
         f"{tol_ms['labelprop']:.4f} against {ms_iter['labelprop', 'halo']:.4f}")
     log(f"[gas] K3 launches in the phase {k3_total}")
@@ -444,6 +494,253 @@ def gas_phase(torch, ops, sess, g) -> dict:
                        "pagerank_warm": pr_wit, "labelprop_fixed": lp_it,
                        "labelprop_warm": lp_wit},
                 oracle_s=oracle_s)
+
+
+def graph_serve_phase(torch, ops, sess, g, t_row, event=None) -> dict:
+    """Graph serving on the resident scale-20 session: the launcher's
+    query mix before ingestion (replies against direct runs), three
+    windows of live arrivals (each flush assigned on T from the resident
+    loads; restreams past the RF watermark), the grown graph queried, the
+    mix cold and warm to a tolerance, all with the launch counts zeroed
+    before and read after: T once a flush plus ``SERVE_PASSES`` a restream,
+    K3 once an iteration of every pagerank run, no other kernel.  Then T
+    from seeded loads against its plain walk and the tiered emulation on
+    the first flush's inputs, and the kill/resume check at scale 16 in a
+    child process.  Adds the seeded walk to T's row (``t_row``)."""
+    import argparse
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.stages import stream_state
+    from repro_torch.core.transform import host_exact_cap, majority_vertex_map
+    from repro_torch.launch import serve_graph as sg
+    from repro_torch.serve import GraphServer
+    event = event or event_ms
+    cfg = sess.cfg.clugp
+    dev = sess.device
+    args = argparse.Namespace(
+        device=str(dev), scale=SCALE, k=K, exchange="halo", backend="torch",
+        iters=SERVE_ITERS, tol=None, seed=0, queries=SERVE_QUERIES,
+        max_batch=SERVE_BATCH, window=SERVE_WINDOW,
+        ingest_windows=SERVE_WINDOWS, watermark=SERVE_WATERMARK,
+        restream_passes=SERVE_PASSES, ckpt_dir=None)
+    args_tol = argparse.Namespace(**{**vars(args), "tol": SERVE_TOL,
+                                     "iters": SERVE_CAP})
+    src0, dst0 = sess.edges
+    assign0, E0, V = sess.assign, len(sess.edges[0]), sess.num_vertices
+
+    # every K3 launch the phase should make: one an iteration of each run
+    # that holds pagerank, the server's and the checks' direct runs alike
+    k3_expected = 0
+    inner = sess.run_many
+
+    def counting_run_many(progs, **kw):
+        nonlocal k3_expected
+        want_iters = kw.pop("return_iters", False)
+        outs, iters_run = inner(progs, return_iters=True, **kw)
+        names = [p if isinstance(p, str) else p.name for p in progs]
+        k3_expected += iters_run * sum(n in GAS_K3 for n in names)
+        return (outs, iters_run) if want_iters else outs
+
+    sess.run_many = counting_run_many
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = GraphServer(sess, max_batch=SERVE_BATCH, window=SERVE_WINDOW,
+                      rf_watermark=SERVE_WATERMARK,
+                      restream_passes=SERVE_PASSES, iters=SERVE_ITERS)
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    try:
+        tickets = sg.submit_mix(srv, args, args.seed + 1)
+        replies, query_ms = sg.serve_mix(srv, tickets)
+        sg.check_replies(srv, tickets, replies, sg.direct_run(sess, args),
+                         None)
+        log(f"[graph-serve] before ingestion: {len(tickets)} queries in "
+            f"{srv.stats['microbatches']} microbatches, {query_ms:.3f} "
+            f"ms/query ({SERVE_ITERS} iterations); integer, owner and "
+            f"neighbors replies equal the direct runs and the tables, "
+            f"pagerank within rtol {sg.REPLY_RTOL}")
+        ing = sg.drive_ingest(srv, args)
+        check(ing["restreams"] >= 1, f"no restream fired: {srv.rf_trace}")
+        check(ing["rf_post_restream"] <= ing["rf_drifted"],
+              f"restream left RF above the drift: {ing}")
+        for swap in srv.swap_log:
+            check(swap["max_load"] <= cfg.tau * swap["edges"] / K + 1,
+                  f"balance cap broken after a {swap['event']}: {swap}")
+        t = time.perf_counter()
+        tk = srv.submit("score", program="pagerank", vertices=[0])
+        srv.step()
+        check(srv.result(tk).error is None, "the grown graph does not serve")
+        torch.cuda.synchronize()
+        grown_s = time.perf_counter() - t
+        srv.tol, srv.iters = SERVE_TOL, SERVE_CAP
+        with round_split(torch) as split:
+            cold, warm = sg.drive_warm_cold(srv, args_tol, check=True)
+        torch.cuda.synchronize()
+    finally:
+        del sess.run_many
+    phase_s = time.perf_counter() - t_phase
+    launches = {n: c for n, c in ops.launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    windows = srv.stats["windows"]
+    t_want = windows + SERVE_PASSES * srv.stats["restreams"]
+    log(f"[graph-serve] launches {json.dumps(launches)}")
+    check(windows == SERVE_WINDOWS, f"{windows} windows flushed")
+    check(set(launches) <= {"transform_scan", "ell_spmv"},
+          f"the serving path launched another kernel: {launches}")
+    check(launches.get("transform_scan", 0) == t_want,
+          f"T launched {launches.get('transform_scan', 0)} times, not once a "
+          f"flush plus {SERVE_PASSES} a restream ({t_want})")
+    check(launches.get("ell_spmv", 0) == k3_expected,
+          f"K3 launched {launches.get('ell_spmv', 0)} times, not once an "
+          f"iteration of every pagerank run ({k3_expected})")
+    for swap in srv.swap_log:
+        log(f"[graph-serve] {swap['event']}: assign {swap['assign']:.4f} s "
+            f"(T + prior + state on the card), RF and balance "
+            f"{swap['stats']:.4f} s (host), layout rebuild "
+            f"{swap['layout']:.4f} s; {swap['edges']} edges, largest load "
+            f"{swap['max_load']} <= {cfg.tau * swap['edges'] / K + 1:.1f}"
+            + (f"; RF before each pass {swap['trace']}" if "trace" in swap
+               else ""))
+    log(f"[graph-serve] RF trace {json.dumps(srv.rf_trace)}; "
+        f"{srv.stats['restreams']} restreams of {SERVE_PASSES} passes; drift "
+        f"{ing['rf_drifted']:.4f} repaired to {ing['rf_post_restream']:.4f}")
+    log(f"[graph-serve] the grown graph ({len(sess.edges[0])} edges) served "
+        f"its first query in {grown_s:.3f} s (device tables built)")
+    log(f"[graph-serve] after ingestion, tol {SERVE_TOL} (cap {SERVE_CAP}): "
+        f"cold {cold['iters_run']} iterations {cold['query_ms']:.3f} "
+        f"ms/query, warm {warm['iters_run']} iterations {warm['query_ms']:.3f}"
+        f" ms/query (per cell: cold {json.dumps(cold['cells'])}, warm "
+        f"{json.dumps(warm['cells'])}); replies within L1 {sg.REPLY_L1} of "
+        "direct runs")
+    for name, row in split.items():
+        log(f"[graph-serve] {name} round split, ms: seed tables "
+            f"{row['seeds']:.3f} (host cast, upload, gather), device loop "
+            f"{row['loop']:.3f}, collection {row['collect']:.3f}, the rest "
+            f"{row['round'] - row['seeds'] - row['loop'] - row['collect']:.3f}"
+            f" (round {row['round']:.3f})")
+    log(f"[graph-serve] phase {phase_s:.1f} s; peak device memory "
+        f"{peak:.2f} GiB")
+
+    # T from seeded loads on the first flush's inputs: the window, the
+    # resident partition's loads and prior, and the grown cap; then the
+    # same window under the resident cap, where the partitions at the
+    # balance start full
+    chunks = sg.arrival_chunks(args.seed, V, SERVE_WINDOW)
+    first = [next(chunks) for _ in range(4)]
+    ws = torch.from_numpy(np.concatenate([c[0] for c in first])).to(dev)
+    wd = torch.from_numpy(np.concatenate([c[1] for c in first])).to(dev)
+    s0 = torch.from_numpy(src0.astype(np.int32)).to(dev)
+    d0 = torch.from_numpy(dst0.astype(np.int32)).to(dev)
+    a0 = torch.from_numpy(assign0.astype(np.int32)).to(dev)
+    st = stream_state(s0, d0, a0, V, K, device=dev)
+    prior = majority_vertex_map(s0, d0, a0, V, K)
+    loads0 = torch.bincount(a0.long(), minlength=K)
+    pu, pv, nm = ops.transform_inputs(ws.long(), wd.long(), prior, st.deg,
+                                      st.divided)
+    W = int(pu.shape[0])
+    seeded = {}
+    for name, cap in (("grown cap", cfg.tau * (E0 + W) / K),
+                      ("resident cap", cfg.tau * E0 / K)):
+        hcap = host_exact_cap(cap)
+        got, tiers = ops.transform_scan_tiers(pu, pv, nm, K, hcap, loads0)
+        t = time.perf_counter()
+        exp = ops.transform_scan_plain(pu, pv, nm, K, hcap, loads0)
+        plain = (time.perf_counter() - t) * 1e3
+        emu, emu_tiers = ops.transform_scan_tiered_plain(pu, pv, nm, K, hcap,
+                                                         loads0)
+        err = int((got.long() - exp.long()).abs().max())
+        check(err == 0, f"seeded T differs from its plain walk ({name})")
+        check(torch.equal(got, emu), f"seeded T differs from the tiered "
+              f"emulation ({name})")
+        check(tiers == emu_tiers, f"seeded T's tiers {tiers} differ from the "
+              f"emulation's {emu_tiers} ({name})")
+        ms = event(torch, lambda hcap=hcap: ops.transform_scan(
+            pu, pv, nm, K, hcap, loads0), 5, warmup=1)
+        full0 = int((loads0.double() >= cap).sum())
+        fills = int(((loads0 + torch.bincount(got.long(), minlength=K))
+                     .double() >= cap).sum()) - full0
+        seeded[name] = dict(ms=ms, plain_ms=plain, tiers=tiers, err=err,
+                            cap=cap, start_full=full0, filled=fills)
+        log(f"[T-seeded] {name} {cap:.4f} (compared as {hcap:.0f}), window "
+            f"{W}: bit-identical to the plain walk and the tiered emulation; "
+            f"{full0} of {K} partitions full at the start, {fills} filled in "
+            f"the window; tiers {json.dumps(tiers)}; {ms:.3f} ms/launch, "
+            f"plain loop {plain:.0f} ms")
+    g_row = seeded["grown cap"]
+    nbytes, nops = W * 16 + K * 4, T_OPS_PER_EDGE * W
+    bms, by = bound_ms(nbytes, nops)
+    t_row.update(seeded_ms=g_row["ms"], seeded_plain_ms=g_row["plain_ms"],
+                 seeded_bound_ms=bms, seeded_bound_by=by,
+                 seeded_launches=launches.get("transform_scan", 0),
+                 seeded_max_abs_err=g_row["err"], seeded_tiers=g_row["tiers"],
+                 seeded_resident_cap=seeded["resident cap"])
+    del s0, d0, a0, st, prior, pu, pv, nm, ws, wd
+
+    # kill and resume at scale 16: the launcher's child SIGKILLs itself
+    # after its snapshot; the resumed server against a freshly built one
+    ck = Path(tempfile.mkdtemp(prefix="serve_ckpt_", dir=ROOT / "build"))
+    try:
+        args16 = argparse.Namespace(**{**vars(args), "scale": RESUME_SCALE,
+                                       "window": 2048,
+                                       "ckpt_dir": str(ck)})
+        t = time.perf_counter()
+        resumed = sg.kill_resume_check(args16)     # raises unless SIGKILL
+        log(f"[graph-serve] kill/resume at scale {RESUME_SCALE}, k {K}: the "
+            f"child died by SIGKILL (exit {resumed['child_returncode']}); the "
+            f"resumed server has the identical config blob and assignment "
+            f"and its replies agree with a freshly built server's "
+            f"({time.perf_counter() - t:.1f} s)")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    return dict(query_ms=query_ms, swaps=srv.swap_log, rf_trace=srv.rf_trace,
+                cold=cold, warm=warm, split=split, peak_gib=peak,
+                launches=launches, seeded=seeded, phase_s=phase_s)
+
+
+@contextlib.contextmanager
+def round_split(torch):
+    """Inside, the launcher's cold and warm rounds (its first two
+    ``serve_mix`` calls) are split, synchronized, into the engine's seed
+    tables, device loop and collection to the host: yields
+    {"cold"|"warm": {"seeds", "loop", "collect", "round"} in ms}."""
+    from repro_torch.graph import engine as eng
+    from repro_torch.launch import serve_graph as sg
+    split, label, order = {}, [], iter(("cold", "warm"))
+
+    def timed(fn, part):
+        def wrapped(*a, **kw):
+            if not label:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[label[0]][part] += (time.perf_counter() - t) * 1e3
+            return out
+        return wrapped
+
+    def serve_mix(srv, tickets):
+        label[:] = [next(order)]
+        split[label[0]] = dict(seeds=0.0, loop=0.0, collect=0.0, round=0.0)
+        try:
+            return timed(orig["serve_mix"], "round")(srv, tickets)
+        finally:
+            label.clear()
+
+    orig = {"serve_mix": sg.serve_mix}
+    parts = {"_warm_tables_many": "seeds", "_sim_gas_many": "loop",
+             "collect_master_values": "collect"}
+    for name, part in parts.items():
+        orig[name] = getattr(eng, name)
+        setattr(eng, name, timed(orig[name], part))
+    sg.serve_mix = serve_mix
+    try:
+        yield split
+    finally:
+        sg.serve_mix = orig.pop("serve_mix")
+        for name, fn in orig.items():
+            setattr(eng, name, fn)
 
 
 def main() -> int:
@@ -861,6 +1158,26 @@ def main() -> int:
                              for n, r in t_rows.items()}))
     log(f"[T] mean over the path's two walks {ms:.3f} ms/launch; bound "
         f"{bms:.4f} ms ({by}) plus the walks' dependent steps {lat:.3f} ms")
+
+    # ---------------------------------------------------------- phase 4b
+    # the serving phase swaps the session's layout: drop what phase 4 held
+    # of the old one first
+    del lay, ell, x, y, yp, csr, crow, r_idx, c_idx, order, xs, real
+    del src_t, dst_t, deg_t, div_t, ca, priors, clus
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    graph_serve_phase(torch, ops, sess, g, rows[-1])
+    # the grown session goes with its layout and device tables, so the
+    # LM phases' peaks hold no graph state (the resident memory it held
+    # is logged here)
+    grown = torch.cuda.memory_allocated()
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[graph-serve] resident device memory: {resident / 2**30:.3f} GiB "
+        f"before the phase, {grown / 2**30:.3f} after it, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} with the session "
+        "dropped")
 
     # ---------------------------------------------------------- phase 5
     gs = web_graph(scale=SMALL_SCALE, edge_factor=EDGE_FACTOR, seed=0)

@@ -37,7 +37,14 @@ def config_from_reference(json_text: str) -> SessionConfig:
     backend ``jit``/``np`` → ``torch``, game/cluster kernel ``pallas`` →
     ``cuda`` and ``xla`` → ``torch``.  Raises on what the port does not
     have yet (the scan game, the sharded backend, the quantized and
-    ragged exchanges)."""
+    ragged exchanges).
+
+    Two mappings change the game: ``backend="np"`` (the reference
+    session's default, which plays the host ``best_response_rounds``)
+    and an off-TPU ``kernel="auto"`` (which the reference resolves to
+    the Gauss–Seidel scan) both map to the port's Jacobi CSR game.  With
+    the game on the partitions therefore differ; with it off they are
+    bit-identical."""
     d = json.loads(json_text)
     backend = d.get("backend", "np")
     if backend not in _BACKENDS:

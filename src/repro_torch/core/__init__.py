@@ -6,6 +6,7 @@ from .game import game_rounds, greedy_assign  # noqa: F401
 from .transform import majority_vertex_map, transform  # noqa: F401
 from .pipeline import CLUGPConfig, CLUGPResult  # noqa: F401
 from .stages import (StageCtx, StageSet, PipelineOut, TORCH_STAGES,  # noqa: F401
-                     run_clugp_body, restream_loop)
+                     StreamState, incremental_assign, restream_assign,
+                     restream_loop, run_clugp_body, stream_state)
 from .partitioner import BACKENDS, partition, resolve_device  # noqa: F401
 from . import metrics  # noqa: F401

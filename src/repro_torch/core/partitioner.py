@@ -17,23 +17,11 @@ import torch
 from . import metrics
 from .clustering import ClusteringResult, default_vmax
 from .pipeline import CLUGPConfig, CLUGPResult
-from .stages import (TORCH_STAGES, CapOverflow, StageCtx, resolve_mode,
-                     run_clugp_body)
+from .stages import (TORCH_STAGES, CapOverflow, StageCtx,  # noqa: F401
+                     resolve_device, resolve_mode, run_clugp_body)
 
 BACKENDS = ("torch",)
 _BLOCK = 256          # game tables: m_cap pads to a multiple of this
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller names another device;
-    with no card and no explicit device it raises instead of quietly
-    running on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
-                           "run the plain versions on the CPU")
-    return torch.device("cuda")
 
 
 def _pad_to(n: int, mult: int) -> int:

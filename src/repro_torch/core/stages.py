@@ -10,6 +10,12 @@ static id/m caps of the partitioner's retry loop.
 The body records each stage's wall time (``PipelineOut.seconds``),
 synchronizing the card between stages so every time covers its own
 stage's device work.
+
+The serving entry points (``stream_state``, ``incremental_assign``,
+``restream_assign``) assign new edges against a resident partition and
+repair it by restreaming; they match the reference's host oracle
+(``HOST_STAGES``) bit for bit, with T's cap compared as the host
+compares it.
 """
 from __future__ import annotations
 
@@ -17,11 +23,24 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .clustering import compact_labels, streaming_clustering
 from .game import game_rounds, greedy_assign
-from .transform import majority_vertex_map, transform
+from .transform import majority_vertex_map, partition_counts, transform
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port runs on the card unless the caller names another device;
+    with no card and no explicit device it raises instead of quietly
+    running on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
+                           "run the plain versions on the CPU")
+    return torch.device("cuda")
 
 
 @dataclass(frozen=True)
@@ -227,3 +246,96 @@ def _prior(src, dst, assign, ctx, cfg):
 TORCH_STAGES = StageSet(cluster=_cluster, contract=_contract, game=_game,
                         vertex_part=_vertex_part, transform=_transform,
                         prior=_prior)
+
+
+# ---------------------------------------------------------------- serving
+# A resident partition takes live edges in windows (``incremental_assign``:
+# one Alg. 1 pass over the window against the loads it already carries)
+# and is repaired by restreaming when its RF drifts (``restream_assign``).
+# Both read one (V, k) count table of the resident assignment on the
+# device: the prior is its row argmax, the transform state its row sums
+# and row supports, the RF its support over V.
+
+class StreamState(NamedTuple):
+    """The transform's per-vertex state, derived from a resident
+    assignment instead of a clustering pass."""
+    deg: Any                   # (V,) int32 streamed endpoint degree
+    divided: Any               # (V,) bool: on two partitions or more
+
+
+def _on(x, device, dtype=torch.int32):
+    """A host array or a tensor as ``dtype`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x).astype(
+            np.bool_ if dtype == torch.bool else np.int32))
+    return x.to(device=device, dtype=dtype)
+
+
+def _state(cnt) -> StreamState:
+    return StreamState(cnt.sum(dim=1).to(torch.int32),
+                       (cnt > 0).sum(dim=1) > 1)
+
+
+def _rf(cnt) -> float:
+    """Σ_p |vertices in p| / V: the metric's exact integer count, divided
+    as ``metrics.replication_factor`` divides it."""
+    return int((cnt > 0).sum()) / float(cnt.shape[0])
+
+
+def stream_state(src, dst, assign, num_vertices: int, k: int, *,
+                 device=None) -> StreamState:
+    """``deg`` and ``divided`` of every vertex under an existing edge →
+    partition assignment, as tensors on ``device``."""
+    dev = resolve_device(device)
+    return _state(partition_counts(_on(src, dev), _on(dst, dev),
+                                   _on(assign, dev), num_vertices, k))
+
+
+def incremental_assign(src, dst, new_src, new_dst, assign,
+                       num_vertices: int, cfg, *,
+                       device=None) -> np.ndarray:
+    """Assign a new edge window against the resident partition: one Alg. 1
+    pass over the window on T, primed with the majority vertex map of the
+    current assignment (ties → the lowest partition) and seeded with the
+    current per-partition loads, under the cap τ·(E_old + E_new)/k of the
+    grown stream.  Returns the window's (E_new,) int32 assignment; the
+    resident one is untouched.  Vertices the resident stream never saw
+    have degree 0, are not divided and take prior 0."""
+    dev = resolve_device(device)
+    s, d, a = _on(src, dev), _on(dst, dev), _on(assign, dev)
+    cnt = partition_counts(s, d, a, num_vertices, cfg.k)
+    prior, state = torch.argmax(cnt, dim=1), _state(cnt)
+    del cnt
+    ws, wd = _on(new_src, dev), _on(new_dst, dev)
+    loads = torch.bincount(a.long(), minlength=cfg.k)
+    lmax = cfg.tau * (s.shape[0] + ws.shape[0]) / float(cfg.k)
+    out = transform(ws, wd, prior, state.deg, state.divided, cfg.k,
+                    cfg.tau, loads=loads, lmax=lmax)
+    return out.cpu().numpy()
+
+
+def restream_assign(src, dst, assign, num_vertices: int, cfg, *,
+                    passes: int = 1, device=None) -> tuple:
+    """Prioritized restream of the whole stream seeded by the current
+    assignment: ``passes`` Alg. 1 passes on T, each primed with the
+    previous pass's majority and using the degrees and divided flags of
+    the input assignment, under the cap τ·E/k compared as the host
+    oracle compares it.  Monotone: returns ``(best_assign, rf_trace)``,
+    the best-RF assignment seen (the input included) and the RF before
+    each pass (entry 0 is the input's)."""
+    dev = resolve_device(device)
+    s, d, cur = _on(src, dev), _on(dst, dev), _on(assign, dev)
+    cnt = partition_counts(s, d, cur, num_vertices, cfg.k)
+    st = _state(cnt)
+    lmax = cfg.tau * s.shape[0] / float(cfg.k)
+    best, best_rf = cur, _rf(cnt)
+    r, trace = best_rf, []
+    for _ in range(int(passes)):
+        trace.append(r)
+        cur = transform(s, d, torch.argmax(cnt, dim=1), st.deg, st.divided,
+                        cfg.k, cfg.tau, lmax=lmax)
+        cnt = partition_counts(s, d, cur, num_vertices, cfg.k)
+        r = _rf(cnt)
+        if r < best_rf:
+            best, best_rf = cur, r
+    return best.cpu().numpy(), tuple(trace)

@@ -6,8 +6,14 @@ the balance cap L_max = τ·|E|/k, walking the stream on the T kernel
 (``kernels.transform_scan``); ``majority_vertex_map``
 (``majority_vertex_map_jax``) is the prioritized-restream prior.  Both
 are bit-identical to the reference.
+
+``transform(..., loads=, lmax=)`` is the counterpart of the host oracle
+``transform_np``'s keywords: the walk starts from loads already carried
+and takes an explicit cap, compared as ``transform_np`` compares it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,27 +21,47 @@ from ..kernels.transform_scan import (transform_inputs, transform_scan,
                                       transform_scan_plain)
 
 
+# loads are exact in f32 below 2**24, so an integral cap up to it is too
+_F32_EXACT = 1 << 24
+
+
+def host_exact_cap(lmax: float) -> float:
+    """The cap T compares in f32 that decides as the host oracle's f64
+    ``load >= lmax`` does: for an integer load that holds exactly when
+    ``load >= ceil(lmax)``, and the ceiling is exact in f32 up to 2**24."""
+    cap = math.ceil(lmax)
+    if cap > _F32_EXACT:
+        raise ValueError(f"cap {lmax} is above 2**24, where f32 loads are "
+                         "no longer exact")
+    return float(cap)
+
+
 def transform(src, dst, vertex_part, deg, divided, k: int, tau: float = 1.0,
-              mask=None, kernel: str = "cuda"):
-    """Alg. 1 over int32 ``src``/``dst`` tensors under the cap
-    τ·E/k.  ``mask`` marks live edges (padding lanes get partition 0 and
-    add no load).  ``kernel="torch"`` walks with the plain version.
-    Returns (E,) int32."""
-    lmax = tau * src.shape[0] / float(k)
+              mask=None, kernel: str = "cuda", *, loads=None, lmax=None):
+    """Alg. 1 over int32 ``src``/``dst`` tensors.  ``mask`` marks live
+    edges (padding lanes get partition 0 and add no load).
+    ``kernel="torch"`` walks with the plain version.  Returns (E,) int32.
+
+    Without ``lmax`` the cap is τ·E/k compared in f32, as
+    ``transform_jax`` compares it.  With ``lmax`` (``transform_np``'s
+    keyword) the cap is compared as the host oracle compares it, in f64:
+    T gets ``host_exact_cap(lmax)``.  ``loads`` (a (k,) count) seeds the
+    walk with the loads already carried; None starts from zero."""
+    cap = tau * src.shape[0] / float(k) if lmax is None \
+        else host_exact_cap(lmax)
     pu, pv, normal = transform_inputs(src.long(), dst.long(),
                                       vertex_part.to(torch.int32),
                                       deg, divided.to(torch.bool),
                                       None if mask is None
                                       else mask.to(torch.bool))
     walk = transform_scan if kernel == "cuda" else transform_scan_plain
-    return walk(pu, pv, normal, k, lmax)
+    return walk(pu, pv, normal, k, cap, loads)
 
 
-def majority_vertex_map(src, dst, assign, num_vertices: int, k: int,
-                        mask=None):
-    """Per vertex, the partition holding most of its edges (ties → the
-    lowest partition id, as ``jnp.argmax``).  Masked lanes drop into one
-    extra row that is sliced off."""
+def partition_counts(src, dst, assign, num_vertices: int, k: int,
+                     mask=None):
+    """(V, k) int32: per vertex, its edge endpoints in each partition.
+    Masked lanes drop into one extra row that is sliced off."""
     src, dst = src.long(), dst.long()
     if mask is not None:
         src = torch.where(mask, src, num_vertices)
@@ -46,5 +72,12 @@ def majority_vertex_map(src, dst, assign, num_vertices: int, k: int,
     one = torch.ones(src.shape[0], dtype=torch.int32, device=src.device)
     cnt.index_add_(0, src * k + a, one)
     cnt.index_add_(0, dst * k + a, one)
-    return torch.argmax(cnt.view(num_vertices + 1, k)[:num_vertices],
-                        dim=1).to(torch.int32)
+    return cnt.view(num_vertices + 1, k)[:num_vertices]
+
+
+def majority_vertex_map(src, dst, assign, num_vertices: int, k: int,
+                        mask=None):
+    """Per vertex, the partition holding most of its edges (ties → the
+    lowest partition id, as ``jnp.argmax``)."""
+    cnt = partition_counts(src, dst, assign, num_vertices, k, mask)
+    return torch.argmax(cnt, dim=1).to(torch.int32)

@@ -7,6 +7,9 @@
 // padding lanes) is computed beforehand, vectorized; this kernel decides
 // the rest against the running (k,) load table:
 //   full(p)  <=>  (float)loads[p] >= lmax (f32, as the JAX jit path);
+//   the loads start from loads0 when it is given (the window assignment
+//   of a resident partition: src/repro/core/transform.py transform_np's
+//   loads=), else from 0;
 //   normal < 0: partition 0, no load;  neither endpoint full: normal;
 //   exactly one full: the other one;  both full: the first-index
 //   least-loaded partition;  the chosen partition's load += 1.
@@ -49,7 +52,8 @@
 // loads while chunk i is decided.  The kernel also counts its tiers
 // (chunks per tier, edges walked, both-full edges) into `stats`, so a run
 // can say where the time went; kernels/transform_scan.py emulates the
-// same tiers on the host.
+// same tiers on the host.  Seeded loads change none of this: F starts as
+// the partitions full at loads0 and still only grows.
 #include "common.cuh"
 
 namespace {
@@ -172,7 +176,8 @@ template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
     transform_scan_kernel(const int* __restrict__ pu,
                           const int* __restrict__ pv,
-                          const int* __restrict__ normal, long long E, int k,
+                          const int* __restrict__ normal,
+                          const int* __restrict__ loads0, long long E, int k,
                           float lmax, int* __restrict__ out,
                           long long* __restrict__ stats) {
   extern __shared__ __align__(16) long long cnt[];   // kStats, then:
@@ -185,15 +190,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* nboth = (int*)(fw + R);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int p = tid; p < k; p += kThreads) loads[p] = 0;
+  for (int p = tid; p < k; p += kThreads) loads[p] = loads0 ? loads0[p] : 0;
   for (int i = tid; i < kWarps * k; i += kThreads) whist[i] = 0;
   if (tid < kStats) cnt[tid] = 0;
   if (tid == 0) *nboth = 0;
   __syncthreads();
-  // F from the zero loads (lmax <= 0 makes every partition full at once)
+  // F from the starting loads (lmax <= 0 makes every partition full)
   for (int q = warp; q < R; q += kWarps) {
-    const unsigned f = __ballot_sync(kFull, q * 32 + lane < k &&
-                                                is_full(0, lmax));
+    const int p = q * 32 + lane;
+    const unsigned f = __ballot_sync(kFull, p < k && is_full(loads[p], lmax));
     if (lane == 0) fw[q] = f;
   }
   const long long n_chunks = (E + kChunk - 1) / kChunk;
@@ -377,9 +382,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int R>
-int launch(const int* pu, const int* pv, const int* normal, int* out,
-           long long* stats, long long E, int k, float lmax,
-           cudaStream_t stream) {
+int launch(const int* pu, const int* pv, const int* normal,
+           const int* loads0, int* out, long long* stats, long long E, int k,
+           float lmax, cudaStream_t stream) {
   const size_t smem = sizeof(long long) * kStatsPad +
                       sizeof(int) * (7 * (size_t)kChunk + 2 * (size_t)k +
                                      (size_t)kWarps * k + R + 1);
@@ -387,21 +392,24 @@ int launch(const int* pu, const int* pv, const int* normal, int* out,
       transform_scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  transform_scan_kernel<R><<<1, kThreads, smem, stream>>>(pu, pv, normal, E,
-                                                          k, lmax, out, stats);
+  transform_scan_kernel<R><<<1, kThreads, smem, stream>>>(
+      pu, pv, normal, loads0, E, k, lmax, out, stats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // k <= 1024 (kernels/transform_scan.py MAX_K); pu, pv and normal 16-byte
-// aligned; stats has kStats int64 slots.
+// aligned; loads0 is null (zero loads) or k non-negative counts whose sum
+// with E fits int32; stats has kStats int64 slots.
 extern "C" int t_transform_scan(const int* pu, const int* pv,
-                                const int* normal, int* out, long long* stats,
-                                int E, int k, float lmax,
-                                cudaStream_t stream) {
+                                const int* normal, const int* loads0,
+                                int* out, long long* stats, int E, int k,
+                                float lmax, cudaStream_t stream) {
   if (E <= 0) return 0;
-  if (k <= 64) return launch<2>(pu, pv, normal, out, stats, E, k, lmax, stream);
-  if (k <= 256) return launch<8>(pu, pv, normal, out, stats, E, k, lmax, stream);
-  return launch<32>(pu, pv, normal, out, stats, E, k, lmax, stream);
+  if (k <= 64)
+    return launch<2>(pu, pv, normal, loads0, out, stats, E, k, lmax, stream);
+  if (k <= 256)
+    return launch<8>(pu, pv, normal, loads0, out, stats, E, k, lmax, stream);
+  return launch<32>(pu, pv, normal, loads0, out, stats, E, k, lmax, stream);
 }

@@ -445,20 +445,21 @@ def _np_dtype(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
-def _warm_tables(layout: PartitionLayout, dtype, init_values, device):
+def _warm_tables(dev, dtype, init_values):
     """Host dense (V_old,) warm vector → per-slot (k, L_max) values and
-    validity.  Vertices the old vector knew (gid < len) seed from it;
-    the rest keep ``program.init``; an empty vector is the cold run."""
+    validity, gathered on the device through the cached slot gids (the
+    host casts and uploads only the (V_old,) vector).  Vertices the old
+    vector knew (gid < len) seed from it; the rest keep ``program.init``;
+    an empty vector is the cold run."""
     dense = (np.zeros(0) if init_values is None
              else np.asarray(init_values))
     n = dense.shape[0]
-    gid = layout.vert_gid
-    known = layout.vert_mask & (gid < n)
-    safe = np.clip(gid, 0, max(n - 1, 0))
-    vals = np.where(known, dense[safe] if n else 0, 0).astype(
-        _np_dtype(dtype))
-    return (torch.from_numpy(vals).to(device),
-            torch.from_numpy(known).to(device))
+    gid = dev["vert_gid"]
+    known = dev["vert_mask"] & (gid < n)
+    if not n:
+        return torch.zeros(gid.shape, dtype=dtype, device=gid.device), known
+    vals = torch.from_numpy(dense.astype(_np_dtype(dtype))).to(gid.device)
+    return torch.where(known, vals[gid.long().clamp(0, n - 1)], 0), known
 
 
 def _run_loop(body, value, state, iters: int, tol, mask):
@@ -491,7 +492,7 @@ def collect_master_values(layout: PartitionLayout, stacked) -> np.ndarray:
 
 
 def simulate_gas(program: GASProgram, layout: PartitionLayout,
-                 iters: int = 30, exchange: str = "halo", *,
+                 iters: int = 30, exchange: str = "dense", *,
                  tol: float | None = None, overlap: bool = False,
                  init_values=None, return_iters: bool = False,
                  device=None):
@@ -507,20 +508,20 @@ def simulate_gas(program: GASProgram, layout: PartitionLayout,
     ex = get_exchange(exchange)
     dev = stack_dev(layout, exchange, device)
     warm = (None if init_values is None
-            else _warm_tables(layout, program.dtype, init_values, device))
+            else _warm_tables(dev, program.dtype, init_values))
     value, iters_run = _sim_gas(program, dev, iters, ex, tol, warm)
     dense = collect_master_values(layout, value)
     return (dense, iters_run) if return_iters else dense
 
 
 def simulate_pagerank(layout: PartitionLayout, iters: int = 30,
-                      exchange: str = "halo", **kw):
+                      exchange: str = "dense", **kw):
     return simulate_gas(pagerank_program(layout.num_vertices), layout,
                         iters, exchange, **kw)
 
 
 def simulate_cc(layout: PartitionLayout, iters: int = 30,
-                exchange: str = "halo", **kw):
+                exchange: str = "dense", **kw):
     out = simulate_gas(CC_PROGRAM, layout, iters, exchange, **kw)
     if kw.get("return_iters"):
         value, iters_run = out
@@ -603,18 +604,17 @@ def _sim_gas_many(fused: FusedGAS, dev, iters: int, ex, tol=None,
                      tol, _masters(dev)[:, None, :])
 
 
-def _warm_tables_many(layout: PartitionLayout, fused: FusedGAS,
-                      init_values, device):
+def _warm_tables_many(dev, fused: FusedGAS, init_values):
     """Per-program warm tables stacked on the program axis: one dense
     (V_old,) vector or None (a cold start) per program."""
-    pairs = [_warm_tables(layout, fused.dtype, iv, device)
+    pairs = [_warm_tables(dev, fused.dtype, iv)
              for iv in init_values]
     return (torch.stack([v for v, _ in pairs], dim=1),
             torch.stack([m for _, m in pairs], dim=1))
 
 
 def simulate_gas_many(programs, layout: PartitionLayout, iters: int = 30,
-                      exchange: str = "halo", *, tol: float | None = None,
+                      exchange: str = "dense", *, tol: float | None = None,
                       overlap: bool = False, init_values=None,
                       return_iters: bool = False, device=None):
     """Stacked one-device driver for a fused bundle; returns one dense
@@ -627,7 +627,7 @@ def simulate_gas_many(programs, layout: PartitionLayout, iters: int = 30,
     ex = get_exchange(exchange)
     dev = stack_dev(layout, exchange, device)
     warm = (None if init_values is None
-            else _warm_tables_many(layout, fused, init_values, device))
+            else _warm_tables_many(dev, fused, init_values))
     value, iters_run = _sim_gas_many(fused, dev, iters, ex, tol, warm)
     dense = [collect_master_values(layout, value[:, i])
              for i in range(len(fused.programs))]

@@ -62,13 +62,16 @@ class PartitionLayout:
     EXCHANGE_TABLES = {"dense": ("owner", "own_slot", "red_index"),
                        "halo": ("halo_send", "halo_recv")}
 
-    def device_arrays(self, exchange: str = "halo") -> dict:
-        """The numpy tables one exchange needs (leading k axis)."""
-        if exchange not in self.EXCHANGE_TABLES:
+    def device_arrays(self, exchange: str | None = None) -> dict:
+        """The numpy tables one exchange needs (leading k axis); None
+        gives every exchange's tables."""
+        if exchange is not None and exchange not in self.EXCHANGE_TABLES:
             raise ValueError(
                 f"unknown exchange {exchange!r}; the port has "
                 f"{sorted(self.EXCHANGE_TABLES)}")
-        keys = self.COMMON_TABLES + self.EXCHANGE_TABLES[exchange]
+        keys = self.COMMON_TABLES + (
+            tuple(t for ts in self.EXCHANGE_TABLES.values() for t in ts)
+            if exchange is None else self.EXCHANGE_TABLES[exchange])
         return {f: getattr(self, f) for f in keys}
 
 

@@ -102,6 +102,8 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _arg(x):
     import torch
+    if x is None:                       # an optional input left out
+        return ctypes.c_void_p(None)
     if isinstance(x, torch.Tensor):
         return ctypes.c_void_p(x.data_ptr())
     if isinstance(x, bool):
@@ -115,8 +117,8 @@ def _arg(x):
 
 def launch(lib_name: str, fn_name: str, *args) -> None:
     """Call ``fn_name`` of ``lib_name`` on PyTorch's current stream and
-    count one launch of that kernel.  Tensors pass as device pointers, Python ints
-    as C ints, floats as C floats."""
+    count one launch of that kernel.  Tensors pass as device pointers, None as
+    a null pointer, Python ints as C ints, floats as C floats."""
     import torch
     cargs = [_arg(a) for a in args]
     cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))

@@ -14,6 +14,11 @@ the source's header).  ``transform_scan_tiered_plain`` emulates those
 tiers on the host, chunk size and decisions included, and counts them as
 the kernel does: it is what the tests hold against the reference, since
 the kernel cannot run on the CPU.
+
+Every walk takes an optional ``loads0``, the (k,) loads already carried
+(the reference's ``transform_np(..., loads=)``): a window of new edges is
+then assigned against a resident partition's loads.  Without it the walk
+starts from zero loads, as ``transform_jax`` does.
 """
 from __future__ import annotations
 
@@ -50,12 +55,18 @@ def transform_inputs(src, dst, vertex_part, deg, divided, live=None):
             normal.to(torch.int32).contiguous())
 
 
-def transform_scan_plain(pu, pv, normal, k: int, lmax: float):
-    """The walk in Python over host copies; returns on the inputs'
-    device.  The cap test is an f32 compare, as in the reference's jit
-    path: loads below 2**24 are exact in f32."""
+def _start_loads(loads0, k: int) -> list:
+    return [0] * k if loads0 is None else \
+        [int(x) for x in torch.as_tensor(loads0).cpu().tolist()]
+
+
+def transform_scan_plain(pu, pv, normal, k: int, lmax: float, loads0=None):
+    """The walk in Python over host copies, from the loads ``loads0``
+    (zero when None); returns on the inputs' device.  The cap test is an
+    f32 compare, as in the reference's jit path: loads below 2**24 are
+    exact in f32."""
     out = _walk(pu.cpu().tolist(), pv.cpu().tolist(), normal.cpu().tolist(),
-                [0] * k, float(np.float32(lmax)))
+                _start_loads(loads0, k), float(np.float32(lmax)))
     return torch.tensor(out, dtype=torch.int32, device=pu.device)
 
 
@@ -85,8 +96,10 @@ def _walk(a, b, nm, loads, lmax, frozen=None):
     return out
 
 
-def transform_scan_tiered_plain(pu, pv, normal, k: int, lmax: float):
-    """The kernel's tiered walk on the host, chunk by chunk: speculate
+def transform_scan_tiered_plain(pu, pv, normal, k: int, lmax: float,
+                                loads0=None):
+    """The kernel's tiered walk on the host from the loads ``loads0``
+    (zero when None), chunk by chunk: speculate
     every choice from the chunk's starting full set F; keep them when no
     edge is both-full and no partition outside F fills (parallel); else
     walk with F frozen and keep that when no partition filled (frozen);
@@ -94,7 +107,7 @@ def transform_scan_tiered_plain(pu, pv, normal, k: int, lmax: float):
     tier counts keyed by ``TIER_KEYS``)."""
     lmax = float(np.float32(lmax))
     a_all, b_all, n_all = (t.cpu().numpy() for t in (pu, pv, normal))
-    loads = np.zeros(k, np.int64)
+    loads = np.array(_start_loads(loads0, k), np.int64)
     out = np.zeros(a_all.shape[0], np.int32)
     tiers = dict.fromkeys(TIER_KEYS, 0)
 
@@ -136,16 +149,24 @@ def transform_scan_tiered_plain(pu, pv, normal, k: int, lmax: float):
     return torch.from_numpy(out).to(pu.device), tiers
 
 
-def _check(pu, pv, normal, k):
+def _check(pu, pv, normal, k, loads0):
     E = pu.shape[0]
     if pv.shape != (E,) or normal.shape != (E,):
         raise ValueError("transform_scan: inconsistent shapes")
     if not 0 < k <= MAX_K:
         raise ValueError(f"transform_scan: k={k} is outside 1..{MAX_K} (the "
                          "walk keeps the loads in a warp's registers)")
+    if loads0 is not None:
+        loads0 = torch.as_tensor(loads0)
+        if loads0.shape != (k,):
+            raise ValueError(f"transform_scan: loads0 must have shape ({k},)")
+        if int(loads0.min()) < 0 or int(loads0.max()) + E >= 2 ** 31:
+            raise ValueError("transform_scan: seeded loads must be "
+                             "non-negative and, with the stream's edges, "
+                             "fit int32")
 
 
-def _launch(pu, pv, normal, k, lmax):
+def _launch(pu, pv, normal, k, lmax, loads0):
     E = pu.shape[0]
     if {pu.dtype, pv.dtype, normal.dtype} != {torch.int32}:
         raise ValueError("transform_scan: inputs must be int32")
@@ -153,25 +174,29 @@ def _launch(pu, pv, normal, k, lmax):
     if any(t.data_ptr() % 16 for t in (pu, pv, normal)):
         raise ValueError("transform_scan: inputs must be 16-byte aligned "
                          "(the kernel stages them with 16-byte copies)")
+    if loads0 is not None:
+        loads0 = torch.as_tensor(loads0).to(device=pu.device,
+                                            dtype=torch.int32).contiguous()
     out = torch.empty(E, dtype=torch.int32, device=pu.device)
     stats = torch.zeros(len(TIER_KEYS), dtype=torch.int64, device=pu.device)
-    _build.launch("transform_scan", "t_transform_scan", pu, pv, normal, out,
-                  stats, int(E), int(k), float(lmax))
+    _build.launch("transform_scan", "t_transform_scan", pu, pv, normal,
+                  loads0, out, stats, int(E), int(k), float(lmax))
     return out, stats
 
 
-def transform_scan(pu, pv, normal, k: int, lmax: float):
+def transform_scan(pu, pv, normal, k: int, lmax: float, loads0=None):
     """Edge → partition under the balance cap ``lmax`` (rounded to f32),
-    for 1 ≤ k ≤ ``MAX_K``.  Returns (E,) int32."""
-    _check(pu, pv, normal, k)
+    for 1 ≤ k ≤ ``MAX_K``, from the loads ``loads0`` (a (k,) count; zero
+    when None).  Returns (E,) int32."""
+    _check(pu, pv, normal, k, loads0)
     if pu.device.type == "cpu":
-        return transform_scan_plain(pu, pv, normal, k, lmax)
-    return _launch(pu, pv, normal, k, lmax)[0]
+        return transform_scan_plain(pu, pv, normal, k, lmax, loads0)
+    return _launch(pu, pv, normal, k, lmax, loads0)[0]
 
 
-def transform_scan_tiers(pu, pv, normal, k: int, lmax: float):
+def transform_scan_tiers(pu, pv, normal, k: int, lmax: float, loads0=None):
     """``transform_scan`` on CUDA tensors that also returns the kernel's
     tier counts (keyed by ``TIER_KEYS``): where a run's walk went."""
-    _check(pu, pv, normal, k)
-    out, stats = _launch(pu, pv, normal, k, lmax)
+    _check(pu, pv, normal, k, loads0)
+    out, stats = _launch(pu, pv, normal, k, lmax, loads0)
     return out, dict(zip(TIER_KEYS, stats.tolist()))

@@ -17,10 +17,13 @@ config.
 
 The session runs on the card unless ``device=`` names another device;
 with no card and no ``device`` it raises.  ``backend="torch"`` is the
-counterpart of the reference's ``"jit"`` backend; ``run`` takes any of
-``PROGRAMS`` (the ``repro_torch.graph.engine`` library) or a
-``GASProgram``, over the ``"dense"`` or ``"halo"`` exchange, on one
-device: the reference's ``mesh`` and ``overlap`` are not ported.
+counterpart of the reference's ``"jit"`` backend; ``with_partition``
+adopts an external edge → partition assignment instead, and
+``snapshot``/``from_snapshot`` carry graph and partition across a
+restart (``repro_torch.serve``).  ``run`` takes any of ``PROGRAMS`` (the
+``repro_torch.graph.engine`` library) or a ``GASProgram``, over the
+``"dense"`` or ``"halo"`` exchange, on one device: the reference's
+``mesh`` and ``overlap`` are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .core import metrics
 from .core.partitioner import BACKENDS, partition, resolve_device
 from .core.pipeline import CLUGPConfig, CLUGPResult
 from .dist.halo import EXCHANGE_NAMES
@@ -123,19 +127,74 @@ class GraphSession:
 
     def partition(self, src, dst, num_vertices: int) -> "GraphSession":
         """Run CLUGP on the edge stream."""
-        self._src = np.asarray(src)
-        self._dst = np.asarray(dst)
-        self._num_vertices = int(num_vertices)
-        self._layout = None
+        self._adopt_graph(src, dst, num_vertices)
         self.result = partition(self._src, self._dst, self._num_vertices,
                                 self.cfg.clugp, backend=self.cfg.backend,
                                 device=self.device)
         return self
 
+    def with_partition(self, src, dst, num_vertices: int,
+                       assign) -> "GraphSession":
+        """Adopt an externally computed edge → partition assignment, so
+        the layout and the engine work on it."""
+        self._adopt_graph(src, dst, num_vertices)
+        assign = np.asarray(assign)
+        if assign.shape[0] != self._src.shape[0]:
+            raise ValueError(
+                f"assignment covers {assign.shape[0]} edges but the "
+                f"stream has {self._src.shape[0]}")
+        res = CLUGPResult(assign, None, None, 0)
+        res.stats = metrics.summarize(self._src, self._dst, assign,
+                                      self._num_vertices, self.k)
+        res.stats["backend"] = "external"
+        self.result = res
+        return self
+
+    def _adopt_graph(self, src, dst, num_vertices: int) -> None:
+        self._src = np.asarray(src)
+        self._dst = np.asarray(dst)
+        self._num_vertices = int(num_vertices)
+        self._layout = None
+        self.result = None
+
     def _require_partition(self) -> None:
         if self.result is None:
             raise RuntimeError("GraphSession: no partition yet — call "
-                               "partition(src, dst, V) first")
+                               "partition(src, dst, V) or "
+                               "with_partition(...) first")
+
+    @property
+    def num_vertices(self) -> int:
+        if self._num_vertices is None:
+            raise RuntimeError("GraphSession: no graph yet — call "
+                               "partition(...) or with_partition(...)")
+        return self._num_vertices
+
+    @property
+    def edges(self) -> tuple:
+        """(src, dst) of the adopted edge stream."""
+        if self._src is None:
+            raise RuntimeError("GraphSession: no graph yet — call "
+                               "partition(...) or with_partition(...)")
+        return self._src, self._dst
+
+    def snapshot(self) -> dict:
+        """Host copies of the session's graph and partition (``src``,
+        ``dst``, ``assign``): with ``to_json()`` and ``num_vertices``,
+        what ``from_snapshot`` rebuilds the session from."""
+        self._require_partition()
+        return {"src": np.asarray(self._src).copy(),
+                "dst": np.asarray(self._dst).copy(),
+                "assign": np.asarray(self.result.assign).copy()}
+
+    @classmethod
+    def from_snapshot(cls, config_json: str, tree: dict, num_vertices: int,
+                      *, device=None) -> "GraphSession":
+        """A session from ``to_json()`` and ``snapshot()``: the same config
+        blob, edges and assignment, with no partitioning."""
+        sess = cls.from_json(config_json, device=device)
+        return sess.with_partition(tree["src"], tree["dst"], num_vertices,
+                                   tree["assign"])
 
     @property
     def assign(self) -> np.ndarray:

@@ -213,6 +213,118 @@ def test_transform_tiers_on_card(dev, name):
     assert tiers == want_tiers
 
 
+def _seeded_stream(start, k, seed=0):
+    """(pu, pv, normal, k, loads0, cap) of tests/test_torch_kernels.py's
+    ``_seeded_case`` streams (the same generator, without JAX): loads that
+    start below, at, over or all at the cap, or mixed."""
+    from repro_torch.kernels.transform_scan import CHUNK as C
+    rng = np.random.default_rng(seed)
+    E = 3 * C + C // 2
+    a = (rng.zipf(1.6, E) - 1) % k
+    b = rng.integers(0, k, E)
+    src = torch.from_numpy(4 * a + rng.integers(0, 4, E))
+    dst = torch.from_numpy(4 * b + rng.integers(0, 4, E))
+    vp = torch.from_numpy(np.repeat(np.arange(k), 4).astype(np.int32))
+    deg = torch.from_numpy(rng.integers(1, 20, 4 * k).astype(np.int32))
+    divided = torch.from_numpy(rng.random(4 * k) < 0.2)
+    base = rng.integers(0, 2000, k)
+    cap = 1.1 * (base.sum() + E) / k + 0.37
+    c = int(np.ceil(cap))
+    loads = {"below": base,
+             "at": np.where(np.arange(k) % 3 == 0, c, base),
+             "over": np.where(np.arange(k) % 4 == 1, c + rng.integers(
+                 1, 500, k), base),
+             "all": c + rng.integers(0, 50, k),
+             "mixed": np.where(base > 1500, c - rng.integers(0, 40, k),
+                               base)}[start]
+    pu, pv, nm = ops.transform_inputs(src, dst, vp, deg, divided)
+    return pu, pv, nm, k, torch.from_numpy(loads.astype(np.int64)), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,k", [("below", 4), ("at", 8), ("over", 8),
+                                     ("all", 3), ("mixed", 64),
+                                     ("at", 200)])
+def test_transform_seeded_on_card(dev, start, k):
+    """T from seeded loads (``loads0``) against the plain walk bit for
+    bit, and its tier counts against the host emulation's, under the
+    host-exact cap; without ``loads0`` it equals the zero-load walk."""
+    from repro_torch.core.transform import host_exact_cap
+    pu, pv, nm, k, loads, cap = _seeded_stream(start, k)
+    hcap = host_exact_cap(cap)
+    got, tiers = ops.transform_scan_tiers(pu.to(dev), pv.to(dev), nm.to(dev),
+                                          k, hcap, loads.to(dev))
+    want, want_tiers = ops.transform_scan_tiered_plain(pu, pv, nm, k, hcap,
+                                                       loads)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, ops.transform_scan_plain(pu, pv, nm, k, hcap,
+                                                      loads))
+    assert tiers == want_tiers
+    zero = ops.transform_scan(pu.to(dev), pv.to(dev), nm.to(dev), k, hcap)
+    assert torch.equal(zero.cpu(),
+                       ops.transform_scan_plain(pu, pv, nm, k, hcap))
+
+
+@pytest.mark.cuda
+def test_graph_server_on_card_matches_cpu(dev, tmp_path):
+    """A short GraphServer run at scale 12 on the card and on the CPU from
+    the same assignment: replies agree (integers equal, pagerank within
+    rtol 1e-5), each window and restream assigns the same edges, the RF
+    trace and stats are equal, T launches once a flush plus twice a
+    restream, and a checkpoint resumes on the card."""
+    from repro_torch.core import CLUGPConfig, web_graph
+    from repro_torch.dist.ft import ServiceFT
+    from repro_torch.launch.serve_graph import replies_agree
+    from repro_torch.serve import GraphServer
+    from repro_torch.session import GraphSession, SessionConfig
+    g = web_graph(scale=12, seed=0)
+    cfg = SessionConfig(clugp=CLUGPConfig.optimized(8, restream=1),
+                        exchange="halo", iters=20)
+    card = GraphSession(cfg, device=dev).partition(g.src, g.dst,
+                                                   g.num_vertices)
+    cpu = GraphSession(cfg, device="cpu").with_partition(
+        g.src, g.dst, g.num_vertices, card.assign)
+    kw = dict(max_batch=8, window=1024, rf_watermark=1.01,
+              restream_passes=2)
+    servers = [GraphServer(s.layout(), **kw) for s in (card, cpu)]
+    rng = np.random.default_rng(2)
+    arrivals = [(rng.integers(0, g.num_vertices, 256),
+                 rng.integers(0, g.num_vertices, 256)) for _ in range(8)]
+    replies, launches = [], []
+    for srv in servers:
+        ops.reset_launch_counts()
+        got = []
+        for phase in range(2):
+            ts = [srv.submit("score", program=p, vertices=[0, 5, 99])
+                  for p in ("pagerank", "degree", "cc", "labelprop")]
+            ts += [srv.submit("owner", vertices=[0, 5, 99]),
+                   srv.submit("neighbors", vertices=[5])]
+            srv.serve_pending()
+            got.append([srv.result(t).value for t in ts])
+            if phase == 0:
+                for s, d in arrivals:
+                    srv.ingest(s, d)
+        replies.append(got)
+        launches.append(ops.launch_counts())
+    card_srv, cpu_srv = servers
+    st = card_srv.stats
+    assert launches[0]["transform_scan"] == st["windows"] + 2 * st["restreams"]
+    assert launches[0]["ell_spmv"] > 0
+    assert launches[1] == {}                   # the CPU run launches nothing
+    for a, b in zip(*replies):
+        for x, y in zip(a[:5], b[:5]):
+            assert replies_agree(x, y, None)
+        assert np.array_equal(a[5][0], b[5][0])
+    assert card_srv.stats == cpu_srv.stats and card_srv.stats["restreams"]
+    assert card_srv.rf_trace == cpu_srv.rf_trace
+    assert np.array_equal(card_srv.sess.assign, cpu_srv.sess.assign)
+    card_srv.ft = ServiceFT(tmp_path)
+    card_srv.checkpoint()
+    resumed = GraphServer.resume(ServiceFT(tmp_path), device=dev)
+    assert resumed.sess.device.type == "cuda"
+    assert np.array_equal(resumed.sess.assign, card_srv.sess.assign)
+
+
 @pytest.mark.cuda
 def test_transform_scan_scale16_on_card(dev):
     """T on a scale-16 web graph's transform inputs (a random prior, the

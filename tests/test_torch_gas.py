@@ -306,6 +306,59 @@ def test_warm_start_fused_matches_jax(case):
         _same(g, w, name)
 
 
+# the engine drivers called without ``exchange``: (module, layout, V) →
+# the driver's output
+DEFAULT_DRIVERS = {
+    "simulate_gas": lambda M, lay, n, **kw: M.simulate_gas(
+        M.get_program("pagerank", n), lay, 30, **kw),
+    "simulate_pagerank": lambda M, lay, n, **kw: M.simulate_pagerank(
+        lay, 30, **kw),
+    "simulate_cc": lambda M, lay, n, **kw: M.simulate_cc(lay, 40, **kw),
+    "simulate_gas_many": lambda M, lay, n, **kw: M.simulate_gas_many(
+        [M.get_program(p, n) for p in I32_BUNDLE], lay, 40, **kw)}
+
+
+@pytest.mark.parametrize("driver", list(DEFAULT_DRIVERS))
+def test_drivers_default_to_the_reference_exchange(case, driver,
+                                                   monkeypatch):
+    """Each driver called without ``exchange`` runs the reference's
+    default wire ("dense") and matches the JAX driver called the same
+    way."""
+    calls = []
+    real = phalo.get_exchange
+    monkeypatch.setattr(P.engine, "get_exchange",
+                        lambda name: calls.append(name) or real(name))
+    run = DEFAULT_DRIVERS[driver]
+    want = run(J, case["jl"], case["n"])
+    got = run(P, case["pl"], case["n"], device="cpu")
+    assert calls and set(calls) == {"dense"}
+    if driver == "simulate_gas_many":
+        for g, w, name in zip(got, want, I32_BUNDLE):
+            _same(g, w, name)
+    elif driver == "simulate_cc":
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, np.asarray(want))
+    else:
+        _same(got, want, "pagerank")
+
+
+def test_device_arrays_without_exchange_hold_every_table(case):
+    """``device_arrays(None)`` holds the tables of every exchange the port
+    has: the reference's set, less what only its unported wires read."""
+    jl, pl = case["jl"], case["pl"]
+    ported = set(pl.EXCHANGE_TABLES)
+    only_unported = {t for ex, ts in jl.EXCHANGE_TABLES.items()
+                     if ex not in ported for t in ts} - {
+        t for ex in ported for t in jl.EXCHANGE_TABLES[ex]}
+    got, want = pl.device_arrays(None), jl.device_arrays(None)
+    assert set(got) == set(want) - only_unported
+    assert set(got) == set(pl.device_arrays())
+    for ex in ported:
+        assert set(pl.device_arrays(ex)) == set(jl.device_arrays(ex))
+    for name, arr in got.items():
+        np.testing.assert_array_equal(arr, want[name], err_msg=name)
+
+
 def test_residual_differences_integers_without_overflow():
     """max − min in int32: a sentinel against 0 reads 2³¹−1, not a
     wrapped negative; masked slots are ignored."""

@@ -420,6 +420,81 @@ def test_transform_tiered_walk_matches_reference(name):
     assert tiers["exact"] <= k + tiers["redone"]
 
 
+def _seeded_case(start, k, seed=0):
+    """A stream of three and a half chunks over four vertices a partition,
+    the (k,) loads it starts from and a fractional cap: ``below`` (no
+    partition near the cap), ``at`` (some exactly at ceil(cap), so full),
+    ``over`` (some past it), ``all`` (every partition full: each edge
+    takes the least-loaded partition), ``mixed`` (a spread that fills
+    partitions through the stream)."""
+    from repro_torch.kernels.transform_scan import CHUNK as C
+    rng = np.random.default_rng(seed)
+    E = 3 * C + C // 2
+    a = (rng.zipf(1.6, E) - 1) % k
+    b = rng.integers(0, k, E)
+    src = (4 * a + rng.integers(0, 4, E)).astype(np.int32)
+    dst = (4 * b + rng.integers(0, 4, E)).astype(np.int32)
+    vp = np.repeat(np.arange(k), 4).astype(np.int32)
+    deg = rng.integers(1, 20, 4 * k).astype(np.int32)
+    divided = rng.random(4 * k) < 0.2
+    base = rng.integers(0, 2000, k)
+    cap = 1.1 * (base.sum() + E) / k + 0.37
+    c = int(np.ceil(cap))
+    loads = {"below": base,
+             "at": np.where(np.arange(k) % 3 == 0, c, base),
+             "over": np.where(np.arange(k) % 4 == 1, c + rng.integers(
+                 1, 500, k), base),
+             "all": c + rng.integers(0, 50, k),
+             "mixed": np.where(base > 1500, c - rng.integers(0, 40, k),
+                               base)}[start]
+    return src, dst, vp, deg, divided, k, loads.astype(np.int64), cap
+
+
+@pytest.mark.parametrize("start,k", [("below", 4), ("at", 8), ("over", 8),
+                                     ("all", 3), ("mixed", 64),
+                                     ("at", 200)])
+def test_seeded_walks_match_host_oracle(start, k):
+    """The walks from seeded loads (the plain walk, the tiered emulation
+    and ``core.transform.transform(loads=, lmax=)``) against the host
+    oracle ``transform_np(loads=, lmax=)``, bit for bit, under a
+    fractional cap compared as the host compares it."""
+    from repro.core.transform import transform_np
+    from repro_torch.core.transform import host_exact_cap, transform
+    src, dst, vp, deg, divided, k, loads, cap = _seeded_case(start, k)
+    want = transform_np(src, dst, vp, deg, divided, k, loads=loads,
+                        lmax=cap)
+    pu, pv, nm = ops.transform_inputs(_t(src).long(), _t(dst).long(),
+                                      _t(vp), _t(deg), _t(divided))
+    hcap = host_exact_cap(cap)
+    np.testing.assert_array_equal(
+        ops.transform_scan_plain(pu, pv, nm, k, hcap, _t(loads)).numpy(),
+        want)
+    got, tiers = ops.transform_scan_tiered_plain(pu, pv, nm, k, hcap,
+                                                 loads)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        transform(_t(src), _t(dst), _t(vp), _t(deg), _t(divided), k,
+                  loads=_t(loads), lmax=cap).numpy(), want)
+    assert sum(tiers[t] for t in ("parallel", "frozen", "exact")) == 4
+    if start == "all":       # every edge is both-full from the start
+        assert tiers["both_edges"] == src.shape[0]
+    elif start != "below":   # partitions full at the start change choices
+        assert tiers["both_edges"] > 0 or tiers["exact"] > 0
+
+
+def test_seeded_loads_are_checked():
+    pu = torch.zeros(8, dtype=torch.int32)
+    for bad, msg in ((torch.zeros(3, dtype=torch.int64), "shape"),
+                     (torch.tensor([0, -1, 0, 0]), "non-negative"),
+                     (torch.tensor([2 ** 31 - 4, 0, 0, 0]), "int32")):
+        with pytest.raises(ValueError, match=msg):
+            ops.transform_scan(pu, pu, pu, 4, 4.0, bad)
+    from repro_torch.core.transform import host_exact_cap
+    with pytest.raises(ValueError, match="2\\*\\*24"):
+        host_exact_cap(2.0 ** 24 + 0.5)
+    assert host_exact_cap(1881.0000000000002) == 1882.0
+
+
 def test_transform_scan_rejects_k_above_max():
     from repro_torch.kernels.transform_scan import MAX_K
     pu = torch.zeros(8, dtype=torch.int32)

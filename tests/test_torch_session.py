@@ -75,7 +75,7 @@ def test_engine_on_reference_layout(greedy_pair):
     want = jax_simulate_gas(jax_pagerank(g.num_vertices),
                             js.partition_layout, 30, exchange="halo")
     got = simulate_gas(pagerank_program(g.num_vertices), lay, 30,
-                       device="cpu")
+                       exchange="halo", device="cpu")
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-8)
     ref = reference_pagerank(g.src, g.dst, g.num_vertices, 30)
     assert np.abs(got - ref).sum() < 1e-5
