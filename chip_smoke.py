@@ -33,6 +33,23 @@ Phases (any failure raises and exits non-zero):
    (pagerank, ppr, centrality), no other kernel.  ms/iteration of every
    program and bundle (the second, synchronized run on the cached
    tables) and the oracles' host seconds.
+3b. The other three wire formats on the same layout (``[exchange]``,
+   nothing cut): the ring schedule (populated hops, sum of H_s), the
+   lanes each exchange moves a phase, the interior share and the
+   ``comm_bytes()`` table; every program through ``sess.run`` on
+   quantized, ragged and ragged_quantized with ms/iteration of the device
+   loop beside ``[gas]``'s halo and dense; ``overlap=True`` on the ragged
+   two; both bundles on all three; pagerank to tol 1e-6 on quantized,
+   cold and warm; the phase's peak memory (the profiler's device
+   activities an iteration on all five wires are read after phase 4's
+   kernel timings, in one session).  Counts zeroed before the phase
+   and read after: K3 once an iteration of pagerank, ppr and centrality,
+   no other kernel.  Checks: integer programs equal halo's with and
+   without overlap; ragged (and its overlap) within rtol 1e-5 of halo;
+   quantized and ragged_quantized pagerank's max-abs error to the float64
+   oracle at 100 iterations below 1e-6 and below its error at 30
+   (ragged_quantized overlapped too), the fused quantized pagerank within
+   5e-4; in the byte model ragged <= halo <= dense and quantized < halo.
 4. Every graph kernel against its plain PyTorch version on the card at
    the graph path's shapes (K1's pass on the first 2,048 blocks of the
    scale-20 stream: clu, deg, vol, scal and packed bit for bit, then timed
@@ -74,7 +91,8 @@ Phases (any failure raises and exits non-zero):
 5. At scale 16 the kernel path and the plain path on the card: the
    clustering state, the game-off assignment and the game-on assignment
    (the CSR game on the fused K2 against the dense plain game) must match
-   bit for bit.
+   bit for bit.  The same two partitions on the CPU are printed beside
+   them (RF, edges assigned elsewhere).
 6. The LM serving path: qwen2-7b at full width and depth (28 layers,
    7.6 B parameters) in bf16 from a seeded generator.  ``make_prefill_step``
    on 4 prompts of 2,048 tokens with the counts zeroed before and read
@@ -93,7 +111,8 @@ Phases (any failure raises and exits non-zero):
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
 9. The ``kernels`` JSON line (six rows; K3's row also carries the
-   ``[gas]`` phase's launches, T's the seeded walk of ``[graph-serve]``),
+   ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
+   ``[graph-serve]``),
    then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -138,6 +157,7 @@ T_WALK_STEP = 32                 # edges a walk step decides together
 GAS_ITERS = {"pagerank": 30, "ppr": 30, "centrality": 30, "labelprop": 40,
              "sssp": 40, "bfs": 40, "degree": 1}
 GAS_K3 = ("pagerank", "ppr", "centrality")
+GAS_ITERS_ALL = tuple(GAS_ITERS) + ("cc",)
 GAS_F32_BUNDLE = ("pagerank", "ppr", "centrality")
 GAS_I32_BUNDLE = ("cc", "labelprop", "sssp", "bfs")
 CC_CAP = GAS_CAP = 200
@@ -493,7 +513,370 @@ def gas_phase(torch, ops, sess, g) -> dict:
                 iters={"cc": iters_run["cc", "halo"], "pagerank_tol": pr_it,
                        "pagerank_warm": pr_wit, "labelprop_fixed": lp_it,
                        "labelprop_warm": lp_wit},
-                oracle_s=oracle_s)
+                oracle_s=oracle_s,
+                halo={n: results[n, "halo"] for n in GAS_ITERS_ALL},
+                cc40=cc40, refs=refs)
+
+
+def exchange_activities(torch, sess, iters=3) -> dict:
+    """Device activities (kernels, copies, fills) an iteration of pagerank
+    and labelprop's device loops on all five wires of the session's
+    layout, from one profiler session after a warm-up step: each loop
+    runs ``iters`` and then 2·``iters`` iterations, each run followed by a
+    marker kernel (``torch.cuda._sleep``), and the difference of a pair
+    over ``iters`` leaves out the run's set-up.  The card's profiler loses
+    records in some sessions (it lost 1–2 of 50 in the K2 timing after
+    twenty short sessions), so a session whose markers do not all arrive
+    is run again, twice at most, and then reads "not measured".  Builds
+    and then drops the other wires' tables."""
+    from torch.autograd import DeviceType
+    from repro_torch.dist.halo import EXCHANGE_NAMES, get_exchange
+    from repro_torch.graph import engine as eng
+    lay = sess.partition_layout
+    runs = {}
+    for ex in EXCHANGE_NAMES:
+        dev = eng.stack_dev(lay, ex, sess.device)
+        for name in ("pagerank", "labelprop"):
+            prog = eng.get_program(name, sess.num_vertices)
+            runs[name, ex] = (lambda n, prog=prog, dev=dev, ex=ex: eng._sim_gas(
+                prog, dev, n, get_exchange(ex, lay)))
+    for fn in runs.values():
+        fn(iters)
+    torch.cuda.synchronize()
+
+    def marker():
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    want = 2 * len(runs) + 1
+    for attempt in range(1, 4):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1, repeat=1)
+                    ) as prof:
+                marker()
+                prof.step()
+                for _ in range(4):
+                    marker()
+                for fn in runs.values():
+                    for n in (iters, 2 * iters):
+                        fn(n)
+                        torch.cuda.synchronize()
+                        marker()
+                prof.step()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        between = []
+        for e in events:
+            if "spin_kernel" in e.name:
+                between.append(0)
+            elif between:
+                between[-1] += 1
+        complete = len(between) == want + 3
+        log(f"[exchange] profiler session {attempt}: {len(between)} marker "
+            f"kernels of {want + 3} sent, {len(events)} device activities"
+            + ("" if complete else "; records lost"))
+        if complete:
+            break
+    for ex in EXCHANGE_NAMES:
+        if ex != "halo":
+            lay.cache.pop((str(sess.device), ex))
+    torch.cuda.empty_cache()
+    if not complete:
+        return {key: None for key in runs}
+    counts = between[-want:-1]
+    return {key: (counts[2 * i + 1] - counts[2 * i]) / iters
+            for i, key in enumerate(runs)}
+
+
+def exchange_phase(torch, ops, sess, g, gas) -> dict:
+    """The quantized, ragged and ragged-quantized wires on the session's
+    scale-20 layout, right after ``[gas]``: the ring schedule, the lanes
+    each exchange moves, the interior share and the byte model; every
+    program through ``sess.run`` on each (ms/iteration of the device loop
+    beside ``[gas]``'s halo and dense), both fused bundles, ``overlap=True``
+    on the ragged two, pagerank to tol on quantized and the phase's peak
+    memory.  The counts are zeroed
+    before the phase and read after: K3 once an iteration of each program
+    that gathers on it, no other kernel.  Checks (the reference's bounds):
+    integer programs equal halo's, with and without overlap; ragged within
+    rtol 1e-5 of halo and its overlap of phase-ordered; the quantized and
+    ragged-quantized pagerank's max-abs error to the float64 oracle at 100
+    iterations below 1e-6 and below its error at 30, the ragged-quantized
+    one overlapped too (the 30-iteration errors printed beside the
+    reference's bound and the CPU's run on this layout); the fused
+    quantized pagerank within 5e-4 of the oracle; ragged <= halo <= dense
+    and quantized < halo in the byte model."""
+    import numpy as np
+    from repro_torch.dist.halo import get_exchange
+    from repro_torch.graph import engine as eng
+    V = g.num_vertices
+    lay = sess.partition_layout
+    dkey = str(sess.device)
+    new = ("quantized", "ragged", "ragged_quantized")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    sched = lay.halo_schedule()
+    hops = [h for h in sched if h]
+    ex_rq = get_exchange("ragged_quantized", lay)
+    lanes = {"dense": (len(eng.stack_dev(lay, "dense", sess.device)
+                           ["gathered"]), lay.k * lay.l_max),
+             "halo": (lay.k * lay.k * lay.h_max,) * 2,
+             "quantized": (lay.k * lay.k * lay.h_max,) * 2,
+             "ragged": (len(eng.stack_dev(lay, "ragged", sess.device)
+                            ["ring_mirror"]),) * 2,
+             "ragged_quantized": (lay.k * sum(hops),) * 2}
+    shipped = lay.k * sum(ex_rq._top(h) for h in hops)
+    lay.cache.pop((dkey, "dense"))
+    replicas = int(lay.vert_mask.sum())
+    inter = lay.interior_frontier_stats()
+    table = lay.comm_bytes()
+    log(f"[exchange] ring schedule: {len(hops)} of {lay.k - 1} hops "
+        f"populated, sum H_s {sum(hops)} (max H_s {max(hops)}, H_max "
+        f"{lay.h_max}); {lay.mirrors_total} mirrors = {int(lay.halo_cnt.sum())}"
+        f" halo_cnt lanes = {replicas} replica slots - {V} vertices")
+    log("[exchange] lanes a phase (reduce, broadcast): " + "; ".join(
+        f"{n} {a:,} / {b:,}" for n, (a, b) in lanes.items())
+        + f" (ragged: the real lanes of the ring's {lay.k * sum(hops):,}; "
+        f"ragged_quantized ships {shipped:,} of its lanes)")
+    log(f"[exchange] interior share {inter['interior_frac']:.6f} (min over "
+        f"partitions {inter['interior_frac_min']:.6f})")
+    log("[exchange] comm_bytes per iteration " + json.dumps(table))
+    check(table["ragged"] <= table["halo"] <= table["dense_gather"],
+          f"byte model: ragged <= halo <= dense broken: {table}")
+    check(table["quantized"] < table["halo"],
+          f"byte model: quantized not below halo: {table}")
+
+    k3_total = 0
+
+    def counted(fn, k3, what):
+        """``fn()`` with K3 launched ``k3`` times (or ``k3(out)``) in it
+        and no other kernel: the counts' change over the call."""
+        nonlocal k3_total
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        if callable(k3):
+            k3 = k3(out)
+        delta = {n: c - before.get(n, 0)
+                 for n, c in ops.launch_counts().items()
+                 if c != before.get(n, 0)}
+        check(set(delta) <= set(ops.KERNELS["gas"]),
+              f"{what} launched a kernel off the gas path: {delta}")
+        check(delta.get("ell_spmv", 0) == k3, f"{what}: K3 launched "
+              f"{delta.get('ell_spmv', 0)} times, not {k3}")
+        k3_total += k3
+        return out
+
+    def loop(prog, it, ex, tol=None, overlap=False):
+        dev = eng.stack_dev(lay, ex, sess.device)
+        run = eng._sim_gas_many if isinstance(prog, eng.FusedGAS) \
+            else eng._sim_gas
+        return run(prog, dev, it, get_exchange(ex, lay), tol, None, overlap)
+
+    def timed_loop(prog, it, ex, k3, what, tol=None, overlap=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = counted(lambda: loop(prog, it, ex, tol, overlap), k3, what)
+        return out, (time.perf_counter() - t) * 1e3
+
+    refs = dict(gas["refs"])
+    refs["pagerank@100"] = eng.reference_pagerank(g.src, g.dst, V, 100)
+
+    def max_abs(out, ref):
+        return float(np.abs(out.astype(np.float64) - ref).max())
+
+    def rel_l1(out, ref):
+        return float(np.abs(out.astype(np.float64) - ref).sum()
+                     / np.abs(ref).sum())
+
+    ms_iter, errs = {}, {}
+    for ex in new:
+        for name in ("pagerank", "ppr", "centrality", "labelprop", "sssp",
+                     "bfs", "degree", "cc"):
+            k3 = name in GAS_K3
+            if name == "cc":
+                out, it = counted(lambda ex=ex: sess.run(
+                    "cc", iters=CC_CAP, tol=0.0, exchange=ex,
+                    return_iters=True), 0, f"cc on {ex}")
+                check(it == gas["iters"]["cc"], f"cc on {ex}: fixed point "
+                      f"after {it} iterations, halo {gas['iters']['cc']}")
+            else:
+                it = GAS_ITERS[name]
+                out = counted(lambda name=name, ex=ex, it=it: sess.run(
+                    name, iters=it, exchange=ex), k3 * it, f"{name} on {ex}")
+            _, ms = timed_loop(eng.get_program(name, V), it, ex, k3 * it,
+                               f"{name}'s loop on {ex}")
+            ms_iter[name, ex] = ms / it
+            check(out.shape == (V,), f"{name} on {ex}: shape {out.shape}")
+            halo = gas["halo"][name]
+            if name in GAS_K3:
+                check(bool(np.isfinite(out).all()), f"{name} on {ex} not "
+                      "finite")
+                if ex == "ragged":
+                    check(np.allclose(out, halo, rtol=1e-5, atol=0.0),
+                          f"{name} on ragged not within rtol 1e-5 of halo")
+                errs[name, ex] = max_abs(out, refs[name])
+                err = (f"max |d| {errs[name, ex]:.3e}, relative L1 "
+                       f"{rel_l1(out, refs[name]):.3e} to the oracle")
+            else:
+                check(np.array_equal(out, halo), f"{name} on {ex} differs "
+                      "from halo")
+                err = "equal to halo"
+            log(f"[exchange] {name} on {ex}: {it} iterations, "
+                f"{ms_iter[name, ex]:.4f} ms/iteration (halo "
+                f"{gas['ms_iter'][f'{name}/halo']:.4f}, dense "
+                f"{gas['ms_iter'][f'{name}/dense']:.4f}); {err}")
+    # the lossy wires converge on the fixed point instead of dithering at
+    # a quantization step: the error at 100 iterations below 1e-6 and
+    # below the error at 30 (the reference's bound at 30, 1e-5 for
+    # quantized, was set on a 400-vertex graph; the same pagerank on the
+    # CPU, on this layout, gives the 30-iteration error printed beside it)
+    err100 = {}
+    for ex in ("quantized", "ragged_quantized"):
+        out = counted(lambda ex=ex: sess.run("pagerank", iters=100,
+                                             exchange=ex), 100,
+                      f"pagerank 100 on {ex}")
+        err100[ex] = max_abs(out, refs["pagerank@100"])
+        check(err100[ex] < 1e-6 and err100[ex] < errs["pagerank", ex],
+              f"{ex} pagerank: max |d| {err100[ex]:.3e} at 100 iterations, "
+              f"{errs['pagerank', ex]:.3e} at 30")
+        if ex == "ragged_quantized":
+            pr100 = out
+    t = time.perf_counter()
+    cpu_q = eng.simulate_gas(eng.get_program("pagerank", V), lay, 30,
+                             "quantized", device="cpu")
+    cpu_s = time.perf_counter() - t
+    for key in [k for k in lay.cache if k[0] == "cpu"]:
+        lay.cache.pop(key)
+    log(f"[exchange] pagerank max |d| to the oracle at 30 iterations, then "
+        f"100: quantized {errs['pagerank', 'quantized']:.3e} (the "
+        f"reference's bound at 30: 1e-5; the CPU's run on this layout "
+        f"{max_abs(cpu_q, refs['pagerank']):.3e}, {cpu_s:.1f} s), "
+        f"{err100['quantized']:.3e}; ragged_quantized "
+        f"{errs['pagerank', 'ragged_quantized']:.3e}, "
+        f"{err100['ragged_quantized']:.3e}")
+
+    # overlap on the ragged two: the interior applied apart from the ring
+    over = {}
+    for ex in ("ragged", "ragged_quantized"):
+        for name in ("pagerank", "ppr", "centrality", "labelprop", "sssp",
+                     "bfs", "degree"):
+            it = GAS_ITERS[name]
+            k3 = (name in GAS_K3) * it
+            out = counted(lambda name=name, ex=ex, it=it: sess.run(
+                name, iters=it, exchange=ex, overlap=True), k3,
+                f"{name} on {ex} with overlap")
+            _, ms = timed_loop(eng.get_program(name, V), it, ex, k3,
+                               f"{name}'s overlapped loop on {ex}",
+                               overlap=True)
+            over[name, ex] = ms / it
+            if name not in GAS_K3:
+                check(np.array_equal(out, gas["halo"][name]), f"{name} on "
+                      f"{ex} with overlap differs from halo")
+            elif ex == "ragged":
+                base = counted(lambda name=name, it=it: sess.run(
+                    name, iters=it, exchange="ragged"), k3,
+                    f"{name} on ragged")
+                check(np.allclose(out, base, rtol=1e-5, atol=0.0),
+                      f"{name} on ragged: overlap not within rtol 1e-5 of "
+                      "phase-ordered")
+            log(f"[exchange] {name} on {ex} with overlap: "
+                f"{over[name, ex]:.4f} ms/iteration against "
+                f"{ms_iter[name, ex]:.4f} phase-ordered")
+        out, it = counted(lambda ex=ex: sess.run(
+            "cc", iters=CC_CAP, tol=0.0, exchange=ex, overlap=True,
+            return_iters=True), 0, f"cc on {ex} with overlap")
+        check(np.array_equal(out, gas["halo"]["cc"])
+              and it == gas["iters"]["cc"], f"cc on {ex} with overlap "
+              "differs from halo")
+    pr_over = counted(lambda: sess.run("pagerank", iters=100, overlap=True,
+                                       exchange="ragged_quantized"), 100,
+                      "overlapped pagerank 100 on ragged_quantized")
+    over_err = max_abs(pr_over, refs["pagerank@100"])
+    check(over_err < 1e-6 and over_err < errs["pagerank", "ragged_quantized"],
+          f"overlapped ragged_quantized pagerank: max |d| {over_err:.3e} at "
+          "100 iterations")
+    log(f"[exchange] overlapped ragged_quantized pagerank at 100 iterations: "
+        f"max |d| {over_err:.3e} to the oracle, {max_abs(pr_over, pr100):.3e}"
+        f" to the phase-ordered run (float atomics vary the codes on the "
+        "card)")
+
+    # the fused bundles on the three wires
+    fused_ms = {}
+    for ex in new:
+        for bundle, it in ((GAS_F32_BUNDLE, 30), (GAS_I32_BUNDLE, 40)):
+            k3 = it * sum(p in GAS_K3 for p in bundle)
+            what = f"{'+'.join(bundle)} on {ex}"
+            outs = counted(lambda bundle=bundle, it=it, ex=ex: sess.run_many(
+                bundle, iters=it, exchange=ex), k3, what)
+            fused = eng.fuse_programs([eng.get_program(p, V) for p in bundle])
+            _, ms = timed_loop(fused, it, ex, k3, f"{what}, its loop")
+            notes = []
+            for name, out in zip(bundle, outs):
+                if name in GAS_K3:
+                    check(bool(np.isfinite(out).all()), f"fused {name} on "
+                          f"{ex} not finite")
+                    notes.append(f"{name} max |d| "
+                                 f"{max_abs(out, refs[name]):.3e}")
+                    if ex == "ragged":
+                        check(np.allclose(out, gas["halo"][name], rtol=1e-5,
+                                          atol=0.0), f"fused {name} on "
+                              "ragged not within rtol 1e-5 of halo")
+                else:
+                    single = gas["cc40"] if name == "cc" \
+                        else gas["halo"][name]
+                    check(np.array_equal(out, single), f"fused {name} on "
+                          f"{ex} differs from halo")
+            if ex == "quantized" and bundle == GAS_F32_BUNDLE:
+                e = max_abs(outs[0], refs["pagerank"])
+                check(e < 5e-4, f"fused quantized pagerank max |d| {e:.3e}")
+            fused_ms["+".join(bundle), ex] = ms / it
+            log(f"[exchange] fused {what}: {ms / it:.4f} ms/iteration "
+                f"(halo {gas['fused']['+'.join(bundle) + '/halo'][0]:.4f}); "
+                + ("; ".join(notes) if notes else "equal to halo"))
+
+    # early exit and warm start on the quantized wire
+    pr, pr_it = counted(lambda: sess.run(
+        "pagerank", iters=GAS_CAP, tol=PR_TOL, exchange="quantized",
+        return_iters=True), lambda out: out[1], "pagerank with tol on "
+        "quantized")
+    check(pr_it < GAS_CAP, "quantized pagerank did not reach its tol")
+    _, pr_wit = counted(lambda: sess.run(
+        "pagerank", iters=GAS_CAP, tol=PR_TOL, exchange="quantized",
+        init_values=pr, return_iters=True), lambda out: out[1],
+        "warm pagerank on quantized")
+    log(f"[exchange] pagerank to tol {PR_TOL} on quantized: {pr_it} "
+        f"iterations (halo {gas['iters']['pagerank_tol']}), warm from its "
+        f"vector {pr_wit} (halo {gas['iters']['pagerank_warm']}; the lane "
+        "references restart from zero)")
+
+    launches = {n: c for n, c in ops.launch_counts().items() if c}
+    check_path_launches(ops, launches, "gas")
+    check(launches.get("ell_spmv", 0) == k3_total, f"K3 launched "
+          f"{launches.get('ell_spmv', 0)} times in the phase, the runs "
+          f"account for {k3_total}")
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    for ex in new:
+        lay.cache.pop((dkey, ex))
+    torch.cuda.empty_cache()
+    log(f"[exchange] K3 launches in the phase {k3_total}; phase "
+        f"{phase_s:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
+        f"({resident / 2**30:.3f} resident before it)")
+    return dict(k3=k3_total, ms_iter={f"{n}/{e}": v
+                                      for (n, e), v in ms_iter.items()},
+                overlap_ms_iter={f"{n}/{e}": v for (n, e), v in over.items()},
+                fused={f"{n}/{e}": v for (n, e), v in fused_ms.items()},
+                lanes=lanes, peak_gib=peak / 2**30, phase_s=phase_s)
 
 
 def graph_serve_phase(torch, ops, sess, g, t_row, event=None) -> dict:
@@ -851,6 +1234,8 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 3
     gas = gas_phase(torch, ops, sess, g)
+    exch = exchange_phase(torch, ops, sess, g, gas)
+    del gas["halo"], gas["cc40"], gas["refs"]
 
     # ---------------------------------------------------------- phase 4
     rows = []
@@ -1094,7 +1479,7 @@ def main() -> int:
                      launches=launches["ell_spmv"], max_abs_err=k3_err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=lib, limited_by="bytes", launch_ms=launch_ms,
-                     gas_launches=gas["k3"]))
+                     gas_launches=gas["k3"], exchange_launches=exch["k3"]))
     log(f"[K3] R={R} W={W} N={N}: max |d| {k3_err:.3e}; {ms:.4f} ms/launch "
         f"on the device ({launch_ms:.4f} ms a call back to back), "
         f"torch.sparse.mm {lib:.4f} ms")
@@ -1159,6 +1544,13 @@ def main() -> int:
     log(f"[T] mean over the path's two walks {ms:.3f} ms/launch; bound "
         f"{bms:.4f} ms ({by}) plus the walks' dependent steps {lat:.3f} ms")
 
+    # the wires' device activities an iteration, profiled after the
+    # kernel timings above
+    per_iter = exchange_activities(torch, sess)
+    log("[exchange] device activities an iteration (profiler): " + "; ".join(
+        f"{n} on {e} " + ("not measured" if c is None else f"{c:.1f}")
+        for (n, e), c in per_iter.items()))
+
     # ---------------------------------------------------------- phase 4b
     # the serving phase swaps the session's layout: drop what phase 4 held
     # of the old one first
@@ -1205,6 +1597,16 @@ def main() -> int:
               f"scale-16 assignment (game={game}) differs between kernel "
               "and plain")
     on = results[True, "cuda"].stats
+    # the same partitions on the CPU (the game's start and damping draws
+    # come from a torch.Generator, whose stream is the device's own)
+    for game in (False, True):
+        c = CLUGPConfig.optimized(K, restream=1, game=game, kernel="torch",
+                                  cluster_kernel="torch")
+        cpu = partition(gs.src, gs.dst, gs.num_vertices, c, device="cpu")
+        log(f"[scale16] game={game} on the CPU: rf {cpu.stats['rf']:.4f} "
+            f"against the card's {results[game, 'cuda'].stats['rf']:.4f}; "
+            f"{int((cpu.assign != results[game, 'cuda'].assign).sum())} of "
+            f"{gs.num_edges} edges assigned elsewhere")
     log(f"[scale16] V={gs.num_vertices} E={gs.num_edges}: clustering state, "
         f"game-off and game-on assignments bit-identical (clustering "
         f"{t_kernel:.2f} s kernel, {t_plain:.2f} s plain; game-off rf "

@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from .core.pipeline import CLUGPConfig
-from .dist.halo import EXCHANGE_NAMES
 from .graph.partition import PartitionLayout
 from .models.config import ModelConfig
 from .models.lm import param_count, require_dense, tree_leaves
@@ -36,8 +35,7 @@ def config_from_reference(json_text: str) -> SessionConfig:
     """A reference ``SessionConfig.to_json()`` blob → the port's config:
     backend ``jit``/``np`` → ``torch``, game/cluster kernel ``pallas`` →
     ``cuda`` and ``xla`` → ``torch``.  Raises on what the port does not
-    have yet (the scan game, the sharded backend, the quantized and
-    ragged exchanges).
+    have yet (the scan game, the sharded backend).
 
     Two mappings change the game: ``backend="np"`` (the reference
     session's default, which plays the host ``best_response_rounds``)
@@ -51,9 +49,6 @@ def config_from_reference(json_text: str) -> SessionConfig:
         raise _not_ported(f"backend {backend!r}",
                           "the sharded partitioner and multi-GPU engine")
     exchange = d.get("exchange", "halo")
-    if exchange not in EXCHANGE_NAMES:
-        raise _not_ported(f"exchange {exchange!r}",
-                          "the quantized and ragged exchanges")
     if int(d.get("nodes", 1)) != 1:
         raise _not_ported("nodes > 1",
                           "the sharded partitioner and multi-GPU engine")

@@ -5,7 +5,7 @@ the k partitions are a leading axis of every table (the reference's
 ``vmap`` written out), and each iteration is local gather → mirror
 partials reduced to masters → apply → master values broadcast to mirrors,
 the two sync phases going through the exchange (``repro_torch.dist.halo``:
-``dense`` or ``halo``).
+any of its five wire formats).
 
 The library spans the exchange's wire cells: (sum, f32) pagerank, ppr and
 centrality; (min, i32) cc, labelprop, sssp and bfs; (sum, i32) degree.
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.partitioner import resolve_device
-from ..dist.halo import _segment_combine, get_exchange
+from ..dist.halo import RAGGED_EXCHANGES, _segment_combine, get_exchange
 from ..kernels.ell_spmv import row_split_ell
 from .partition import PartitionLayout
 
@@ -380,7 +380,7 @@ def stack_dev(layout: PartitionLayout, exchange: str, device) -> dict:
     dev = layout.cache.get(key)
     if dev is not None:
         return dev
-    ex = get_exchange(exchange)
+    ex = get_exchange(exchange, layout)
     common = layout.cache.get((dkey, None))
     if common is None:
         common = layout.cache[(dkey, None)] = _edge_tables(layout, device)
@@ -396,21 +396,39 @@ def stack_dev(layout: PartitionLayout, exchange: str, device) -> dict:
 
 # ---------------------------------------------------------------- drivers
 
-def _check_overlap(overlap: bool) -> None:
-    if overlap:
-        raise ValueError("overlap=True needs a ragged ring exchange, which "
-                         "is not ported yet (ROADMAP, Queue 1: the quantized "
-                         "and ragged exchanges)")
+def _check_overlap(exchange: str, overlap: bool) -> None:
+    """The overlapped body needs the ring's hopwise reduce and the
+    frontier split, which only the ragged exchanges have."""
+    if overlap and exchange not in RAGGED_EXCHANGES:
+        raise ValueError(
+            f"overlap=True needs a ragged ring exchange "
+            f"{RAGGED_EXCHANGES}; got {exchange!r}")
 
 
-def _gas_body(program: GASProgram, ex, dev):
-    """One stacked GAS iteration over (value, state)."""
+def _gas_body(program: GASProgram, ex, dev, overlap: bool = False):
+    """One stacked GAS iteration over (value, state).
+
+    ``overlap=True`` (ragged exchanges) is the reference's overlapped
+    body: the reduce folds the ring into the master accumulator
+    (``hopwise``), and interior slots (``~dev["frontier"]``, one replica)
+    apply from their local partial, which has no data dependence on the
+    ring; frontier slots apply from the exchanged total.  An interior
+    slot's total is its partial (the accumulator holds the identity
+    there), so the values equal the phase-ordered body's."""
     def body(value, state):
         aux = program.aux(value, dev) if program.aux is not None else None
-        total, state = ex.reduce_stacked(program.local(value, dev), dev,
-                                         program.combine, state)
-        return ex.broadcast_stacked(program.apply(total, aux, dev), dev,
-                                    program.combine, state)
+        partial = program.local(value, dev)
+        if overlap:
+            total, state = ex.reduce_stacked(partial, dev, program.combine,
+                                             state, hopwise=True)
+            new_master = torch.where(dev["frontier"],
+                                     program.apply(total, aux, dev),
+                                     program.apply(partial, aux, dev))
+        else:
+            total, state = ex.reduce_stacked(partial, dev, program.combine,
+                                             state)
+            new_master = program.apply(total, aux, dev)
+        return ex.broadcast_stacked(new_master, dev, program.combine, state)
     return body
 
 
@@ -471,15 +489,15 @@ def _run_loop(body, value, state, iters: int, tol, mask):
 
 
 def _sim_gas(program: GASProgram, dev, iters: int, ex, tol=None,
-             warm=None):
+             warm=None, overlap: bool = False):
     value = program.init(dev)
     if warm is not None:
         value = torch.where(warm[1], warm[0], value)
     if not iters:
         return value, 0
     state = ex.init_state(dev, program.dtype, program.combine)
-    return _run_loop(_gas_body(program, ex, dev), value, state, iters, tol,
-                     _masters(dev))
+    return _run_loop(_gas_body(program, ex, dev, overlap), value, state,
+                     iters, tol, _masters(dev))
 
 
 def collect_master_values(layout: PartitionLayout, stacked) -> np.ndarray:
@@ -501,15 +519,16 @@ def simulate_gas(program: GASProgram, layout: PartitionLayout,
     ``tol`` makes ``iters`` a cap: the run stops once the master-slot
     residual max-norm drops to ``tol`` (``return_iters=True`` also
     returns the iterations run).  ``init_values`` warm-starts from a
-    dense (V_old,) vector, e.g. an earlier fixed point.  Runs on the card
-    unless ``device`` names another device."""
-    _check_overlap(overlap)
+    dense (V_old,) vector, e.g. an earlier fixed point.  ``overlap`` runs
+    the overlapped body (ragged exchanges; ``_gas_body``).  Runs on the
+    card unless ``device`` names another device."""
+    _check_overlap(exchange, overlap)
     device = resolve_device(device)
-    ex = get_exchange(exchange)
+    ex = get_exchange(exchange, layout)
     dev = stack_dev(layout, exchange, device)
     warm = (None if init_values is None
             else _warm_tables(dev, program.dtype, init_values))
-    value, iters_run = _sim_gas(program, dev, iters, ex, tol, warm)
+    value, iters_run = _sim_gas(program, dev, iters, ex, tol, warm, overlap)
     dense = collect_master_values(layout, value)
     return (dense, iters_run) if return_iters else dense
 
@@ -571,28 +590,38 @@ def fuse_programs(programs) -> FusedGAS:
     return FusedGAS(tuple(programs))
 
 
-def _gas_body_multi(fused: FusedGAS, ex, dev):
+def _gas_body_multi(fused: FusedGAS, ex, dev, overlap: bool = False):
     """One fused GAS iteration over (values (k, N, L_max), state): each
     program's math on its own slice, one ``*_multi`` exchange call per
-    phase for all N."""
+    phase for all N; ``overlap`` as in ``_gas_body``."""
     programs = fused.programs
+
+    def apply_all(total, auxes):
+        return torch.stack([p.apply(total[:, i], auxes[i], dev)
+                            for i, p in enumerate(programs)], dim=1)
 
     def body(value, state):
         auxes = [p.aux(value[:, i], dev) if p.aux is not None else None
                  for i, p in enumerate(programs)]
         partials = torch.stack([p.local(value[:, i], dev)
                                 for i, p in enumerate(programs)], dim=1)
-        total, state = ex.reduce_stacked_multi(partials, dev, fused.combine,
-                                               state)
-        new_master = torch.stack([p.apply(total[:, i], auxes[i], dev)
-                                  for i, p in enumerate(programs)], dim=1)
+        if overlap:
+            total, state = ex.reduce_stacked_multi(
+                partials, dev, fused.combine, state, hopwise=True)
+            new_master = torch.where(dev["frontier"][:, None, :],
+                                     apply_all(total, auxes),
+                                     apply_all(partials, auxes))
+        else:
+            total, state = ex.reduce_stacked_multi(
+                partials, dev, fused.combine, state)
+            new_master = apply_all(total, auxes)
         return ex.broadcast_stacked_multi(new_master, dev, fused.combine,
                                           state)
     return body
 
 
 def _sim_gas_many(fused: FusedGAS, dev, iters: int, ex, tol=None,
-                  warm=None):
+                  warm=None, overlap: bool = False):
     value = torch.stack([p.init(dev) for p in fused.programs], dim=1)
     if warm is not None:
         value = torch.where(warm[1], warm[0], value)
@@ -600,8 +629,8 @@ def _sim_gas_many(fused: FusedGAS, dev, iters: int, ex, tol=None,
         return value, 0
     state = ex.init_state_multi(dev, fused.dtype, fused.combine,
                                 len(fused.programs))
-    return _run_loop(_gas_body_multi(fused, ex, dev), value, state, iters,
-                     tol, _masters(dev)[:, None, :])
+    return _run_loop(_gas_body_multi(fused, ex, dev, overlap), value, state,
+                     iters, tol, _masters(dev)[:, None, :])
 
 
 def _warm_tables_many(dev, fused: FusedGAS, init_values):
@@ -620,15 +649,16 @@ def simulate_gas_many(programs, layout: PartitionLayout, iters: int = 30,
     """Stacked one-device driver for a fused bundle; returns one dense
     (V,) array per program, in bundle order.  ``tol`` (the residual is
     the max over all programs), per-program ``init_values`` and
-    ``return_iters`` as in ``simulate_gas``."""
-    _check_overlap(overlap)
+    ``return_iters`` and ``overlap`` as in ``simulate_gas``."""
+    _check_overlap(exchange, overlap)
     fused = fuse_programs(programs)
     device = resolve_device(device)
-    ex = get_exchange(exchange)
+    ex = get_exchange(exchange, layout)
     dev = stack_dev(layout, exchange, device)
     warm = (None if init_values is None
             else _warm_tables_many(dev, fused, init_values))
-    value, iters_run = _sim_gas_many(fused, dev, iters, ex, tol, warm)
+    value, iters_run = _sim_gas_many(fused, dev, iters, ex, tol, warm,
+                                     overlap)
     dense = [collect_master_values(layout, value[:, i])
              for i in range(len(fused.programs))]
     return (dense, iters_run) if return_iters else dense

@@ -21,6 +21,7 @@ reference's ``repro.graph`` package imports JAX, hence the copy.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -59,20 +60,211 @@ class PartitionLayout:
     # per-device tables every exchange needs, and each wire format's own
     COMMON_TABLES = ("edge_src", "edge_dst", "edge_mask", "vert_gid",
                      "vert_mask", "is_master", "out_deg")
+    # quantized rides the halo tables; the ragged exchanges take prefixes
+    # of them per ring distance (their schedule lives in the exchange
+    # instance) and ``frontier`` for the overlapped body
     EXCHANGE_TABLES = {"dense": ("owner", "own_slot", "red_index"),
-                       "halo": ("halo_send", "halo_recv")}
+                       "halo": ("halo_send", "halo_recv"),
+                       "quantized": ("halo_send", "halo_recv"),
+                       "ragged": ("halo_send", "halo_recv", "frontier"),
+                       "ragged_quantized": ("halo_send", "halo_recv",
+                                            "frontier")}
 
     def device_arrays(self, exchange: str | None = None) -> dict:
         """The numpy tables one exchange needs (leading k axis); None
         gives every exchange's tables."""
         if exchange is not None and exchange not in self.EXCHANGE_TABLES:
             raise ValueError(
-                f"unknown exchange {exchange!r}; the port has "
+                f"unknown exchange {exchange!r}; expected one of "
                 f"{sorted(self.EXCHANGE_TABLES)}")
         keys = self.COMMON_TABLES + (
             tuple(t for ts in self.EXCHANGE_TABLES.values() for t in ts)
             if exchange is None else self.EXCHANGE_TABLES[exchange])
-        return {f: getattr(self, f) for f in keys}
+        return {f: getattr(self, f) for f in dict.fromkeys(keys)}
+
+    def interior_frontier_stats(self) -> dict:
+        """Interior/frontier split of the local vertex tables: interior
+        vertices (one replica) can be applied while the ragged ring is in
+        flight, frontier ones wait for their mirror lanes.  Per-partition
+        interior counts and fractions, and the global interior fraction."""
+        local = self.vert_mask.sum(axis=1)
+        interior = (self.vert_mask & ~self.frontier).sum(axis=1)
+        with np.errstate(invalid="ignore"):
+            frac = np.where(local > 0, interior / np.maximum(local, 1), 1.0)
+        total_local = int(local.sum())
+        return {
+            "interior_per_part": interior.astype(int).tolist(),
+            "local_per_part": local.astype(int).tolist(),
+            "interior_frac_per_part": [round(float(f), 6) for f in frac],
+            "interior_frac": (float(interior.sum()) / total_local
+                              if total_local else 1.0),
+            "interior_frac_min": float(frac.min(initial=1.0)),
+        }
+
+    # -- communication model: modelled wire bytes per GAS iteration --
+
+    # every name ``comm_bytes`` routes: the five wire formats, the two
+    # bounds ("ideal" = 2·mirrors, "allreduce" = a dense psum) and
+    # "dense_gather", an alias of "dense"
+    COMM_MODELS = ("allreduce", "dense", "dense_gather", "halo", "ideal",
+                   "quantized", "ragged", "ragged_quantized")
+    # the fused quantized wire's fp16 scales: 8 a (pair, program) row
+    FUSED_SCALE_BYTES = 16
+
+    def comm_bytes(self, exchange: str | None = None, *, programs: int = 1,
+                   fused: bool = False, lossy: bool = True,
+                   value_bytes: int = 4, top_delta: float = 0.25):
+        """Modelled mirror-sync bytes per GAS iteration: ``comm_bytes()``
+        the table of every model; ``comm_bytes(exchange)`` one of
+        ``COMM_MODELS`` (``lossy``: whether the payload is delta-coded on
+        the quantized wires, ``halo.lossy_payload``); ``programs=N,
+        fused=True`` N programs in one fused step (the int4 wire when
+        quantized and lossy)."""
+        if exchange is None:
+            if fused or programs != 1:
+                raise ValueError(
+                    "comm_bytes(programs=..., fused=...) needs an "
+                    "explicit exchange=")
+            return {"ideal": self._bytes_ideal(value_bytes),
+                    "ragged_quantized": self._bytes_ragged_quantized(
+                        top_delta),
+                    "quantized": self._bytes_halo_quantized(),
+                    "ragged": self._bytes_ragged(value_bytes),
+                    "halo": self._bytes_halo(value_bytes),
+                    "dense_gather": self._bytes_dense_gather(value_bytes),
+                    "allreduce": self._bytes_allreduce(value_bytes)}
+        if exchange not in self.COMM_MODELS:
+            raise ValueError(
+                f"unknown exchange {exchange!r}; expected one of "
+                f"{self.COMM_MODELS}")
+        if fused and exchange == "quantized" and lossy:
+            return self._bytes_fused_quantized(programs)
+        single = {
+            "dense": lambda: self._bytes_dense_gather(value_bytes),
+            "dense_gather": lambda: self._bytes_dense_gather(value_bytes),
+            "halo": lambda: self._bytes_halo(value_bytes),
+            "quantized": lambda: (self._bytes_halo_quantized() if lossy
+                                  else self._bytes_halo(value_bytes)),
+            "ragged": lambda: self._bytes_ragged(value_bytes),
+            "ragged_quantized": lambda: (
+                self._bytes_ragged_quantized(top_delta) if lossy
+                else self._bytes_ragged(value_bytes)),
+            "ideal": lambda: self._bytes_ideal(value_bytes),
+            "allreduce": lambda: self._bytes_allreduce(value_bytes),
+        }[exchange]()
+        return programs * single
+
+    def halo_schedule(self) -> tuple:
+        """The ragged ring's lanes per distance: entry s−1 is H_s =
+        max_p halo_cnt[p, (p+s) mod k] for s = 1..k−1."""
+        k = self.k
+        ar = np.arange(k)
+        return tuple(int(self.halo_cnt[ar, (ar + s) % k].max(initial=0))
+                     for s in range(1, k))
+
+    def _bytes_dense_gather(self, value_bytes: int = 4) -> int:
+        """all_gather(k, L_max) a phase: k·L_max values per device."""
+        return 2 * self.k * self.k * self.l_max * value_bytes
+
+    def _bytes_halo(self, value_bytes: int = 4) -> int:
+        """all_to_all(k, H_max) a phase, the self block staying home."""
+        return 2 * self.k * (self.k - 1) * self.h_max * value_bytes
+
+    def _bytes_ragged(self, value_bytes: int = 4) -> int:
+        """Σ_s H_s values a device a phase over the k−1 ring hops."""
+        return 2 * self.k * sum(self.halo_schedule()) * value_bytes
+
+    def _bytes_ragged_quantized(self, top_delta: float = 0.25) -> int:
+        """Per hop T_s = max(1, ⌈top_delta·H_s⌉) (int16 index, int8 code)
+        pairs and one f32 scale."""
+        total = 0
+        for h in self.halo_schedule():
+            if h == 0:
+                continue
+            t = min(h, max(1, int(np.ceil(top_delta * h))))
+            total += 3 * t + 4
+        return 2 * self.k * total
+
+    def _bytes_halo_quantized(self, code_bytes: int = 1,
+                              scale_bytes: int = 4) -> int:
+        """H_max int8 codes and one f32 scale per off-diagonal lane group
+        a phase."""
+        return 2 * self.k * (self.k - 1) * (
+            self.h_max * code_bytes + scale_bytes)
+
+    def _bytes_fused_quantized(self, n_programs: int) -> int:
+        """N lossy programs on one fused wire: ⌈H_max/8⌉·8 int4 codes two
+        to a byte and 16 B of fp16 scales per (pair, program) row."""
+        h8 = -(-self.h_max // 8) * 8
+        return 2 * self.k * (self.k - 1) * n_programs * (
+            h8 // 2 + self.FUSED_SCALE_BYTES)
+
+    def _bytes_ideal(self, value_bytes: int = 4) -> int:
+        """Every mirror value once a phase: 2·mirrors·bytes."""
+        return 2 * self.mirrors_total * value_bytes
+
+    def _bytes_allreduce(self, value_bytes: int = 4) -> int:
+        """A dense psum: a ring all-reduce over (V,) per device."""
+        return 2 * (self.k - 1) * self.num_vertices * value_bytes
+
+    # -- deprecated per-format methods (shims over comm_bytes) --
+
+    def _deprecated(self, old: str, new: str):
+        warnings.warn(
+            f"PartitionLayout.{old} is deprecated; use "
+            f"PartitionLayout.{new}", DeprecationWarning, stacklevel=3)
+
+    def comm_bytes_mirror_sync(self, value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_mirror_sync", "comm_bytes('dense')")
+        return self.comm_bytes("dense", value_bytes=value_bytes)
+
+    def comm_bytes_halo(self, value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_halo", "comm_bytes('halo')")
+        return self.comm_bytes("halo", value_bytes=value_bytes)
+
+    def comm_bytes_ragged(self, value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_ragged", "comm_bytes('ragged')")
+        return self.comm_bytes("ragged", value_bytes=value_bytes)
+
+    def comm_bytes_ragged_quantized(self, top_delta: float = 0.25,
+                                    value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_ragged_quantized",
+                         "comm_bytes('ragged_quantized')")
+        return self.comm_bytes("ragged_quantized", top_delta=top_delta,
+                               value_bytes=value_bytes)
+
+    def comm_bytes_halo_quantized(self, code_bytes: int = 1,
+                                  scale_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_halo_quantized",
+                         "comm_bytes('quantized')")
+        return self._bytes_halo_quantized(code_bytes, scale_bytes)
+
+    def comm_bytes_fused_quantized(self, n_programs: int) -> int:
+        self._deprecated("comm_bytes_fused_quantized",
+                         "comm_bytes('quantized', programs=N, fused=True)")
+        return self._bytes_fused_quantized(n_programs)
+
+    def comm_bytes_exchange(self, exchange: str, *, lossy: bool = True,
+                            value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_exchange", "comm_bytes(exchange)")
+        return self.comm_bytes(exchange, lossy=lossy,
+                               value_bytes=value_bytes)
+
+    def comm_bytes_fused(self, n_programs: int, exchange: str, *,
+                         lossy: bool = True, value_bytes: int = 4) -> int:
+        self._deprecated(
+            "comm_bytes_fused",
+            "comm_bytes(exchange, programs=N, fused=True)")
+        return self.comm_bytes(exchange, programs=n_programs, fused=True,
+                               lossy=lossy, value_bytes=value_bytes)
+
+    def comm_bytes_ideal(self, value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_ideal", "comm_bytes('ideal')")
+        return self.comm_bytes("ideal", value_bytes=value_bytes)
+
+    def comm_bytes_dense(self, value_bytes: int = 4) -> int:
+        self._deprecated("comm_bytes_dense", "comm_bytes('allreduce')")
+        return self.comm_bytes("allreduce", value_bytes=value_bytes)
 
 
 def _pad_to(n: int, pad_multiple: int) -> int:

@@ -21,14 +21,16 @@ counterpart of the reference's ``"jit"`` backend; ``with_partition``
 adopts an external edge → partition assignment instead, and
 ``snapshot``/``from_snapshot`` carry graph and partition across a
 restart (``repro_torch.serve``).  ``run`` takes any of ``PROGRAMS`` (the
-``repro_torch.graph.engine`` library) or a ``GASProgram``, over the
-``"dense"`` or ``"halo"`` exchange, on one device: the reference's
-``mesh`` and ``overlap`` are not ported.
+``repro_torch.graph.engine`` library) or a ``GASProgram``, over any of
+the five ``EXCHANGES``, on one device (the reference's ``mesh`` is not
+ported); ``overlap=True`` runs the overlapped body on the ragged ones.
+``comm_bytes`` is the modelled wire bytes of an iteration.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,9 +38,9 @@ import numpy as np
 from .core import metrics
 from .core.partitioner import BACKENDS, partition, resolve_device
 from .core.pipeline import CLUGPConfig, CLUGPResult
-from .dist.halo import EXCHANGE_NAMES
-from .graph.engine import (GASProgram, PROGRAM_NAMES, get_program,
-                           simulate_gas, simulate_gas_many)
+from .dist.halo import EXCHANGE_NAMES, lossy_payload
+from .graph.engine import (GASProgram, PROGRAM_NAMES, fuse_programs,
+                           get_program, simulate_gas, simulate_gas_many)
 from .graph.partition import PartitionLayout, build_layout
 
 EXCHANGES = EXCHANGE_NAMES
@@ -220,6 +222,56 @@ class GraphSession:
             self.layout()
         return self._layout
 
+    def comm_bytes(self, programs=None, exchange: str | None = None,
+                   fused: bool = False):
+        """Modelled mirror-sync wire bytes per GAS iteration:
+        ``comm_bytes()`` the table of every model; ``comm_bytes(exchange=
+        name)`` one model; ``comm_bytes(programs=[...])`` rows ``{program:
+        {exchange: bytes}}`` with each program's lossiness (min and
+        integer programs ship exact on the quantized wires), narrowed to
+        ``{program: bytes}`` by ``exchange=``; ``fused=True`` one fused
+        step of the bundle on ``exchange`` (default: the session's)."""
+        lay = self.partition_layout
+        if programs is None:
+            if fused:
+                raise ValueError(
+                    "comm_bytes(fused=True) needs programs=[...]")
+            return lay.comm_bytes(exchange)
+        if fused:
+            bundle = fuse_programs(
+                [resolve_program(p, self._num_vertices) for p in programs])
+            lossy = lossy_payload(bundle.combine, bundle.dtype)
+            return lay.comm_bytes(exchange or self.cfg.exchange,
+                                  programs=len(bundle.programs),
+                                  fused=True, lossy=lossy)
+        table = {}
+        for p in programs:
+            prog = resolve_program(p, self._num_vertices)
+            lossy = lossy_payload(prog.combine, prog.dtype)
+            if exchange is None:
+                table[prog.name] = {ex: lay.comm_bytes(ex, lossy=lossy)
+                                    for ex in EXCHANGE_NAMES}
+            else:
+                table[prog.name] = lay.comm_bytes(exchange, lossy=lossy)
+        return table
+
+    def comm_bytes_programs(self, programs=PROGRAMS) -> dict:
+        """Deprecated — use ``comm_bytes(programs=[...])``."""
+        warnings.warn(
+            "GraphSession.comm_bytes_programs is deprecated; use "
+            "GraphSession.comm_bytes(programs=[...])",
+            DeprecationWarning, stacklevel=2)
+        return self.comm_bytes(programs=programs)
+
+    def comm_bytes_fused(self, programs, exchange: str | None = None) -> int:
+        """Deprecated — use ``comm_bytes(programs=[...], fused=True)``."""
+        warnings.warn(
+            "GraphSession.comm_bytes_fused is deprecated; use "
+            "GraphSession.comm_bytes(programs=[...], fused=True)",
+            DeprecationWarning, stacklevel=2)
+        return self.comm_bytes(programs=programs, exchange=exchange,
+                               fused=True)
+
     def run(self, program="pagerank", *, iters: int | None = None,
             exchange: str | None = None, mesh=None, tol: float | None = None,
             overlap: bool = False, init_values=None,
@@ -229,7 +281,8 @@ class GraphSession:
         programs.  ``tol`` makes ``iters`` a cap: the loop ends once the
         master residual max-norm drops to ``tol`` (``return_iters=True``
         also returns the iterations run); ``init_values`` warm-starts from
-        a dense (V_old,) vector."""
+        a dense (V_old,) vector; ``overlap`` runs the overlapped body
+        (ragged exchanges only)."""
         _check_one_device(mesh)
         lay = self.partition_layout
         prog = resolve_program(program, self._num_vertices)
@@ -249,8 +302,8 @@ class GraphSession:
         loop: one exchange per phase carries every program's lanes
         (``repro_torch.graph.engine.FusedGAS``).  Returns one dense (V,)
         array per program, in input order; ``tol``, ``init_values`` (one
-        dense vector or None per program) and ``return_iters`` as in
-        ``run``."""
+        dense vector or None per program), ``overlap`` and
+        ``return_iters`` as in ``run``."""
         _check_one_device(mesh)
         lay = self.partition_layout
         progs = [resolve_program(p, self._num_vertices) for p in programs]

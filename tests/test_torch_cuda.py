@@ -650,3 +650,119 @@ def test_gas_fused_bundles_on_card_match_cpu(dev, gas_layout, exchange):
     want = simulate_gas_many(f32, lay, 30, exchange=exchange, device="cpu")
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_wire_encoders_on_card_match_cpu(dev):
+    """The lossy wires' encoders on the card bit for bit against the CPU:
+    the int8 row quantizer and the int4 groups (their scales divide by a
+    tensor: a Python divisor becomes a reciprocal multiply on CUDA), the
+    nibble pack of all 15 × 15 code pairs, both error-feedback encoders
+    and the top-Δ choice on rows with ties."""
+    from repro_torch.dist import compress, halo
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal((64, 8, 61))
+                          * rng.uniform(0, 10, (64, 8, 1))).astype(np.float32))
+    for fn in (compress.quantize_rows, halo._quantize_groups):
+        for a, b in zip(fn(x.to(dev)), fn(x)):
+            assert torch.equal(a.cpu(), b)
+    lo, hi = np.meshgrid(np.arange(-7, 8), np.arange(-7, 8))
+    codes = torch.from_numpy(np.stack([lo.ravel(), hi.ravel()], -1)
+                             .reshape(1, -1).astype(np.int8))
+    packed = halo._nibble_pack(codes.to(dev))
+    assert torch.equal(packed.cpu(), halo._nibble_pack(codes))
+    assert torch.equal(halo._nibble_unpack(packed).cpu(), codes)
+    lanes, sref, sres = (torch.from_numpy(rng.standard_normal((8, 8, 3, 40))
+                                          .astype(np.float32))
+                         for _ in range(3))
+    for enc in (halo._ef_encode, halo._ef_encode_fused):
+        got = enc(lanes.to(dev), sref.to(dev), sres.to(dev))
+        for a, b in zip(got, enc(lanes, sref, sres)):
+            assert torch.equal(a.cpu(), b)
+    ex = halo.RaggedQuantizedHaloExchange(schedule=(40,))
+    tied = torch.from_numpy(rng.choice([0.5, -0.5, 0.25, 0.0], 2 * 3 * 40)
+                            .astype(np.float32))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        zeros = torch.zeros(2 * 40, dtype=torch.int64, device=d)
+        seg = ex._segments({"rq_mirror": zeros, "rq_master": zeros,
+                            "routes": {}}, 3, 1)
+        st = {"sref": torch.zeros(240, device=d),
+              "rref": torch.zeros(240, device=d)}
+        out.append(ex._encode(tied.to(d), st, seg))
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(out[0][0]["sref"].cpu(), out[1][0]["sref"])
+
+
+NEW_EXCHANGES = ("quantized", "ragged", "ragged_quantized")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", NEW_EXCHANGES)
+@pytest.mark.parametrize("name", tuple(GAS_ITERS))
+def test_new_exchanges_on_card(dev, gas_layout, name, exchange):
+    """Every program on the three new wires on the card: the integer
+    programs bit for bit against the CPU (their payloads ship exact), the
+    f32 ones on ragged within rtol 1e-5 of the CPU; on the lossy wires,
+    where float atomics on the card can flip a code, pagerank is held to
+    the reference's bounds against the float64 oracle (quantized at 30
+    iterations within 1e-5; ragged-quantized at 100 within 1e-6) and ppr
+    and centrality must be finite.  K3 once an iteration of the f32
+    programs, no other kernel."""
+    from repro_torch.graph import get_program, reference_pagerank
+    from repro_torch.graph import simulate_gas
+    g, lay = gas_layout
+    prog = get_program(name, g.num_vertices)
+    iters = GAS_ITERS[name]
+    if name == "pagerank" and exchange == "ragged_quantized":
+        iters = 100
+    ops.reset_launch_counts()
+    got = simulate_gas(prog, lay, iters, exchange=exchange, device=dev)
+    launched = ops.launch_counts()
+    assert launched.get("ell_spmv", 0) == \
+        (iters if name in K3_PROGRAMS else 0)
+    assert not {n for n, c in launched.items() if c} - {"ell_spmv"}
+    if name not in K3_PROGRAMS or exchange == "ragged":
+        want = simulate_gas(prog, lay, iters, exchange=exchange,
+                            device="cpu")
+        if name in K3_PROGRAMS:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-10)
+        else:
+            np.testing.assert_array_equal(got, want)
+    elif name == "pagerank":
+        ref = reference_pagerank(g.src, g.dst, g.num_vertices, iters)
+        bound = 1e-5 if exchange == "quantized" else 1e-6
+        assert np.abs(got - ref).max() < bound
+    else:
+        assert np.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ("ragged", "ragged_quantized"))
+def test_overlap_and_hopwise_on_card(dev, gas_layout, exchange):
+    """The overlapped body on the card: the i32 bundle and labelprop equal
+    the phase-ordered runs bit for bit; the hopwise reduce equals the
+    deferred one for a min payload."""
+    from repro_torch.dist.halo import get_exchange
+    from repro_torch.graph import get_program, simulate_gas, simulate_gas_many
+    from repro_torch.graph.engine import stack_dev
+    g, lay = gas_layout
+    i32 = [get_program(p, g.num_vertices)
+           for p in ("cc", "labelprop", "sssp", "bfs")]
+    base = simulate_gas_many(i32, lay, 40, exchange=exchange, device=dev)
+    over = simulate_gas_many(i32, lay, 40, exchange=exchange, overlap=True,
+                             device=dev)
+    for a, b in zip(base, over):
+        np.testing.assert_array_equal(a, b)
+    prog = get_program("labelprop", g.num_vertices)
+    np.testing.assert_array_equal(
+        simulate_gas(prog, lay, 40, exchange=exchange, overlap=True,
+                     device=dev),
+        simulate_gas(prog, lay, 40, exchange=exchange, device=dev))
+    ex, tables = get_exchange(exchange, lay), stack_dev(lay, exchange, dev)
+    vals = torch.randint(0, 1000, (lay.k, 2, lay.l_max), dtype=torch.int32,
+                         device=dev)
+    a, _ = ex.reduce_stacked_multi(vals, tables, "min")
+    b, _ = ex.reduce_stacked_multi(vals, tables, "min", hopwise=True)
+    assert torch.equal(a, b)

@@ -123,7 +123,7 @@ def test_config_from_reference_maps_and_refuses():
     assert cfg.clugp.k == 64 and cfg.clugp.tau == 1.1 and cfg.clugp.restream == 1
     assert SessionConfig.from_json(cfg.to_json()) == cfg
     for bad in (JSessionConfig(clugp=JConfig(k=4, kernel="scan")),
-                JSessionConfig(clugp=JConfig(k=4), exchange="ragged"),
+                JSessionConfig(clugp=JConfig(k=4), backend="jit", nodes=2),
                 JSessionConfig(clugp=JConfig(k=4), backend="sharded",
                                nodes=2)):
         with pytest.raises(ValueError, match="ROADMAP"):
