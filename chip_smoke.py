@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. Print the card's name and power limit; build the six CUDA kernels
+1. Print the card's name and power limit; build the seven CUDA kernels
    (one ``nvcc`` per source, in parallel, into ``build/repro_torch/``).
 2. The graph path at full size: ``web_graph(scale=20)`` (1,048,576
    vertices, ~6.4 M edges) → ``GraphSession`` CLUGP partition at k = 64
@@ -93,6 +93,28 @@ Phases (any failure raises and exits non-zero):
    (the CSR game on the fused K2 against the dense plain game) must match
    bit for bit.  The same two partitions on the CPU are printed beside
    them (RF, edges assigned elsewhere).
+5b. ``[sweep]``: ``partition_sweep`` on the scale-20 stream over k = 16,
+   64, 256 with the main path's profile (one restream): per k RF against
+   a random assignment's, balance, stage seconds, µs/edge and game
+   rounds.  Checks: RF below random and the largest partition within
+   τ·E/k + 1 at every k; the k = 64 entry equals phase 2's partition
+   edge for edge.
+5c. ``[scan]``: ``kernel="scan"`` (the Gauss–Seidel game on G) at scale
+   17, k = 64 (m_cap 32,768, under the reference's pair-key limit; scale
+   16 if the graph's m_cap passes it), from a seeded start.  Counts
+   zeroed before the card partition and read after: K1, G, T launched,
+   G once a round, nothing else.  G against its plain version bit for
+   bit on the first round's inputs (assignment, loads, moves; over every
+   row and over the live prefix), timed beside its bound and latency
+   floor; the whole scan partition on the card against the port on the
+   CPU from the same start, edge for edge; the Jacobi CSR game's seconds
+   on the same graph beside.
+5d. ``[partition-cli]`` at scale 14, k = 64: the np backend (host
+   oracle) and the torch backend, their RF and seconds; the np host
+   combine over 4 nodes (per node); the five baselines' RF and host
+   seconds; ``python -m repro_torch.launch.partition --scale 14 --k 64
+   --algo clugp-opt --backend jit --pagerank`` as a subprocess, which
+   must exit 0 and print the reference launcher's four lines.
 6. The LM serving path: qwen2-7b at full width and depth (28 layers,
    7.6 B parameters) in bf16 from a seeded generator.  ``make_prefill_step``
    on 4 prompts of 2,048 tokens with the counts zeroed before and read
@@ -110,7 +132,8 @@ Phases (any failure raises and exits non-zero):
    2e-5; timed with CUDA events beside its bound (tensor-core operations)
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
-9. The ``kernels`` JSON line (six rows; K3's row also carries the
+9. The ``kernels`` JSON line (seven rows; G's from ``[scan]``; K3's row
+   also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
    ``[graph-serve]``),
    then the device JSON line last.
@@ -178,6 +201,15 @@ SERVE_WINDOW, SERVE_WINDOWS = 65536, 3
 SERVE_WATERMARK, SERVE_PASSES = 1.02, 2
 SERVE_TOL, SERVE_CAP = 1e-6, 200
 RESUME_SCALE = 16
+# the rest of the partitioner: the k-sweep on the scale-20 stream, the
+# scan game at the largest scale whose m_cap stays under the reference's
+# pair-key limit, and the np backend, baselines and launcher at scale 14
+SWEEP_KS = (16, 64, 256)
+SCAN_SCALE = 17
+CLI_SCALE = 14
+# G's chain per cluster: the cost, five shuffle levels of the argmin, the
+# move test and the update, each waiting on the one before
+G_STEPS_PER_CLUSTER = 8
 # the LM serving path: qwen2-7b at full width and depth
 LM_ARCH = "qwen2_7b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -259,6 +291,25 @@ def device_ms(torch, fn, reps, kernel):
     check(len(us) >= reps, f"the profiler saw {len(us)} launches of "
           f"{kernel} in {reps} calls")
     return sum(us) / len(us) / 1e3
+
+
+def game_gs_in_partition(torch, run) -> dict:
+    """G's launches and summed device time inside one scan partition
+    (``run``), traced by torch.profiler, with that run's game stage
+    seconds.  A measurement, not a check: the launch count is the
+    wrappers' (checked elsewhere), this is what the profiler saw."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():      # the profiler's one-cycle notice
+        warnings.simplefilter("ignore", UserWarning)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = run()
+            torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "game_gs_kernel" in e.name]
+    return dict(launches=len(us), ms=sum(us) / 1e3,
+                game_s=res.stats["stage_seconds"]["game"])
 
 
 def host_ms(torch, fn, reps=1):
@@ -1126,6 +1177,229 @@ def round_split(torch):
             setattr(eng, name, fn)
 
 
+def sweep_phase(torch, ops, g, main_assign) -> dict:
+    """``[sweep]``: ``partition_sweep`` over ``SWEEP_KS`` on the scale-20
+    stream with the main path's profile at each k; the k = K entry must
+    equal phase 2's partition edge for edge, every k's RF must be below a
+    random assignment's and its largest partition within τ·E/k + 1."""
+    import numpy as np
+    from repro_torch.core import CLUGPConfig, metrics, partition_sweep
+    E, V = g.num_edges, g.num_vertices
+    cfg = CLUGPConfig.optimized(K, restream=1)
+    t = time.perf_counter()
+    res = partition_sweep(g.src, g.dst, V, cfg, SWEEP_KS)
+    total = time.perf_counter() - t
+    out = {}
+    for k, r in zip(SWEEP_KS, res):
+        st = r.stats
+        sec = st["stage_seconds"]
+        rf_random = metrics.replication_factor(
+            g.src, g.dst, np.random.default_rng(0).integers(0, k, E)
+            .astype(np.int32), V, k)
+        log(f"[sweep] k={k}: rf {st['rf']:.4f} (random {rf_random:.4f}), "
+            f"balance {st['balance']:.4f}, clusters {st['num_clusters']}, "
+            f"game rounds {st['game_rounds']}; seconds "
+            + json.dumps({n: round(v, 4) for n, v in sec.items()})
+            + f"; {sum(sec.values()) * 1e6 / E:.4f} us/edge")
+        check(st["rf"] < rf_random, f"sweep k={k}: RF not below random")
+        check(max(st["sizes"]) <= cfg.tau * E / k + 1,
+              f"sweep k={k}: balance cap broken")
+        out[k] = dict(rf=st["rf"], balance=st["balance"],
+                      rounds=st["game_rounds"], seconds=sec)
+    main = res[SWEEP_KS.index(K)]
+    differ = int((main.assign != main_assign).sum())
+    check(differ == 0, f"sweep k={K} differs from phase 2's partition in "
+          f"{differ} edges")
+    log(f"[sweep] ks {SWEEP_KS} in {total:.3f} s (m_cap {main.stats['m_cap']},"
+        f" cap retries {main.stats['cap_retries']}); k={K} equals phase 2's "
+        f"partition edge for edge")
+    return out
+
+
+def scan_phase(torch, ops, sm_hz) -> dict:
+    """``[scan]``: ``kernel="scan"`` at ``SCAN_SCALE`` (scale 16 if the
+    graph's m_cap passes the pair-key limit).  Counts zeroed before the
+    card partition and read after: K1, G and T launched, G once a round,
+    no other kernel.  G against ``game_gs_plain`` bit for bit on the
+    first round's inputs, timed; the whole scan partition on the card
+    against the port on the CPU from the same start assignment, edge for
+    edge; the Jacobi CSR game's stage seconds on the same graph beside.
+    Returns G's kernel row."""
+    import numpy as np
+    from repro_torch.core import CLUGPConfig, partition, web_graph
+    from repro_torch.core.game import PAIR_KEY_LIMIT, cluster_pairs
+    from repro_torch.core.stages import (cluster_graph_arrays,
+                                         lambda_from_totals)
+    dev = torch.device("cuda")
+    for scale in (SCAN_SCALE, SCAN_SCALE - 1):
+        g = web_graph(scale=scale, edge_factor=EDGE_FACTOR, seed=0)
+        off = partition(g.src, g.dst, g.num_vertices,
+                        CLUGPConfig.optimized(K, game=False))
+        m_cap = off.stats["m_cap"]
+        if m_cap * (m_cap + 1) < PAIR_KEY_LIMIT:
+            break
+        log(f"[scan] scale {scale}: m_cap {m_cap} passes the pair-key "
+            f"limit (the scan falls back); using scale {scale - 1}")
+    E, V = g.num_edges, g.num_vertices
+    cfg = CLUGPConfig.optimized(K, restream=1, kernel="scan")
+    start = torch.from_numpy(np.random.default_rng(0).integers(
+        0, K, m_cap).astype(np.int32))
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    card = partition(g.src, g.dst, V, cfg, assign0=start)
+    t_card = time.perf_counter() - t
+    launches = ops.launch_counts()
+    log(f"[scan] launches {json.dumps(launches)}")
+    check_path_launches(ops, launches, "scan")
+    rounds = card.game_rounds
+    check(launches["game_gs"] == rounds, f"G launched {launches['game_gs']} "
+          f"times in {rounds} rounds, not once a round")
+    check(launches["cluster_scatter"] == 1 + card.stats["cap_retries"],
+          "K1 not once per clustering pass")
+    jac = partition(g.src, g.dst, V, CLUGPConfig.optimized(K, restream=1))
+    t = time.perf_counter()
+    cpu = partition(g.src, g.dst, V, cfg, device="cpu", assign0=start)
+    t_cpu = time.perf_counter() - t
+    differ = int((cpu.assign != card.assign).sum())
+    check(cpu.game_rounds == rounds and differ == 0,
+          f"scan partition: card and CPU differ ({rounds} vs "
+          f"{cpu.game_rounds} rounds, {differ} edges)")
+    st = card.stats
+    log(f"[scan] scale {scale}: V={V} E={E}, clusters {st['num_clusters']}, "
+        f"m_cap {m_cap}; rf {st['rf']:.4f}, balance {st['balance']:.4f}, "
+        f"{rounds} rounds, G launches {launches['game_gs']}; game "
+        f"{st['stage_seconds']['game']:.4f} s (Jacobi CSR game on the same "
+        f"graph {jac.stats['stage_seconds']['game']:.4f} s, {jac.game_rounds} "
+        f"rounds, rf {jac.stats['rf']:.4f}); partition {t_card:.3f} s; "
+        f"equals the CPU port's edge for edge ({t_cpu:.1f} s on the CPU, "
+        f"game {cpu.stats['stage_seconds']['game']:.2f} s)")
+    g_in_game = game_gs_in_partition(torch, lambda: partition(
+        g.src, g.dst, V, cfg, assign0=start))
+    log(f"[scan] G inside the partition (profiler, a second card run from "
+        f"the same start): {g_in_game['launches']} launches seen, "
+        f"{g_in_game['ms']:.4f} ms of device time = "
+        f"{100 * g_in_game['ms'] / 1e3 / st['stage_seconds']['game']:.1f}% "
+        f"of the unprofiled run's game stage "
+        f"({g_in_game['game_s']:.4f} s under the profiler)")
+
+    # G on the first round's inputs: the card run's cluster graph and the
+    # injected start
+    src_t = torch.from_numpy(g.src).to(dev)
+    dst_t = torch.from_numpy(g.dst).to(dev)
+    gs = cluster_graph_arrays(src_t, dst_t,
+                              torch.from_numpy(card.clustering.clu).to(dev),
+                              m_cap, cfg.effective_sizes)
+    row, col, w = cluster_pairs(gs.xs, gs.xd, m_cap)
+    lam = lambda_from_totals(gs.sizes.sum(), gs.n_cross, K,
+                             cfg.relative_weight).reshape(1)
+    a0 = start.to(dev)
+    aff = torch.zeros(m_cap, K, device=dev).index_put_(
+        (row, a0[col].long()), w, accumulate=True)
+    loads = torch.zeros(K, device=dev).index_add_(0, a0.long(), gs.sizes)
+    n = int(torch.nonzero((gs.sizes != 0) | (gs.row_tot != 0)).max()) + 1
+    args = (aff, gs.sizes, gs.row_tot, a0, loads)
+    got = ops.game_gs(*args, lam=lam, k=K, n=n)
+    t = time.perf_counter()
+    want = ops.game_gs_plain(*args, lam=lam, k=K, n=n)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    for name, a_, b_ in zip(("assign", "loads", "moved"), got, want):
+        check(torch.equal(a_.to(b_.dtype), b_),
+              f"G differs from its plain version in {name}")
+    full = ops.game_gs(*args, lam=lam, k=K)
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(full, got)),
+          "G over every row differs from G over the live prefix")
+    ms = event_ms(torch, lambda: ops.game_gs(*args, lam=lam, k=K, n=n), 10)
+    # each live row's cut-mass row, size, row total and assignment read,
+    # its assignment written; the loads read and written; λ; the count
+    nbytes = n * K * 4 + 16 * n + 8 * K + 8
+    bms, by = bound_ms(nbytes, K2_OPS_PER_LANE * n * K)
+    lat = latency_ms(n, G_STEPS_PER_CLUSTER, sm_hz)
+    log(f"[G] k={K}, {n} live rows of m_cap {m_cap}: bit-identical to the "
+        f"plain sweep on the first round's inputs ({int(got[2])} moves); "
+        f"{ms:.4f} ms/sweep = {ms * 1e3 / n:.4f} us/cluster, plain "
+        f"{plain:.1f} ms; bound {bms:.5f} ms ({by}), latency floor "
+        f"{lat:.4f} ms ({n} clusters x {G_STEPS_PER_CLUSTER} dependent "
+        f"steps x {SMEM_STEP_CYCLES} cycles); {rounds} sweeps a partition x "
+        f"this first-round sweep = {rounds * ms:.2f} ms; the profiled "
+        f"partition's own G time {g_in_game['ms']:.2f} ms of the game's "
+        f"{st['stage_seconds']['game'] * 1e3:.1f}")
+    return dict(name="game_gs", route="cuda",
+                source="src/repro_torch/csrc/game_gs.cu",
+                replaces="src/repro/core/game.py:428",
+                launches=launches["game_gs"], max_abs_err=0.0, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                latency_bound_ms=lat, limited_by="latency", rows=n,
+                m_cap=m_cap, sweeps_per_partition=rounds, scale=scale,
+                ms_in_partition=g_in_game["ms"])
+
+
+def partition_cli_phase(torch) -> dict:
+    """``[partition-cli]`` at ``CLI_SCALE``, k = K: the np backend beside
+    the torch backend, the np host combine over 4 nodes, the five
+    baselines, then the partition launcher as a subprocess (``--backend
+    jit --pagerank``), which must exit 0 and print the reference's
+    lines."""
+    import os
+    import numpy as np
+    from repro_torch.core import (CLUGPConfig, baselines, metrics, partition,
+                                  random_stream, web_graph)
+    g = web_graph(scale=CLI_SCALE, edge_factor=EDGE_FACTOR, seed=0)
+    E, V = g.num_edges, g.num_vertices
+    cfg = CLUGPConfig.optimized(K, restream=1)
+    out = {}
+    for label, kw in (("np", dict(backend="np", nodes=1)),
+                      ("np, 4 nodes", dict(backend="np", nodes=4)),
+                      ("torch", dict(backend="torch", nodes=1))):
+        t = time.perf_counter()
+        r = partition(g.src, g.dst, V, cfg, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        out[label] = dict(rf=r.stats["rf"], seconds=sec)
+        extra = (f"; per node {json.dumps(r.stats['per_node'])}"
+                 if "per_node" in r.stats else
+                 f"; stages " + json.dumps({n: round(v, 4) for n, v in
+                                            r.stats["stage_seconds"].items()}))
+        log(f"[partition-cli] scale {CLI_SCALE} V={V} E={E} k={K} {label}: rf "
+            f"{r.stats['rf']:.4f}, balance {r.stats['balance']:.4f}, rounds "
+            f"{r.stats['game_rounds']}, {sec:.3f} s{extra}")
+        # each node's slice holds its own cap τ·E_s/k, one edge over at most
+        check(max(r.stats["sizes"]) <= cfg.tau * E / K + kw["nodes"],
+              f"{label}: balance cap broken")
+    gr = random_stream(g, seed=0)
+    for name, fn in baselines.ALL_BASELINES.items():
+        t = time.perf_counter()
+        a = fn(gr.src, gr.dst, V, K)
+        sec = time.perf_counter() - t
+        rf = metrics.replication_factor(gr.src, gr.dst, a, V, K)
+        out[name] = dict(rf=rf, seconds=sec)
+        log(f"[partition-cli] baseline {name}: rf {rf:.4f}, balance "
+            f"{metrics.load_balance(a, K):.4f}, {sec:.3f} s on the host")
+    cmd = [sys.executable, "-m", "repro_torch.launch.partition", "--scale",
+           str(CLI_SCALE), "--k", str(K), "--algo", "clugp-opt",
+           "--backend", "jit", "--pagerank"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    sec = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines:
+        log(f"[partition-cli] launcher: {ln}")
+    check(proc.returncode == 0, f"the launcher exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    want = ("graph: V=", "clugp-opt[jit, restream=0]: rf=",
+            "interior/frontier: frac=", "pagerank[halo]: ")
+    check(len(lines) == len(want) and all(
+        ln.startswith(p) for ln, p in zip(lines, want)),
+        f"the launcher's lines are not the reference's: {lines}")
+    err = float(lines[-1].split("max|err|=")[1].split()[0])
+    check(err < 1e-6, f"the launcher's pagerank max|err| {err}")
+    log(f"[partition-cli] launcher subprocess {sec:.1f} s")
+    out["launcher_seconds"] = sec
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1231,6 +1505,7 @@ def main() -> int:
     l1 = float(np.abs(pr.astype(np.float64) - ref).sum())
     log(f"[main] pagerank L1 vs float64 oracle {l1:.3e}")
     check(l1 <= 1e-4, f"PageRank L1 {l1} > 1e-4")
+    main_assign = sess.assign.copy()      # the sweep's k = K entry's witness
 
     # ---------------------------------------------------------- phase 3
     gas = gas_phase(torch, ops, sess, g)
@@ -1615,6 +1890,20 @@ def main() -> int:
         f"{on['stage_seconds']['game']:.3f} s on the CSR kernel, "
         f"{results[True, 'torch'].stats['stage_seconds']['game']:.3f} s "
         f"dense plain)")
+    del gs, ss, sd, a, b, results
+
+    # ------------------------------------------------- phases 5b, 5c, 5d
+    t = time.perf_counter()
+    sweep_phase(torch, ops, g, main_assign)
+    log(f"[sweep] phase {time.perf_counter() - t:.1f} s")
+    del main_assign
+    t = time.perf_counter()
+    rows.append(scan_phase(torch, ops, sm_hz))
+    log(f"[scan] phase {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    partition_cli_phase(torch)
+    log(f"[partition-cli] phase {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 6
     import dataclasses

@@ -20,11 +20,17 @@ from .models.config import ModelConfig
 from .models.lm import param_count, require_dense, tree_leaves
 from .session import SessionConfig
 
-_BACKENDS = {"jit": "torch", "np": "torch", "torch": "torch"}
-_KERNELS = {"auto": "auto", "pallas": "cuda", "xla": "torch",
-            "cuda": "cuda", "torch": "torch"}
+_BACKENDS = {"jit": "torch", "np": "np", "torch": "torch"}
+# the game kernel: the reference resolves "auto" off a TPU to the scan
+# (repro.core.stages.resolve_game_mode); the clustering kernel's "auto"
+# means the kernels on both sides
+_GAME_KERNELS = {"auto": "scan", "scan": "scan", "pallas": "cuda",
+                 "xla": "torch", "cuda": "cuda", "torch": "torch"}
+_CLUSTER_KERNELS = {"auto": "auto", "pallas": "cuda", "xla": "torch",
+                    "cuda": "cuda", "torch": "torch"}
 # lowering-only knobs of the reference with no counterpart in the port
 _DROPPED = ("unroll",)
+_SHARDED = "the sharded partitioner and multi-GPU engine"
 
 
 def _not_ported(what: str, item: str) -> ValueError:
@@ -32,38 +38,41 @@ def _not_ported(what: str, item: str) -> ValueError:
 
 
 def config_from_reference(json_text: str) -> SessionConfig:
-    """A reference ``SessionConfig.to_json()`` blob → the port's config:
-    backend ``jit``/``np`` → ``torch``, game/cluster kernel ``pallas`` →
-    ``cuda`` and ``xla`` → ``torch``.  Raises on what the port does not
-    have yet (the scan game, the sharded backend).
+    """A reference ``SessionConfig.to_json()`` blob → the port's config,
+    resolved as the reference resolves it off a TPU:
 
-    Two mappings change the game: ``backend="np"`` (the reference
-    session's default, which plays the host ``best_response_rounds``)
-    and an off-TPU ``kernel="auto"`` (which the reference resolves to
-    the Gauss–Seidel scan) both map to the port's Jacobi CSR game.  With
-    the game on the partitions therefore differ; with it off they are
-    bit-identical."""
+    - backend ``np`` → ``np`` (the host oracle; ``nodes > 1`` → its host
+      combine) and ``jit`` → ``torch``;
+    - game kernel ``scan`` and ``auto`` → ``scan`` (the Gauss–Seidel game,
+      falling back to the Jacobi CSR game above the pair-key limit as the
+      reference falls back to ``xla``), ``pallas`` → ``cuda``, ``xla`` →
+      ``torch``; cluster kernel ``pallas`` → ``cuda``, ``xla`` →
+      ``torch``.
+
+    So a converted config gives the reference's partition with the game
+    on too: bit for bit on the CPU, given the reference's draws (the
+    device games take the reference's start assignment injected).
+    Raises on what the port does not have yet: the sharded backend, and
+    ``jit`` with ``nodes > 1``."""
     d = json.loads(json_text)
     backend = d.get("backend", "np")
     if backend not in _BACKENDS:
-        raise _not_ported(f"backend {backend!r}",
-                          "the sharded partitioner and multi-GPU engine")
-    exchange = d.get("exchange", "halo")
-    if int(d.get("nodes", 1)) != 1:
-        raise _not_ported("nodes > 1",
-                          "the sharded partitioner and multi-GPU engine")
+        raise _not_ported(f"backend {backend!r}", _SHARDED)
+    nodes = int(d.get("nodes", 1))
+    if nodes != 1 and backend != "np":
+        raise _not_ported(f"backend {backend!r} with nodes > 1", _SHARDED)
     clugp = dict(d["clugp"])
     for key in _DROPPED:
         clugp.pop(key, None)
-    for key in ("kernel", "cluster_kernel"):
+    for key, table in (("kernel", _GAME_KERNELS),
+                       ("cluster_kernel", _CLUSTER_KERNELS)):
         value = clugp.get(key, "auto")
-        if value == "scan":
-            raise _not_ported("the scan game", "the Gauss–Seidel game")
-        if value not in _KERNELS:
+        if value not in table:
             raise ValueError(f"unknown {key} {value!r}")
-        clugp[key] = _KERNELS[value]
-    return SessionConfig(clugp=CLUGPConfig(**clugp), backend="torch",
-                         exchange=exchange,
+        clugp[key] = table[value]
+    return SessionConfig(clugp=CLUGPConfig(**clugp),
+                         backend=_BACKENDS[backend], nodes=nodes,
+                         exchange=d.get("exchange", "halo"),
                          iters=int(d.get("iters", 30)),
                          pad_multiple=int(d.get("pad_multiple", 8)))
 

@@ -20,6 +20,9 @@ stream on the card.  Results are bit-identical to the reference:
 Dropped indices: the reference scatters with ``mode="drop"`` onto the
 sentinel ``num_vertices``; here ``clu``/``deg`` carry one extra slot at
 ``num_vertices`` that absorbs those writes and is sliced off.
+
+``streaming_clustering_np`` is the reference's host oracle, a numpy copy
+of it (the ``np`` backend's cluster stage).
 """
 from __future__ import annotations
 
@@ -40,10 +43,109 @@ class ClusteringResult:
     replicas: np.ndarray       # int32[V], #mirrors created during clustering
     num_clusters: int
 
+    def cluster_rf(self, num_vertices: int) -> float:
+        """Replication factor at cluster granularity (Fig. 2 accounting)."""
+        active = self.deg > 0
+        return float((active.sum() + self.replicas[active].sum())
+                     / max(1, active.sum()))
+
 
 def default_vmax(num_edges: int, k: int) -> float:
     """Paper §VI-A: V_max = |E| / k."""
     return max(2.0, num_edges / float(k))
+
+
+def _compact_labels(raw: np.ndarray) -> tuple[np.ndarray, int]:
+    used, inv = np.unique(raw[raw >= 0], return_inverse=True)
+    out = np.full(raw.shape[0], -1, dtype=np.int32)
+    out[raw >= 0] = inv.astype(np.int32)
+    return out, int(used.shape[0])
+
+
+def streaming_clustering_np(src: np.ndarray, dst: np.ndarray,
+                            num_vertices: int, vmax: float,
+                            allow_split: bool = True,
+                            split_degree_factor: float = 0.0
+                            ) -> ClusteringResult:
+    """Alg. 2 on the host, edge by edge (the reference's oracle, bit for
+    bit).  ``split_degree_factor`` (beyond the paper): a split of vertex x
+    fires only if deg(x) ≥ factor × the mean streamed degree; 0 is Alg. 2
+    verbatim.  The id space holds the worst case V + 2E + 2."""
+    V = num_vertices
+    clu = np.full(V, -1, dtype=np.int64)
+    deg = np.zeros(V, dtype=np.int64)
+    divided = np.zeros(V, dtype=bool)
+    replicas = np.zeros(V, dtype=np.int64)
+    vol = np.zeros(V + 2 * src.shape[0] + 2, dtype=np.int64)
+    next_id = 0
+    seen_deg = 0
+    seen_v = 0
+
+    cl = clu  # local aliases (python-loop hot path)
+    dg = deg
+    vl = vol
+    for i in range(src.shape[0]):
+        u = int(src[i]); v = int(dst[i])
+        if u == v:
+            continue
+        cu = cl[u]
+        if cu < 0:                       # allocation (lines 3-5)
+            cu = next_id; next_id += 1
+            cl[u] = cu
+            seen_v += 1
+        cv = cl[v]
+        if cv < 0:
+            cv = next_id; next_id += 1
+            cl[v] = cv
+            seen_v += 1
+        dg[u] += 1; dg[v] += 1           # line 6
+        vl[cu] += 1; vl[cv] += 1         # line 7
+        seen_deg += 2
+        if allow_split:
+            dthresh = split_degree_factor * seen_deg / seen_v
+            if cu == cv:
+                # same-cluster overflow: split only the higher-degree
+                # endpoint (paper §IV-A divided-vertex tie rule)
+                if vl[cu] >= vmax:
+                    x = u if dg[u] >= dg[v] else v
+                    if dg[x] >= dthresh:
+                        nc = next_id; next_id += 1
+                        cl[x] = nc
+                        divided[x] = True
+                        replicas[x] += 1
+                        vl[cu] -= dg[x]
+                        vl[nc] += dg[x]
+            else:
+                if vl[cu] >= vmax and dg[u] >= dthresh:   # split u (8-13)
+                    nc = next_id; next_id += 1
+                    cl[u] = nc
+                    divided[u] = True
+                    replicas[u] += 1
+                    vl[cu] -= dg[u]
+                    vl[nc] += dg[u]
+                cv = cl[v]
+                if vl[cv] >= vmax and dg[v] >= dthresh:   # split v (14-18)
+                    nc = next_id; next_id += 1
+                    cl[v] = nc
+                    divided[v] = True
+                    replicas[v] += 1
+                    vl[cv] -= dg[v]
+                    vl[nc] += dg[v]
+        cu = cl[u]; cv = cl[v]           # line 19
+        if cu != cv and vl[cu] < vmax and vl[cv] < vmax:   # migration 20-26
+            # post-guard: a migration must not overflow the target
+            if vl[cu] <= vl[cv]:
+                if vl[cv] + dg[u] < vmax:
+                    cl[u] = cv
+                    vl[cu] -= dg[u]; vl[cv] += dg[u]
+            else:
+                if vl[cu] + dg[v] < vmax:
+                    cl[v] = cu
+                    vl[cv] -= dg[v]; vl[cu] += dg[v]
+
+    compact, m = _compact_labels(clu)
+    return ClusteringResult(compact, deg.astype(np.int32), divided,
+                            replicas.astype(np.int32), m)
 
 
 def localize_stream(src, dst, num_vertices: int):

@@ -1,7 +1,13 @@
 """Pass 2 — game-theoretic cluster partitioning (paper §V, Alg. 3).
 
-Port of the reference's device game (``repro.core.game``):
+Port of ``repro.core.game``, in three parts:
 
+- The host game, in numpy and scipy as the reference keeps it: the
+  oracle of the ``np`` backend, which ``expert_placement`` also plays —
+  ``ClusterGraph``, ``contract``,
+  ``lambda_max``, ``lambda_from_weight``, ``GameResult``, ``potential``,
+  ``global_cost``, ``best_response_rounds`` and ``greedy_assign_np``, bit
+  for bit.
 - ``game_rounds`` — batched best-response rounds (``jax_game_rounds``):
   Jacobi within a batch, Gauss–Seidel on the load table across batches,
   damped moves, and termination on the potential Φ (Thm 4).  With
@@ -10,25 +16,190 @@ Port of the reference's device game (``repro.core.game``):
   their affinity from the cluster CSR built once per game (``cluster_csr``);
   ``mode="torch"`` is the reference's dense form: the whole m_cap × k
   affinity rebuilt per batch and swept by K2's plain version.
-- ``greedy_assign`` — the CLUGP-G ablation (``jax_greedy_assign``), bit
+  ``greedy_assign`` is the CLUGP-G ablation (``jax_greedy_assign``), bit
   for bit.
+- ``game_rounds_gs`` — the Gauss–Seidel scan game
+  (``jax_game_rounds_gs``) over the aggregated cluster pairs
+  (``cluster_pairs``, the counterpart of ``jax_cluster_csr``): per round
+  the cut mass of the round-start assignment, Φ, best-Φ tracking, then
+  one sweep on the G kernel (``kernels.game_gs``), which plays the
+  clusters one after another against the live loads.
 
-``jax.random`` draws cannot be reproduced in PyTorch, so ``game_rounds``
-takes an optional start assignment ``assign0`` and an optional damping
-draw ``draw(rnd, b) -> bool mask``; by default both come from a
-``torch.Generator`` seeded with ``seed``.  The Gauss–Seidel scan game
-(``jax_game_rounds_gs``) is not ported yet.
+``jax.random`` draws cannot be reproduced in PyTorch, so both device
+games take an optional start assignment ``assign0`` (and ``game_rounds``
+an optional damping draw ``draw(rnd, b) -> bool mask``); by default they
+come from a ``torch.Generator`` seeded with ``seed`` (``start_assignment``).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..kernels.game_bestresponse import (game_bestresponse_csr,
                                          game_bestresponse_plain)
+from ..kernels.game_gs import game_gs
 
 _STALL_ROUNDS = 4
 _DAMPING = 0.5       # share of improving players that move in round 0
+PAIR_KEY_LIMIT = 2 ** 31   # the reference's int32 pair keys: m_cap·(m_cap+1) below it
+
+
+# --------------------------------------------------------------- host game
+# numpy/scipy copies of the reference's host game: the np backend's oracle.
+
+@dataclass
+class ClusterGraph:
+    """Contracted graph: vertices = clusters."""
+    sizes: np.ndarray          # |c_i| = intra-cluster edge counts, int64[m]
+    adj: sp.csr_matrix         # symmetrized inter-cluster edge counts, m×m
+    vertex_cluster: np.ndarray  # original vertex -> cluster id
+    m: int
+
+    @property
+    def total_cut_capacity(self) -> int:
+        """Σ_i |e(c_i, V\\c_i)|: the adjacency's row sums (adj = W + Wᵀ)."""
+        return int(self.adj.sum()) // 1
+
+
+def contract(src: np.ndarray, dst: np.ndarray, clu: np.ndarray) -> ClusterGraph:
+    """Build the cluster multigraph from the vertex→cluster table."""
+    cs, cd = clu[src], clu[dst]
+    m = int(clu.max()) + 1 if clu.size else 0
+    intra = cs == cd
+    sizes = np.bincount(cs[intra], minlength=m).astype(np.int64)
+    xs, xd = cs[~intra], cd[~intra]
+    w = np.ones(xs.shape[0], dtype=np.int64)
+    W = sp.coo_matrix((w, (xs, xd)), shape=(m, m)).tocsr()
+    S = (W + W.T).tocsr()
+    S.sum_duplicates()
+    return ClusterGraph(sizes, S, clu, m)
+
+
+def lambda_max(cg: ClusterGraph, k: int) -> float:
+    """Thm 5 upper end of the feasible λ range (the paper's default):
+    k²·(adj.sum()/2) / (Σ sizes)²."""
+    total_sizes = float(cg.sizes.sum())
+    if total_sizes <= 0:
+        return 1.0
+    total_cut = float(cg.adj.sum()) / 2.0
+    return (k * k) * total_cut / (total_sizes * total_sizes)
+
+
+def lambda_from_weight(cg: ClusterGraph, k: int, weight: float) -> float:
+    """Relative-weight parameterization (paper Fig. 11b): weight ∈ (0, 1)
+    is the share of the load-balance term."""
+    total_sizes = float(cg.sizes.sum())
+    total_cut = float(cg.adj.sum()) / 2.0
+    if total_sizes <= 0 or total_cut <= 0:
+        return 1.0
+    base = k * total_cut / (total_sizes * total_sizes / k)
+    w = min(max(weight, 1e-3), 1 - 1e-3)
+    return base * (w / (1 - w))
+
+
+@dataclass
+class GameResult:
+    assign: np.ndarray         # cluster -> partition, int32[m]
+    rounds: int
+    potential_trace: list
+    moves: int
+
+
+def potential(cg: ClusterGraph, assign: np.ndarray, k: int,
+              lam: float) -> float:
+    """Φ(Λ) (Definition 4)."""
+    loads = np.bincount(assign, weights=cg.sizes, minlength=k)
+    load_term = lam / (2.0 * k) * float((loads ** 2).sum())
+    A = cg.adj.tocoo()
+    cross = float(A.data[assign[A.row] != assign[A.col]].sum()) / 2.0
+    return load_term + 0.5 * cross
+
+
+def global_cost(cg: ClusterGraph, assign: np.ndarray, k: int,
+                lam: float) -> float:
+    """φ(Λ) (Eq. 10)."""
+    loads = np.bincount(assign, weights=cg.sizes, minlength=k)
+    load_term = lam / k * float((loads ** 2).sum())
+    A = cg.adj.tocoo()
+    cross = float(A.data[assign[A.row] != assign[A.col]].sum()) / 2.0
+    return load_term + cross
+
+
+def best_response_rounds(cg: ClusterGraph, k: int, lam: float | None = None,
+                         batch_size: int | None = None,
+                         max_rounds: int = 64, seed: int = 0,
+                         track_potential: bool = False,
+                         base_loads: np.ndarray | None = None) -> GameResult:
+    """Alg. 3 with the paper's §V-D batching, on the host in f64.
+
+    A batch plays sequentially (Gauss–Seidel) against the live load
+    table; the cut mass is read from the live assignment.
+    ``batch_size=None`` ⇒ one batch.  ``base_loads`` adds exogenous
+    per-partition load (the Mint-like baseline's window)."""
+    m = cg.m
+    if m == 0:
+        return GameResult(np.zeros(0, np.int32), 0, [], 0)
+    if lam is None:
+        lam = lambda_max(cg, k)
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, k, size=m).astype(np.int64)   # Alg.3 line 2
+    sizes = cg.sizes.astype(np.float64)
+    loads = np.bincount(assign, weights=sizes, minlength=k)
+    if base_loads is not None:
+        loads = loads + base_loads.astype(np.float64)
+    S = cg.adj.astype(np.float64)
+    indptr, indices, data = S.indptr, S.indices, S.data
+    row_tot = np.asarray(S.sum(axis=1)).ravel().astype(np.float64)
+    if batch_size is None:
+        batch_size = m
+    trace = []
+    total_moves = 0
+    ar = np.arange(k)
+    for rnd in range(max_rounds):
+        moved = 0
+        for lo in range(0, m, batch_size):
+            hi = min(m, lo + batch_size)
+            for i in range(lo, hi):          # Gauss–Seidel sweep (live state)
+                sz = sizes[i]
+                cur = assign[i]
+                nbrs = indices[indptr[i]:indptr[i + 1]]
+                w = data[indptr[i]:indptr[i + 1]]
+                aff = np.bincount(assign[nbrs], weights=w, minlength=k)
+                loads_ex = loads - sz * (ar == cur)
+                cost = (lam / k) * sz * (loads_ex + sz) \
+                    + 0.5 * (row_tot[i] - aff)
+                best = int(np.argmin(cost))
+                if cost[best] + 1e-9 < cost[cur]:
+                    loads[cur] -= sz
+                    loads[best] += sz
+                    assign[i] = best
+                    moved += 1
+        total_moves += moved
+        if track_potential:
+            trace.append(potential(cg, assign, k, lam))
+        if moved == 0:
+            return GameResult(assign.astype(np.int32), rnd + 1, trace,
+                              total_moves)
+    return GameResult(assign.astype(np.int32), max_rounds, trace, total_moves)
+
+
+def greedy_assign_np(cg: ClusterGraph, k: int) -> np.ndarray:
+    """CLUGP-G ablation (§VI-B) on the host: big clusters → least-loaded
+    partitions, stable sort so ties break by cluster id."""
+    order = np.argsort(-cg.sizes, kind="stable")
+    loads = np.zeros(k, dtype=np.int64)
+    assign = np.zeros(cg.m, dtype=np.int32)
+    for c in order:
+        p = int(np.argmin(loads))
+        assign[c] = p
+        loads[p] += int(cg.sizes[c])
+    return assign
+
+
+# ------------------------------------------------------------- device games
 
 
 def greedy_assign(sizes, k: int):
@@ -169,3 +340,99 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
         stall = 0 if improved else stall + 1
         rnd += 1
     return best_assign, rnd
+
+
+# ------------------------------------------------------ the scan game (G)
+
+def start_assignment(m_cap: int, k: int, seed: int, device):
+    """The scan game's default random start: (m_cap,) int32 from a
+    ``torch.Generator`` seeded with ``seed`` (the first draw
+    ``game_rounds`` makes from its generator too)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.randint(0, k, (m_cap,), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def cluster_pairs(xs, xd, m_cap: int):
+    """The distinct symmetrized cluster pairs and their multiplicities
+    (``jax_cluster_csr``): (row, col) int64 and w f32, sorted by
+    row·m_cap + col, from cross-edge endpoints padded with the sentinel
+    ``m_cap``.  The list is sized exactly, so the reference's ``nnz_cap``
+    and its retry have no counterpart."""
+    real = (xs < m_cap) & (xd < m_cap)
+    xs, xd = xs[real].long(), xd[real].long()
+    key = torch.cat([xs * m_cap + xd, xd * m_cap + xs])
+    uniq, mult = torch.unique(key, sorted=True, return_counts=True)
+    return uniq // m_cap, uniq % m_cap, mult.to(torch.float32)
+
+
+def _sum32(x):
+    """Σ x as f32: the f64 sum of the f32 terms, rounded once.  Equal on
+    every device, and equal to an f32 sum in any order wherever that sum
+    is exact (the integer-valued terms of Φ below 2²⁴)."""
+    return x.to(torch.float64).sum().to(torch.float32)
+
+
+def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
+                   max_rounds: int, seed: int, assign0=None):
+    """Gauss–Seidel-on-loads best response (``jax_game_rounds_gs``).
+
+    ``row``/``col``/``w``: the aggregated cluster pairs
+    (``cluster_pairs``); ``sizes``/``row_tot`` (m_cap,) f32; ``lam`` a
+    0-dim or (1,) f32 tensor.  Per round: the cut mass ``aff`` of the
+    round-start assignment (an accumulating ``index_put_``: integer-valued
+    f32, exact in any order), Φ, best-Φ tracking with a stall counter,
+    then one sweep on G.  The loop stops when a sweep moves nothing, at
+    ``max_rounds`` or after 4 stalled rounds, and a final Φ check decides
+    between the last sweep and the best snapshot.  Returns (assign
+    (m_cap,) int32, rounds).
+
+    The reference also takes a traced ``k_real`` to play the live lanes
+    of a k_max-padded sweep step; the port runs each k at its own lane
+    count (``partitioner.partition_sweep``), so every lane is live here.
+    The sweep walks the rows up to the last one with a size or a row
+    total: the rows past it cost 0 on every lane and never move."""
+    device = sizes.device
+    m_cap = sizes.shape[0]
+    sizes = sizes.to(torch.float32)
+    row_tot = row_tot.to(torch.float32)
+    lam = lam.reshape(1).to(torch.float32)
+    kf = torch.full((1,), float(k), dtype=torch.float32, device=device)
+    live = torch.nonzero((sizes != 0) | (row_tot != 0))
+    n = int(live.max()) + 1 if live.numel() else 0
+    ar = torch.arange(m_cap, device=device)
+    if assign0 is None:
+        assign0 = start_assignment(m_cap, k, seed, device)
+    assign = assign0.to(device=device, dtype=torch.int32)
+    loads = torch.zeros(k, dtype=torch.float32, device=device)
+    loads.index_add_(0, assign.long(), sizes)
+
+    def aff_of(assign):
+        aff = torch.zeros(m_cap, k, dtype=torch.float32, device=device)
+        return aff.index_put_((row, assign[col].long()), w, accumulate=True)
+
+    def phi_of(assign, loads, aff):
+        """Φ (Definition 4); Σ_i (row_tot − aff[i, a_i]) counts each
+        symmetrized pair twice, hence the 0.25."""
+        cut = _sum32(row_tot - aff[ar, assign.long()])
+        return (lam / (2 * kf)) * _sum32(loads * loads) + 0.25 * cut
+
+    best_assign = assign
+    best_phi = torch.full((1,), 3e38, dtype=torch.float32, device=device)
+    rnd, moved, stall = 0, 1, 0
+    while moved > 0 and rnd < max_rounds and stall < _STALL_ROUNDS:
+        aff = aff_of(assign)
+        phi = phi_of(assign, loads, aff)
+        best_assign = torch.where(phi < best_phi, assign, best_assign)
+        improved = phi < best_phi - 1e-6 * torch.abs(best_phi)
+        best_phi = torch.minimum(phi, best_phi)
+        assign, loads, moved_t = game_gs(aff, sizes, row_tot, assign, loads,
+                                         lam=lam, k=k, n=n)
+        moved, improved = torch.stack(
+            [moved_t.to(torch.int64).reshape(()),
+             improved.to(torch.int64).reshape(())]).tolist()
+        stall = 0 if improved else stall + 1
+        rnd += 1
+    phi = phi_of(assign, loads, aff_of(assign))
+    return torch.where(phi < best_phi, assign, best_assign), rnd

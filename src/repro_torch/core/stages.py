@@ -1,11 +1,13 @@
 """The CLUGP pipeline as a stage protocol — one body, device stages.
 
 Port of ``repro.core.stages``: ``run_clugp_body`` is the only place the
-cluster → contract → game → transform (→ restream) sequence exists, and
+cluster → contract → game → transform (→ restream) sequence exists.
 ``TORCH_STAGES`` is the counterpart of the reference's ``JAX_STAGES``
-(every stage works on tensors on ``ctx.device``).  ``StageCtx`` carries
-what distinguishes a run: the device, the resolved kernels and the
-static id/m caps of the partitioner's retry loop.
+(every stage works on tensors on ``ctx.device``) and ``HOST_STAGES``
+the numpy copy of its host oracle, which the ``np`` backend runs.
+``StageCtx`` carries what distinguishes a run: the device, the resolved
+kernels, the static id/m caps of the partitioner's retry loop and a
+k-sweep step's transform cap.
 
 The body records each stage's wall time (``PipelineOut.seconds``),
 synchronizing the card between stages so every time covers its own
@@ -26,9 +28,15 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .clustering import compact_labels, streaming_clustering
-from .game import game_rounds, greedy_assign
-from .transform import majority_vertex_map, partition_counts, transform
+from . import metrics
+from .clustering import (compact_labels, streaming_clustering,
+                         streaming_clustering_np)
+from .game import (PAIR_KEY_LIMIT, ClusterGraph, best_response_rounds,
+                   cluster_pairs, contract, game_rounds, game_rounds_gs,
+                   greedy_assign, greedy_assign_np, lambda_from_weight,
+                   lambda_max)
+from .transform import (majority_vertex_map, majority_vertex_map_np,
+                        partition_counts, transform, transform_np)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,24 +57,27 @@ class StageCtx:
     num_vertices: int
     vmax: float
     device: torch.device
-    game_mode: str = "cuda"      # resolved: "cuda" (K2) | "torch"
+    game_mode: str = "cuda"      # resolved: "cuda" (K2) | "torch" | "scan" (G)
     cluster_mode: str = "cuda"   # resolved: "cuda" (K1) | "torch"
     id_cap: int = 0              # cluster-id space of the clustering scan
     m_cap: int = 0               # compacted-cluster cap of the game tables
     assign0: Any = None          # injected game start assignment (tests)
     draw: Callable | None = None  # injected damping draw (tests)
+    lmax: float | None = None    # a k-sweep step's f32 transform cap
 
 
 @dataclass(frozen=True)
 class StageSet:
     """One implementation of every stage; ``vertex_part`` joins passes 1
-    and 2, ``prior`` is the restream majority map."""
+    and 2, ``prior`` is the restream majority map; ``trace`` (host only)
+    samples RF before each restream pass."""
     cluster: Callable
     contract: Callable
     game: Callable
     vertex_part: Callable
     transform: Callable
     prior: Callable
+    trace: Callable | None = None
 
 
 class TorchCluster(NamedTuple):
@@ -85,12 +96,19 @@ class TorchGraph(NamedTuple):
     n_cross: Any               # 0-dim f32 cross-edge count (λ_max)
 
 
+class HostGraph(NamedTuple):
+    cg: ClusterGraph           # the contraction (result object)
+    game_cg: ClusterGraph      # what the game balances (effective sizes)
+
+
 class PipelineOut(NamedTuple):
     assign: Any
-    cluster: TorchCluster
+    cluster: Any               # TorchCluster / host ClusteringResult
     cluster_assign: Any
     rounds: int
     seconds: dict              # wall time per stage
+    graph: Any = None          # TorchGraph / HostGraph
+    trace: tuple = ()          # pre-pass RF per restream (host runs only)
 
 
 class CapOverflow(Exception):
@@ -132,26 +150,56 @@ def run_clugp_body(src, dst, ctx: StageCtx, cfg, stages: StageSet
     vp = stages.vertex_part(cluster_assign, cstate, ctx)
     assign = stages.transform(src, dst, vp, cstate, ctx, cfg)
     lap("transform")
-    assign = restream_loop(src, dst, assign, cstate, ctx, cfg, stages)
+    assign, trace = restream_loop(src, dst, assign, [(None, cstate, ctx)],
+                                  ctx, cfg, stages)
     lap("restream")
-    return PipelineOut(assign, cstate, cluster_assign, rounds, seconds)
+    return PipelineOut(assign, cstate, cluster_assign, rounds, seconds,
+                       gstate, trace)
 
 
-def restream_loop(src, dst, assign, cstate, ctx: StageCtx, cfg,
-                  stages: StageSet):
+def restream_loop(src, dst, assign, parts, ctx: StageCtx, cfg,
+                  stages: StageSet) -> tuple:
     """``cfg.restream`` prioritized passes: the previous pass's realized
-    majority becomes the prior and the transform re-runs."""
+    majority becomes the prior and the transform re-runs.  ``parts`` is
+    ``[(sl, cstate, ctx_slice), …]``: one entry over the whole stream
+    (``sl=None``) or one per contiguous slice of the host combine (``sl``
+    a ``slice``: the prior spans every slice, each transform sees its
+    own).  Returns (assign, the RF before each pass when
+    ``stages.trace`` samples it)."""
+    trace = []
     for _ in range(int(cfg.restream)):
+        if stages.trace is not None:
+            trace.append(stages.trace(src, dst, assign, ctx, cfg))
         vp = stages.prior(src, dst, assign, ctx, cfg)
-        assign = stages.transform(src, dst, vp, cstate, ctx, cfg)
-    return assign
+        if len(parts) == 1 and parts[0][0] is None:
+            _, cstate, pctx = parts[0]
+            assign = stages.transform(src, dst, vp, cstate, pctx, cfg)
+        else:
+            assign = np.concatenate([
+                stages.transform(src[sl], dst[sl], vp, cstate, pctx, cfg)
+                for sl, cstate, pctx in parts])
+    return assign, tuple(trace)
 
 
 def resolve_mode(kernel: str) -> str:
-    """``auto`` → ``cuda``: the kernels on every device (on CPU tensors
-    their wrappers run the plain versions).  ``CLUGPConfig`` has already
-    rejected any value other than ``auto``/``cuda``/``torch``."""
+    """The clustering and transform kernels: ``auto`` → ``cuda``, the
+    kernels on every device (on CPU tensors their wrappers run the plain
+    versions)."""
     return "cuda" if kernel == "auto" else kernel
+
+
+def resolve_game_mode(kernel: str, m_cap: int) -> str:
+    """The game: ``auto`` → ``cuda``, the Jacobi game on the CSR K2 — the
+    port's card is the counterpart of the reference's TPU, where ``auto``
+    means the batched game.  ``scan`` is the Gauss–Seidel game on G, which
+    falls back to the Jacobi CSR game where ``m_cap·(m_cap+1)`` overflows
+    the reference's int32 pair keys (m_cap > 46,340), as
+    ``repro.core.stages.resolve_game_mode`` falls back to ``xla``.
+    ``CLUGPConfig`` has already rejected any other value."""
+    mode = resolve_mode(kernel)
+    if mode == "scan" and m_cap * (m_cap + 1) >= PAIR_KEY_LIMIT:
+        return "cuda"
+    return mode
 
 
 def cluster_graph_arrays(src, dst, compact, m_cap: int, effective: bool):
@@ -221,6 +269,11 @@ def _game(gstate, ctx, cfg):
         return greedy_assign(gstate.sizes, cfg.k), 0
     lam = lambda_from_totals(gstate.sizes.sum(), gstate.n_cross, cfg.k,
                              cfg.relative_weight)
+    if ctx.game_mode == "scan":
+        row, col, w = cluster_pairs(gstate.xs, gstate.xd, ctx.m_cap)
+        return game_rounds_gs(row, col, w, gstate.sizes, gstate.row_tot,
+                              cfg.k, lam, max_rounds=cfg.max_rounds,
+                              seed=cfg.seed, assign0=ctx.assign0)
     return game_rounds(gstate.xs, gstate.xd, gstate.sizes, gstate.row_tot,
                        cfg.k, lam, batch_size=cfg.batch_size,
                        max_rounds=cfg.max_rounds, seed=cfg.seed,
@@ -236,7 +289,7 @@ def _transform(src, dst, vp, cstate, ctx, cfg):
     # the transform walk is the other stream scan: it follows the
     # clustering's kernel choice
     return transform(src, dst, vp, cstate.deg, cstate.divided, cfg.k,
-                     cfg.tau, kernel=ctx.cluster_mode)
+                     cfg.tau, kernel=ctx.cluster_mode, lmax=ctx.lmax)
 
 
 def _prior(src, dst, assign, ctx, cfg):
@@ -246,6 +299,62 @@ def _prior(src, dst, assign, ctx, cfg):
 TORCH_STAGES = StageSet(cluster=_cluster, contract=_contract, game=_game,
                         vertex_part=_vertex_part, transform=_transform,
                         prior=_prior)
+
+
+# ------------------------------------------------------------ host stages
+# numpy copies of the reference's HOST_STAGES: the np backend's oracle.
+
+def _host_cluster(src, dst, ctx, cfg):
+    return streaming_clustering_np(
+        src, dst, ctx.num_vertices, ctx.vmax, allow_split=cfg.split,
+        split_degree_factor=cfg.split_degree_factor)
+
+
+def _host_contract(src, dst, cstate, ctx, cfg):
+    cg = contract(src, dst, cstate.clu)
+    game_cg = cg
+    if cfg.effective_sizes:
+        boundary = np.asarray(cg.adj.sum(axis=1)).ravel()
+        game_cg = ClusterGraph(cg.sizes + boundary, cg.adj,
+                               cg.vertex_cluster, cg.m)
+    return HostGraph(cg, game_cg)
+
+
+def _host_game(gstate, ctx, cfg):
+    if not cfg.game:
+        return greedy_assign_np(gstate.game_cg, cfg.k), 0
+    lam = (lambda_max(gstate.game_cg, cfg.k)
+           if cfg.relative_weight is None
+           else lambda_from_weight(gstate.game_cg, cfg.k,
+                                   cfg.relative_weight))
+    game = best_response_rounds(gstate.game_cg, cfg.k, lam=lam,
+                                batch_size=cfg.batch_size,
+                                max_rounds=cfg.max_rounds, seed=cfg.seed)
+    return game.assign, game.rounds
+
+
+def _host_vertex_part(cluster_assign, cstate, ctx):
+    return cluster_assign[np.maximum(cstate.clu, 0)].astype(np.int32)
+
+
+def _host_transform(src, dst, vp, cstate, ctx, cfg):
+    return transform_np(src, dst, vp, cstate.deg, cstate.divided,
+                        cfg.k, cfg.tau)
+
+
+def _host_prior(src, dst, assign, ctx, cfg):
+    return majority_vertex_map_np(src, dst, assign, ctx.num_vertices, cfg.k)
+
+
+def _host_trace(src, dst, assign, ctx, cfg):
+    return metrics.replication_factor(src, dst, assign, ctx.num_vertices,
+                                      cfg.k)
+
+
+HOST_STAGES = StageSet(cluster=_host_cluster, contract=_host_contract,
+                       game=_host_game, vertex_part=_host_vertex_part,
+                       transform=_host_transform, prior=_host_prior,
+                       trace=_host_trace)
 
 
 # ---------------------------------------------------------------- serving

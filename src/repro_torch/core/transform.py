@@ -10,15 +10,70 @@ are bit-identical to the reference.
 ``transform(..., loads=, lmax=)`` is the counterpart of the host oracle
 ``transform_np``'s keywords: the walk starts from loads already carried
 and takes an explicit cap, compared as ``transform_np`` compares it.
+
+``transform_np`` and ``majority_vertex_map_np`` are numpy copies of the
+reference's host oracle (the ``np`` backend's transform and prior).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..kernels.transform_scan import (transform_inputs, transform_scan,
                                       transform_scan_plain)
+
+
+def transform_np(src: np.ndarray, dst: np.ndarray,
+                 vertex_part: np.ndarray, deg: np.ndarray,
+                 divided: np.ndarray, k: int, tau: float = 1.0, *,
+                 loads: np.ndarray | None = None,
+                 lmax: float | None = None) -> np.ndarray:
+    """Alg. 1 on the host, edge by edge, with an f64 cap (the reference's
+    oracle).  ``loads``/``lmax`` seed the pass with per-partition edge
+    counts already carried and an external cap; the defaults are the
+    batch pass."""
+    E = src.shape[0]
+    if lmax is None:
+        lmax = tau * E / float(k)
+    loads = (np.zeros(k, dtype=np.int64) if loads is None
+             else np.asarray(loads, dtype=np.int64).copy())
+    assign = np.zeros(E, dtype=np.int32)
+    vp = vertex_part
+    for i in range(E):
+        u = int(src[i]); v = int(dst[i])
+        pu = int(vp[u]); pv = int(vp[v])
+        if loads[pu] >= lmax or loads[pv] >= lmax:      # lines 6-14
+            if loads[pu] < lmax:
+                p = pu
+            elif loads[pv] < lmax:
+                p = pv
+            else:
+                p = int(np.argmin(loads))
+        elif pu == pv:                                   # lines 15-16
+            p = pu
+        elif divided[u]:                                 # lines 17-19
+            p = pv
+        elif divided[v]:
+            p = pu
+        elif deg[v] > deg[u]:                            # lines 20-22
+            p = pu
+        else:
+            p = pv
+        assign[i] = p
+        loads[p] += 1
+    return assign
+
+
+def majority_vertex_map_np(src, dst, assign, num_vertices: int,
+                           k: int) -> np.ndarray:
+    """Per vertex, the partition holding most of its edges in the previous
+    pass (ties → the lowest partition id)."""
+    key = (np.concatenate([src, dst]).astype(np.int64) * k
+           + np.tile(assign, 2))
+    cnt = np.bincount(key, minlength=num_vertices * k)
+    return cnt.reshape(num_vertices, k).argmax(axis=1).astype(np.int32)
 
 
 # loads are exact in f32 below 2**24, so an integral cap up to it is too
@@ -46,7 +101,10 @@ def transform(src, dst, vertex_part, deg, divided, k: int, tau: float = 1.0,
     ``transform_jax`` compares it.  With ``lmax`` (``transform_np``'s
     keyword) the cap is compared as the host oracle compares it, in f64:
     T gets ``host_exact_cap(lmax)``.  ``loads`` (a (k,) count) seeds the
-    walk with the loads already carried; None starts from zero."""
+    walk with the loads already carried; None starts from zero.  A
+    k-sweep step's f32 cap (τ·E in f32 over k in f32, as the reference
+    computes it) comes as ``lmax`` too: for integer loads ``load >= cap``
+    and ``load >= ceil(cap)`` decide alike."""
     cap = tau * src.shape[0] / float(k) if lmax is None \
         else host_exact_cap(lmax)
     pu, pv, normal = transform_inputs(src.long(), dst.long(),

@@ -14,6 +14,7 @@ from .game_bestresponse import (game_bestresponse,  # noqa: F401
                                 game_bestresponse_csr,
                                 game_bestresponse_csr_plain,
                                 game_bestresponse_plain)
+from .game_gs import game_gs, game_gs_plain  # noqa: F401
 from .transform_scan import (transform_inputs, transform_scan,  # noqa: F401
                              transform_scan_plain, transform_scan_tiered_plain,
                              transform_scan_tiers)
@@ -21,9 +22,11 @@ from .transform_scan import (transform_inputs, transform_scan,  # noqa: F401
 # the kernels of each path, by the path that launches them: the graph path
 # (partition → layout → PageRank), the GAS program library on a built
 # layout (pagerank, ppr and centrality gather on K3; the other programs
-# launch no kernel) and the LM serving path (prefill).  The dense
-# game_bestresponse is on none: the game runs the CSR form.
+# launch no kernel), the scan partition (kernel="scan": K1, the
+# Gauss–Seidel sweep G, T) and the LM serving path (prefill).  The dense
+# game_bestresponse is on none: the Jacobi game runs the CSR form.
 KERNELS = {"graph": ("cluster_scatter", "game_bestresponse_csr", "ell_spmv",
                      "transform_scan"),
            "gas": ("ell_spmv",),
+           "scan": ("cluster_scatter", "game_gs", "transform_scan"),
            "lm": ("flash_attention",)}

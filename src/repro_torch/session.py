@@ -17,7 +17,9 @@ config.
 
 The session runs on the card unless ``device=`` names another device;
 with no card and no ``device`` it raises.  ``backend="torch"`` is the
-counterpart of the reference's ``"jit"`` backend; ``with_partition``
+counterpart of the reference's ``"jit"`` backend, ``"np"`` its host
+oracle (``nodes > 1``: the §III-C host combine); ``run_sweep``
+partitions at several k; ``with_partition``
 adopts an external edge → partition assignment instead, and
 ``snapshot``/``from_snapshot`` carry graph and partition across a
 restart (``repro_torch.serve``).  ``run`` takes any of ``PROGRAMS`` (the
@@ -36,7 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .core import metrics
-from .core.partitioner import BACKENDS, partition, resolve_device
+from .core.partitioner import (BACKENDS, partition, partition_sweep,
+                               resolve_device)
 from .core.pipeline import CLUGPConfig, CLUGPResult
 from .dist.halo import EXCHANGE_NAMES, lossy_payload
 from .graph.engine import (GASProgram, PROGRAM_NAMES, fuse_programs,
@@ -71,7 +74,8 @@ class SessionConfig:
     """Everything a reproducible partition → layout → GAS run needs;
     round-trips through ``to_json``/``from_json``."""
     clugp: CLUGPConfig
-    backend: str = "torch"     # partitioner strategy
+    backend: str = "torch"     # partitioner strategy: torch | np
+    nodes: int = 1             # §III-C stream split (np only)
     exchange: str = "halo"     # mirror wire format for run()
     iters: int = 30            # default GAS iterations
     pad_multiple: int = 8      # layout table padding
@@ -83,6 +87,12 @@ class SessionConfig:
         if self.exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {self.exchange!r}; "
                              f"expected one of {EXCHANGES}")
+        if self.nodes < 1:
+            raise ValueError(f"nodes must be >= 1, got {self.nodes}")
+        if self.nodes > 1 and self.backend != "np":
+            raise ValueError("nodes > 1 is the np backend's host combine; "
+                             "the sharded partitioner is not ported yet "
+                             "(ROADMAP, Queue 1 item 7)")
         if not isinstance(self.clugp, CLUGPConfig):
             raise TypeError("SessionConfig.clugp must be a CLUGPConfig")
 
@@ -132,8 +142,25 @@ class GraphSession:
         self._adopt_graph(src, dst, num_vertices)
         self.result = partition(self._src, self._dst, self._num_vertices,
                                 self.cfg.clugp, backend=self.cfg.backend,
-                                device=self.device)
+                                nodes=self.cfg.nodes, device=self.device)
         return self
+
+    def run_sweep(self, src, dst, num_vertices: int, ks) -> dict:
+        """Partition the stream at every k in ``ks``
+        (``core.partition_sweep``: the torch backend whatever the
+        session's, as the reference sweeps on jit; each k at its own lane
+        count, the caps shared).  Returns ``{k: CLUGPResult}`` in input
+        order and leaves the session on the last k's partition, ready for
+        ``layout()``/``run()``."""
+        self._adopt_graph(src, dst, num_vertices)
+        results = partition_sweep(self._src, self._dst, self._num_vertices,
+                                  self.cfg.clugp, ks, device=self.device)
+        table = dict(zip((int(k) for k in ks), results))
+        last_k = int(tuple(ks)[-1])
+        self.cfg = dataclasses.replace(
+            self.cfg, clugp=dataclasses.replace(self.cfg.clugp, k=last_k))
+        self.result = table[last_k]
+        return table
 
     def with_partition(self, src, dst, num_vertices: int,
                        assign) -> "GraphSession":

@@ -766,3 +766,87 @@ def test_overlap_and_hopwise_on_card(dev, gas_layout, exchange):
     a, _ = ex.reduce_stacked_multi(vals, tables, "min")
     b, _ = ex.reduce_stacked_multi(vals, tables, "min", hopwise=True)
     assert torch.equal(a, b)
+
+
+def _gs_inputs(k, m=300, pad=60, seed=0):
+    """A sweep's inputs with ``pad`` pad rows at the end (no size, no row
+    total, no cut mass): integer-valued f32 cut mass and sizes, loads
+    from the assignment, λ near λ_max's scale."""
+    rng = np.random.default_rng(seed)
+    live = m - pad
+    aff = np.zeros((m, k), np.float32)
+    aff[:live] = rng.integers(0, 4, (live, k))
+    sizes = np.zeros(m, np.float32)
+    sizes[:live] = rng.integers(1, 200, live)
+    row_tot = aff.sum(1) + np.where(np.arange(m) < live,
+                                    rng.integers(0, 8, m), 0)
+    assign = rng.integers(0, k, m).astype(np.int32)
+    loads = np.bincount(assign, weights=sizes, minlength=k).astype(np.float32)
+    lam = np.float32(k * k * row_tot.sum() / 2 / sizes.sum() ** 2)
+    return [torch.from_numpy(x) for x in (aff, sizes, row_tot.astype(
+        np.float32), assign, loads, np.array([lam], np.float32))], live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 256, 1024])
+def test_game_gs_on_card(dev, k):
+    """G (one launch a sweep) against its plain version bit for bit:
+    assignment, loads and moves, over every row and over the live prefix
+    (the pad rows past it never move)."""
+    (aff, sizes, row_tot, assign, loads, lam), live = _gs_inputs(k)
+    want = ops.game_gs_plain(aff, sizes, row_tot, assign, loads, lam=lam,
+                             k=k)
+    assert k == 1 or int(want[2]) > 0
+    for n in (None, live):
+        ops.reset_launch_counts()
+        got = ops.game_gs(*(t.to(dev) for t in (aff, sizes, row_tot, assign,
+                                                loads)),
+                          lam=lam.to(dev), k=k, n=n)
+        assert ops.launch_counts() == {"game_gs": 1}
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu().to(w_.dtype), w_)
+
+
+@pytest.mark.cuda
+def test_scan_partition_on_card_matches_cpu(dev):
+    """The scan partition on the card (K1, G once a round, T) against the
+    port on the CPU from the same injected start assignment, edge for
+    edge, with equal rounds."""
+    from repro_torch.core import CLUGPConfig, partition, web_graph
+    g = web_graph(scale=12, edge_factor=6, seed=2)
+    cfg = CLUGPConfig.optimized(16, restream=1, kernel="scan")
+    off = partition(g.src, g.dst, g.num_vertices,
+                    CLUGPConfig.optimized(16, game=False), device="cpu")
+    start = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 16, off.stats["m_cap"]).astype(np.int32))
+    ops.reset_launch_counts()
+    card = partition(g.src, g.dst, g.num_vertices, cfg, device=dev,
+                     assign0=start)
+    launched = ops.launch_counts()
+    assert launched["game_gs"] == card.game_rounds > 1
+    assert "game_bestresponse_csr" not in launched
+    cpu = partition(g.src, g.dst, g.num_vertices, cfg, device="cpu",
+                    assign0=start)
+    assert card.game_rounds == cpu.game_rounds
+    np.testing.assert_array_equal(card.cluster_assign, cpu.cluster_assign)
+    np.testing.assert_array_equal(card.assign, cpu.assign)
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_matches_per_k_partitions(dev):
+    """``partition_sweep`` on the card equals a partition at each k (the
+    caps agree here, so the seeded starts do too)."""
+    from repro_torch.core import (CLUGPConfig, partition, partition_sweep,
+                                  web_graph)
+    g = web_graph(scale=12, edge_factor=6, seed=2)
+    cfg = CLUGPConfig.optimized(8, restream=1, kernel="scan")
+    ks = (4, 16, 64)
+    sweep = partition_sweep(g.src, g.dst, g.num_vertices, cfg, ks,
+                            device=dev)
+    for k, res in zip(ks, sweep):
+        one = partition(g.src, g.dst, g.num_vertices,
+                        CLUGPConfig.optimized(k, restream=1, kernel="scan"),
+                        device=dev)
+        assert one.stats["m_cap"] == res.stats["m_cap"]
+        np.testing.assert_array_equal(one.assign, res.assign)
+        assert res.stats["sweep"] and res.stats["k_max"] == 64

@@ -122,8 +122,19 @@ def test_config_from_reference_maps_and_refuses():
     assert cfg.clugp.kernel == "cuda" and cfg.clugp.cluster_kernel == "torch"
     assert cfg.clugp.k == 64 and cfg.clugp.tau == 1.1 and cfg.clugp.restream == 1
     assert SessionConfig.from_json(cfg.to_json()) == cfg
-    for bad in (JSessionConfig(clugp=JConfig(k=4, kernel="scan")),
-                JSessionConfig(clugp=JConfig(k=4), backend="jit", nodes=2),
+    # the reference's default (np, auto) and the scan map as the reference
+    # resolves them off a TPU; np with nodes > 1 to the host combine
+    for ref, backend, nodes in (
+            (JSessionConfig(clugp=JConfig(k=4, kernel="scan"),
+                            backend="jit"), "torch", 1),
+            (JSessionConfig(clugp=JConfig(k=4)), "np", 1),
+            (JSessionConfig(clugp=JConfig(k=4), backend="np", nodes=2),
+             "np", 2)):
+        got = config_from_reference(ref.to_json())
+        assert (got.backend, got.nodes, got.clugp.kernel) == \
+            (backend, nodes, "scan")
+        assert SessionConfig.from_json(got.to_json()) == got
+    for bad in (JSessionConfig(clugp=JConfig(k=4), backend="jit", nodes=2),
                 JSessionConfig(clugp=JConfig(k=4), backend="sharded",
                                nodes=2)):
         with pytest.raises(ValueError, match="ROADMAP"):
