@@ -132,10 +132,24 @@ Phases (any failure raises and exits non-zero):
    2e-5; timed with CUDA events beside its bound (tensor-core operations)
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
+8b. ``[moe]``, with the qwen2 phases' memory freed: llama4-scout (16
+   experts top-1 + a shared expert, GQA 40/8) at published width and 12
+   of its 48 layers (the only cut), bf16, seeded.  The parameter count
+   against ``param_count``; ``make_prefill_step`` on 4 × 2,048 tokens with
+   the counts zeroed before and read after (K4 exactly once a layer, no
+   graph kernel), tokens/s beside the FLOP ceiling from the code, peak
+   memory, the share of routed tokens dropped by capacity and layer 0's
+   expert load; ``generate`` (4 prompts of 16 tokens, 32 greedy tokens;
+   no K4), ms/token-step beside the weight-read floor (every expert at
+   capacity 1), every step's logits finite.  Then 2 layers in f32 at a
+   capacity that drops nothing: prefill (K4) against the decode loop
+   within 2e-3, ``moe_apply`` against ``moe_reference`` on layer 0's real
+   input within 2e-4; K4 at the group-5 prefill shape against its plain
+   version within 2e-2, timed beside its bound and SDPA.
 9. The ``kernels`` JSON line (seven rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
-   ``[graph-serve]``),
+   ``[graph-serve]``, K4's the ``[moe]`` prefill's),
    then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -216,6 +230,11 @@ PREFILL_B, PREFILL_S = 4, 2048
 SERVE_B, SERVE_PROMPT, SERVE_TOKENS = 4, 16, 32
 CHECK_LAYERS, CHECK_B, CHECK_PROMPT = 2, 2, 100   # the f32 cross-check
 F32_S = 300                                       # K4's f32 shape: S
+# the MoE serving path: llama4-scout at published width, 12 of its 48
+# layers (bf16 weights of all 48 come to ≈ 215.5 GB, of 12 to ≈ 57 GB);
+# prefill and decode batches as the qwen2 path's
+MOE_ARCH, MOE_LAYERS = "llama4_scout_17b_a16e", 12
+MOE_TOKENS = 32
 
 
 def check(cond, msg):
@@ -1400,6 +1419,232 @@ def partition_cli_phase(torch) -> dict:
     return out
 
 
+def moe_flops(cfg, B, S, capacity) -> int:
+    """Operations of one prefill of B × S tokens as the code runs it:
+    per layer the attention projections, causal attention (the unmasked
+    (q, k) pairs), the shared expert, the routed bank at its capacity-padded
+    E × C slots a group and the router; then the LM head at the last
+    position.  A multiply-add counts two."""
+    d, hd, mo = cfg.d_model, cfg.hd, cfg.moe
+    N = B * S
+    proj = 2 * N * d * 2 * (cfg.n_heads + cfg.n_kv_heads) * hd
+    attn = 4 * hd * (S * (S + 1) // 2) * B * cfg.n_heads
+    expert = 3 * d * mo.d_expert            # multiply-adds a token an expert
+    shared = 2 * N * mo.n_shared * expert
+    routed = 2 * B * mo.n_experts * capacity * expert
+    router = 2 * N * d * mo.n_experts
+    head = 2 * B * d * cfg.padded_vocab
+    return cfg.n_layers * (proj + attn + shared + routed + router) + head
+
+
+@contextlib.contextmanager
+def moe_inputs(M, record):
+    """Calls ``record(p, x, kw)`` with every MoE layer's input while the
+    block runs (``models.lm`` calls ``moe.moe_apply`` through the module)."""
+    real = M.moe_apply
+
+    def spy(p, x, **kw):
+        record(p, x, kw)
+        return real(p, x, **kw)
+    M.moe_apply = spy
+    try:
+        yield
+    finally:
+        M.moe_apply = real
+
+
+def moe_phase(torch, ops, dev, k4_row) -> None:
+    """``[moe]``: llama4-scout (16 experts top-1 + a shared expert, GQA
+    40/8) at published width and 12 of its 48 layers, bf16, seeded.  The
+    parameter count against ``param_count``; ``make_prefill_step`` on 4 ×
+    2,048 tokens with the counts zeroed before and read after (K4 once a
+    layer, no other kernel), tokens/s beside the FLOP ceiling, the drop
+    share and one layer's expert load; ``generate`` (no K4), ms/token-step
+    beside the weight-read floor, every logit finite.  Then the same model
+    cut to 2 layers in f32 at a capacity that drops nothing: prefill (K4)
+    against the decode loop within 2e-3, and ``moe_apply`` against
+    ``moe_reference`` on layer 0's real input within 2e-4.  Last, K4 at
+    the group-5 prefill shape against its plain version (2e-2), timed
+    beside its bound and SDPA; its launches join K4's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, param_count, prefill, \
+        tree_leaves
+    from repro_torch.models import moe as M
+    from repro_torch.train import make_prefill_step
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    mo = cfg.moe
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg), f"parameter count {n_params} != "
+          f"param_count {param_count(cfg)}")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    # a decode step reads every weight but the embedding table (B rows)
+    step_bytes = weight_bytes - params["embed"]["table"].numel() * 2
+    log(f"[moe] {cfg.name}: {MOE_LAYERS} of {full.n_layers} layers "
+        f"(reduced: n_layers), d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, {mo.n_experts} experts top-{mo.top_k} "
+        f"d_expert {mo.d_expert} + {mo.n_shared} shared, vocab {cfg.vocab}: "
+        f"{n_params} parameters = param_count ({weight_bytes / 1e9:.3f} GB "
+        f"bf16) built in {time.perf_counter() - t:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    capacity = M.expert_capacity(PREFILL_S, mo.top_k, mo.n_experts,
+                                 mo.capacity_factor)
+    routing = []
+
+    def record(p, x, kw):
+        top_idx, gates = M.route(p, x, top_k=kw["top_k"])
+        tok, _ = M.dispatch_tables(top_idx, gates, n_experts=mo.n_experts,
+                                   capacity=capacity)
+        routing.append((int((tok < x.shape[1]).sum()), top_idx.numel(),
+                        torch.bincount(top_idx.reshape(-1),
+                                       minlength=mo.n_experts).cpu()))
+
+    prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+    with moe_inputs(M, record):                     # warm-up
+        prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t
+    launches = ops.launch_counts()
+    log(f"[moe] prefill launches {json.dumps(launches)}")
+    check_path_launches(ops, launches, "lm")
+    check(launches["flash_attention"] == MOE_LAYERS,
+          f"K4 launched {launches['flash_attention']} times in the MoE "
+          f"prefill, not once per layer ({MOE_LAYERS})")
+    check(logits.shape == (PREFILL_B, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "MoE prefill logits")
+    flops = moe_flops(cfg, PREFILL_B, PREFILL_S, capacity)
+    ceiling = flops / BF16_OPS_PER_S
+    log(f"[moe] prefill B={PREFILL_B} S={PREFILL_S}: {t_prefill * 1e3:.3f} "
+        f"ms = {PREFILL_B * PREFILL_S / t_prefill:.1f} tokens/s (ceiling "
+        f"{flops:.4e} FLOP at 989 TFLOP/s = {ceiling * 1e3:.3f} ms = "
+        f"{PREFILL_B * PREFILL_S / ceiling:.1f} tokens/s; "
+        f"{flops / t_prefill / 1e12:.1f} TFLOP/s); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(len(routing) == MOE_LAYERS, f"{len(routing)} MoE layers ran")
+    kept = sum(r[0] for r in routing)
+    routed = sum(r[1] for r in routing)
+    load = routing[0][2].double()
+    skew = float(load.max() / load.mean())
+    log(f"[moe] routing: capacity {capacity} slots an expert a group of "
+        f"{PREFILL_S}; dropped {1 - kept / routed:.4%} of {routed} routed "
+        f"tokens over the {MOE_LAYERS} layers (per layer "
+        + ", ".join(f"{1 - k / r:.4f}" for k, r, _ in routing)
+        + f"); layer 0's expert load max/mean {skew:.3f} (tokens an "
+        f"expert {load.long().tolist()})")
+    del logits, routing
+
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)  # warm-up
+    ops.reset_launch_counts()
+    served = generate(params, cfg, prompt, MOE_TOKENS, dtype=torch.bfloat16)
+    check(not any(ops.launch_counts().values()),
+          "MoE decode launched a kernel")
+    check(served.finite and served.tokens.shape == (SERVE_B, MOE_TOKENS)
+          and int(served.tokens.max()) < cfg.vocab, "MoE decode output")
+    ms_step = served.seconds * 1e3 / served.steps
+    log(f"[moe] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {MOE_TOKENS} "
+        f"tokens: {served.steps} steps in {served.seconds:.3f} s = "
+        f"{ms_step:.3f} ms/token-step (floor: {step_bytes / 1e9:.3f} GB of "
+        f"weights per step, every expert at capacity 1, at 3.35 TB/s = "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); logits finite; "
+        f"first tokens {served.tokens[0][:16].tolist()}")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 cross-check at a capacity that drops nothing (E / k slots a
+    # token): a prefill group and a one-token decode step drop differently
+    # otherwise, as the JAX package's own decode-vs-forward test says
+    small = dataclasses.replace(full, n_layers=CHECK_LAYERS,
+                                moe=dataclasses.replace(
+                                    mo, capacity_factor=mo.n_experts
+                                    / mo.top_k))
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
+    inputs = []
+    ops.reset_launch_counts()
+    with moe_inputs(M, lambda p, x, kw: inputs.append((p, x, kw))):
+        pre, _ = prefill(p32, {"tokens": prompt}, small, dtype=torch.float32)
+    check(ops.launch_counts().get("flash_attention") == CHECK_LAYERS,
+          "the f32 MoE prefill did not run on K4")
+    dec = generate(p32, small, prompt, 1, dtype=torch.float32)
+    check(dec.finite, "f32 MoE decode logits not finite")
+    torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    p0, x0, kw = inputs[0]
+    got = M.moe_apply(p0, x0, **kw)
+    want = M.moe_reference(p0, x0, n_experts=kw["n_experts"],
+                           top_k=kw["top_k"])
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    log(f"[moe] check: {CHECK_LAYERS} layers at full width, f32, "
+        f"B={CHECK_B}, prompt {CHECK_PROMPT}, capacity factor "
+        f"{kw['capacity_factor']}: prefill (K4) vs decode loop last logits "
+        f"max |d| {float((dec.prompt_logits - pre[:, -1]).abs().max()):.3e} "
+        f"(tolerance 2e-3); moe_apply vs moe_reference on layer 0's input "
+        f"{tuple(x0.shape)} max |d| {float((got - want).abs().max()):.3e} "
+        f"(tolerance 2e-4)")
+    del p32, pre, dec, inputs, p0, x0, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 at the MoE prefill's shape: 40 query heads over 8 KV heads
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(PREFILL_B, Hq, PREFILL_S, D, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(PREFILL_B, Hkv, PREFILL_S, D, generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                  20)
+    plain = event_ms(torch, lambda: ops.flash_attention_plain(
+        q, k, v, causal=True), 3, warmup=1)
+    lib = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    k4_flops = 4 * D * (PREFILL_S * (PREFILL_S + 1) // 2) * PREFILL_B * Hq
+    bms, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), k4_flops,
+                       BF16_OPS_PER_S)
+    group7 = k4_flops * 28 / Hq / k4_row["ms"] / 1e9   # the row's shape
+    log(f"[moe] K4 bf16 q {tuple(q.shape)} k/v {tuple(k.shape)} causal "
+        f"(group {Hq // Hkv}): max |d| {err:.3e}; {ms:.4f} ms/launch = "
+        f"{k4_flops / ms / 1e9:.1f} TFLOP/s (group 7 at 28/4: {group7:.1f}); "
+        f"bound {bms:.4f} ms ({by}); plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention {lib:.4f} ms; {MOE_LAYERS} launches = "
+        f"{MOE_LAYERS * ms / (t_prefill * 1e3):.1%} of the prefill")
+    k4_row["launches"] += launches["flash_attention"]
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    log(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1961,8 +2206,7 @@ def main() -> int:
     ops.reset_launch_counts()
     served = generate(params, cfg, prompt, SERVE_TOKENS, dtype=torch.bfloat16)
     check(not any(ops.launch_counts().values()), "decode launched a kernel")
-    check(bool(torch.isfinite(served.prompt_logits).all())
-          and served.tokens.shape == (SERVE_B, SERVE_TOKENS)
+    check(served.finite and served.tokens.shape == (SERVE_B, SERVE_TOKENS)
           and int(served.tokens.max()) < cfg.vocab, "decode output")
     ms_step = served.seconds * 1e3 / served.steps
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
@@ -2053,6 +2297,11 @@ def main() -> int:
                     20)
     log(f"[K4] f32 q {tuple(q.shape)} k/v {tuple(k.shape)} causal: max |d| "
         f"{float((got - want).abs().max()):.3e}; {ms32:.4f} ms/launch")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 8b
+    moe_phase(torch, ops, dev, rows[-1])
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,7 +17,8 @@ import torch
 from .core.pipeline import CLUGPConfig
 from .graph.partition import PartitionLayout
 from .models.config import ModelConfig
-from .models.lm import param_count, require_dense, tree_leaves
+from .models.lm import (layer_groups, param_count, require_ported,
+                        tree_leaves)
 from .session import SessionConfig
 
 _BACKENDS = {"jit": "torch", "np": "np", "torch": "torch"}
@@ -96,14 +97,19 @@ def layout_from_reference(obj) -> PartitionLayout:
 
 def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
     """The reference's LM parameter tree as numpy arrays (``{"embed",
-    "lm_head", "ln_f", "g_dense": {leaves stacked on a leading layer
-    axis}}``, weights (d_in, d_out) as in ``repro.models.layers``) → the
-    port's parameters: CPU tensors in the tree's dtypes, ``g_dense`` split
-    into one dict per layer.  Raises for a configuration the port cannot
-    run and for a tree that does not fit ``cfg``."""
-    require_dense(cfg)
-    if set(tree) != {"embed", "lm_head", "ln_f", "g_dense"}:
-        raise ValueError(f"not a dense LM tree: keys {sorted(tree)}")
+    "lm_head", "ln_f"}`` and one ``g_<group>`` per layer group of ``cfg``
+    — ``g_dense``; ``g_moe``, after ``g_dense`` when ``first_k_dense >
+    0`` — each with its leaves stacked on a leading layer axis; weights
+    (d_in, d_out) as in ``repro.models.layers``) → the port's parameters:
+    CPU tensors in the tree's dtypes, each group split into one dict per
+    layer.  Raises for a configuration the port cannot run and for a tree
+    that does not fit ``cfg``."""
+    require_ported(cfg)
+    groups = layer_groups(cfg)
+    keys = {"embed", "lm_head", "ln_f"} | {f"g_{g}" for g, _ in groups}
+    if set(tree) != keys:
+        raise ValueError(f"not an LM tree of {cfg.name}: keys {sorted(tree)}"
+                         f", want {sorted(keys)}")
 
     def walk(x, pick):
         if isinstance(x, dict):
@@ -112,18 +118,20 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
 
     out = {k: walk(tree[k], lambda a: a)
            for k in ("embed", "lm_head", "ln_f")}
-    out["g_dense"] = [walk(tree["g_dense"], lambda a, i=i: a[i])
-                      for i in range(cfg.n_layers)]
     want = {"embed": (cfg.padded_vocab, cfg.d_model),
             "lm_head": (cfg.d_model, cfg.padded_vocab)}
     got = {"embed": tuple(out["embed"]["table"].shape),
            "lm_head": tuple(out["lm_head"]["w"].shape)}
-    layers = {np.asarray(a).shape[0]
-              for a in tree_leaves(tree["g_dense"])}
-    total = sum(t.numel() for t in tree_leaves(out))
-    if got != want or layers != {cfg.n_layers} or total != param_count(cfg):
+    layers = {g: {np.asarray(a).shape[0] for a in tree_leaves(tree[f"g_{g}"])}
+              for g, _ in groups}
+    if got != want or layers != {g: {n} for g, n in groups}:
         raise ValueError(f"tree does not fit {cfg.name}: {got} vs {want}, "
-                         f"layer axis {layers} vs {cfg.n_layers}, "
-                         f"{total} vs {param_count(cfg)} parameters")
+                         f"layer axes {layers} vs {dict(groups)}")
+    for g, count in groups:
+        out[f"g_{g}"] = [walk(tree[f"g_{g}"], lambda a, i=i: a[i])
+                         for i in range(count)]
+    total = sum(t.numel() for t in tree_leaves(out))
+    if total != param_count(cfg):
+        raise ValueError(f"tree does not fit {cfg.name}: {total} vs "
+                         f"{param_count(cfg)} parameters")
     return out
-

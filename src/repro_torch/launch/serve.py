@@ -3,11 +3,13 @@
 
 ``python -m repro_torch.launch.serve --arch qwen2-7b --no-reduced`` serves
 the full-width model with random weights from ``--seed`` and reports the
-time per token-step.  It runs on ``cuda`` unless ``--device cpu`` is
-given.  ``--reduced`` (the default) serves the smoke-test variant; unlike
-the reference, whose ``--reduced`` cannot be switched off, ``--no-reduced``
-serves the published widths.  Weights and cache are f32, as in the
-reference's launcher.
+time per token-step; ``--arch`` takes every config ``models.lm`` runs
+(the dense family and GQA MoE, e.g. ``llama4-scout-17b-a16e``).  It runs
+on ``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
+default) serves the smoke-test variant; unlike the reference, whose
+``--reduced`` cannot be switched off, ``--no-reduced`` serves the
+published widths.  Weights and cache are f32, as in the reference's
+launcher.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class Generation(NamedTuple):
     prompt_logits: torch.Tensor  # (B, V) logits after the last prompt token
     seconds: float               # wall time of all steps, synchronized
     steps: int                   # decode steps: prompt + new tokens
+    finite: bool                 # every step's logits were finite
 
 
 def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
@@ -37,26 +40,32 @@ def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
     """The reference launcher's loop: ``prompt`` (B, P) integer tokens go
     in one decode step each (exact; the batched prefill is
     ``train.make_prefill_step``), then ``new_tokens`` greedy tokens, each
-    the argmax over the unpadded vocabulary, each decoded in turn."""
+    the argmax over the unpadded vocabulary, each decoded in turn.  Every
+    step's logits are tested for finiteness on the device; the host reads
+    the result once, after the timed loop."""
     B, P = prompt.shape
     dev = prompt.device
     cache = init_cache(cfg, B, P + new_tokens, dtype=dtype, device=dev)
     step = make_decode_fn(cfg, dtype=dtype)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for t in range(P):
         logits, cache = step(params, cache, prompt[:, t:t + 1], t)
+        finite &= torch.isfinite(logits).all()
     prompt_logits = logits[:, -1]
     out = []
     for t in range(new_tokens):
         nxt = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
         out.append(nxt)
         logits, cache = step(params, cache, nxt, P + t)
+        finite &= torch.isfinite(logits).all()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return Generation(torch.cat(out, 1), prompt_logits,
-                      time.perf_counter() - t0, P + new_tokens)
+    seconds = time.perf_counter() - t0
+    return Generation(torch.cat(out, 1), prompt_logits, seconds,
+                      P + new_tokens, bool(finite))
 
 
 def main(argv=None):

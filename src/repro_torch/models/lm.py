@@ -1,24 +1,31 @@
-"""Decoder LM of the dense family (port of the dense half of
-``repro.models.lm``): GQA attention with optional QKV bias and RoPE,
-RMSNorm or LayerNorm, SwiGLU or GELU FFN — qwen2, qwen1.5, command-r,
-stablelm.
+"""Decoder LM of the dense and MoE families with GQA attention (port of
+those halves of ``repro.models.lm``): GQA attention with optional QKV
+bias and RoPE, RMSNorm or LayerNorm, SwiGLU or GELU FFN or a routed MoE
+layer with an optional shared expert — qwen2, qwen1.5, command-r,
+stablelm (dense), llama4-scout (MoE), and GQA MoE configs with leading
+dense layers (``first_k_dense``).
 
 Entry points:
   init_params(cfg, gen, dtype)        — random weights from a Generator
   forward(params, batch, cfg, dtype)  — final hidden states (B, S, D)
   prefill(params, batch, cfg, dtype)  — (last-position logits, hidden)
-  init_cache(cfg, B, max_len, ...)    — zeroed KV cache (on ``cuda``
-                                        unless a device is named)
+  init_cache(cfg, B, max_len, ...)    — zeroed KV cache of each layer
+                                        group (on ``cuda`` unless a
+                                        device is named)
   decode_step(params, cache, ...)     — one token; writes the cache in place
 
 Prefill attention runs through K4 (``kernels.flash_attention``), decode
-attention through ``dist.decode``.  Parameters are the reference's tree
-with the stacked group ``g_dense`` (a leading layer axis, walked by
-``lax.scan``) as a list of per-layer dicts walked by a Python loop.  The
-reference's lowering knobs (head padding ``mp``, ``block_kv``, ``remat``,
-``unroll``) and its ``shard`` constraints have no counterpart on one card.
-Other families (MoE, MLA, SSM, hybrid, encdec, vlm) raise; training
-(``lm_loss``, ``forward_train``) waits (ROADMAP, Queue 1).
+attention through ``dist.decode``; the MoE layer is ``models.moe``, whose
+expert products are batched matrix products (the reference's are einsums
+outside any Pallas kernel).  Parameters are the reference's tree with
+each stacked layer group (``g_dense``, and ``g_moe`` after it for an MoE
+config; a leading layer axis walked by ``lax.scan``) as a list of
+per-layer dicts walked by a Python loop; the cache is keyed by group as
+the reference's is.  The reference's lowering knobs (head padding ``mp``,
+``block_kv``, ``remat``, ``unroll``) and its ``shard`` constraints have no
+counterpart on one card.  MLA (deepseek-v3), SSM and hybrid (mamba2,
+jamba), encdec and vlm raise (``require_ported``); training (``lm_loss``,
+``forward_train``) waits (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ..dist import decode as DEC
 from ..kernels.flash_attention import flash_attention
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -56,16 +64,16 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
     return [("dense", cfg.n_layers)]
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for every configuration the port cannot run yet."""
-    if cfg.family == "dense" and cfg.mla is None and cfg.moe is None:
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for every configuration the port cannot run yet.  The dense
+    and MoE families with GQA attention run; MLA, SSM, hybrid, encdec and
+    vlm raise, naming their ROADMAP item."""
+    if cfg.family in ("dense", "moe") and cfg.mla is None and cfg.ssm is None:
         return
     if cfg.family in ("ssm", "hybrid"):
         item = "SSM and hybrid (models/mamba.py)"
     elif cfg.mla is not None:
         item = "MLA with its latent decode"
-    elif cfg.moe is not None:
-        item = "MoE (models/moe.py)"
     else:
         item = "encdec and vlm"
     raise ValueError(f"{cfg.name} ({cfg.family}) is not ported yet "
@@ -74,6 +82,10 @@ def require_dense(cfg: ModelConfig) -> None:
 
 def _gated(cfg: ModelConfig) -> bool:
     return cfg.norm == "rmsnorm"
+
+
+def _kind(group: str) -> str:
+    return "moe" if group == "moe" else "ffn"
 
 
 def _norm_init(cfg, d, device):
@@ -85,41 +97,61 @@ def _norm(cfg, p, x):
     return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
 
 
+def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
+    d, dev = cfg.d_model, gen.device
+    lp = {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
+          "attn": A.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                             cfg.qkv_bias, dtype)}
+    if _kind(group) == "moe":
+        mo = cfg.moe
+        lp["ffn"] = M.moe_init(gen, d, mo.d_expert, mo.n_experts,
+                               mo.n_shared, dtype)
+    else:
+        lp["ffn"] = L.ffn_init(gen, d, cfg.d_ff, gated=_gated(cfg),
+                               dtype=dtype)
+    return lp
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32) -> Params:
     """Random weights on ``gen``'s device.  Matrices take ``dtype`` (the
     reference serves with weights in the compute type, ``abstract_params
     (dtype=...)``); norm scales and biases stay f32."""
-    require_dense(cfg)
-    dev = gen.device
+    require_ported(cfg)
     d = cfg.d_model
     p: Params = {
         "embed": L.embedding_init(gen, cfg.padded_vocab, d, dtype),
         "lm_head": L.linear_init(gen, d, cfg.padded_vocab, dtype=dtype),
-        "ln_f": _norm_init(cfg, d, dev),
+        "ln_f": _norm_init(cfg, d, gen.device),
     }
-    p["g_dense"] = [{
-        "ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
-        "attn": A.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           cfg.qkv_bias, dtype),
-        "ffn": L.ffn_init(gen, d, cfg.d_ff, gated=_gated(cfg), dtype=dtype),
-    } for _ in range(cfg.n_layers)]
+    for group, count in layer_groups(cfg):
+        p[f"g_{group}"] = [_init_one_layer(cfg, group, gen, dtype)
+                           for _ in range(count)]
     return p
+
+
+def _ffn_param_count(cfg: ModelConfig, kind: str) -> int:
+    d = cfg.d_model
+    if kind == "moe":
+        mo = cfg.moe
+        n = d * mo.n_experts + 3 * mo.n_experts * d * mo.d_expert
+        return n + 3 * d * mo.n_shared * mo.d_expert
+    return (3 if _gated(cfg) else 2) * d * cfg.d_ff
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Number of parameters of ``init_params(cfg, ...)``, from the config
     alone."""
-    require_dense(cfg)
+    require_ported(cfg)
     d, hd = cfg.d_model, cfg.hd
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = d * q + 2 * d * kv + q * d
     if cfg.qkv_bias:
         attn += q + 2 * kv
-    ffn = (3 if _gated(cfg) else 2) * d * cfg.d_ff
     norm = d if cfg.norm == "rmsnorm" else 2 * d
-    return (2 * cfg.padded_vocab * d + norm
-            + cfg.n_layers * (attn + ffn + 2 * norm))
+    return 2 * cfg.padded_vocab * d + norm + sum(
+        count * (attn + _ffn_param_count(cfg, _kind(group)) + 2 * norm)
+        for group, count in layer_groups(cfg))
 
 
 def tree_leaves(tree) -> list:
@@ -145,10 +177,19 @@ def _self_attention(p, x, cfg: ModelConfig, positions, causal: bool = True):
     return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
 
 
-def _dense_body(x, lp, cfg: ModelConfig, positions):
+def _ffn_apply(p, x, cfg: ModelConfig, kind: str):
+    if kind == "moe":
+        mo = cfg.moe
+        return M.moe_apply(p, x, n_experts=mo.n_experts, top_k=mo.top_k,
+                           capacity_factor=mo.capacity_factor,
+                           router_softmax_after_topk=mo.softmax_after_topk)
+    return L.ffn(p, x)
+
+
+def _block(x, lp, cfg: ModelConfig, positions, kind: str):
     x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
                             positions)
-    return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln2"], x))
+    return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, kind)
 
 
 # ---------------------------------------------------------------- forward
@@ -156,12 +197,13 @@ def _dense_body(x, lp, cfg: ModelConfig, positions):
 def forward(params, batch, cfg: ModelConfig,
             dtype=torch.bfloat16) -> torch.Tensor:
     """batch {"tokens": (B, S) integer} → final hidden states (B, S, D)."""
-    require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, dtype)
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    for lp in params["g_dense"]:
-        x = _dense_body(x, lp, cfg, pos)
+    for group, _count in layer_groups(cfg):
+        for lp in params[f"g_{group}"]:
+            x = _block(x, lp, cfg, pos, _kind(group))
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -182,13 +224,18 @@ def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, index: int):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zeroed K/V of every layer, (L, B, max_len, Hkv, Dh), on ``device``:
-    ``cuda`` unless the caller names another; raises without a card."""
-    require_dense(cfg)
+    """Zeroed K/V of every layer, keyed by layer group as the reference's
+    cache is: ``{group: {"k", "v"}}``, each (layers, B, max_len, Hkv, Dh),
+    on ``device``: ``cuda`` unless the caller names another; raises
+    without a card."""
+    require_ported(cfg)
     device = resolve_device(device)
-    kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"dense": {"k": torch.zeros(kv, dtype=dtype, device=device),
-                      "v": torch.zeros(kv, dtype=dtype, device=device)}}
+    cache = {}
+    for group, count in layer_groups(cfg):
+        kv = (count, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        cache[group] = {"k": torch.zeros(kv, dtype=dtype, device=device),
+                        "v": torch.zeros(kv, dtype=dtype, device=device)}
+    return cache
 
 
 def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
@@ -196,13 +243,15 @@ def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
     """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
     position being written; unlike the reference, the cache's tensors are
     written in place and the same dict is returned."""
-    require_dense(cfg)
+    require_ported(cfg)
     x = L.embed(params["embed"], tokens, dtype)
-    ck, cv = cache["dense"]["k"], cache["dense"]["v"]
-    for i, lp in enumerate(params["g_dense"]):
-        x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), ck[i],
-                             cv[i], cfg, index)
-        x = x + L.ffn(lp["ffn"], _norm(cfg, lp["ln2"], x))
+    for group, _count in layer_groups(cfg):
+        ck, cv = cache[group]["k"], cache[group]["v"]
+        for i, lp in enumerate(params[f"g_{group}"]):
+            x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), ck[i],
+                                 cv[i], cfg, index)
+            x = x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg,
+                               _kind(group))
     x = _norm(cfg, params["ln_f"], x)
     return L.linear(params["lm_head"], x), cache
 

@@ -1,6 +1,7 @@
 """Serving step builders (port of ``make_prefill_step`` and
 ``make_decode_fn`` of ``repro.train.step``): the functions the serving
-launcher and ``chip_smoke.py`` run.  PyTorch runs eagerly, so there is
+launcher and ``chip_smoke.py`` run, for every family ``models.lm`` runs
+(dense and MoE with GQA attention).  PyTorch runs eagerly, so there is
 nothing to jit; the reference's ``mp``, ``block_kv`` and ``unroll`` are
 lowering knobs with no counterpart on one card."""
 from __future__ import annotations
@@ -14,7 +15,7 @@ from ..models.config import ModelConfig
 
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
     """Returns prefill_step(params, batch) → last-position logits
-    (B, 1, V); its attention is K4."""
+    (B, 1, V); its attention is K4, once a layer."""
     def prefill_step(params, batch):
         logits, _hidden = _prefill(params, batch, cfg, dtype=dtype)
         return logits

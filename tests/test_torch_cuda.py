@@ -850,3 +850,82 @@ def test_sweep_on_card_matches_per_k_partitions(dev):
         assert one.stats["m_cap"] == res.stats["m_cap"]
         np.testing.assert_array_equal(one.assign, res.assign)
         assert res.stats["sweep"] and res.stats["k_max"] == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,causal", [(300, True), (300, False),
+                                       (2048, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_group5_on_card(dev, Sq, causal, dtype):
+    """K4 at llama4-scout's heads (Hq = 40 over Hkv = 8: group 5) against
+    its plain version: 2e-5 in f32, 2e-2 in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(Sq + int(causal))
+    q = torch.randn(2, 40, Sq, 128, generator=gen, device=dev).to(dtype)
+    k, v = torch.randn(2, 2, 8, Sq, 128, generator=gen, device=dev).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 16.0])
+@pytest.mark.parametrize("top_k,n_shared", [(1, 1), (2, 0)])
+def test_moe_apply_on_card_matches_cpu(dev, top_k, n_shared,
+                                       capacity_factor):
+    """The grouped dispatch, expert products and combine on the card
+    against the same on the CPU, f32 without TF32, 1e-5; the dispatch
+    tables' tokens (routing, drops) equal, their gates within 1e-5 (the
+    router's logits and softmax round apart, by up to 2e-6 relative)."""
+    from repro_torch.models import moe as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, d = 16, 256
+    p = M.moe_init(torch.Generator().manual_seed(top_k), d, 384, E, n_shared)
+    x = torch.from_numpy(np.random.default_rng(top_k).standard_normal(
+        (4, 200, d)).astype(np.float32))
+    kw = dict(n_experts=E, top_k=top_k, capacity_factor=capacity_factor)
+    got = M.moe_apply(_params_to(p, dev, torch.float32), x.to(dev), **kw)
+    want = M.moe_apply(p, x, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    cap = M.expert_capacity(200, top_k, E, capacity_factor)
+    tables = [M.dispatch_tables(*M.route(q, y, top_k=top_k), n_experts=E,
+                                capacity=cap)
+              for q, y in ((_params_to(p, dev, torch.float32), x.to(dev)),
+                           (p, x))]
+    assert torch.equal(tables[0][0].cpu(), tables[1][0])
+    torch.testing.assert_close(tables[0][1].cpu(), tables[1][1], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reduced_llama4_prefill_and_decode_on_card_match_cpu(dev):
+    """Reduced llama4-scout on the card (K4 once a layer in prefill, none
+    in decode) against the CPU, same weights, f32 without TF32: last
+    prefill logits and three decode steps' logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama4_scout_17b_a16e").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _params_to(params, dev, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    ops.reset_launch_counts()
+    got, _ = prefill(on_card, {"tokens": toks.to(dev)}, cfg,
+                     dtype=torch.float32)
+    assert ops.launch_counts().get("flash_attention") == cfg.n_layers
+    want, _ = prefill(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = [init_cache(cfg, 2, 3, dtype=torch.float32, device=d)
+              for d in (dev, "cpu")]
+    ops.reset_launch_counts()
+    for t in range(3):
+        a, _ = decode_step(on_card, caches[0], toks[:, t:t + 1].to(dev), t,
+                           cfg, dtype=torch.float32)
+        b, _ = decode_step(params, caches[1], toks[:, t:t + 1], t, cfg,
+                           dtype=torch.float32)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert not any(ops.launch_counts().values())
