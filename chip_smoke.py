@@ -146,10 +146,28 @@ Phases (any failure raises and exits non-zero):
    within 2e-3, ``moe_apply`` against ``moe_reference`` on layer 0's real
    input within 2e-4; K4 at the group-5 prefill shape against its plain
    version within 2e-2, timed beside its bound and SDPA.
-9. The ``kernels`` JSON line (seven rows; G's from ``[scan]``; K3's row
+8c. ``[mla]``, with ``[moe]``'s weights freed: deepseek-v3 (MLA, 128
+   heads; 256 experts top-8 + a shared expert after 3 dense layers) at
+   published width and 5 of its 61 layers (3 dense + 2 MoE, 26.6 B
+   parameters, 49.58 GiB bf16; the only cut), seeded.  The parameter
+   count against ``param_count``; ``make_prefill_step`` on 4 × 2,048
+   tokens with the counts zeroed before and read after (K4 exactly once a
+   layer at q/k 192, v 128, no graph kernel; the profiler's count of K4
+   launches in a second prefill), tokens/s and TFLOP/s beside the FLOP
+   ceiling, peak memory, the drop share and layer 3's expert load;
+   ``generate`` (4 prompts of 16 tokens, 32 greedy tokens, decoded from
+   the latent cache; no K4), ms/token-step beside the weight-read floor,
+   every logit finite.  Then 2 dense layers at full width in f32: the
+   decompressed prefill (K4 f32 at 192/128) against the absorbed decode
+   loop within 2e-3; K4 at the prefill's shape (v a slice of kv_b's rows)
+   against its plain version in bf16 (2e-2) and f32 (2e-5), timed beside
+   its bound and SDPA (each fused backend tried alone).
+9. The ``kernels`` JSON line (eight rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
-   ``[graph-serve]``, K4's the ``[moe]`` prefill's),
+   ``[graph-serve]``, K4's the ``[moe]`` prefill's; K4 at MLA's head dims
+   is a row of its own, ``flash_attention_mla``, with the ``[mla]``
+   prefill's launches),
    then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -235,6 +253,12 @@ F32_S = 300                                       # K4's f32 shape: S
 # prefill and decode batches as the qwen2 path's
 MOE_ARCH, MOE_LAYERS = "llama4_scout_17b_a16e", 12
 MOE_TOKENS = 32
+# the MLA serving path: deepseek-v3 at published width, 5 of its 61 layers
+# (the 3 dense, then 2 MoE: 26,618,377,216 parameters = 49.58 GiB in bf16;
+# 6 layers come to 71.0 GiB, which leaves no room for the prefill's
+# dispatch buffers on an 80 GB card); batches as the qwen2 path's
+MLA_ARCH, MLA_LAYERS = "deepseek_v3_671b", 5
+MLA_PARAMS = 26_618_377_216
 
 
 def check(cond, msg):
@@ -294,21 +318,36 @@ def device_ms(torch, fn, reps, kernel):
     ``kernel``, over ``reps`` calls of ``fn`` traced by torch.profiler.  A
     kernel shorter than its wrapper's host-side launch cost is timed
     alone here; CUDA events around back-to-back calls would read the
-    host's launch rate instead."""
+    host's launch rate instead.  The card's profiler loses a record now
+    and then (one of 50 K2 launches in one session), so a session that
+    saw fewer launches than calls is run again, twice at most, and a
+    third short one fails the run."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():      # the profiler's one-cycle notice
-        warnings.simplefilter("ignore", UserWarning)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    for attempt in range(1, 4):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1, repeat=1)
+                    ) as prof:
+                fn()                     # the warm-up step, not counted
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) >= reps:
+            break
+        log(f"[profiler] session {attempt} saw {len(us)} launches of "
+            f"{kernel} in {reps} calls; records lost")
     check(len(us) >= reps, f"the profiler saw {len(us)} launches of "
-          f"{kernel} in {reps} calls")
+          f"{kernel} in {reps} calls in each of 3 sessions")
     return sum(us) / len(us) / 1e3
 
 
@@ -1419,22 +1458,37 @@ def partition_cli_phase(torch) -> dict:
     return out
 
 
-def moe_flops(cfg, B, S, capacity) -> int:
+def prefill_flops(cfg, B, S, capacity) -> int:
     """Operations of one prefill of B × S tokens as the code runs it:
-    per layer the attention projections, causal attention (the unmasked
-    (q, k) pairs), the shared expert, the routed bank at its capacity-padded
-    E × C slots a group and the router; then the LM head at the last
-    position.  A multiply-add counts two."""
-    d, hd, mo = cfg.d_model, cfg.hd, cfg.moe
-    N = B * S
-    proj = 2 * N * d * 2 * (cfg.n_heads + cfg.n_kv_heads) * hd
-    attn = 4 * hd * (S * (S + 1) // 2) * B * cfg.n_heads
-    expert = 3 * d * mo.d_expert            # multiply-adds a token an expert
-    shared = 2 * N * mo.n_shared * expert
-    routed = 2 * B * mo.n_experts * capacity * expert
-    router = 2 * N * d * mo.n_experts
+    per layer the attention projections (GQA's q, k, v, o; MLA's q_a, q_b,
+    kv_a, kv_b, o), causal attention over the unmasked (q, k) pairs (a
+    multiply-add per q·k column and per p·v column), then the layer's
+    FFN: a dense layer's three matrices, or an MoE layer's shared expert,
+    routed bank at its capacity-padded E × C slots a group and router;
+    then the LM head at the last position.  A multiply-add counts two."""
+    from repro_torch.models import layer_groups
+    d, H, N = cfg.d_model, cfg.n_heads, B * S
+    pairs = B * H * (S * (S + 1) // 2)
+    if cfg.mla is not None:
+        m = cfg.mla
+        proj = 2 * N * (d * m.q_lora + m.q_lora * H * (m.nope_dim + m.rope_dim)
+                        + d * (m.kv_lora + m.rope_dim)
+                        + m.kv_lora * H * (m.nope_dim + m.v_dim)
+                        + H * m.v_dim * d)
+        attn = 2 * (m.nope_dim + m.rope_dim + m.v_dim) * pairs
+    else:
+        proj = 2 * N * d * 2 * (H + cfg.n_kv_heads) * cfg.hd
+        attn = 4 * cfg.hd * pairs
+    ffn = {"dense": 2 * N * 3 * d * cfg.d_ff}
+    if cfg.moe is not None:
+        mo = cfg.moe
+        expert = 3 * d * mo.d_expert        # multiply-adds a token an expert
+        ffn["moe"] = (2 * N * mo.n_shared * expert
+                      + 2 * B * mo.n_experts * capacity * expert
+                      + 2 * N * d * mo.n_experts)
     head = 2 * B * d * cfg.padded_vocab
-    return cfg.n_layers * (proj + attn + shared + routed + router) + head
+    return head + sum(count * (proj + attn + ffn[group])
+                      for group, count in layer_groups(cfg))
 
 
 @contextlib.contextmanager
@@ -1451,6 +1505,76 @@ def moe_inputs(M, record):
         yield
     finally:
         M.moe_apply = real
+
+
+def routing_recorder(torch, M, mo, capacity, routing):
+    """A ``record`` for ``moe_inputs``: appends each MoE layer's (kept
+    pairs, routed pairs, expert load) at ``capacity`` to ``routing``."""
+    def record(p, x, kw):
+        top_idx, gates = M.route(p, x, top_k=kw["top_k"],
+                                 router_softmax_after_topk=kw[
+                                     "router_softmax_after_topk"])
+        tok, _ = M.dispatch_tables(top_idx, gates, n_experts=mo.n_experts,
+                                   capacity=capacity)
+        routing.append((int((tok < x.shape[1]).sum()), top_idx.numel(),
+                        torch.bincount(top_idx.reshape(-1),
+                                       minlength=mo.n_experts).cpu()))
+    return record
+
+
+def timed_prefill(torch, ops, M, prefill_step, params, tokens, record,
+                  n_layers, vocab, tag):
+    """A warm-up prefill that records every MoE layer's routing, then one
+    with the counts zeroed before and read after: K4 exactly once a
+    layer, no other kernel; logits (B, 1, vocab), finite.  Returns (the
+    timed prefill's seconds, its launches, its peak memory in GiB)."""
+    with moe_inputs(M, record):
+        prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = ops.launch_counts()
+    log(f"[{tag}] prefill launches {json.dumps(launches)}")
+    check_path_launches(ops, launches, "lm")
+    check(launches["flash_attention"] == n_layers,
+          f"K4 launched {launches['flash_attention']} times in the {tag} "
+          f"prefill, not once per layer ({n_layers})")
+    check(logits.shape == (tokens.shape[0], 1, vocab)
+          and bool(torch.isfinite(logits).all()), f"{tag} prefill logits")
+    return seconds, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def routing_summary(routing, capacity, group, first):
+    """The drop share over the MoE layers and layer ``first``'s load."""
+    kept = sum(r[0] for r in routing)
+    routed = sum(r[1] for r in routing)
+    load = routing[0][2].double()
+    return (f"capacity {capacity} slots an expert a group of {group}; "
+            f"dropped {1 - kept / routed:.4%} of {routed} routed pairs over "
+            f"the {len(routing)} MoE layers (per layer "
+            + ", ".join(f"{1 - k / r:.4f}" for k, r, _ in routing)
+            + f"); layer {first}'s expert load max/mean "
+            f"{float(load.max() / load.mean()):.3f} ({int(load.min())} to "
+            f"{int(load.max())} pairs an expert)")
+
+
+def timed_decode(torch, ops, generate, params, cfg, prompt, new_tokens,
+                 tag):
+    """``generate`` after a short warm-up, with the counts zeroed before:
+    no kernel launched, every logit finite, tokens in the vocabulary."""
+    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    served = generate(params, cfg, prompt, new_tokens, dtype=torch.bfloat16)
+    check(not any(ops.launch_counts().values()),
+          f"{tag} decode launched a kernel")
+    check(served.finite and served.tokens.shape == (prompt.shape[0],
+                                                    new_tokens)
+          and int(served.tokens.max()) < cfg.vocab, f"{tag} decode output")
+    return served
 
 
 def moe_phase(torch, ops, dev, k4_row) -> None:
@@ -1507,63 +1631,26 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
     capacity = M.expert_capacity(PREFILL_S, mo.top_k, mo.n_experts,
                                  mo.capacity_factor)
     routing = []
-
-    def record(p, x, kw):
-        top_idx, gates = M.route(p, x, top_k=kw["top_k"])
-        tok, _ = M.dispatch_tables(top_idx, gates, n_experts=mo.n_experts,
-                                   capacity=capacity)
-        routing.append((int((tok < x.shape[1]).sum()), top_idx.numel(),
-                        torch.bincount(top_idx.reshape(-1),
-                                       minlength=mo.n_experts).cpu()))
-
-    prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
-    with moe_inputs(M, record):                     # warm-up
-        prefill_step(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    logits = prefill_step(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t
-    launches = ops.launch_counts()
-    log(f"[moe] prefill launches {json.dumps(launches)}")
-    check_path_launches(ops, launches, "lm")
-    check(launches["flash_attention"] == MOE_LAYERS,
-          f"K4 launched {launches['flash_attention']} times in the MoE "
-          f"prefill, not once per layer ({MOE_LAYERS})")
-    check(logits.shape == (PREFILL_B, 1, cfg.padded_vocab)
-          and bool(torch.isfinite(logits).all()), "MoE prefill logits")
-    flops = moe_flops(cfg, PREFILL_B, PREFILL_S, capacity)
+    t_prefill, launches, peak = timed_prefill(
+        torch, ops, M, make_prefill_step(cfg, dtype=torch.bfloat16), params,
+        tokens, routing_recorder(torch, M, mo, capacity, routing),
+        MOE_LAYERS, cfg.padded_vocab, "moe")
+    flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
     ceiling = flops / BF16_OPS_PER_S
     log(f"[moe] prefill B={PREFILL_B} S={PREFILL_S}: {t_prefill * 1e3:.3f} "
         f"ms = {PREFILL_B * PREFILL_S / t_prefill:.1f} tokens/s (ceiling "
         f"{flops:.4e} FLOP at 989 TFLOP/s = {ceiling * 1e3:.3f} ms = "
         f"{PREFILL_B * PREFILL_S / ceiling:.1f} tokens/s; "
         f"{flops / t_prefill / 1e12:.1f} TFLOP/s); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{peak:.2f} GiB")
     check(len(routing) == MOE_LAYERS, f"{len(routing)} MoE layers ran")
-    kept = sum(r[0] for r in routing)
-    routed = sum(r[1] for r in routing)
-    load = routing[0][2].double()
-    skew = float(load.max() / load.mean())
-    log(f"[moe] routing: capacity {capacity} slots an expert a group of "
-        f"{PREFILL_S}; dropped {1 - kept / routed:.4%} of {routed} routed "
-        f"tokens over the {MOE_LAYERS} layers (per layer "
-        + ", ".join(f"{1 - k / r:.4f}" for k, r, _ in routing)
-        + f"); layer 0's expert load max/mean {skew:.3f} (tokens an "
-        f"expert {load.long().tolist()})")
-    del logits, routing
+    log("[moe] routing: " + routing_summary(routing, capacity, PREFILL_S, 0))
+    del routing
 
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
-    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)  # warm-up
-    ops.reset_launch_counts()
-    served = generate(params, cfg, prompt, MOE_TOKENS, dtype=torch.bfloat16)
-    check(not any(ops.launch_counts().values()),
-          "MoE decode launched a kernel")
-    check(served.finite and served.tokens.shape == (SERVE_B, MOE_TOKENS)
-          and int(served.tokens.max()) < cfg.vocab, "MoE decode output")
+    served = timed_decode(torch, ops, generate, params, cfg, prompt,
+                          MOE_TOKENS, "MoE")
     ms_step = served.seconds * 1e3 / served.steps
     log(f"[moe] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {MOE_TOKENS} "
         f"tokens: {served.steps} steps in {served.seconds:.3f} s = "
@@ -1643,6 +1730,221 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
     del q, k, v, got, want
     torch.cuda.empty_cache()
     log(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def mla_phase(torch, ops, dev) -> dict:
+    """``[mla]``: deepseek-v3 (MLA: 128 heads, q_lora 1,536, kv_lora 512,
+    nope 128, rope 64, v 128; 256 experts top-8 + a shared expert after 3
+    dense layers) at published width and 5 of its 61 layers, bf16,
+    seeded.  The parameter count against ``param_count``;
+    ``make_prefill_step`` on 4 × 2,048 tokens with the counts zeroed
+    before and read after (K4 once a layer at (192, 128), no other
+    kernel; the profiler's count of K4 launches in a second prefill),
+    tokens/s and TFLOP/s beside the FLOP ceiling, peak memory, the drop
+    share and the first MoE layer's load; ``generate`` (no K4; the latent
+    cache), ms/token-step beside the weight-read floor, every logit
+    finite.  Then 2 dense layers at full width in f32 (the MoE left out:
+    its bank would be 46 GB in f32): the decompressed prefill (K4's f32
+    path at 192/128) against the absorbed decode loop within 2e-3.  Last,
+    K4 at the prefill's shape as the model passes it (transposed views, v
+    a slice of kv_b's rows) against its plain version in bf16 (p rounded
+    as the kernel rounds it; 2e-2) and in f32 (2e-5), timed beside its
+    bound and ``scaled_dot_product_attention`` (each fused backend tried
+    alone; a refusal is logged).  Returns K4's row at this shape."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, param_count, prefill, \
+        tree_leaves
+    from repro_torch.models import moe as M
+    from repro_torch.train import make_prefill_step
+
+    log(f"[mla] before the phase: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated ([moe]'s weights freed); the peak since [moe]'s "
+        f"last reset {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    mo, m = cfg.moe, cfg.mla
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg) == MLA_PARAMS, f"parameter count "
+          f"{n_params}, param_count {param_count(cfg)}, want {MLA_PARAMS}")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    # a decode step reads every weight but the embedding table (B rows)
+    step_bytes = weight_bytes - params["embed"]["table"].numel() * 2
+    log(f"[mla] {cfg.name}: {MLA_LAYERS} of {full.n_layers} layers "
+        f"(reduced: n_layers; {mo.first_k_dense} dense, "
+        f"{MLA_LAYERS - mo.first_k_dense} MoE), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, MLA q_lora {m.q_lora} kv_lora {m.kv_lora} "
+        f"nope {m.nope_dim} rope {m.rope_dim} v {m.v_dim}, d_ff {cfg.d_ff}, "
+        f"{mo.n_experts} experts top-{mo.top_k} d_expert {mo.d_expert} + "
+        f"{mo.n_shared} shared, vocab {cfg.vocab}: {n_params} parameters = "
+        f"param_count ({weight_bytes / 1e9:.3f} GB = "
+        f"{weight_bytes / 2**30:.2f} GiB bf16) built in "
+        f"{time.perf_counter() - t:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    capacity = M.expert_capacity(PREFILL_S, mo.top_k, mo.n_experts,
+                                 mo.capacity_factor)
+    routing = []
+    prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+    t_prefill, launches, peak = timed_prefill(
+        torch, ops, M, prefill_step, params, tokens,
+        routing_recorder(torch, M, mo, capacity, routing), MLA_LAYERS,
+        cfg.padded_vocab, "mla")
+    with warnings.catch_warnings():      # the profiler's one-cycle notice
+        warnings.simplefilter("ignore", UserWarning)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prefill_step(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    k4_seen = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "flash_bf16_kernel" in e.name]
+    flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
+    ceiling = flops / BF16_OPS_PER_S
+    log(f"[mla] prefill B={PREFILL_B} S={PREFILL_S}: {t_prefill * 1e3:.3f} "
+        f"ms = {PREFILL_B * PREFILL_S / t_prefill:.1f} tokens/s (ceiling "
+        f"{flops:.4e} FLOP at 989 TFLOP/s = {ceiling * 1e3:.3f} ms = "
+        f"{PREFILL_B * PREFILL_S / ceiling:.1f} tokens/s; "
+        f"{flops / t_prefill / 1e12:.1f} TFLOP/s = {ceiling / t_prefill:.1%} "
+        f"of the ceiling); the profiler saw {len(k4_seen)} K4 launches "
+        f"({', '.join(f'{u / 1e3:.4f}' for u in k4_seen)} ms); peak device "
+        f"memory {peak:.2f} GiB")
+    check(len(routing) == MLA_LAYERS - mo.first_k_dense,
+          f"{len(routing)} MoE layers ran")
+    log("[mla] routing: " + routing_summary(routing, capacity, PREFILL_S,
+                                            mo.first_k_dense))
+    del routing, prof
+
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    served = timed_decode(torch, ops, generate, params, cfg, prompt,
+                          MOE_TOKENS, "MLA")
+    ms_step = served.seconds * 1e3 / served.steps
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[mla] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {MOE_TOKENS} "
+        f"tokens from the latent cache: {served.steps} steps in "
+        f"{served.seconds:.3f} s = {ms_step:.3f} ms/token-step (floor: "
+        f"{step_bytes / 1e9:.3f} GB of weights per step, every expert at "
+        f"capacity 1, at 3.35 TB/s = {floor_ms:.3f} ms, "
+        f"{floor_ms / ms_step:.1%} of the step); logits finite; first "
+        f"tokens {served.tokens[0][:16].tolist()}")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 check: 2 dense layers at full width (moe=None gives one
+    # dense group in both packages; n_layers 2 under first_k_dense 3 would
+    # give an moe group of -1 layers), the decompressed prefill on K4's
+    # f32 path against the absorbed decode loop
+    small = dataclasses.replace(full, n_layers=CHECK_LAYERS, moe=None)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
+    ops.reset_launch_counts()
+    pre, _ = prefill(p32, {"tokens": prompt}, small, dtype=torch.float32)
+    check(ops.launch_counts().get("flash_attention") == CHECK_LAYERS,
+          "the f32 MLA prefill did not run on K4")
+    dec = generate(p32, small, prompt, 1, dtype=torch.float32)
+    check(dec.finite, "f32 MLA decode logits not finite")
+    torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    log(f"[mla] check: {CHECK_LAYERS} dense layers at full width, f32, "
+        f"B={CHECK_B}, prompt {CHECK_PROMPT}: decompressed prefill (K4 f32 "
+        f"at 192/128) vs absorbed decode loop last logits max |d| "
+        f"{float((dec.prompt_logits - pre[:, -1]).abs().max()):.3e} "
+        f"(tolerance 2e-3)")
+    del p32, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 at the prefill's shape, laid out as mla_attention passes it
+    H, Dqk, Dv = cfg.n_heads, m.nope_dim + m.rope_dim, m.v_dim
+    scale = 1.0 / math.sqrt(Dqk)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def qkv(B, S, dtype):
+        q, k = (torch.randn(B, S, H, Dqk, generator=gen, device=dev,
+                            dtype=dtype).transpose(1, 2) for _ in range(2))
+        kvb = torch.randn(B, S, H, m.nope_dim + Dv, generator=gen,
+                          device=dev, dtype=dtype)
+        return q, k, kvb[..., m.nope_dim:].transpose(1, 2)
+
+    q, k, v = qkv(CHECK_B, F32_S, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=True, sm_scale=scale)
+    want = ops.flash_attention_plain(q, k, v, causal=True, sm_scale=scale)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    err32 = float((got - want).abs().max())
+    del q, k, v, got, want
+    q, k, v = qkv(PREFILL_B, PREFILL_S, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True, sm_scale=scale)
+    want = ops.flash_attention_plain(q, k, v, causal=True, sm_scale=scale,
+                                     block_kv=128, p_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    ms = event_ms(torch, lambda: ops.flash_attention(
+        q, k, v, causal=True, sm_scale=scale), 20)
+    plain = event_ms(torch, lambda: ops.flash_attention_plain(
+        q, k, v, causal=True, sm_scale=scale), 3, warmup=1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+    torch.testing.assert_close(sdpa().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    lib = event_ms(torch, sdpa, 20)
+    backends = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION):
+        try:                             # a backend that refuses raises
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                with sdpa_kernel([b]):
+                    backends[b.name] = round(event_ms(torch, sdpa, 10), 4)
+        except RuntimeError as e:
+            backends[b.name] = "refused: " + str(e).strip().splitlines()[0]
+    pairs = PREFILL_B * H * (PREFILL_S * (PREFILL_S + 1) // 2)
+    k4_flops = 2 * (Dqk + Dv) * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    bms, by = bound_ms(nbytes, k4_flops, BF16_OPS_PER_S)
+    log(f"[mla] K4 bf16 q {tuple(q.shape)} k {tuple(k.shape)} v "
+        f"{tuple(v.shape)} causal (group 1; v a slice of kv_b's rows): max "
+        f"|d| {err:.3e} against the plain version with p in bf16; "
+        f"{ms:.4f} ms/launch = {k4_flops / ms / 1e9:.1f} TFLOP/s; bound "
+        f"{bms:.4f} ms ({by}) = {bms / ms:.1%}; plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention {lib:.4f} ms (each fused backend "
+        f"alone: {json.dumps(backends)}); {MLA_LAYERS} launches = "
+        f"{MLA_LAYERS * ms / (t_prefill * 1e3):.1%} of the prefill; f32 at "
+        f"({CHECK_B}, {H}, {F32_S}) max |d| {err32:.3e} (2e-5)")
+    row = dict(name="flash_attention_mla", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:70",
+               launches=launches["flash_attention"], max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+               head_dims=[Dqk, Dv], q_shape=list(q.shape),
+               v_shape=list(v.shape), f32_max_abs_err=err32,
+               sdpa_backends=backends)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    log(f"[mla] phase {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 def main() -> int:
@@ -2302,6 +2604,9 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8b
     moe_phase(torch, ops, dev, rows[-1])
+
+    # ---------------------------------------------------------- phase 8c
+    rows.append(mla_phase(torch, ops, dev))
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,7 +5,10 @@
 // Pallas kernel _flash_kernel).  o[b,h] = softmax(q[b,h]·k[b,h/g]^T·scale
 // + mask)·v[b,h/g] with g = Hq/Hkv, by online softmax: f32 running max m,
 // sum l and accumulator acc; masked scores are -1e30, l is clamped at
-// 1e-20, and the output is written in q's dtype.
+// 1e-20, and the output is written in q's dtype.  q and k rows have DQK
+// elements, v and o rows DV: DQK = DV in 32, 64, 128 (GQA), or the MLA
+// pair DQK 192 (nope 128 + rope 64), DV 128 (the reference computes that
+// attention with chunked_attention, the plain form of the same kernel).
 //
 // What bounds it on the H100: tensor-core operations.  At the serving
 // prefill shape (B=4, Hq=28, Hkv=4, S=2048, D=128, causal) the unmasked
@@ -54,9 +57,17 @@
 // f32 inputs take a plain FMA path with no TF32 (kept exact enough for
 // the 2e-3 prefill-vs-decode check): a CTA of 4 warps owns 16 q rows, one
 // lane per KV column for the scores and one lane per output column for P·V.
+//
+// At DQK 192, DV 128 (MLA) the same bf16 design walks three 64-column
+// panels in Q·K^T (12 k16 steps, not 8) and keeps P·V and the accumulator
+// at 128 columns; K and V stages have their own sizes (48 and 32 KB), so
+// Q and a two-stage ring fill 208 KB, one CTA an SM as at D = 128.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -79,17 +90,25 @@ constexpr int THREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 constexpr int STAGES = 2;     // the K/V ring
 
-template <int D>
+// panel width (elements): tiles are stored as panels of 64 head-dim
+// columns (128-byte swizzle), or of 32 when a row has only 32
+constexpr int panel_width(int d) { return d >= 64 ? 64 : 32; }
+
+template <int DQK, int DV>
 struct Tiles {
-  static constexpr int PW = D >= 64 ? 64 : 32;  // panel width (elements)
+  static constexpr int PW = panel_width(DQK);
+  static_assert(panel_width(DV) == PW, "q/k and v tiles share one swizzle");
   static constexpr int ROWB = 2 * PW;           // bytes of one panel row
   static constexpr int KPP = PW / 16;           // k16 steps per panel
   static constexpr int LAYOUT = PW == 64 ? 1 : 2;  // wgmma: B128 / B64
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BKV * D * 2;
-  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BKV * DQK * 2;
+  static constexpr int V_BYTES = BKV * DV * 2;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   // + 1024: the base is rounded up to the swizzle atom's alignment
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  // one CTA an SM: at (192, 128) Q 48 KB + 2 x (48 + 32) KB = 208 KB
+  static_assert(SMEM <= 227 * 1024, "above a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -314,18 +333,18 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
     wgmma_rs_n128(d, a, db);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
                   const __grid_constant__ CUtensorMap tmk,
                   const __grid_constant__ CUtensorMap tmv,
                   __nv_bfloat16* __restrict__ o, int group, int Sq, int Skv,
                   int causal, float scale, Layout lo) {
-  using T = Tiles<D>;
+  using T = Tiles<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + T::Q_BYTES;             // + stage * KV_BYTES
-  const uint32_t sV = sK + STAGES * T::KV_BYTES;   // + stage * KV_BYTES
+  const uint32_t sK = sQ + T::Q_BYTES;             // + stage * K_BYTES
+  const uint32_t sV = sK + STAGES * T::K_BYTES;    // + stage * V_BYTES
   const uint32_t q_full = sQ + T::BAR_OFF;
   // k_full[s] = q_full + 8 (1 + s), v_full[s] = q_full + 8 (1 + STAGES + s),
   // empty[s] = q_full + 8 (1 + 2 STAGES + s)
@@ -355,22 +374,24 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == CONSUMER_WARPS && lane == 0) {
       const int hk = h / group;
+      // each barrier expects exactly the bytes of its own boxes (rows past
+      // S are zero-filled and still counted); a wrong count never completes
       mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-      for (int p = 0; p < D / T::PW; ++p)
+      for (int p = 0; p < DQK / T::PW; ++p)
         tma_load(sQ + p * BQ * T::ROWB, &tmq, q_full, p * T::PW, q0, h, b);
       for (int i = 0; i < n_kv; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(k_full(s), T::KV_BYTES);
+        mbar_expect_tx(k_full(s), T::K_BYTES);
 #pragma unroll
-        for (int p = 0; p < D / T::PW; ++p)
-          tma_load(sK + s * T::KV_BYTES + p * BKV * T::ROWB, &tmk, k_full(s),
+        for (int p = 0; p < DQK / T::PW; ++p)
+          tma_load(sK + s * T::K_BYTES + p * BKV * T::ROWB, &tmk, k_full(s),
                    p * T::PW, i * BKV, hk, b);
-        mbar_expect_tx(v_full(s), T::KV_BYTES);
+        mbar_expect_tx(v_full(s), T::V_BYTES);
 #pragma unroll
-        for (int p = 0; p < D / T::PW; ++p)
-          tma_load(sV + s * T::KV_BYTES + p * BKV * T::ROWB, &tmv, v_full(s),
+        for (int p = 0; p < DV / T::PW; ++p)
+          tma_load(sV + s * T::V_BYTES + p * BKV * T::ROWB, &tmv, v_full(s),
                    p * T::PW, i * BKV, hk, b);
       }
     }
@@ -383,9 +404,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
     const float scale2 = scale * LOG2E;  // scores in log2 units: exp2 below
     const uint32_t qa = sQ + wg * 64 * T::ROWB;  // this warpgroup's Q rows
 
-    float acc[D / 2];  // O: 64 x D over the warpgroup's 128 threads
+    float acc[DV / 2];  // O: 64 x DV over the warpgroup's 128 threads
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF};  // rows ra and ra + 8, log2 units
     float l[2] = {0.f, 0.f};          // this lane's share of the row sums
 
@@ -395,13 +416,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       const uint32_t ph = (i / STAGES) & 1;
       const int kv0 = i * BKV;
 
-      // S = Q·K^T (64 x 128), both operands K-major in shared memory
+      // S = Q·K^T (64 x 128), both operands K-major in shared memory, over
+      // DQK / 64 panels (3 at DQK 192)
       float sc[BKV / 2];
       mbar_wait(k_full(s), ph);
-      const uint32_t kb = sK + s * T::KV_BYTES;
+      const uint32_t kb = sK + s * T::K_BYTES;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t koff = (kk % T::KPP) * 32;
         const uint64_t da = make_desc(
             qa + (kk / T::KPP) * BQ * T::ROWB + koff, 16, 8 * T::ROWB,
@@ -460,23 +482,23 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
         pa[kk][3] = pack_bf16(p[6], p[7]);
       }
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         acc[4 * n + 0] *= alpha[0];
         acc[4 * n + 1] *= alpha[0];
         acc[4 * n + 2] *= alpha[1];
         acc[4 * n + 3] *= alpha[1];
       }
 
-      // O += P·V: V (128 x D) is the MN-major B operand; LBO steps from
+      // O += P·V: V (128 x DV) is the MN-major B operand; LBO steps from
       // one 64-column panel to the next, SBO from 8 KV rows to the next
       mbar_wait(v_full(s), ph);
-      const uint32_t vb = sV + s * T::KV_BYTES;
+      const uint32_t vb = sV + s * T::V_BYTES;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
         const uint64_t db = make_desc(vb + kk * 16 * T::ROWB,
                                       BKV * T::ROWB, 8 * T::ROWB, T::LAYOUT);
-        wgmma_rs<D>(acc, pa[kk], db);
+        wgmma_rs<DV>(acc, pa[kk], db);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -499,7 +521,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       if (row >= Sq) continue;
       __nv_bfloat16* orow = ob + (size_t)row * lo.ss + 2 * (lane & 3);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
             pack_bf16(acc[4 * n + 2 * r] * inv[r],
                       acc[4 * n + 2 * r + 1] * inv[r]);
@@ -509,16 +531,27 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 
 // -------------------------------------------------------------------- f32
 
-template <int D>
+// the f32 tile sizes: q rows a CTA, KV rows a step (one per lane)
+constexpr int F32_BQ = 16, F32_BKV = 32;
+
+// shared memory of the f32 kernel: Q, K (rows padded by one), V; dynamic,
+// since at (192, 128) it is 53,376 bytes, above the 48 KB of a static array
+template <int DQK, int DV>
+constexpr int f32_smem() {
+  return 4 * (F32_BQ * DQK + F32_BKV * (DQK + 1) + F32_BKV * DV);
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int group, int Sq, int Skv, int causal, float scale,
                  Layout lq, Layout lk, Layout lv, Layout lo) {
-  constexpr int BQ = 16, BKV = 32, RW = BQ / 4, DL = D / 32;
-  __shared__ float sQ[BQ * D];
-  __shared__ float sK[BKV * (D + 1)];  // +1: lane j reads row j, no conflict
-  __shared__ float sV[BKV * D];
+  constexpr int BQ = F32_BQ, BKV = F32_BKV, RW = BQ / 4, DL = DV / 32;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;                 // BQ x DQK
+  float* sK = sQ + BQ * DQK;            // BKV x (DQK + 1): lane j reads row j
+  float* sV = sK + BKV * (DQK + 1);     // BKV x DV
 
   const int tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
@@ -527,10 +560,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)b * lk.sb + (size_t)hk * lk.sh;
   const float* vb = v + (size_t)b * lv.sb + (size_t)hk * lv.sh;
 
-  for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) {
-    const int r = tile * BQ + i / D;
+  for (int i = threadIdx.x; i < BQ * DQK; i += blockDim.x) {
+    const int r = tile * BQ + i / DQK;
     // q scaled in f32 before the product, as the TPU kernel does
-    sQ[i] = r < Sq ? qb[(size_t)r * lq.ss + i % D] * scale : 0.f;
+    sQ[i] = r < Sq ? qb[(size_t)r * lq.ss + i % DQK] * scale : 0.f;
   }
 
   float acc[RW][DL], m[RW], l[RW];
@@ -545,23 +578,26 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(Skv, tile * BQ + BQ) : Skv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();
-    for (int i = threadIdx.x; i < BKV * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      const bool in = kv0 + r < Skv;
-      sK[r * (D + 1) + c] = in ? kb[(size_t)(kv0 + r) * lk.ss + c] : 0.f;
-      sV[i] = in ? vb[(size_t)(kv0 + r) * lv.ss + c] : 0.f;
+    for (int i = threadIdx.x; i < BKV * DQK; i += blockDim.x) {
+      const int r = i / DQK, c = i % DQK;
+      sK[r * (DQK + 1) + c] =
+          kv0 + r < Skv ? kb[(size_t)(kv0 + r) * lk.ss + c] : 0.f;
+    }
+    for (int i = threadIdx.x; i < BKV * DV; i += blockDim.x) {
+      const int r = i / DV, c = i % DV;
+      sV[i] = kv0 + r < Skv ? vb[(size_t)(kv0 + r) * lv.ss + c] : 0.f;
     }
     __syncthreads();
 
     float s[RW];
 #pragma unroll
     for (int r = 0; r < RW; ++r) s[r] = 0.f;
-    const float* kr = sK + lane * (D + 1);
-    const float* qr = sQ + warp * RW * D;
-    for (int d = 0; d < D; ++d) {
+    const float* kr = sK + lane * (DQK + 1);
+    const float* qr = sQ + warp * RW * DQK;
+    for (int d = 0; d < DQK; ++d) {
       const float kd = kr[d];
 #pragma unroll
-      for (int r = 0; r < RW; ++r) s[r] = fmaf(qr[r * D + d], kd, s[r]);
+      for (int r = 0; r < RW; ++r) s[r] = fmaf(qr[r * DQK + d], kd, s[r]);
     }
     const int col = kv0 + lane;
 #pragma unroll
@@ -588,7 +624,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int i = 0; i < DL; ++i)
-          pv[i] = fmaf(pj, sV[j * D + lane + 32 * i], pv[i]);
+          pv[i] = fmaf(pj, sV[j * DV + lane + 32 * i], pv[i]);
       }
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[r][i] = fmaf(acc[r][i], alpha, pv[i]);
@@ -641,12 +677,15 @@ EncodeTiled encode_fn() {
 
 // a (B, S, H, D) bf16 activation with element strides l as a 4-d map of
 // dims (D, S, H, B) and boxes of (PW, 128, 1, 1), swizzled as the kernel's
-// descriptors read it; rows past S load as zeros
+// descriptors read it; rows past S load as zeros.  The rows may be a
+// slice of wider ones (MLA's v is kv_b's output past its nope columns):
+// only the strides say where the next row starts.
 template <int D>
 int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
            Layout l) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return TENSOR_MAP_ERROR;
+  constexpr int PW = panel_width(D);
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {2ull * (cuuint64_t)l.ss, 2ull * (cuuint64_t)l.sh,
@@ -654,81 +693,94 @@ int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
   // a dimension of extent 1 is never stepped; give it a stride TMA takes
   for (int i = 0; i < 3; ++i)
     if (dims[i + 1] == 1) strides[i] = i ? strides[i - 1] * dims[i] : 2 * D;
-  cuuint32_t box[4] = {(cuuint32_t)Tiles<D>::PW, 128, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)PW, 128, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tiles<D>::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
+      PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq,
                 int Hkv, int Sq, int Skv, int causal, float scale, Layout lq,
                 Layout lk, Layout lv, Layout lo, cudaStream_t stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
   CUtensorMap mq, mk, mv;
-  int err = encode<D>(&mq, q, B, Hq, Sq, lq);
-  if (err == 0) err = encode<D>(&mk, k, B, Hkv, Skv, lk);
-  if (err == 0) err = encode<D>(&mv, v, B, Hkv, Skv, lv);
+  int err = encode<DQK>(&mq, q, B, Hq, Sq, lq);
+  if (err == 0) err = encode<DQK>(&mk, k, B, Hkv, Skv, lk);
+  if (err == 0) err = encode<DV>(&mv, v, B, Hkv, Skv, lv);
   if (err != 0) return err;
-  constexpr int smem = Tiles<D>::SMEM;
+  constexpr int smem = Tiles<DQK, DV>::SMEM;
   static bool sized = false;  // above 48 KB shared memory must be asked for
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_bf16_kernel<DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
-  flash_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_bf16_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, o, Hq / Hkv, Sq, Skv, causal, scale, lo);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                float scale, Layout lq, Layout lk, Layout lv, Layout lo,
                cudaStream_t stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
-    dim3 grid((Sq + 15) / 16, Hq, B);
-    flash_f32_kernel<D><<<grid, 128, 0, stream>>>(
+    constexpr int smem = f32_smem<DQK, DV>();
+    static bool sized = false;
+    if (!sized) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_f32_kernel<DQK, DV>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      sized = true;
+    }
+    dim3 grid((Sq + F32_BQ - 1) / F32_BQ, Hq, B);
+    flash_f32_kernel<DQK, DV><<<grid, 128, smem, stream>>>(
         q, k, v, o, Hq / Hkv, Sq, Skv, causal, scale, lq, lk, lv, lo);
   }
   return (int)cudaGetLastError();
+}
+
+template <int N>
+using Dim = std::integral_constant<int, N>;
+
+// the (DQK, DV) pairs K4 is built for: GQA's 32, 64, 128 and MLA's
+// (192, 128); f(Dim<DQK>, Dim<DV>) launches one of them
+template <class F>
+int dispatch_dims(int D, int Dv, F&& f) {
+  if (D == 32 && Dv == 32) return f(Dim<32>{}, Dim<32>{});
+  if (D == 64 && Dv == 64) return f(Dim<64>{}, Dim<64>{});
+  if (D == 128 && Dv == 128) return f(Dim<128>{}, Dim<128>{});
+  if (D == 192 && Dv == 128) return f(Dim<192>{}, Dim<128>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 #define K4_ENTRY(NAME, T, LAUNCH)                                            \
   extern "C" int NAME(const T* q, const T* k, const T* v, T* o, int B,       \
-                      int Hq, int Hkv, int Sq, int Skv, int D, int causal,   \
-                      float scale, int qsb, int qsh, int qss, int ksb,       \
-                      int ksh, int kss, int vsb, int vsh, int vss, int osb,  \
-                      int osh, int oss, cudaStream_t stream) {               \
+                      int Hq, int Hkv, int Sq, int Skv, int D, int Dv,       \
+                      int causal, float scale, int qsb, int qsh, int qss,    \
+                      int ksb, int ksh, int kss, int vsb, int vsh, int vss,  \
+                      int osb, int osh, int oss, cudaStream_t stream) {      \
     const Layout lq{qsb, qsh, qss}, lk{ksb, ksh, kss}, lv{vsb, vsh, vss},    \
         lo{osb, osh, oss};                                                   \
-    switch (D) {                                                             \
-      case 32:                                                               \
-        return LAUNCH<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,    \
-                          lq, lk, lv, lo, stream);                           \
-      case 64:                                                               \
-        return LAUNCH<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,    \
-                          lq, lk, lv, lo, stream);                           \
-      case 128:                                                              \
-        return LAUNCH<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,   \
-                           lq, lk, lv, lo, stream);                          \
-      default:                                                               \
-        return (int)cudaErrorInvalidValue;                                   \
-    }                                                                        \
+    return dispatch_dims(D, Dv, [&](auto dqk, auto dv) {                     \
+      return LAUNCH<decltype(dqk)::value, decltype(dv)::value>(              \
+          q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, lq, lk, lv, lo,    \
+          stream);                                                           \
+    });                                                                      \
   }
 
 K4_ENTRY(k4_flash_attention_bf16, __nv_bfloat16, launch_bf16)
 K4_ENTRY(k4_flash_attention_f32, float, launch_f32)
-

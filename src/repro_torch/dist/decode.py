@@ -1,11 +1,12 @@
-"""One-token decode attention over a KV cache (the single-device halves of
-``repro.dist.decode``).
+"""One-token decode attention over a KV cache or an MLA latent cache (the
+single-device halves of ``repro.dist.decode``).
 
 The reference shards the cache's sequence dim over a mesh axis and lets
 GSPMD turn the softmax into flash-decoding's per-shard partials and
 logsumexp merge; on one card the cache is whole and these are plain
-PyTorch (the reference has no kernel here).  The latent (MLA) halves
-wait (ROADMAP, Queue 1).
+PyTorch (the reference has no kernel here).  Both forms attend over the
+whole ``max_len`` in f32, masked by ``arange(S) <= index``, and the cache
+updates write in place.
 """
 from __future__ import annotations
 
@@ -46,3 +47,31 @@ def sp_cache_update(cache, new, index: int):
     in place and returns it."""
     cache[:, index:index + 1].copy_(new)
     return cache
+
+
+def sp_decode_attention_latent(q_lat, q_rope, lat_cache, rope_cache, index,
+                               *, nope_dim: int, rope_dim: int):
+    """MLA absorbed decode: attention in the latent space.
+
+    q_lat: (B, H, C), q_nope already absorbed through W_uk; q_rope:
+    (B, H, R); lat_cache: (B, Smax, C); rope_cache: (B, Smax, R).  Returns
+    o_lat (B, H, C) in f32 (the caller applies W_uv).  The scale is
+    1/sqrt(nope + rope), the decompressed head's."""
+    S = lat_cache.shape[1]
+    lat = lat_cache.to(torch.float32)
+    rope = rope_cache.to(torch.float32)
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    s = (torch.einsum("bhc,bsc->bhs", q_lat.to(torch.float32), lat)
+         + torch.einsum("bhr,bsr->bhs", q_rope.to(torch.float32), rope))
+    s = s * scale
+    mask = torch.arange(S, device=s.device) <= index
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return torch.einsum("bhs,bsc->bhc", p, lat) \
+        / torch.clamp(p.sum(-1, keepdim=True), min=1e-20)
+
+
+def sp_latent_cache_update(cache, new, index: int):
+    """Latent-cache variant of ``sp_cache_update``: cache (B, Smax, C),
+    new (B, 1, C), written in place at ``index`` and returned."""
+    return sp_cache_update(cache, new, index)

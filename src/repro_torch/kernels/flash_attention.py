@@ -1,19 +1,22 @@
 """K4 — flash attention (causal or not, GQA) and its plain version.
 
-Port of ``repro.kernels.flash_attention``: q (B, Hq, Sq, D), k/v
-(B, Hkv, Skv, D), Hq % Hkv == 0, q head h reads KV head h // (Hq // Hkv);
-online softmax with f32 state, masked scores −1e30, l clamped at 1e-20,
-output in q's dtype.  ``flash_attention`` runs the plain version on CPU
-tensors and launches ``csrc/flash_attention.cu`` on CUDA tensors (f32 or
-bf16; D in 32, 64, 128; any Sq and Skv).  bf16 runs the Hopper kernel: a
-producer warp loads Q and a ring of K/V tiles with TMA, two consumer
-warpgroups run both products on wgmma (128-row q and KV tiles); f32 runs
-a plain FMA kernel (no TF32).
+Port of ``repro.kernels.flash_attention``: q (B, Hq, Sq, D), k
+(B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), Hq % Hkv == 0, q head h reads KV
+head h // (Hq // Hkv); online softmax with f32 state, masked scores −1e30,
+l clamped at 1e-20, output (B, Hq, Sq, Dv) in q's dtype.
+``flash_attention`` runs the plain version on CPU tensors and launches
+``csrc/flash_attention.cu`` on CUDA tensors (f32 or bf16; (D, Dv) in
+``HEAD_DIMS``: D = Dv in 32, 64, 128, or MLA's (192, 128); any Sq and
+Skv).  bf16 runs the Hopper kernel: a producer warp loads Q and a ring of
+K/V tiles with TMA, two consumer warpgroups run both products on wgmma
+(128-row q and KV tiles); f32 runs a plain FMA kernel (no TF32).
 
 The kernel reads q, k, v (through TMA tensor maps in bf16) and writes o
 through their element strides, so a (B, S, H, D) activation passes as its
-``transpose(1, 2)`` view without a copy; the output keeps q's layout
-(``torch.empty_like``).  A tensor map that cannot be encoded raises.
+``transpose(1, 2)`` view without a copy, and v may be a slice of wider
+rows (MLA's ``kv_b`` output past its nope columns); the output keeps q's
+order of dims with Dv columns.  A tensor map that cannot be encoded
+raises.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# (D of q and k, Dv of v and o) pairs the kernel is built for
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 _INT_MAX = 2**31 - 1
 
 
@@ -69,16 +73,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _check(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention: q (B, Hq, Sq, D), k and v "
-                         "(B, Hkv, Skv, D)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError("flash_attention: q (B, Hq, Sq, D), k "
+                         "(B, Hkv, Skv, D) and v (B, Hkv, Skv, Dv)")
     B, Hq, _, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or k.shape[1] == 0 \
             or Hq % k.shape[1]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not pair (Hq % Hkv != 0?)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if (D, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (D {D}, Dv "
+                         f"{v.shape[3]}) not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError("flash_attention: q, k, v must share f32 or bf16")
@@ -97,19 +103,23 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None):
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) → (B, Hq, Sq, D) in q's
-    dtype and layout."""
+    """q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv) →
+    (B, Hq, Sq, Dv) in q's dtype and order of dims: a transposed view of
+    (B, Sq, Hq, Dv) when q is one of (B, Sq, Hq, D)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale)
     _check(q, k, v)
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    o = torch.empty_like(q)
+    if q.stride(1) < q.stride(2):        # heads inside rows: (B, S, H, D)
+        o = q.new_empty((B, Sq, Hq, Dv)).transpose(1, 2)
+    else:
+        o = q.new_empty((B, Hq, Sq, Dv))
     fn = "k4_flash_attention_bf16" if q.dtype == torch.bfloat16 \
         else "k4_flash_attention_f32"
     strides = [int(s) for t in (q, k, v, o) for s in t.stride()[:3]]
     _build.launch("flash_attention", fn, q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                  int(causal), float(scale), *strides)
+                  Dv, int(causal), float(scale), *strides)
     return o

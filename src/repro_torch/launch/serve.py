@@ -4,7 +4,8 @@
 ``python -m repro_torch.launch.serve --arch qwen2-7b --no-reduced`` serves
 the full-width model with random weights from ``--seed`` and reports the
 time per token-step; ``--arch`` takes every config ``models.lm`` runs
-(the dense family and GQA MoE, e.g. ``llama4-scout-17b-a16e``).  It runs
+(the dense family and MoE, e.g. ``llama4-scout-17b-a16e``, and
+``deepseek_v3_671b`` with MLA, decoded from its latent cache).  It runs
 on ``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
 default) serves the smoke-test variant; unlike the reference, whose
 ``--reduced`` cannot be switched off, ``--no-reduced`` serves the

@@ -1,6 +1,6 @@
 """The LM stack of the port (counterpart of ``repro.models``): the dense
-and MoE families with GQA attention run; MLA, SSM, hybrid, encdec and vlm
-raise until they are ported (``lm.require_ported``)."""
+and MoE families with GQA or MLA attention run; SSM, hybrid, encdec and
+vlm raise until they are ported (``lm.require_ported``)."""
 from .config import ModelConfig, MoEConfig, MLAConfig, SSMConfig  # noqa: F401
 from .lm import (init_params, forward, prefill, decode_step,  # noqa: F401
                  init_cache, layer_groups, param_count, tree_leaves)

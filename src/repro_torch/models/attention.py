@@ -1,12 +1,14 @@
-"""GQA attention (optional QKV bias, RoPE): port of the GQA half of
-``repro.models.attention``.
+"""GQA attention (optional QKV bias, RoPE) and MLA (DeepSeek's latent KV):
+port of ``repro.models.attention``.
 
 Prefill attention goes through K4 (``kernels.flash_attention``): on CUDA
 tensors the hand-written kernel reads k/v at their Hkv heads (GQA folded,
-nothing expanded in device memory); on CPU tensors its plain version
-runs.  ``chunked_attention`` and ``full_attention`` are the reference's
-plain block form and einsum oracle, kept for the tests.  MLA waits
-(ROADMAP, Queue 1).
+nothing expanded in device memory), and MLA's decompressed heads at its
+(192, 128) head dims; on CPU tensors its plain version runs.
+``chunked_attention`` and ``full_attention`` are the reference's plain
+block form and einsum oracle, kept for the tests.  MLA's decode runs in
+the latent space (``models.lm``'s absorbed form over
+``dist.decode.sp_decode_attention_latent``).
 
 Head padding: the reference pads Q heads up to a multiple of the
 model-axis size; one card has no model axis, so Hq is never padded here.
@@ -17,7 +19,8 @@ import math
 
 import torch
 
-from ..kernels.flash_attention import NEG_INF, flash_attention_plain
+from ..kernels.flash_attention import (NEG_INF, flash_attention,
+                                       flash_attention_plain)
 from .layers import Params, apply_rope, linear, linear_init
 
 
@@ -76,3 +79,51 @@ def full_attention(q, k, v, *, causal: bool,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+# ------------------------------------------------------------------- MLA
+
+def mla_init(gen, d_model: int, n_heads: int, *, q_lora: int, kv_lora: int,
+             nope_dim: int, rope_dim: int, v_dim: int,
+             dtype=torch.float32) -> Params:
+    """The reference's tree: ``q_a`` (D, q_lora), ``q_b`` (q_lora,
+    H·(nope + rope)), ``kv_a`` (D, kv_lora + rope), ``kv_b`` (kv_lora,
+    H·(nope + v)), ``o`` (H·v, D); no biases, no latent norms."""
+    return {
+        "q_a": linear_init(gen, d_model, q_lora, dtype=dtype),
+        "q_b": linear_init(gen, q_lora, n_heads * (nope_dim + rope_dim),
+                           dtype=dtype),
+        "kv_a": linear_init(gen, d_model, kv_lora + rope_dim, dtype=dtype),
+        "kv_b": linear_init(gen, kv_lora, n_heads * (nope_dim + v_dim),
+                            dtype=dtype),
+        "o": linear_init(gen, n_heads * v_dim, d_model, dtype=dtype),
+    }
+
+
+def mla_attention(p: Params, x, *, n_heads, q_lora, kv_lora, nope_dim,
+                  rope_dim, v_dim, positions, causal=True):
+    """DeepSeek-V3 Multi-head Latent Attention in the decompressed form:
+    x (B, S, D) → (B, S, D).  ``q_b(q_a(x))`` splits into nope and rope
+    heads, ``kv_a(x)`` into the latent and one shared rope head, and
+    ``kv_b(latent)`` into k_nope and v; RoPE at the default θ on both rope
+    parts, as the reference applies it.  The shared rope head is
+    broadcast into every head of k (materialised, as the reference does),
+    and the attention is K4 at (nope + rope, v) head dims, scale
+    1/sqrt(nope + rope), reading v in place as a slice of kv_b's rows."""
+    B, S, _ = x.shape
+    q = linear(p["q_b"], linear(p["q_a"], x)).reshape(
+        B, S, n_heads, nope_dim + rope_dim)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    kv = linear(p["kv_a"], x)
+    latent, k_rope = kv[..., :kv_lora], kv[..., kv_lora:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions)     # shared head
+    q_rope = apply_rope(q_rope, positions)
+    kvb = linear(p["kv_b"], latent).reshape(B, S, n_heads, nope_dim + v_dim)
+    k_nope, v = kvb[..., :nope_dim], kvb[..., nope_dim:]
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, n_heads, rope_dim)], -1)
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    out = flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal,
+                          sm_scale=scale).transpose(1, 2)
+    return linear(p["o"], out.reshape(B, S, n_heads * v_dim))

@@ -1,21 +1,23 @@
-"""Decoder LM of the dense and MoE families with GQA attention (port of
-those halves of ``repro.models.lm``): GQA attention with optional QKV
-bias and RoPE, RMSNorm or LayerNorm, SwiGLU or GELU FFN or a routed MoE
-layer with an optional shared expert — qwen2, qwen1.5, command-r,
-stablelm (dense), llama4-scout (MoE), and GQA MoE configs with leading
-dense layers (``first_k_dense``).
+"""Decoder LM of the dense and MoE families (port of those halves of
+``repro.models.lm``): GQA attention with optional QKV bias and RoPE, or
+MLA (DeepSeek's latent KV), RMSNorm or LayerNorm, SwiGLU or GELU FFN or a
+routed MoE layer with an optional shared expert — qwen2, qwen1.5,
+command-r, stablelm (dense), llama4-scout (MoE), deepseek-v3 (MLA + MoE
+after ``first_k_dense`` dense layers).
 
 Entry points:
   init_params(cfg, gen, dtype)        — random weights from a Generator
   forward(params, batch, cfg, dtype)  — final hidden states (B, S, D)
   prefill(params, batch, cfg, dtype)  — (last-position logits, hidden)
-  init_cache(cfg, B, max_len, ...)    — zeroed KV cache of each layer
-                                        group (on ``cuda`` unless a
-                                        device is named)
+  init_cache(cfg, B, max_len, ...)    — zeroed KV (GQA) or latent (MLA)
+                                        cache of each layer group (on
+                                        ``cuda`` unless a device is named)
   decode_step(params, cache, ...)     — one token; writes the cache in place
 
-Prefill attention runs through K4 (``kernels.flash_attention``), decode
-attention through ``dist.decode``; the MoE layer is ``models.moe``, whose
+Prefill attention runs through K4 (``kernels.flash_attention``; MLA in
+its decompressed form at (192, 128) head dims), decode attention through
+``dist.decode`` (MLA absorbed: attention over the latent cache, with
+``kv_b`` split into W_uk and W_uv); the MoE layer is ``models.moe``, whose
 expert products are batched matrix products (the reference's are einsums
 outside any Pallas kernel).  Parameters are the reference's tree with
 each stacked layer group (``g_dense``, and ``g_moe`` after it for an MoE
@@ -23,9 +25,9 @@ config; a leading layer axis walked by ``lax.scan``) as a list of
 per-layer dicts walked by a Python loop; the cache is keyed by group as
 the reference's is.  The reference's lowering knobs (head padding ``mp``,
 ``block_kv``, ``remat``, ``unroll``) and its ``shard`` constraints have no
-counterpart on one card.  MLA (deepseek-v3), SSM and hybrid (mamba2,
-jamba), encdec and vlm raise (``require_ported``); training (``lm_loss``,
-``forward_train``) waits (ROADMAP, Queue 1).
+counterpart on one card.  SSM and hybrid (mamba2, jamba), encdec and vlm
+raise (``require_ported``); training (``lm_loss``, ``forward_train``)
+waits (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -66,14 +68,12 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for every configuration the port cannot run yet.  The dense
-    and MoE families with GQA attention run; MLA, SSM, hybrid, encdec and
-    vlm raise, naming their ROADMAP item."""
-    if cfg.family in ("dense", "moe") and cfg.mla is None and cfg.ssm is None:
+    and MoE families run, with GQA or MLA attention; SSM, hybrid, encdec
+    and vlm raise, naming their ROADMAP item."""
+    if cfg.family in ("dense", "moe") and cfg.ssm is None:
         return
     if cfg.family in ("ssm", "hybrid"):
         item = "SSM and hybrid (models/mamba.py)"
-    elif cfg.mla is not None:
-        item = "MLA with its latent decode"
     else:
         item = "encdec and vlm"
     raise ValueError(f"{cfg.name} ({cfg.family}) is not ported yet "
@@ -97,11 +97,20 @@ def _norm(cfg, p, x):
     return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
 
 
+def _attn_init(cfg: ModelConfig, gen, dtype) -> Params:
+    if cfg.mla is not None:
+        m = cfg.mla
+        return A.mla_init(gen, cfg.d_model, cfg.n_heads, q_lora=m.q_lora,
+                          kv_lora=m.kv_lora, nope_dim=m.nope_dim,
+                          rope_dim=m.rope_dim, v_dim=m.v_dim, dtype=dtype)
+    return A.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                      cfg.qkv_bias, dtype)
+
+
 def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
     d, dev = cfg.d_model, gen.device
     lp = {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
-          "attn": A.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                             cfg.qkv_bias, dtype)}
+          "attn": _attn_init(cfg, gen, dtype)}
     if _kind(group) == "moe":
         mo = cfg.moe
         lp["ffn"] = M.moe_init(gen, d, mo.d_expert, mo.n_experts,
@@ -139,15 +148,26 @@ def _ffn_param_count(cfg: ModelConfig, kind: str) -> int:
     return (3 if _gated(cfg) else 2) * d * cfg.d_ff
 
 
+def _attn_param_count(cfg: ModelConfig) -> int:
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (d * m.q_lora + m.q_lora * H * (m.nope_dim + m.rope_dim)
+                + d * (m.kv_lora + m.rope_dim)
+                + m.kv_lora * H * (m.nope_dim + m.v_dim) + H * m.v_dim * d)
+    q, kv = H * cfg.hd, cfg.n_kv_heads * cfg.hd
+    attn = d * q + 2 * d * kv + q * d
+    if cfg.qkv_bias:
+        attn += q + 2 * kv
+    return attn
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Number of parameters of ``init_params(cfg, ...)``, from the config
     alone."""
     require_ported(cfg)
-    d, hd = cfg.d_model, cfg.hd
-    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    attn = d * q + 2 * d * kv + q * d
-    if cfg.qkv_bias:
-        attn += q + 2 * kv
+    d = cfg.d_model
+    attn = _attn_param_count(cfg)
     norm = d if cfg.norm == "rmsnorm" else 2 * d
     return 2 * cfg.padded_vocab * d + norm + sum(
         count * (attn + _ffn_param_count(cfg, _kind(group)) + 2 * norm)
@@ -166,6 +186,12 @@ def tree_leaves(tree) -> list:
 # ---------------------------------------------------------------- blocks
 
 def _self_attention(p, x, cfg: ModelConfig, positions, causal: bool = True):
+    if cfg.mla is not None:
+        m = cfg.mla
+        return A.mla_attention(p, x, n_heads=cfg.n_heads, q_lora=m.q_lora,
+                               kv_lora=m.kv_lora, nope_dim=m.nope_dim,
+                               rope_dim=m.rope_dim, v_dim=m.v_dim,
+                               positions=positions, causal=causal)
     B, S, _ = x.shape
     q, k, v = A.gqa_project(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                             head_dim=cfg.hd, positions=positions,
@@ -222,19 +248,56 @@ def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, index: int):
     return L.linear(lp["o"], out.reshape(B, 1, cfg.n_heads * cfg.hd))
 
 
+def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
+    """The absorbed form: x (B, 1, D); clat (B, Smax, kv_lora) and crope
+    (B, Smax, rope), written in place at index.  q_nope is taken into the
+    latent space through W_uk and the latent output out of it through
+    W_uv (both split out of ``kv_b``), in f32; the result is cast to x's
+    dtype before ``o``."""
+    m = cfg.mla
+    B, H = x.shape[0], cfg.n_heads
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q = L.linear(lp["q_b"], L.linear(lp["q_a"], x)).reshape(
+        B, 1, H, m.nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = L.apply_rope(q_rope, pos)
+    kv = L.linear(lp["kv_a"], x)
+    lat_row, k_rope_row = kv[..., :m.kv_lora], kv[..., m.kv_lora:]
+    k_rope_row = L.apply_rope(k_rope_row[:, :, None, :], pos)[:, :, 0, :]
+    clat = DEC.sp_latent_cache_update(clat, lat_row, index)
+    crope = DEC.sp_latent_cache_update(crope, k_rope_row, index)
+    # W_uk (kv_lora, H, nope) and W_uv (kv_lora, H, v)
+    wkv = lp["kv_b"]["w"].reshape(m.kv_lora, H, m.nope_dim + m.v_dim)
+    w_uk, w_uv = wkv[..., :m.nope_dim], wkv[..., m.nope_dim:]
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0].to(torch.float32),
+                         w_uk.to(torch.float32))
+    o_lat = DEC.sp_decode_attention_latent(
+        q_lat, q_rope[:, 0], clat, crope, index, nope_dim=m.nope_dim,
+        rope_dim=m.rope_dim)
+    o = torch.einsum("bhc,chv->bhv", o_lat, w_uv.to(torch.float32))
+    return L.linear(lp["o"], o.reshape(B, 1, H * m.v_dim).to(x.dtype))
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zeroed K/V of every layer, keyed by layer group as the reference's
-    cache is: ``{group: {"k", "v"}}``, each (layers, B, max_len, Hkv, Dh),
-    on ``device``: ``cuda`` unless the caller names another; raises
-    without a card."""
+    """Zeroed caches of every layer, keyed by layer group as the
+    reference's cache is: GQA ``{group: {"k", "v"}}``, each (layers, B,
+    max_len, Hkv, Dh); MLA ``{group: {"lat", "rope"}}``, (layers, B,
+    max_len, kv_lora) and (layers, B, max_len, rope).  On ``device``:
+    ``cuda`` unless the caller names another; raises without a card."""
     require_ported(cfg)
     device = resolve_device(device)
     cache = {}
     for group, count in layer_groups(cfg):
-        kv = (count, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        cache[group] = {"k": torch.zeros(kv, dtype=dtype, device=device),
-                        "v": torch.zeros(kv, dtype=dtype, device=device)}
+        rows = (count, batch_size, max_len)
+        if cfg.mla is not None:
+            shapes = {"lat": (*rows, cfg.mla.kv_lora),
+                      "rope": (*rows, cfg.mla.rope_dim)}
+        else:
+            kv = (*rows, cfg.n_kv_heads, cfg.hd)
+            shapes = {"k": kv, "v": kv}
+        cache[group] = {name: torch.zeros(shape, dtype=dtype, device=device)
+                        for name, shape in shapes.items()}
     return cache
 
 
@@ -245,11 +308,13 @@ def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
     written in place and the same dict is returned."""
     require_ported(cfg)
     x = L.embed(params["embed"], tokens, dtype)
+    attend, names = ((_mla_decode, ("lat", "rope")) if cfg.mla is not None
+                     else (_attn_decode, ("k", "v")))
     for group, _count in layer_groups(cfg):
-        ck, cv = cache[group]["k"], cache[group]["v"]
+        c1, c2 = (cache[group][name] for name in names)
         for i, lp in enumerate(params[f"g_{group}"]):
-            x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), ck[i],
-                                 cv[i], cfg, index)
+            x = x + attend(lp["attn"], _norm(cfg, lp["ln1"], x), c1[i],
+                           c2[i], cfg, index)
             x = x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg,
                                _kind(group))
     x = _norm(cfg, params["ln_f"], x)

@@ -1,7 +1,7 @@
 """Serving step builders (port of ``make_prefill_step`` and
 ``make_decode_fn`` of ``repro.train.step``): the functions the serving
 launcher and ``chip_smoke.py`` run, for every family ``models.lm`` runs
-(dense and MoE with GQA attention).  PyTorch runs eagerly, so there is
+(dense and MoE, with GQA or MLA attention).  PyTorch runs eagerly, so there is
 nothing to jit; the reference's ``mp``, ``block_kv`` and ``unroll`` are
 lowering knobs with no counterpart on one card."""
 from __future__ import annotations

@@ -929,3 +929,128 @@ def test_reduced_llama4_prefill_and_decode_on_card_match_cpu(dev):
                            dtype=torch.float32)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(100, 100), (300, 300), (100, 300),
+                                    (300, 100), (256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_head_dims_on_card(dev, Sq, Skv, causal, dtype):
+    """K4 at MLA's head dims (q and k 192 = nope 128 + rope 64, v 128; 8
+    heads, group 1) against its plain version: 2e-5 in f32, 2e-2 in bf16.
+    As the model passes them: (B, S, H, D) activations as transposed
+    views, v a slice of wider rows (kv_b's output past its nope columns);
+    the output is (B, S, H, 128) seen as (B, H, S, 128), and equals the
+    kernel's result on contiguous copies bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(Sq * 3 + Skv + int(causal))
+    q = torch.randn(2, Sq, 8, 192, generator=gen, device=dev).to(dtype)
+    k = torch.randn(2, Skv, 8, 192, generator=gen, device=dev).to(dtype)
+    kvb = torch.randn(2, Skv, 8, 256, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+        kvb[..., 128:].transpose(1, 2)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 8, Sq, 128) and got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention_plain(qt, kt, vt, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    same = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), causal=causal)
+    assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+def test_flash_attention_mla_gqa_group_and_rounding_on_card(dev):
+    """At (192, 128) with 16 q heads over 4 KV heads (group 4) and p
+    rounded as the kernel rounds it (the plain version over 128-row KV
+    tiles with p in bf16), bf16 agrees within 1e-2."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, 16, 384, 192, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn(1, 4, 384, 192, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn(1, 4, 384, 128, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_plain(q, k, v, causal=True, block_kv=128,
+                                     p_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_head_dim_pairs_it_is_not_built_for(dev):
+    q = torch.zeros(1, 4, 16, 128, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, q, v)
+    with pytest.raises(ValueError, match="Dv"):
+        ops.flash_attention(q, q, v[:, :2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 32.0])
+def test_moe_apply_top8_of_256_on_card_matches_cpu(dev, capacity_factor):
+    """deepseek-v3's routing (256 experts, top-8, softmax after top-k, a
+    shared expert) on the card against the CPU, f32 without TF32: the
+    combine sums 8 terms a token with float atomics, in another order
+    than the CPU's, so the layer is held within 1e-5 (ROADMAP Queue 3,
+    "MoE combine order"); the dispatch tables' tokens equal."""
+    from repro_torch.models import moe as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, d = 256, 256
+    p = M.moe_init(torch.Generator().manual_seed(8), d, 128, E, 1)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, 200, d)).astype(np.float32))
+    kw = dict(n_experts=E, top_k=8, capacity_factor=capacity_factor,
+              router_softmax_after_topk=True)
+    got = M.moe_apply(_params_to(p, dev, torch.float32), x.to(dev), **kw)
+    want = M.moe_apply(p, x, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    cap = M.expert_capacity(200, 8, E, capacity_factor)
+    tables = [M.dispatch_tables(*M.route(q, y, top_k=8,
+                                         router_softmax_after_topk=True),
+                                n_experts=E, capacity=cap)
+              for q, y in ((_params_to(p, dev, torch.float32), x.to(dev)),
+                           (p, x))]
+    assert torch.equal(tables[0][0].cpu(), tables[1][0])
+
+
+@pytest.mark.cuda
+def test_small_mla_model_on_card_matches_cpu(dev):
+    """The reduced deepseek-v3 with MLA at its published head dims (nope
+    128, rope 64, v 128; the reduced ones, 24/16, are no K4 shape) on the
+    card against the CPU, same weights, f32 without TF32: K4 once a layer
+    in prefill, none in decode; last prefill logits and three decode
+    steps' logits within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import MLAConfig, decode_step, init_cache, \
+        init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek_v3_671b").reduced()
+    cfg = dataclasses.replace(cfg, mla=MLAConfig(
+        q_lora=64, kv_lora=32, nope_dim=128, rope_dim=64, v_dim=128))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _params_to(params, dev, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    ops.reset_launch_counts()
+    got, _ = prefill(on_card, {"tokens": toks.to(dev)}, cfg,
+                     dtype=torch.float32)
+    assert ops.launch_counts().get("flash_attention") == cfg.n_layers
+    want, _ = prefill(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = [init_cache(cfg, 2, 3, dtype=torch.float32, device=d)
+              for d in (dev, "cpu")]
+    ops.reset_launch_counts()
+    for t in range(3):
+        a, _ = decode_step(on_card, caches[0], toks[:, t:t + 1].to(dev), t,
+                           cfg, dtype=torch.float32)
+        b, _ = decode_step(params, caches[1], toks[:, t:t + 1], t, cfg,
+                           dtype=torch.float32)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert not any(ops.launch_counts().values())

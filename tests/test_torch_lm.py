@@ -32,9 +32,8 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.train import make_decode_fn, make_prefill_step  # noqa: E402
 
 DENSE = ["qwen2_7b", "stablelm_1_6b", "command_r_35b"]
-NOT_PORTED = {"deepseek_v3_671b": "MLA", "mamba2_130m": "SSM",
-              "jamba_1_5_large_398b": "SSM", "seamless_m4t_large_v2": "encdec",
-              "pixtral_12b": "vlm"}
+NOT_PORTED = {"mamba2_130m": "SSM", "jamba_1_5_large_398b": "SSM",
+              "seamless_m4t_large_v2": "encdec", "pixtral_12b": "vlm"}
 
 
 def _t(a):

@@ -154,6 +154,76 @@ def test_moe_apply_with_every_logit_tied_matches_reference(routing):
     assert (top_idx == torch.arange(kw["top_k"])).all()
 
 
+# deepseek-v3's published routing (top-8 of 256, softmax after top-k, a
+# shared expert, the selection bias) at small widths: the reduced config
+# caps routing at top-2 of 8, so this is the only CPU case of it
+
+def _published_case(seed):
+    mo = jconfigs.get_config("deepseek_v3_671b").moe
+    d, d_expert = 128, 64
+    p = _np_tree(JM.moe_init(jax.random.key(seed), d, d_expert,
+                             mo.n_experts, mo.n_shared))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, 24, d)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal(mo.n_experts)).astype(np.float32)
+    kw = dict(n_experts=mo.n_experts, top_k=mo.top_k,
+              router_softmax_after_topk=mo.softmax_after_topk)
+    assert (mo.n_experts, mo.top_k, mo.softmax_after_topk) == (256, 8, True)
+    return kw, p, x, bias
+
+
+@pytest.mark.parametrize("capacity_factor", [32.0, 0.25])
+def test_moe_apply_at_deepseek_published_routing_matches_reference(
+        capacity_factor):
+    """Top-8 of 256 experts against the reference, f32, 1e-5: at E / k
+    (32.0: a slot for every token, no drops) and at 0.25 (one slot an
+    expert, where the tables must show drops)."""
+    kw, p, x, bias = _published_case(7)
+    want = JM.moe_apply(_jtree(p), jnp.asarray(x),
+                        capacity_factor=capacity_factor,
+                        router_bias=jnp.asarray(bias), **kw)
+    got = M.moe_apply(_tt(p), _t(x), capacity_factor=capacity_factor,
+                      router_bias=_t(bias), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    top_idx, gates = M.route(_tt(p), _t(x), top_k=kw["top_k"],
+                             router_softmax_after_topk=True,
+                             router_bias=_t(bias))
+    cap = M.expert_capacity(x.shape[1], kw["top_k"], kw["n_experts"],
+                            capacity_factor)
+    tok, _ = M.dispatch_tables(top_idx, gates, n_experts=kw["n_experts"],
+                               capacity=cap)
+    kept = int((tok < x.shape[1]).sum())
+    assert (kept < top_idx.numel()) == (capacity_factor < 1)
+
+
+def test_top8_of_256_ties_pick_the_lower_expert():
+    """Scores from four values over 256 experts tie in nearly every row;
+    the top 8 come out as ``jax.lax.top_k`` ranks them, ids and order."""
+    sel = np.random.default_rng(8).integers(0, 4, (64, 256)).astype(
+        np.float32)
+    _, want = jax.lax.top_k(jnp.asarray(sel), 8)
+    got = M.top_k_experts(_t(sel), 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_moe_apply_at_published_routing_with_every_logit_tied():
+    """A zero router ties all 256 experts for every token: each goes to
+    experts 0-7 with gates 1/8, they overflow their one slot, and the
+    layer equals the reference's, drops included."""
+    kw, p, x, _ = _published_case(9)
+    p["router"]["w"] = np.zeros_like(p["router"]["w"])
+    want = JM.moe_apply(_jtree(p), jnp.asarray(x), capacity_factor=1.25,
+                        **kw)
+    got = M.moe_apply(_tt(p), _t(x), capacity_factor=1.25, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    top_idx, gates = M.route(_tt(p), _t(x), top_k=8,
+                             router_softmax_after_topk=True)
+    assert (top_idx == torch.arange(8)).all()
+    torch.testing.assert_close(gates, torch.full_like(gates, 0.125))
+
+
 @pytest.mark.parametrize("tokens,top_k,n_experts,factor,want", [
     (2048, 1, 16, 1.25, 160), (1, 1, 16, 1.25, 1), (24, 2, 8, 0.25, 1),
     (100, 1, 16, 16.0, 100), (7, 8, 256, 1.25, 1), (4096, 8, 256, 1.25, 160)])
