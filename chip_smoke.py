@@ -91,8 +91,9 @@ Phases (any failure raises and exits non-zero):
 5. At scale 16 the kernel path and the plain path on the card: the
    clustering state, the game-off assignment and the game-on assignment
    (the CSR game on the fused K2 against the dense plain game) must match
-   bit for bit.  The same two partitions on the CPU are printed beside
-   them (RF, edges assigned elsewhere).
+   bit for bit.  The same two partitions on the CPU must equal the card's
+   edge for edge, with the same game rounds: the game's start and damping
+   draws are a counter hash, the same on every device.
 5b. ``[sweep]``: ``partition_sweep`` on the scale-20 stream over k = 16,
    64, 256 with the main path's profile (one restream): per k RF against
    a random assignment's, balance, stage seconds, µs/edge and game
@@ -162,12 +163,37 @@ Phases (any failure raises and exits non-zero):
    loop within 2e-3; K4 at the prefill's shape (v a slice of kv_b's rows)
    against its plain version in bf16 (2e-2) and f32 (2e-5), timed beside
    its bound and SDPA (each fused backend tried alone).
+8d. ``[ssm]``, with ``[mla]``'s weights freed: mamba2-130m at full width
+   and depth (24 SSD layers, d_inner 1,536, 24 heads of 64, N = 128,
+   chunk 128), then one 8-layer jamba period at published width (d_model
+   8,192, GQA 64/8 of 128 at sublayer 3, d_ff 24,576, SSD d_state 128,
+   heads of 64, MoE top-2 at every 2nd sublayer) with 8 of its 16 experts
+   (16 are 90.29 GB in bf16; the width cut is logged), both bf16 and
+   seeded.  For each: the parameter count against ``param_count`` and
+   the published figure (167,616,960; 25,816,462,592);
+   ``make_prefill_step`` on 4 × 2,048 tokens with the counts zeroed
+   before and read after (mamba: no kernel; jamba: K4 exactly once, group
+   8, D 128), tokens/s beside the FLOP ceiling, peak memory and jamba's
+   drop share; ``ssd_chunked`` against the sequential ``ssd_reference`` on
+   layer 0's real input within 1e-4 of its largest magnitude; ``generate``
+   (4 prompts of 16 tokens, 32 greedy tokens, from the SSM state; no
+   kernel), ms/token-step beside the floor of the weights and f32 state a
+   step moves, every logit finite.  The f32 checks at full width on 4 ×
+   256 tokens: every mixer (SSD sublayer; jamba's attention on K4 f32)
+   fed its prefill input, its prefill form against its decode form
+   stepped token by token within 1e-4 of its largest magnitude; prefill's
+   last logits against the decode loop's within 2e-3 on mamba's first 2
+   layers and on jamba's period (2 experts at a capacity that drops
+   nothing), and logged for mamba's 24 layers (a random-weight stack that
+   deep amplifies f32 rounding past 2e-3, in the reference too).  Then K4
+   at (4, 64, 2048, 128) with k/v (4, 8, 2048, 128) against its plain
+   version within 2e-2, timed beside its bound and SDPA.
 9. The ``kernels`` JSON line (eight rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
-   ``[graph-serve]``, K4's the ``[moe]`` prefill's; K4 at MLA's head dims
-   is a row of its own, ``flash_attention_mla``, with the ``[mla]``
-   prefill's launches),
+   ``[graph-serve]``, K4's the ``[moe]`` and ``[ssm]`` prefills'; K4 at
+   MLA's head dims is a row of its own, ``flash_attention_mla``, with the
+   ``[mla]`` prefill's launches),
    then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -259,6 +285,16 @@ MOE_TOKENS = 32
 # dispatch buffers on an 80 GB card); batches as the qwen2 path's
 MLA_ARCH, MLA_LAYERS = "deepseek_v3_671b", 5
 MLA_PARAMS = 26_618_377_216
+# the SSM and hybrid serving paths: mamba2-130m at full width and depth,
+# and one 8-layer period of jamba at published width with 8 of its 16
+# experts (16 come to 90.29 GB in bf16, above the card's 80 GB; 8 to
+# 51.63 GB); the f32 checks at 4 × 256 tokens, jamba's with 2 experts
+# (its f32 period is then 45 GB); batches as the qwen2 path's
+SSM_ARCH, SSM_PARAMS = "mamba2_130m", 167_616_960
+HYB_ARCH, HYB_EXPERTS, HYB_PARAMS = "jamba_1_5_large_398b", 8, 25_816_462_592
+SSM_CHECK_B, SSM_CHECK_S, HYB_CHECK_EXPERTS = 4, 256, 2
+SSD_REL_TOL = 1e-4        # ssd_chunked against the sequential oracle
+SSM_LAYER_TOL = 1e-4      # a mixer's decode form against its prefill form
 
 
 def check(cond, msg):
@@ -1458,14 +1494,30 @@ def partition_cli_phase(torch) -> dict:
     return out
 
 
+def ssd_flops(cfg, B, S) -> int:
+    """Operations of one SSD sublayer (``mamba.ssd_apply``) on B × S
+    tokens from the shapes the code runs: the four input projections (x
+    and z to d_inner, B and C to 2·N, dt to the heads) and ``out_proj``,
+    then the chunked einsums — the chunk scores C·Bᵀ (chunk² · N a
+    chunk), ``y_intra`` over every (t, s) pair of a chunk (the product
+    runs over the masked triangle too), the chunk states and ``y_inter``
+    (N · d_inner a token each).  A multiply-add counts two."""
+    s = cfg.ssm
+    d, di, N, c = cfg.d_model, s.expand * cfg.d_model, s.d_state, s.chunk
+    proj = d * (2 * di + 2 * N + di // s.head_dim) + di * d
+    return 2 * B * S * (proj + c * N + c * di + 2 * N * di)
+
+
 def prefill_flops(cfg, B, S, capacity) -> int:
     """Operations of one prefill of B × S tokens as the code runs it:
-    per layer the attention projections (GQA's q, k, v, o; MLA's q_a, q_b,
+    per attention layer the projections (GQA's q, k, v, o; MLA's q_a, q_b,
     kv_a, kv_b, o), causal attention over the unmasked (q, k) pairs (a
     multiply-add per q·k column and per p·v column), then the layer's
     FFN: a dense layer's three matrices, or an MoE layer's shared expert,
-    routed bank at its capacity-padded E × C slots a group and router;
-    then the LM head at the last position.  A multiply-add counts two."""
+    routed bank at its capacity-padded E × C slots a group and router; an
+    SSD layer (``ssd_flops``), and a hybrid period's sublayers, each
+    attention or SSD and then its FFN; then the LM head at the last
+    position.  A multiply-add counts two."""
     from repro_torch.models import layer_groups
     d, H, N = cfg.d_model, cfg.n_heads, B * S
     pairs = B * H * (S * (S + 1) // 2)
@@ -1475,10 +1527,10 @@ def prefill_flops(cfg, B, S, capacity) -> int:
                         + d * (m.kv_lora + m.rope_dim)
                         + m.kv_lora * H * (m.nope_dim + m.v_dim)
                         + H * m.v_dim * d)
-        attn = 2 * (m.nope_dim + m.rope_dim + m.v_dim) * pairs
+        attn = proj + 2 * (m.nope_dim + m.rope_dim + m.v_dim) * pairs
     else:
         proj = 2 * N * d * 2 * (H + cfg.n_kv_heads) * cfg.hd
-        attn = 4 * cfg.hd * pairs
+        attn = proj + 4 * cfg.hd * pairs
     ffn = {"dense": 2 * N * 3 * d * cfg.d_ff}
     if cfg.moe is not None:
         mo = cfg.moe
@@ -1486,31 +1538,45 @@ def prefill_flops(cfg, B, S, capacity) -> int:
         ffn["moe"] = (2 * N * mo.n_shared * expert
                       + 2 * B * mo.n_experts * capacity * expert
                       + 2 * N * d * mo.n_experts)
+    ssd = ssd_flops(cfg, B, S) if cfg.ssm is not None else 0
+    layer = {"dense": attn + ffn["dense"], "moe": attn + ffn.get("moe", 0),
+             "ssd": ssd}
+    if cfg.family == "hybrid":
+        layer["hyb"] = sum(
+            (attn if i == cfg.attn_index else ssd)
+            + ffn["moe" if cfg.moe and i % cfg.moe.every == 1 else "dense"]
+            for i in range(cfg.attn_period))
     head = 2 * B * d * cfg.padded_vocab
-    return head + sum(count * (proj + attn + ffn[group])
+    return head + sum(count * layer[group]
                       for group, count in layer_groups(cfg))
 
 
 @contextlib.contextmanager
-def moe_inputs(M, record):
-    """Calls ``record(p, x, kw)`` with every MoE layer's input while the
-    block runs (``models.lm`` calls ``moe.moe_apply`` through the module)."""
-    real = M.moe_apply
-
-    def spy(p, x, **kw):
-        record(p, x, kw)
-        return real(p, x, **kw)
-    M.moe_apply = spy
+def spy(*targets):
+    """For each (module, name, record): calls ``record(args, kw)`` with
+    every call of ``module.name`` while the block runs (the models call
+    ``moe.moe_apply``, ``mamba.ssd_apply``, ``mamba.ssd_chunked`` and
+    ``lm._self_attention`` through their modules)."""
+    reals = [(module, name, getattr(module, name))
+             for module, name, _ in targets]
+    for (module, name, real), (*_, record) in zip(reals, targets):
+        def wrapped(*args, _real=real, _record=record, **kw):
+            _record(args, kw)
+            return _real(*args, **kw)
+        setattr(module, name, wrapped)
     try:
         yield
     finally:
-        M.moe_apply = real
+        for module, name, real in reals:
+            setattr(module, name, real)
 
 
 def routing_recorder(torch, M, mo, capacity, routing):
-    """A ``record`` for ``moe_inputs``: appends each MoE layer's (kept
-    pairs, routed pairs, expert load) at ``capacity`` to ``routing``."""
-    def record(p, x, kw):
+    """A ``record`` for ``spy`` on ``moe_apply``: appends each MoE layer's
+    (kept pairs, routed pairs, expert load) at ``capacity`` to
+    ``routing``."""
+    def record(args, kw):
+        p, x = args
         top_idx, gates = M.route(p, x, top_k=kw["top_k"],
                                  router_softmax_after_topk=kw[
                                      "router_softmax_after_topk"])
@@ -1522,13 +1588,15 @@ def routing_recorder(torch, M, mo, capacity, routing):
     return record
 
 
-def timed_prefill(torch, ops, M, prefill_step, params, tokens, record,
-                  n_layers, vocab, tag):
-    """A warm-up prefill that records every MoE layer's routing, then one
-    with the counts zeroed before and read after: K4 exactly once a
-    layer, no other kernel; logits (B, 1, vocab), finite.  Returns (the
-    timed prefill's seconds, its launches, its peak memory in GiB)."""
-    with moe_inputs(M, record):
+def timed_prefill(torch, ops, prefill_step, params, tokens, watch, k4,
+                  vocab, tag):
+    """A warm-up prefill inside ``watch`` (a ``spy`` that records what the
+    phase reads), then one with the counts zeroed before and read after:
+    K4 exactly ``k4`` times (once an attention layer) and no other kernel,
+    or no kernel at all where ``k4`` is 0; logits (B, 1, vocab), finite.
+    Returns (the timed prefill's seconds, its launches, its peak memory in
+    GiB)."""
+    with watch:
         prefill_step(params, {"tokens": tokens})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1539,10 +1607,11 @@ def timed_prefill(torch, ops, M, prefill_step, params, tokens, record,
     seconds = time.perf_counter() - t
     launches = ops.launch_counts()
     log(f"[{tag}] prefill launches {json.dumps(launches)}")
-    check_path_launches(ops, launches, "lm")
-    check(launches["flash_attention"] == n_layers,
-          f"K4 launched {launches['flash_attention']} times in the {tag} "
-          f"prefill, not once per layer ({n_layers})")
+    if k4:
+        check_path_launches(ops, launches, "lm")
+    check(launches.get("flash_attention", 0) == k4 and sum(
+        launches.values()) == k4, f"the {tag} prefill launched {launches}, "
+          f"not K4 once an attention layer ({k4})")
     check(logits.shape == (tokens.shape[0], 1, vocab)
           and bool(torch.isfinite(logits).all()), f"{tag} prefill logits")
     return seconds, launches, torch.cuda.max_memory_allocated() / 2**30
@@ -1632,8 +1701,9 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
                                  mo.capacity_factor)
     routing = []
     t_prefill, launches, peak = timed_prefill(
-        torch, ops, M, make_prefill_step(cfg, dtype=torch.bfloat16), params,
-        tokens, routing_recorder(torch, M, mo, capacity, routing),
+        torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
+        tokens, spy((M, "moe_apply",
+                     routing_recorder(torch, M, mo, capacity, routing))),
         MOE_LAYERS, cfg.padded_vocab, "moe")
     flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
     ceiling = flops / BF16_OPS_PER_S
@@ -1674,7 +1744,7 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
         0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
     inputs = []
     ops.reset_launch_counts()
-    with moe_inputs(M, lambda p, x, kw: inputs.append((p, x, kw))):
+    with spy((M, "moe_apply", lambda a, kw: inputs.append((*a, kw)))):
         pre, _ = prefill(p32, {"tokens": prompt}, small, dtype=torch.float32)
     check(ops.launch_counts().get("flash_attention") == CHECK_LAYERS,
           "the f32 MoE prefill did not run on K4")
@@ -1804,8 +1874,9 @@ def mla_phase(torch, ops, dev) -> dict:
     routing = []
     prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
     t_prefill, launches, peak = timed_prefill(
-        torch, ops, M, prefill_step, params, tokens,
-        routing_recorder(torch, M, mo, capacity, routing), MLA_LAYERS,
+        torch, ops, prefill_step, params, tokens,
+        spy((M, "moe_apply",
+             routing_recorder(torch, M, mo, capacity, routing))), MLA_LAYERS,
         cfg.padded_vocab, "mla")
     with warnings.catch_warnings():      # the profiler's one-cycle notice
         warnings.simplefilter("ignore", UserWarning)
@@ -1945,6 +2016,266 @@ def mla_phase(torch, ops, dev) -> dict:
     torch.cuda.empty_cache()
     log(f"[mla] phase {time.perf_counter() - t_phase:.1f} s")
     return row
+
+
+def first_call(store):
+    """A ``record`` for ``spy`` that keeps the first call's arguments."""
+    def record(args, kw):
+        if not store:
+            store.append((args, kw))
+    return record
+
+
+def ssm_model(torch, ops, dev, cfg, want_params, rng, tag) -> tuple:
+    """One model of ``[ssm]`` in bf16 from a seeded generator: its
+    parameter count against ``param_count`` and ``want_params``;
+    ``make_prefill_step`` on 4 × 2,048 tokens (K4 once a period of a
+    hybrid, no kernel in an SSM model), tokens/s beside the FLOP ceiling,
+    peak memory and, with an MoE, the drop share; ``ssd_chunked`` against
+    the sequential ``ssd_reference`` on layer 0's real input (f32, 1e-4 of
+    its largest magnitude); ``generate`` (no kernel) with ms/token-step
+    beside the floor of the weights it reads and the f32 state it reads
+    and writes, every logit finite.  Frees its weights; returns (the
+    prefill's seconds, its launches)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, param_count, tree_leaves
+    from repro_torch.models import mamba as SSM
+    from repro_torch.models import moe as M
+    from repro_torch.train import make_prefill_step
+
+    s, mo = cfg.ssm, cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg) == want_params, f"{tag} parameter "
+          f"count {n_params}, param_count {param_count(cfg)}, want "
+          f"{want_params}")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    di = s.expand * cfg.d_model
+    log(f"[ssm] {tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, SSD "
+        f"d_inner {di} ({di // s.head_dim} heads of {s.head_dim}) d_state "
+        f"{s.d_state} chunk {s.chunk}"
+        + (f", attention {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} at "
+           f"sublayer {cfg.attn_index} of {cfg.attn_period}, d_ff "
+           f"{cfg.d_ff}, {mo.n_experts} experts top-{mo.top_k} every "
+           f"{mo.every}" if cfg.family == "hybrid" else "")
+        + f", vocab {cfg.vocab}: {n_params} parameters = param_count "
+        f"({weight_bytes / 1e9:.3f} GB = {weight_bytes / 2**30:.2f} GiB bf16)"
+        f" built in {time.perf_counter() - t:.1f} s")
+
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    capacity = (M.expert_capacity(PREFILL_S, mo.top_k, mo.n_experts,
+                                  mo.capacity_factor) if mo else 0)
+    routing, ssd_in = [], []
+    watch = [(SSM, "ssd_chunked", first_call(ssd_in))]
+    if mo:
+        watch.append((M, "moe_apply",
+                       routing_recorder(torch, M, mo, capacity, routing)))
+    k4 = cfg.n_layers // cfg.attn_period if cfg.family == "hybrid" else 0
+    t_prefill, launches, peak = timed_prefill(
+        torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
+        tokens, spy(*watch), k4, cfg.padded_vocab, tag)
+    flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
+    ceiling = flops / BF16_OPS_PER_S
+    log(f"[ssm] {tag} prefill B={PREFILL_B} S={PREFILL_S}: "
+        f"{t_prefill * 1e3:.3f} ms = {PREFILL_B * PREFILL_S / t_prefill:.1f}"
+        f" tokens/s (ceiling {flops:.4e} FLOP at 989 TFLOP/s = "
+        f"{ceiling * 1e3:.3f} ms = {PREFILL_B * PREFILL_S / ceiling:.1f} "
+        f"tokens/s; {flops / t_prefill / 1e12:.1f} TFLOP/s = "
+        f"{ceiling / t_prefill:.1%} of the ceiling); peak device memory "
+        f"{peak:.2f} GiB")
+    if mo:
+        check(len(routing) == cfg.n_layers // mo.every,
+              f"{len(routing)} MoE sublayers ran")
+        log(f"[ssm] {tag} routing: "
+            + routing_summary(routing, capacity, PREFILL_S, 1))
+
+    # the chunked scan against the sequential oracle on layer 0's input
+    (x, dt, A, B, C, D), kw = ssd_in[0]
+    got = SSM.ssd_chunked(x, dt, A, B, C, D, **kw)
+    want = SSM.ssd_reference(x, dt, A, B, C, D)
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(rel <= SSD_REL_TOL, f"{tag} ssd_chunked vs ssd_reference {rel}")
+    log(f"[ssm] {tag} ssd_chunked (chunk {kw['chunk']}) vs the sequential "
+        f"ssd_reference on layer 0's input x {tuple(x.shape)} f32: max |d| "
+        f"{float((got - want).abs().max()):.3e} = {rel:.3e} of max |y| "
+        f"{float(want.abs().max()):.3e} (tolerance {SSD_REL_TOL})")
+    del ssd_in, x, dt, A, B, C, D, got, want, routing
+
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    served = timed_decode(torch, ops, generate, params, cfg, prompt,
+                          MOE_TOKENS, tag)
+    ms_step = served.seconds * 1e3 / served.steps
+    # a step reads every weight but the embedding table (B rows) and reads
+    # and writes every layer's f32 state; a hybrid's KV cache is a few MB
+    state_bytes = 4 * SERVE_B * di * s.d_state * (cfg.n_layers - k4)
+    step_bytes = (weight_bytes - params["embed"]["table"].numel() * 2
+                  + 2 * state_bytes)
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[ssm] {tag} decode B={SERVE_B}, prompt {SERVE_PROMPT} + "
+        f"{MOE_TOKENS} tokens from the SSM state: {served.steps} steps in "
+        f"{served.seconds:.3f} s = {ms_step:.3f} ms/token-step (floor: "
+        f"{step_bytes / 1e9:.3f} GB a step, the weights"
+        + (", every expert at capacity 1," if mo else "")
+        + f" and {2 * state_bytes / 1e6:.1f} MB of f32 state read and "
+        f"written, at 3.35 TB/s = {floor_ms:.3f} ms, {floor_ms / ms_step:.1%}"
+        f" of the step); logits finite; first tokens "
+        f"{served.tokens[0][:16].tolist()}")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t_prefill, launches
+
+
+def ssm_f32_check(torch, ops, dev, cfg, rng, tag, hold) -> None:
+    """``cfg`` in f32 at full width on 4 × 256 tokens.  Every mixer (each
+    SSD sublayer; a hybrid period's attention, K4 f32 in the prefill) is
+    fed its input in the prefill and run again in its decode form, one
+    token a step from a zero state or cache: the two within 1e-4 of the
+    prefill form's largest magnitude.  Then the last logits of ``prefill``
+    against the decode loop's (the state filled one token a step): held
+    within 2e-3 where ``hold``, else logged — a deep stack of random
+    weights amplifies each layer's f32 rounding (mamba2-130m at full depth
+    on the CPU, seed 2 of the reference's own weights: 2.4e-3 in the
+    reference, 6.0e-3 in the port)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, lm, prefill
+    from repro_torch.models import mamba as SSM
+
+    p32 = init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SSM_CHECK_B, SSM_CHECK_S))).to(dev)
+    mixers = []
+    ops.reset_launch_counts()
+    with spy((SSM, "ssd_apply", lambda a, kw: mixers.append(("ssd", a, kw))),
+             (lm, "_self_attention",
+              lambda a, kw: mixers.append(("attn", a, kw)))):
+        pre, _ = prefill(p32, {"tokens": prompt}, cfg, dtype=torch.float32)
+    k4 = cfg.n_layers // cfg.attn_period if cfg.family == "hybrid" else 0
+    check(ops.launch_counts().get("flash_attention", 0) == k4,
+          f"the f32 {tag} prefill launched {ops.launch_counts()}")
+    gaps = []
+    for kind, args, kw in mixers:
+        p, h = args[:2]
+        B, S = h.shape[:2]
+        if kind == "ssd":
+            want = SSM.ssd_apply(p, h, **kw)
+            state = torch.zeros(B, kw["d_inner"] // kw["head_dim"],
+                                kw["d_state"], kw["head_dim"], device=dev)
+            dims = {k: kw[k] for k in ("d_inner", "d_state", "head_dim")}
+            got = [SSM.ssd_decode_step(p, h[:, t:t + 1], state, **dims)[0]
+                   for t in range(S)]
+        else:
+            want = lm._self_attention(*args, **kw)
+            ck, cv = (torch.zeros(B, S, cfg.n_kv_heads, cfg.hd, device=dev)
+                      for _ in range(2))
+            got = [lm._attn_decode(p, h[:, t:t + 1], ck, cv, cfg, t)
+                   for t in range(S)]
+        gap = float((torch.cat(got, 1) - want).abs().max()
+                    / want.abs().max())
+        check(gap <= SSM_LAYER_TOL, f"f32 {tag} {kind} mixer: decode form "
+              f"{gap} from the prefill form")
+        gaps.append(gap)
+    dec = generate(p32, cfg, prompt, 1, dtype=torch.float32)
+    check(dec.finite, f"f32 {tag} decode logits not finite")
+    gap = float((dec.prompt_logits - pre[:, -1]).abs().max())
+    if hold:
+        torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                                   atol=2e-3)
+    log(f"[ssm] {tag} check: f32 at full width, {cfg.n_layers} layers, "
+        f"B={SSM_CHECK_B}, prompt {SSM_CHECK_S}: each of the {len(gaps)} "
+        f"mixers on its prefill input, prefill form (chunked SSD"
+        + (", K4 f32" if k4 else "") + ") vs decode form stepped, at most "
+        f"{max(gaps):.3e} of max |y| (tolerance {SSM_LAYER_TOL}); prefill "
+        f"vs decode loop last logits max |d| {gap:.3e} "
+        + ("(tolerance 2e-3)" if hold else "(logged: the stack amplifies "
+           "rounding)"))
+    del p32, pre, dec, mixers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(torch, ops, dev, k4_row) -> None:
+    """``[ssm]``: mamba2-130m at full width and depth (24 SSD layers), then
+    one 8-layer jamba period at published width with 8 of its 16 experts
+    (``ssm_model`` each: count, prefill, scan check, decode), each model's
+    f32 prefill-vs-decode check (jamba's period with 2 experts), and K4 at
+    the jamba prefill's group-8 shape against its plain version (2e-2),
+    timed beside its bound and SDPA; the jamba prefill's K4 launch joins
+    K4's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+
+    log(f"[ssm] before the phase: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated ([mla]'s weights freed)")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    mamba = get_config(SSM_ARCH)
+    ssm_model(torch, ops, dev, mamba, SSM_PARAMS, rng, "mamba2-130m")
+    ssm_f32_check(torch, ops, dev, mamba, rng, "mamba2-130m", hold=False)
+    ssm_f32_check(torch, ops, dev, dataclasses.replace(
+        mamba, n_layers=CHECK_LAYERS), rng, "mamba2-130m", hold=True)
+
+    full = get_config(HYB_ARCH)
+    hyb = dataclasses.replace(full, n_layers=full.attn_period,
+                              moe=dataclasses.replace(
+                                  full.moe, n_experts=HYB_EXPERTS))
+    log(f"[ssm] jamba: one period of {full.attn_period} of its "
+        f"{full.n_layers} layers (reduced: n_layers, the smallest whole "
+        f"period) and {HYB_EXPERTS} of its {full.moe.n_experts} experts "
+        f"(reduced: n_experts, a width cut: 16 experts come to 90.29 GB in "
+        f"bf16, above the card's 80 GB)")
+    t_prefill, launches = ssm_model(torch, ops, dev, hyb, HYB_PARAMS, rng,
+                                    "jamba")
+    small = dataclasses.replace(hyb, moe=dataclasses.replace(
+        hyb.moe, n_experts=HYB_CHECK_EXPERTS,
+        capacity_factor=HYB_CHECK_EXPERTS / hyb.moe.top_k))
+    ssm_f32_check(torch, ops, dev, small, rng,
+                  f"jamba ({HYB_CHECK_EXPERTS} experts, capacity factor "
+                  f"{HYB_CHECK_EXPERTS / hyb.moe.top_k}: no drop)", hold=True)
+
+    # K4 at the jamba prefill's shape: 64 query heads over 8 KV heads
+    Hq, Hkv, D = hyb.n_heads, hyb.n_kv_heads, hyb.hd
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(PREFILL_B, Hq, PREFILL_S, D, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(PREFILL_B, Hkv, PREFILL_S, D, generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                  20)
+    plain = event_ms(torch, lambda: ops.flash_attention_plain(
+        q, k, v, causal=True), 3, warmup=1)
+    lib = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    k4_flops = 4 * D * (PREFILL_S * (PREFILL_S + 1) // 2) * PREFILL_B * Hq
+    bms, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), k4_flops,
+                       BF16_OPS_PER_S)
+    log(f"[ssm] K4 bf16 q {tuple(q.shape)} k/v {tuple(k.shape)} causal "
+        f"(group {Hq // Hkv}): max |d| {err:.3e} against the plain version;"
+        f" {ms:.4f} ms/launch = {k4_flops / ms / 1e9:.1f} TFLOP/s; bound "
+        f"{bms:.4f} ms ({by}) = {bms / ms:.1%}; plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention {lib:.4f} ms; "
+        f"{launches['flash_attention']} launch = "
+        f"{launches['flash_attention'] * ms / (t_prefill * 1e3):.1%} of the "
+        f"jamba prefill")
+    k4_row["launches"] += launches["flash_attention"]
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    log(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2419,16 +2750,21 @@ def main() -> int:
               f"scale-16 assignment (game={game}) differs between kernel "
               "and plain")
     on = results[True, "cuda"].stats
-    # the same partitions on the CPU (the game's start and damping draws
-    # come from a torch.Generator, whose stream is the device's own)
+    # the same partitions on the CPU: the game's start and damping draws
+    # are a counter hash of (seed, stream, row), the same on every device
     for game in (False, True):
         c = CLUGPConfig.optimized(K, restream=1, game=game, kernel="torch",
                                   cluster_kernel="torch")
         cpu = partition(gs.src, gs.dst, gs.num_vertices, c, device="cpu")
+        card = results[game, "cuda"]
+        moved = int((cpu.assign != card.assign).sum())
         log(f"[scale16] game={game} on the CPU: rf {cpu.stats['rf']:.4f} "
-            f"against the card's {results[game, 'cuda'].stats['rf']:.4f}; "
-            f"{int((cpu.assign != results[game, 'cuda'].assign).sum())} of "
-            f"{gs.num_edges} edges assigned elsewhere")
+            f"against the card's {card.stats['rf']:.4f}; {moved} of "
+            f"{gs.num_edges} edges assigned elsewhere; game rounds "
+            f"{cpu.game_rounds} and {card.game_rounds}")
+        check(moved == 0 and cpu.game_rounds == card.game_rounds,
+              f"scale-16 assignment (game={game}) differs between the CPU "
+              f"and the card")
     log(f"[scale16] V={gs.num_vertices} E={gs.num_edges}: clustering state, "
         f"game-off and game-on assignments bit-identical (clustering "
         f"{t_kernel:.2f} s kernel, {t_plain:.2f} s plain; game-off rf "
@@ -2607,6 +2943,10 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8c
     rows.append(mla_phase(torch, ops, dev))
+
+    # ---------------------------------------------------------- phase 8d
+    ssm_phase(torch, ops, dev, next(r for r in rows
+                                    if r["name"] == "flash_attention"))
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

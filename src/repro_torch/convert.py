@@ -99,11 +99,12 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
     """The reference's LM parameter tree as numpy arrays (``{"embed",
     "lm_head", "ln_f"}`` and one ``g_<group>`` per layer group of ``cfg``
     — ``g_dense``; ``g_moe``, after ``g_dense`` when ``first_k_dense >
-    0`` — each with its leaves stacked on a leading layer axis; weights
-    (d_in, d_out) as in ``repro.models.layers``) → the port's parameters:
-    CPU tensors in the tree's dtypes, each group split into one dict per
-    layer.  Raises for a configuration the port cannot run and for a tree
-    that does not fit ``cfg``."""
+    0``; ``g_ssd``; ``g_hyb``, ``{"sub": [one dict a sublayer]}`` — each
+    with its leaves stacked on a leading layer axis; weights (d_in, d_out)
+    as in ``repro.models.layers``) → the port's parameters: CPU tensors in
+    the tree's dtypes, each group split into one dict per layer.  Raises
+    for a configuration the port cannot run and for a tree that does not
+    fit ``cfg``."""
     require_ported(cfg)
     groups = layer_groups(cfg)
     keys = {"embed", "lm_head", "ln_f"} | {f"g_{g}" for g, _ in groups}
@@ -114,6 +115,8 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
     def walk(x, pick):
         if isinstance(x, dict):
             return {k: walk(v, pick) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, pick) for v in x]
         return torch.from_numpy(np.array(pick(np.asarray(x))))
 
     out = {k: walk(tree[k], lambda a: a)

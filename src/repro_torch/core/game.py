@@ -28,7 +28,9 @@ Port of ``repro.core.game``, in three parts:
 ``jax.random`` draws cannot be reproduced in PyTorch, so both device
 games take an optional start assignment ``assign0`` (and ``game_rounds``
 an optional damping draw ``draw(rnd, b) -> bool mask``); by default they
-come from a ``torch.Generator`` seeded with ``seed`` (``start_assignment``).
+come from ``hash_draws``, a counter-based hash of (seed, stream, row) in
+int64 arithmetic that gives the same bits on every device, as
+``jax.random`` does (a ``torch.Generator``'s stream is the device's own).
 """
 from __future__ import annotations
 
@@ -45,6 +47,14 @@ from ..kernels.game_gs import game_gs
 _STALL_ROUNDS = 4
 _DAMPING = 0.5       # share of improving players that move in round 0
 PAIR_KEY_LIMIT = 2 ** 31   # the reference's int32 pair keys: m_cap·(m_cap+1) below it
+# the draws' hash: odd multipliers below 2³¹ (the golden ratio's, and two
+# of a 32-bit finalizer's), so a product with a 32-bit value stays below
+# 2⁶³ in int64 and no step wraps on any device
+_MASK32 = 0xFFFFFFFF
+_ROW_MUL = 0x61C88647
+_MIX_MUL = (0x7FEB352D, 0x5BD1E995)
+_SEED_SALT = 0x9E3779B9    # keeps seed 0 off the finalizer's fixed point 0
+_DRAW_BITS = 24            # a Bernoulli draw compares the hash's top 24 bits
 
 
 # --------------------------------------------------------------- host game
@@ -201,6 +211,57 @@ def greedy_assign_np(cg: ClusterGraph, k: int) -> np.ndarray:
 
 # ------------------------------------------------------------- device games
 
+def _mix32(h):
+    """A 32-bit finalizer (xor-shift, multiply, xor-shift, multiply,
+    xor-shift) on a Python int or an int64 tensor of values below 2³²:
+    each product is below 2⁶³ and is masked back to 32 bits."""
+    for mul, shift in zip(_MIX_MUL, (16, 15)):
+        h = ((h ^ (h >> shift)) * mul) & _MASK32
+    return h ^ (h >> 16)
+
+
+def stream_base(seed: int, stream: int) -> int:
+    """The 32-bit base of one stream: seed and stream mixed in Python
+    integers (the reference folds the stream into its key with
+    ``jax.random.fold_in``)."""
+    return _mix32(_mix32((int(seed) ^ _SEED_SALT) & _MASK32)
+                  ^ (int(stream) & _MASK32))
+
+
+def hash_draws(base, rows):
+    """(rows,) 32-bit draws of the hash: ``base`` (a Python int or an
+    int64 tensor broadcast over ``rows``) plus the row times an odd
+    multiplier, mixed.  int64 on ``rows``' device, equal bit for bit on
+    every device."""
+    return _mix32((rows.long() * _ROW_MUL + base) & _MASK32)
+
+
+def damping_draws(seed: int, m_cap: int, batch_size: int, n_batches: int,
+                  max_rounds: int, device):
+    """The Jacobi game's default ``draw(rnd, b)``: batch b of round rnd
+    plays stream ``rnd·n_batches + b + 1`` (the reference's ``fold_in``),
+    each row a Bernoulli(p) as the integer compare ``draw >> 8 <
+    floor(p·2²⁴)``.  The stream bases of every round and batch go to the
+    device in one table, and a round is drawn once over all m_cap rows
+    (each row on its batch's stream) at its first batch's call; the
+    round's later batches slice the same mask."""
+    bases = torch.tensor(
+        [[stream_base(seed, rnd * n_batches + b + 1)
+          for b in range(n_batches)] for rnd in range(max_rounds)],
+        dtype=torch.int64).to(device)
+    rows = torch.arange(m_cap, device=device)
+    batch_of = rows // batch_size
+    drawn = {}
+
+    def draw(rnd, b):
+        if rnd not in drawn:
+            drawn.clear()
+            p = max(_DAMPING * 0.92 ** rnd, 0.08)
+            h = hash_draws(bases[rnd][batch_of], rows)
+            drawn[rnd] = (h >> (32 - _DRAW_BITS)) < int(p * (1 << _DRAW_BITS))
+        return drawn[rnd]
+    return draw
+
 
 def greedy_assign(sizes, k: int):
     """Big clusters → least-loaded partitions over padded (m_cap,) f32
@@ -271,15 +332,11 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
         has_live.index_add_(0, ar // batch_size, live)
         has_live = (has_live > 0).tolist()
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
     if assign0 is None:
-        assign0 = torch.randint(0, k, (m_cap,), generator=gen,
-                                device=device, dtype=torch.int32)
+        assign0 = start_assignment(m_cap, k, seed, device)
     if draw is None:
-        def draw(rnd, b):
-            p = max(_DAMPING * 0.92 ** rnd, 0.08)
-            return torch.rand(m_cap, generator=gen, device=device) < p
+        draw = damping_draws(seed, m_cap, batch_size, n_batches, max_rounds,
+                             device)
     assign = assign0.to(device=device, dtype=torch.int32)
     loads = torch.zeros(k, dtype=torch.float32, device=device)
     loads.index_add_(0, assign.long(), sizes)
@@ -302,8 +359,8 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
         assign = assign.clone()          # best_assign may alias it
         for b in range(n_batches):
             r0, r1 = b * batch_size, min((b + 1) * batch_size, m_cap)
-            # the damping draw of every batch, moving or not, so the
-            # generator's stream does not depend on the mode
+            # the damping draw of every batch, moving or not, so an
+            # injected draw sees the same calls in either mode
             keep = draw(rnd, b)[r0:r1]
             if mode == "cuda":
                 if not has_live[b]:
@@ -345,13 +402,11 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
 # ------------------------------------------------------ the scan game (G)
 
 def start_assignment(m_cap: int, k: int, seed: int, device):
-    """The scan game's default random start: (m_cap,) int32 from a
-    ``torch.Generator`` seeded with ``seed`` (the first draw
-    ``game_rounds`` makes from its generator too)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return torch.randint(0, k, (m_cap,), generator=gen, device=device,
-                         dtype=torch.int32)
+    """Both device games' default random start: (m_cap,) int32 lanes
+    ``draw % k`` from stream 0 of the hash, the same on every device.  The
+    modulo's bias is below k / 2³² a lane."""
+    rows = torch.arange(m_cap, device=device)
+    return (hash_draws(stream_base(seed, 0), rows) % k).to(torch.int32)
 
 
 def cluster_pairs(xs, xd, m_cap: int):

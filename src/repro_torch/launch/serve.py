@@ -4,9 +4,11 @@
 ``python -m repro_torch.launch.serve --arch qwen2-7b --no-reduced`` serves
 the full-width model with random weights from ``--seed`` and reports the
 time per token-step; ``--arch`` takes every config ``models.lm`` runs
-(the dense family and MoE, e.g. ``llama4-scout-17b-a16e``, and
-``deepseek_v3_671b`` with MLA, decoded from its latent cache).  It runs
-on ``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
+(the dense family and MoE, e.g. ``llama4-scout-17b-a16e``,
+``deepseek_v3_671b`` with MLA, decoded from its latent cache, and the SSM
+and hybrid families, ``mamba2-130m`` and ``jamba-1.5-large-398b``, decoded
+from their SSM state; the prompt fills the state one step a token).  It
+runs on ``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
 default) serves the smoke-test variant; unlike the reference, whose
 ``--reduced`` cannot be switched off, ``--no-reduced`` serves the
 published widths.  Weights and cache are f32, as in the reference's
@@ -71,7 +73,11 @@ def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--arch", default="qwen2-7b",
+                    help="a config of repro_torch.configs: the dense and "
+                    "MoE families (deepseek_v3_671b with MLA), mamba2-130m "
+                    "(SSM) and jamba-1.5-large-398b (hybrid); encdec and "
+                    "vlm raise")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=4)

@@ -1,31 +1,40 @@
-"""Decoder LM of the dense and MoE families (port of those halves of
-``repro.models.lm``): GQA attention with optional QKV bias and RoPE, or
-MLA (DeepSeek's latent KV), RMSNorm or LayerNorm, SwiGLU or GELU FFN or a
-routed MoE layer with an optional shared expert — qwen2, qwen1.5,
-command-r, stablelm (dense), llama4-scout (MoE), deepseek-v3 (MLA + MoE
-after ``first_k_dense`` dense layers).
+"""Decoder LM of the dense, MoE, SSM and hybrid families (port of those
+parts of ``repro.models.lm``): GQA attention with optional QKV bias and
+RoPE, or MLA (DeepSeek's latent KV), RMSNorm or LayerNorm, SwiGLU or GELU
+FFN or a routed MoE layer with an optional shared expert — qwen2,
+qwen1.5, command-r, stablelm (dense), llama4-scout (MoE), deepseek-v3
+(MLA + MoE after ``first_k_dense`` dense layers) — and Mamba-2 SSD layers
+(``models.mamba``): mamba2-130m (``ssd`` layers only) and jamba (``hyb``
+periods: ``attn_period`` sublayers, sublayer ``attn_index`` GQA attention
+and the rest SSD, each followed by an FFN, an MoE one at every sublayer i
+with i % ``moe.every`` == 1).
 
 Entry points:
   init_params(cfg, gen, dtype)        — random weights from a Generator
   forward(params, batch, cfg, dtype)  — final hidden states (B, S, D)
   prefill(params, batch, cfg, dtype)  — (last-position logits, hidden)
-  init_cache(cfg, B, max_len, ...)    — zeroed KV (GQA) or latent (MLA)
-                                        cache of each layer group (on
-                                        ``cuda`` unless a device is named)
+  init_cache(cfg, B, max_len, ...)    — zeroed KV (GQA), latent (MLA) or
+                                        SSM state cache of each layer
+                                        group (on ``cuda`` unless a device
+                                        is named)
   decode_step(params, cache, ...)     — one token; writes the cache in place
 
 Prefill attention runs through K4 (``kernels.flash_attention``; MLA in
-its decompressed form at (192, 128) head dims), decode attention through
-``dist.decode`` (MLA absorbed: attention over the latent cache, with
-``kv_b`` split into W_uk and W_uv); the MoE layer is ``models.moe``, whose
-expert products are batched matrix products (the reference's are einsums
-outside any Pallas kernel).  Parameters are the reference's tree with
-each stacked layer group (``g_dense``, and ``g_moe`` after it for an MoE
-config; a leading layer axis walked by ``lax.scan``) as a list of
-per-layer dicts walked by a Python loop; the cache is keyed by group as
-the reference's is.  The reference's lowering knobs (head padding ``mp``,
-``block_kv``, ``remat``, ``unroll``) and its ``shard`` constraints have no
-counterpart on one card.  SSM and hybrid (mamba2, jamba), encdec and vlm
+its decompressed form at (192, 128) head dims; jamba's one attention
+sublayer a period at group 8), decode attention through ``dist.decode``
+(MLA absorbed: attention over the latent cache, with ``kv_b`` split into
+W_uk and W_uv); the MoE layer is ``models.moe``, whose expert products
+are batched matrix products (the reference's are einsums outside any
+Pallas kernel), and the SSD layer ``models.mamba`` (einsums and a loop
+over chunks, as the reference's).  Prefill emits no cache, as in the
+reference: a server fills the SSM state by repeated decode.  Parameters
+are the reference's tree with each stacked layer group (``g_dense``, and
+``g_moe`` after it for an MoE config; ``g_ssd``; ``g_hyb``, whose layer is
+``{"sub": [one dict a sublayer]}``; a leading layer axis walked by
+``lax.scan``) as a list of per-layer dicts walked by a Python loop; the
+cache is keyed by group as the reference's is.  The reference's lowering
+knobs (head padding ``mp``, ``block_kv``, ``remat``, ``unroll``) and its
+``shard`` constraints have no counterpart on one card.  Encdec and vlm
 raise (``require_ported``); training (``lm_loss``, ``forward_train``)
 waits (ROADMAP, Queue 1).
 """
@@ -40,6 +49,7 @@ from ..dist import decode as DEC
 from ..kernels.flash_attention import flash_attention
 from . import attention as A
 from . import layers as L
+from . import mamba as SSM
 from . import moe as M
 from .config import ModelConfig
 
@@ -68,16 +78,12 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for every configuration the port cannot run yet.  The dense
-    and MoE families run, with GQA or MLA attention; SSM, hybrid, encdec
-    and vlm raise, naming their ROADMAP item."""
-    if cfg.family in ("dense", "moe") and cfg.ssm is None:
+    and MoE families run, with GQA or MLA attention, and SSM and hybrid;
+    encdec and vlm raise, naming their ROADMAP item."""
+    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
         return
-    if cfg.family in ("ssm", "hybrid"):
-        item = "SSM and hybrid (models/mamba.py)"
-    else:
-        item = "encdec and vlm"
     raise ValueError(f"{cfg.name} ({cfg.family}) is not ported yet "
-                     f"(ROADMAP, Queue 1: {item})")
+                     f"(ROADMAP, Queue 1: encdec and vlm)")
 
 
 def _gated(cfg: ModelConfig) -> bool:
@@ -86,6 +92,17 @@ def _gated(cfg: ModelConfig) -> bool:
 
 def _kind(group: str) -> str:
     return "moe" if group == "moe" else "ffn"
+
+
+def _sub_kind(cfg: ModelConfig, i: int) -> str:
+    """The FFN of a hybrid period's sublayer i."""
+    return "moe" if (cfg.moe and i % cfg.moe.every == 1) else "ffn"
+
+
+def _ssd_dims(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    return {"d_inner": s.expand * cfg.d_model, "d_state": s.d_state,
+            "head_dim": s.head_dim}
 
 
 def _norm_init(cfg, d, device):
@@ -107,18 +124,38 @@ def _attn_init(cfg: ModelConfig, gen, dtype) -> Params:
                       cfg.qkv_bias, dtype)
 
 
+def _ffn_init(cfg: ModelConfig, kind: str, gen, dtype) -> Params:
+    if kind == "moe":
+        mo = cfg.moe
+        return M.moe_init(gen, cfg.d_model, mo.d_expert, mo.n_experts,
+                          mo.n_shared, dtype)
+    return L.ffn_init(gen, cfg.d_model, cfg.d_ff, gated=_gated(cfg),
+                      dtype=dtype)
+
+
+def _ssd_init(cfg: ModelConfig, gen, dtype) -> Params:
+    return SSM.ssd_init(gen, cfg.d_model, **_ssd_dims(cfg), dtype=dtype)
+
+
 def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
     d, dev = cfg.d_model, gen.device
-    lp = {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
-          "attn": _attn_init(cfg, gen, dtype)}
-    if _kind(group) == "moe":
-        mo = cfg.moe
-        lp["ffn"] = M.moe_init(gen, d, mo.d_expert, mo.n_experts,
-                               mo.n_shared, dtype)
-    else:
-        lp["ffn"] = L.ffn_init(gen, d, cfg.d_ff, gated=_gated(cfg),
-                               dtype=dtype)
-    return lp
+    if group == "ssd":
+        return {"ln1": _norm_init(cfg, d, dev),
+                "ssd": _ssd_init(cfg, gen, dtype)}
+    if group == "hyb":
+        sub = []
+        for i in range(cfg.attn_period):
+            mix = ({"attn": _attn_init(cfg, gen, dtype)}
+                   if i == cfg.attn_index else
+                   {"ssd": _ssd_init(cfg, gen, dtype)})
+            sub.append({"ln1": _norm_init(cfg, d, dev),
+                        "ln2": _norm_init(cfg, d, dev), **mix,
+                        "ffn": _ffn_init(cfg, _sub_kind(cfg, i), gen,
+                                         dtype)})
+        return {"sub": sub}
+    return {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
+            "attn": _attn_init(cfg, gen, dtype),
+            "ffn": _ffn_init(cfg, _kind(group), gen, dtype)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -162,15 +199,30 @@ def _attn_param_count(cfg: ModelConfig) -> int:
     return attn
 
 
+def _norm_param_count(cfg: ModelConfig) -> int:
+    return cfg.d_model if cfg.norm == "rmsnorm" else 2 * cfg.d_model
+
+
+def _layer_param_count(cfg: ModelConfig, group: str) -> int:
+    norm = _norm_param_count(cfg)
+    ssd = (SSM.ssd_param_count(cfg.d_model, **_ssd_dims(cfg))
+           if cfg.ssm is not None else 0)
+    if group == "ssd":
+        return norm + ssd
+    if group == "hyb":
+        return sum(2 * norm + _ffn_param_count(cfg, _sub_kind(cfg, i))
+                   + (_attn_param_count(cfg) if i == cfg.attn_index else ssd)
+                   for i in range(cfg.attn_period))
+    return 2 * norm + _attn_param_count(cfg) + _ffn_param_count(
+        cfg, _kind(group))
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Number of parameters of ``init_params(cfg, ...)``, from the config
     alone."""
     require_ported(cfg)
-    d = cfg.d_model
-    attn = _attn_param_count(cfg)
-    norm = d if cfg.norm == "rmsnorm" else 2 * d
-    return 2 * cfg.padded_vocab * d + norm + sum(
-        count * (attn + _ffn_param_count(cfg, _kind(group)) + 2 * norm)
+    return 2 * cfg.padded_vocab * cfg.d_model + _norm_param_count(cfg) + sum(
+        count * _layer_param_count(cfg, group)
         for group, count in layer_groups(cfg))
 
 
@@ -218,6 +270,26 @@ def _block(x, lp, cfg: ModelConfig, positions, kind: str):
     return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, kind)
 
 
+def _ssd_apply(p, x, cfg: ModelConfig):
+    return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk)
+
+
+def _layer(x, lp, cfg: ModelConfig, positions, group: str):
+    """One layer of ``group``: a dense or MoE block, an SSD layer (no FFN)
+    or a hybrid period (each sublayer attention or SSD, then its FFN)."""
+    if group == "ssd":
+        return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg)
+    if group != "hyb":
+        return _block(x, lp, cfg, positions, _kind(group))
+    for i, sub in enumerate(lp["sub"]):
+        h = _norm(cfg, sub["ln1"], x)
+        x = x + (_self_attention(sub["attn"], h, cfg, positions)
+                 if i == cfg.attn_index else _ssd_apply(sub["ssd"], h, cfg))
+        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg,
+                           _sub_kind(cfg, i))
+    return x
+
+
 # ---------------------------------------------------------------- forward
 
 def forward(params, batch, cfg: ModelConfig,
@@ -229,7 +301,7 @@ def forward(params, batch, cfg: ModelConfig,
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     for group, _count in layer_groups(cfg):
         for lp in params[f"g_{group}"]:
-            x = _block(x, lp, cfg, pos, _kind(group))
+            x = _layer(x, lp, cfg, pos, group)
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -278,13 +350,47 @@ def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
     return L.linear(lp["o"], o.reshape(B, 1, H * m.v_dim).to(x.dtype))
 
 
+def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
+                  index: int):
+    """One layer of ``group`` at one token; ``c`` is the group's cache and
+    ``i`` the layer's row in it.  A hybrid period's SSD sublayers take the
+    rows of its state in order."""
+    if group == "ssd":
+        return x + SSM.ssd_decode_step(lp["ssd"], _norm(cfg, lp["ln1"], x),
+                                       c["state"][i], **_ssd_dims(cfg))[0]
+    if group != "hyb":
+        h = _norm(cfg, lp["ln1"], x)
+        if cfg.mla is not None:
+            x = x + _mla_decode(lp["attn"], h, c["lat"][i], c["rope"][i],
+                                cfg, index)
+        else:
+            x = x + _attn_decode(lp["attn"], h, c["k"][i], c["v"][i], cfg,
+                                 index)
+        return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg,
+                              _kind(group))
+    states = iter(c["state"][i])
+    for j, sub in enumerate(lp["sub"]):
+        h = _norm(cfg, sub["ln1"], x)
+        x = x + (_attn_decode(sub["attn"], h, c["k"][i], c["v"][i], cfg,
+                              index) if j == cfg.attn_index else
+                 SSM.ssd_decode_step(sub["ssd"], h, next(states),
+                                     **_ssd_dims(cfg))[0])
+        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg,
+                           _sub_kind(cfg, j))
+    return x
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Zeroed caches of every layer, keyed by layer group as the
     reference's cache is: GQA ``{group: {"k", "v"}}``, each (layers, B,
     max_len, Hkv, Dh); MLA ``{group: {"lat", "rope"}}``, (layers, B,
-    max_len, kv_lora) and (layers, B, max_len, rope).  On ``device``:
-    ``cuda`` unless the caller names another; raises without a card."""
+    max_len, kv_lora) and (layers, B, max_len, rope); SSD ``{"ssd":
+    {"state"}}``, (layers, B, H, N, dh) in f32; hybrid ``{"hyb": {"k",
+    "v", "state"}}``, the attention sublayer's KV of each period and the
+    state of its other sublayers, (periods, period − 1, B, H, N, dh) in
+    f32.  On ``device``: ``cuda`` unless the caller names another; raises
+    without a card."""
     require_ported(cfg)
     device = resolve_device(device)
     cache = {}
@@ -293,30 +399,35 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
         if cfg.mla is not None:
             shapes = {"lat": (*rows, cfg.mla.kv_lora),
                       "rope": (*rows, cfg.mla.rope_dim)}
+        elif group == "ssd":
+            shapes = {}
         else:
             kv = (*rows, cfg.n_kv_heads, cfg.hd)
             shapes = {"k": kv, "v": kv}
         cache[group] = {name: torch.zeros(shape, dtype=dtype, device=device)
                         for name, shape in shapes.items()}
+        if group in ("ssd", "hyb"):
+            s = cfg.ssm
+            per = () if group == "ssd" else (cfg.attn_period - 1,)
+            state = (count, *per, batch_size,
+                     s.expand * cfg.d_model // s.head_dim, s.d_state,
+                     s.head_dim)
+            cache[group]["state"] = torch.zeros(
+                state, dtype=torch.float32, device=device)
     return cache
 
 
 def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
                 dtype=torch.bfloat16):
     """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
-    position being written; unlike the reference, the cache's tensors are
-    written in place and the same dict is returned."""
+    position being written; unlike the reference, the cache's tensors (KV
+    rows and SSM states) are written in place and the same dict is
+    returned."""
     require_ported(cfg)
     x = L.embed(params["embed"], tokens, dtype)
-    attend, names = ((_mla_decode, ("lat", "rope")) if cfg.mla is not None
-                     else (_attn_decode, ("k", "v")))
     for group, _count in layer_groups(cfg):
-        c1, c2 = (cache[group][name] for name in names)
         for i, lp in enumerate(params[f"g_{group}"]):
-            x = x + attend(lp["attn"], _norm(cfg, lp["ln1"], x), c1[i],
-                           c2[i], cfg, index)
-            x = x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg,
-                               _kind(group))
+            x = _decode_layer(x, lp, cache[group], i, cfg, group, index)
     x = _norm(cfg, params["ln_f"], x)
     return L.linear(params["lm_head"], x), cache
 

@@ -16,6 +16,7 @@ from repro.core.stages import cluster_graph_arrays as jax_cga  # noqa: E402
 from repro_torch.core import graphgen, metrics  # noqa: E402
 from repro_torch.core.clustering import (compact_labels,  # noqa: E402
                                          default_vmax, streaming_clustering)
+from repro_torch.core import game as G  # noqa: E402
 from repro_torch.core.game import game_rounds, greedy_assign  # noqa: E402
 from repro_torch.core.stages import (cluster_graph_arrays,  # noqa: E402
                                      lambda_from_totals)
@@ -188,6 +189,71 @@ def test_game_rounds_default_draws_are_seeded(game_inputs):
                         max_rounds=64, seed=s, mode="torch") for s in (0, 0, 1)]
     assert torch.equal(runs[0][0], runs[1][0])
     assert not torch.equal(runs[0][0], runs[2][0])
+
+
+# the game's draws: a numpy uint64 twin of the port's int64 hash, written
+# from its definition (32-bit finalizer; golden-ratio row multiplier; the
+# seed salted, mixed, xor-ed with the stream, mixed again)
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _np_mix32(h):
+    h = np.asarray(h, dtype=np.uint64)
+    for mul, shift in ((0x7FEB352D, 16), (0x5BD1E995, 15)):
+        h = ((h ^ (h >> np.uint64(shift))) * np.uint64(mul)) & _U32
+    return h ^ (h >> np.uint64(16))
+
+
+def _np_base(seed, stream):
+    salted = np.uint64((seed ^ 0x9E3779B9) & 0xFFFFFFFF)
+    return _np_mix32(_np_mix32(salted) ^ np.uint64(stream & 0xFFFFFFFF))
+
+
+def _np_draws(seed, stream, rows):
+    rows = np.asarray(rows, dtype=np.uint64)
+    return _np_mix32((rows * np.uint64(0x61C88647) + _np_base(seed, stream))
+                     & _U32)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 40 + 3, -1])
+def test_game_hash_matches_a_numpy_uint64_twin(seed):
+    """Every product of the int64 hash stays below 2⁶³, so it equals the
+    wrap-free uint64 twin bit for bit, up to the largest 32-bit row; its
+    first values are pinned."""
+    rows = np.array([0, 1, 2, 3, 1000, 2 ** 20, 2 ** 32 - 1])
+    for stream in (0, 1, 2623):
+        assert G.stream_base(seed, stream) == int(_np_base(seed, stream))
+        got = G.hash_draws(G.stream_base(seed, stream), torch.from_numpy(
+            rows))
+        np.testing.assert_array_equal(got.numpy().astype(np.uint64),
+                                      _np_draws(seed, stream, rows))
+    if seed == 0:
+        assert G.stream_base(0, 0) == 1833843278
+        assert G.hash_draws(1833843278, torch.arange(4)).tolist() == [
+            775373287, 3067608095, 2304130635, 2781313263]
+
+
+def test_game_default_draws_follow_the_hash():
+    """The start lanes are stream 0 ``% k``; round rnd's damping mask is
+    drawn once over all rows, each row on its batch's stream
+    ``rnd·n_batches + b + 1``, as the integer compare of its top 24 bits
+    against floor(p·2²⁴)."""
+    m_cap, k, seed, batch, n_batches = 300, 64, 5, 128, 3
+    rows = np.arange(m_cap)
+    np.testing.assert_array_equal(
+        G.start_assignment(m_cap, k, seed, "cpu").numpy(),
+        (_np_draws(seed, 0, rows) % np.uint64(k)).astype(np.int32))
+    draw = G.damping_draws(seed, m_cap, batch, n_batches, 64, "cpu")
+    for rnd in (0, 1, 40):
+        p = max(0.5 * 0.92 ** rnd, 0.08)
+        want = np.concatenate([
+            (_np_draws(seed, rnd * n_batches + b + 1, rows)
+             >> np.uint64(8))[b * batch:(b + 1) * batch]
+            < np.uint64(int(p * 2 ** 24)) for b in range(n_batches)])
+        masks = [draw(rnd, b) for b in range(n_batches)]
+        assert all(m is masks[0] for m in masks)
+        np.testing.assert_array_equal(masks[0].numpy(), want)
+        assert abs(want.mean() - p) < 0.1
 
 
 @pytest.mark.parametrize("k", [4, 8])

@@ -1054,3 +1054,71 @@ def test_small_mla_model_on_card_matches_cpu(dev):
                            dtype=torch.float32)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cuda", "scan"])
+def test_game_default_draws_give_one_partition_on_card_and_cpu(dev, kernel):
+    """With the game on and its default draws (the counter hash: no
+    injected start or damping mask), the card and the CPU give one
+    partition: cluster assignment, edge assignment and rounds equal, for
+    the Jacobi CSR game and the scan game."""
+    from repro_torch.core import CLUGPConfig, partition, web_graph
+    from repro_torch.core.game import damping_draws, start_assignment
+    g = web_graph(scale=12, edge_factor=6, seed=2)
+    cfg = CLUGPConfig.optimized(16, restream=1, kernel=kernel)
+    card = partition(g.src, g.dst, g.num_vertices, cfg, device=dev)
+    cpu = partition(g.src, g.dst, g.num_vertices, cfg, device="cpu")
+    assert card.game_rounds == cpu.game_rounds > 1
+    np.testing.assert_array_equal(card.cluster_assign, cpu.cluster_assign)
+    np.testing.assert_array_equal(card.assign, cpu.assign)
+    assert torch.equal(start_assignment(5000, 64, 3, dev).cpu(),
+                       start_assignment(5000, 64, 3, "cpu"))
+    draws = [damping_draws(3, 5000, 640, 8, 64, d) for d in (dev, "cpu")]
+    for rnd in (0, 7, 63):
+        assert torch.equal(draws[0](rnd, 0).cpu(), draws[1](rnd, 0))
+
+
+SSM_TOL = {"mamba2_130m": 1e-4, "jamba_1_5_large_398b": 5e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(SSM_TOL))
+def test_reduced_ssm_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """Reduced mamba2-130m and jamba (2 periods; K4 at its attention
+    sublayer, once a period) on the card against the CPU, same weights,
+    f32 without TF32: last prefill logits, then eight decode steps' logits
+    and the SSM states they write, at the CPU tests' tolerances (1e-4;
+    jamba's 16 sublayers amplify rounding, 5e-3).  Decode launches no
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    tol = SSM_TOL[arch]
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _params_to(params, dev, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    ops.reset_launch_counts()
+    got, _ = prefill(on_card, {"tokens": toks.to(dev)}, cfg,
+                     dtype=torch.float32)
+    periods = cfg.n_layers // cfg.attn_period if cfg.attn_period else 0
+    assert ops.launch_counts().get("flash_attention", 0) == periods
+    want, _ = prefill(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    caches = [init_cache(cfg, 2, 8, dtype=torch.float32, device=d)
+              for d in (dev, "cpu")]
+    ops.reset_launch_counts()
+    for t in range(8):
+        a, _ = decode_step(on_card, caches[0], toks[:, t:t + 1].to(dev), t,
+                           cfg, dtype=torch.float32)
+        b, _ = decode_step(params, caches[1], toks[:, t:t + 1], t, cfg,
+                           dtype=torch.float32)
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+    assert not any(ops.launch_counts().values())
+    for group in caches[1]:
+        torch.testing.assert_close(caches[0][group]["state"].cpu(),
+                                   caches[1][group]["state"], rtol=tol,
+                                   atol=tol)
