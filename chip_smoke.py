@@ -188,12 +188,48 @@ Phases (any failure raises and exits non-zero):
    deep amplifies f32 rounding past 2e-3, in the reference too).  Then K4
    at (4, 64, 2048, 128) with k/v (4, 8, 2048, 128) against its plain
    version within 2e-2, timed beside its bound and SDPA.
-9. The ``kernels`` JSON line (eight rows; G's from ``[scan]``; K3's row
+8e. ``[encdec]``, with ``[ssm]``'s weights freed: seamless-m4t-large-v2
+   at full width and depth (24 encoder + 24 decoder layers, d_model
+   1,024, 16 heads of 64, layernorm, ungated FFN 8,192, vocab 256,206;
+   nothing cut), bf16, seeded.  The parameter count against
+   ``param_count`` and the published 1,632,356,352; ``make_prefill_step``
+   on the JAX package's split of a 2,048-position prefill, 4 × (1,024
+   seeded source frames as ``src_embeds`` + 1,024 tokens), with the
+   counts zeroed before and read after: K4 exactly 72 times (24
+   non-causal encoder self-attentions, 24 causal decoder self-attentions,
+   24 non-causal cross-attentions), no other kernel; tokens/s beside the
+   FLOP ceiling, peak memory; ``generate`` (4 prompts of 16 tokens, 32
+   greedy tokens) against ``encode`` of the prefill's frames: K4 exactly
+   24 times a step (the cross-attention at Sq = 1), ms/token-step beside
+   its floor, every logit finite.  Then 2 + 2 layers at full width in f32
+   on 77 source frames for 100 tokens (Sm != S): prefill's last logits
+   against the decode loop's within 2e-3.  K4 at the prefill's shape (q,
+   k, v (4, 16, 1024, 64), transposed views, not causal) and at the
+   decode's (Sq = 1) against its plain version (2e-2; f32 2e-5), timed
+   beside its bound and SDPA.
+8f. ``[vlm]``, with ``[encdec]``'s weights freed: pixtral-12b at full
+   width and depth (40 layers, d_model 5,120, GQA 32/8 of head dim 160,
+   rope θ 1e9, d_ff 14,336, vocab 131,072; nothing cut), bf16, seeded.
+   The parameter count against ``param_count`` and the published
+   12,772,070,400; ``make_prefill_step`` on 4 × (256 seeded
+   ``prefix_embeds`` + 1,792 tokens) with the counts zeroed before and
+   read after: K4 exactly 40 times (causal, group 4, D 160), no other
+   kernel; tokens/s beside the FLOP ceiling, peak memory; ``generate``
+   (tokens only, as the reference's decode; no kernel), ms/token-step
+   beside the weight-read floor, every logit finite.  Then 2 layers at
+   full width in f32: prefill's last logits (K4 f32 at 160) against the
+   decode loop's within 2e-3; K4 at (4, 32, 2048, 160) over k/v (4, 8,
+   2048, 160) against its plain version (2e-2; f32 2e-5), timed beside
+   its bound and SDPA.
+9. The ``kernels`` JSON line (ten rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
    ``[graph-serve]``, K4's the ``[moe]`` and ``[ssm]`` prefills'; K4 at
    MLA's head dims is a row of its own, ``flash_attention_mla``, with the
-   ``[mla]`` prefill's launches),
+   ``[mla]`` prefill's launches, and so are K4 on the encoder–decoder
+   path, ``flash_attention_encdec`` (non-causal at D 64; the prefill's
+   and the decode's launches), and at head dim 160,
+   ``flash_attention_d160`` (the ``[vlm]`` prefill's launches)),
    then the device JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -295,6 +331,16 @@ HYB_ARCH, HYB_EXPERTS, HYB_PARAMS = "jamba_1_5_large_398b", 8, 25_816_462_592
 SSM_CHECK_B, SSM_CHECK_S, HYB_CHECK_EXPERTS = 4, 256, 2
 SSD_REL_TOL = 1e-4        # ssd_chunked against the sequential oracle
 SSM_LAYER_TOL = 1e-4      # a mixer's decode form against its prefill form
+# the encoder-decoder and VLM serving paths, nothing cut: prefill on the
+# JAX package's input split of a 2,048-position prefill
+# (src/repro/launch/specs.py: seamless 1,024 source frames + 1,024 tokens,
+# pixtral 256 prefix positions + 1,792 tokens), decode batches as the
+# qwen2 path's; the f32 checks at 2 + 2 and 2 layers, seamless's on 77
+# source frames for its 100 prompt tokens (Sm != S)
+ENCDEC_ARCH, ENCDEC_PARAMS = "seamless_m4t_large_v2", 1_632_356_352
+ENCDEC_SRC, ENCDEC_S = 1024, 1024
+VLM_ARCH, VLM_PARAMS = "pixtral_12b", 12_772_070_400
+CHECK_SRC = 77
 
 
 def check(cond, msg):
@@ -1508,16 +1554,20 @@ def ssd_flops(cfg, B, S) -> int:
     return 2 * B * S * (proj + c * N + c * di + 2 * N * di)
 
 
-def prefill_flops(cfg, B, S, capacity) -> int:
-    """Operations of one prefill of B × S tokens as the code runs it:
-    per attention layer the projections (GQA's q, k, v, o; MLA's q_a, q_b,
-    kv_a, kv_b, o), causal attention over the unmasked (q, k) pairs (a
-    multiply-add per q·k column and per p·v column), then the layer's
-    FFN: a dense layer's three matrices, or an MoE layer's shared expert,
-    routed bank at its capacity-padded E × C slots a group and router; an
-    SSD layer (``ssd_flops``), and a hybrid period's sublayers, each
-    attention or SSD and then its FFN; then the LM head at the last
-    position.  A multiply-add counts two."""
+def prefill_flops(cfg, B, S, capacity, Sm=0) -> int:
+    """Operations of one prefill of B × S positions (a vlm's prefix
+    positions included) as the code runs it: per attention layer the
+    projections (GQA's q, k, v, o; MLA's q_a, q_b, kv_a, kv_b, o), causal
+    attention over the unmasked (q, k) pairs (a multiply-add per q·k
+    column and per p·v column), then the layer's FFN: a dense layer's
+    three matrices (two, ungated, under layernorm), or an MoE layer's
+    shared expert, routed bank at its capacity-padded E × C slots a group
+    and router; an SSD layer (``ssd_flops``), and a hybrid period's
+    sublayers, each attention or SSD and then its FFN; an encoder layer
+    over B × Sm source frames (non-causal: Sm · Sm pairs) and a decoder
+    layer's cross-attention (q and o over the tokens, k and v over the
+    memory, S · Sm pairs); then the LM head at the last position.  A
+    multiply-add counts two."""
     from repro_torch.models import layer_groups
     d, H, N = cfg.d_model, cfg.n_heads, B * S
     pairs = B * H * (S * (S + 1) // 2)
@@ -1531,7 +1581,8 @@ def prefill_flops(cfg, B, S, capacity) -> int:
     else:
         proj = 2 * N * d * 2 * (H + cfg.n_kv_heads) * cfg.hd
         attn = proj + 4 * cfg.hd * pairs
-    ffn = {"dense": 2 * N * 3 * d * cfg.d_ff}
+    mats = 3 if cfg.norm == "rmsnorm" else 2       # gated or not
+    ffn = {"dense": 2 * N * mats * d * cfg.d_ff}
     if cfg.moe is not None:
         mo = cfg.moe
         expert = 3 * d * mo.d_expert        # multiply-adds a token an expert
@@ -1546,6 +1597,12 @@ def prefill_flops(cfg, B, S, capacity) -> int:
             (attn if i == cfg.attn_index else ssd)
             + ffn["moe" if cfg.moe and i % cfg.moe.every == 1 else "dense"]
             for i in range(cfg.attn_period))
+    if cfg.family == "encdec":
+        Nm, hd, kv = B * Sm, cfg.hd, cfg.n_kv_heads
+        layer["enc"] = (2 * Nm * d * 2 * (H + kv) * hd + 4 * hd * B * H * Sm
+                        * Sm + 2 * Nm * mats * d * cfg.d_ff)
+        layer["dec"] = (attn + 2 * N * d * 2 * H * hd + 2 * Nm * d * 2 * kv
+                        * hd + 4 * hd * B * H * S * Sm + ffn["dense"])
     head = 2 * B * d * cfg.padded_vocab
     return head + sum(count * layer[group]
                       for group, count in layer_groups(cfg))
@@ -1588,21 +1645,21 @@ def routing_recorder(torch, M, mo, capacity, routing):
     return record
 
 
-def timed_prefill(torch, ops, prefill_step, params, tokens, watch, k4,
+def timed_prefill(torch, ops, prefill_step, params, batch, watch, k4,
                   vocab, tag):
-    """A warm-up prefill inside ``watch`` (a ``spy`` that records what the
-    phase reads), then one with the counts zeroed before and read after:
-    K4 exactly ``k4`` times (once an attention layer) and no other kernel,
-    or no kernel at all where ``k4`` is 0; logits (B, 1, vocab), finite.
-    Returns (the timed prefill's seconds, its launches, its peak memory in
-    GiB)."""
+    """A warm-up prefill of ``batch`` inside ``watch`` (a ``spy`` that
+    records what the phase reads), then one with the counts zeroed before
+    and read after: K4 exactly ``k4`` times (once an attention) and no
+    other kernel, or no kernel at all where ``k4`` is 0; logits (B, 1,
+    vocab), finite.  Returns (the timed prefill's seconds, its launches,
+    its peak memory in GiB)."""
     with watch:
-        prefill_step(params, {"tokens": tokens})
+        prefill_step(params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    logits = prefill_step(params, {"tokens": tokens})
+    logits = prefill_step(params, batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = ops.launch_counts()
@@ -1612,7 +1669,7 @@ def timed_prefill(torch, ops, prefill_step, params, tokens, watch, k4,
     check(launches.get("flash_attention", 0) == k4 and sum(
         launches.values()) == k4, f"the {tag} prefill launched {launches}, "
           f"not K4 once an attention layer ({k4})")
-    check(logits.shape == (tokens.shape[0], 1, vocab)
+    check(logits.shape == (batch["tokens"].shape[0], 1, vocab)
           and bool(torch.isfinite(logits).all()), f"{tag} prefill logits")
     return seconds, launches, torch.cuda.max_memory_allocated() / 2**30
 
@@ -1632,18 +1689,26 @@ def routing_summary(routing, capacity, group, first):
 
 
 def timed_decode(torch, ops, generate, params, cfg, prompt, new_tokens,
-                 tag):
-    """``generate`` after a short warm-up, with the counts zeroed before:
-    no kernel launched, every logit finite, tokens in the vocabulary."""
-    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)
+                 tag, memory=None, k4_step=0):
+    """``generate`` (an encdec model's steps attending ``memory``) after a
+    short warm-up, with the counts zeroed before: K4 exactly ``k4_step``
+    times a step (an encdec model's cross-attentions) and no other
+    kernel, every logit finite, tokens in the vocabulary.  Returns the
+    ``Generation`` and its launches."""
+    generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16,
+             memory=memory)
     ops.reset_launch_counts()
-    served = generate(params, cfg, prompt, new_tokens, dtype=torch.bfloat16)
-    check(not any(ops.launch_counts().values()),
-          f"{tag} decode launched a kernel")
+    served = generate(params, cfg, prompt, new_tokens, dtype=torch.bfloat16,
+                      memory=memory)
+    launches = ops.launch_counts()
+    want = k4_step * served.steps
+    check(launches.get("flash_attention", 0) == want
+          and sum(launches.values()) == want, f"{tag} decode launched "
+          f"{launches}, not K4 {k4_step} times a step")
     check(served.finite and served.tokens.shape == (prompt.shape[0],
                                                     new_tokens)
           and int(served.tokens.max()) < cfg.vocab, f"{tag} decode output")
-    return served
+    return served, launches
 
 
 def moe_phase(torch, ops, dev, k4_row) -> None:
@@ -1702,9 +1767,9 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
     routing = []
     t_prefill, launches, peak = timed_prefill(
         torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
-        tokens, spy((M, "moe_apply",
-                     routing_recorder(torch, M, mo, capacity, routing))),
-        MOE_LAYERS, cfg.padded_vocab, "moe")
+        {"tokens": tokens}, spy((M, "moe_apply", routing_recorder(
+            torch, M, mo, capacity, routing))), MOE_LAYERS,
+        cfg.padded_vocab, "moe")
     flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
     ceiling = flops / BF16_OPS_PER_S
     log(f"[moe] prefill B={PREFILL_B} S={PREFILL_S}: {t_prefill * 1e3:.3f} "
@@ -1719,8 +1784,8 @@ def moe_phase(torch, ops, dev, k4_row) -> None:
 
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
-    served = timed_decode(torch, ops, generate, params, cfg, prompt,
-                          MOE_TOKENS, "MoE")
+    served, _ = timed_decode(torch, ops, generate, params, cfg, prompt,
+                             MOE_TOKENS, "MoE")
     ms_step = served.seconds * 1e3 / served.steps
     log(f"[moe] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {MOE_TOKENS} "
         f"tokens: {served.steps} steps in {served.seconds:.3f} s = "
@@ -1874,7 +1939,7 @@ def mla_phase(torch, ops, dev) -> dict:
     routing = []
     prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
     t_prefill, launches, peak = timed_prefill(
-        torch, ops, prefill_step, params, tokens,
+        torch, ops, prefill_step, params, {"tokens": tokens},
         spy((M, "moe_apply",
              routing_recorder(torch, M, mo, capacity, routing))), MLA_LAYERS,
         cfg.padded_vocab, "mla")
@@ -1905,8 +1970,8 @@ def mla_phase(torch, ops, dev) -> dict:
 
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
-    served = timed_decode(torch, ops, generate, params, cfg, prompt,
-                          MOE_TOKENS, "MLA")
+    served, _ = timed_decode(torch, ops, generate, params, cfg, prompt,
+                             MOE_TOKENS, "MLA")
     ms_step = served.seconds * 1e3 / served.steps
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[mla] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {MOE_TOKENS} "
@@ -2079,7 +2144,7 @@ def ssm_model(torch, ops, dev, cfg, want_params, rng, tag) -> tuple:
     k4 = cfg.n_layers // cfg.attn_period if cfg.family == "hybrid" else 0
     t_prefill, launches, peak = timed_prefill(
         torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
-        tokens, spy(*watch), k4, cfg.padded_vocab, tag)
+        {"tokens": tokens}, spy(*watch), k4, cfg.padded_vocab, tag)
     flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, capacity)
     ceiling = flops / BF16_OPS_PER_S
     log(f"[ssm] {tag} prefill B={PREFILL_B} S={PREFILL_S}: "
@@ -2109,8 +2174,8 @@ def ssm_model(torch, ops, dev, cfg, want_params, rng, tag) -> tuple:
 
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
-    served = timed_decode(torch, ops, generate, params, cfg, prompt,
-                          MOE_TOKENS, tag)
+    served, _ = timed_decode(torch, ops, generate, params, cfg, prompt,
+                             MOE_TOKENS, tag)
     ms_step = served.seconds * 1e3 / served.steps
     # a step reads every weight but the embedding table (B rows) and reads
     # and writes every layer's f32 state; a hybrid's KV cache is a few MB
@@ -2276,6 +2341,375 @@ def ssm_phase(torch, ops, dev, k4_row) -> None:
     del q, k, v, got, want
     torch.cuda.empty_cache()
     log(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def k4_yardstick(torch, ops, F, q, k, v, causal, reps=20):
+    """K4 on (q, k, v) against its plain version (p in f32, 2e-2 in bf16;
+    the max |d| to the plain version that rounds p as the kernel does is
+    logged beside it), timed with CUDA events beside the plain version
+    and ``scaled_dot_product_attention`` (a yardstick the port never
+    calls).  Returns (err, err_rounded, ms, plain_ms, sdpa_ms, out)."""
+    group = q.shape[1] // k.shape[1]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    rounded = ops.flash_attention_plain(
+        q, k, v, causal=causal, block_kv=ops.kernel_block_kv(v.shape[-1]),
+        p_dtype=torch.bfloat16)
+    err_rounded = float((got.float() - rounded.float()).abs().max())
+    del want, rounded
+    ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, causal=causal),
+                  reps)
+    plain = event_ms(torch, lambda: ops.flash_attention_plain(
+        q, k, v, causal=causal), 3, warmup=1)
+    lib = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=group > 1), reps)
+    return err, err_rounded, ms, plain, lib, got
+
+
+def k4_f32_check(torch, ops, dev, H, Hkv, D, causal, seed):
+    """K4's f32 path at (CHECK_B, H, F32_S, D) over Hkv KV heads against
+    its plain version within 2e-5; returns the max |d|."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(CHECK_B, F32_S, H, D, generator=gen, device=dev)
+    k, v = (torch.randn(CHECK_B, F32_S, Hkv, D, generator=gen, device=dev)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    return float((got - want).abs().max())
+
+
+def serve_model(torch, dev, cfg, want_params, tag):
+    """``cfg``'s weights in bf16 from a seeded generator, counted against
+    ``param_count`` and ``want_params``.  Returns (params, their bytes, the
+    bytes a decode step reads: every weight but the embedding table)."""
+    from repro_torch.models import init_params, param_count, tree_leaves
+
+    log(f"[{tag}] before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the "
+        f"earlier phases' weights freed)")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg) == want_params, f"{tag} parameter "
+          f"count {n_params}, param_count {param_count(cfg)}, want "
+          f"{want_params}")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    log(f"[{tag}] {cfg.name}: {n_params} parameters = param_count "
+        f"({weight_bytes / 1e9:.3f} GB = {weight_bytes / 2**30:.2f} GiB bf16)"
+        f" built in {time.perf_counter() - t:.1f} s")
+    return (params, weight_bytes,
+            weight_bytes - params["embed"]["table"].numel() * 2)
+
+
+def log_prefill(tag, cfg, t_prefill, peak, flops, positions, what):
+    ceiling = flops / BF16_OPS_PER_S
+    log(f"[{tag}] prefill {what}: {t_prefill * 1e3:.3f} ms = "
+        f"{positions / t_prefill:.1f} tokens/s (ceiling {flops:.4e} FLOP at "
+        f"989 TFLOP/s = {ceiling * 1e3:.3f} ms = {positions / ceiling:.1f} "
+        f"tokens/s; {flops / t_prefill / 1e12:.1f} TFLOP/s = "
+        f"{ceiling / t_prefill:.1%} of the ceiling); peak device memory "
+        f"{peak:.2f} GiB")
+
+
+def encdec_phase(torch, ops, dev) -> dict:
+    """``[encdec]``: seamless-m4t-large-v2 at full width and depth (24
+    encoder + 24 decoder layers, d_model 1,024, 16 heads of 64, layernorm,
+    ungated FFN 8,192, vocab 256,206; nothing cut), bf16, seeded.  The
+    parameter count against ``param_count`` and the published 1,632,356,352;
+    ``make_prefill_step`` on 4 × (1,024 seeded source frames as
+    ``src_embeds`` + 1,024 tokens) with the counts zeroed before and read
+    after: K4 exactly 72 times (24 non-causal encoder self-attentions, 24
+    causal decoder self-attentions, 24 non-causal cross-attentions at Sq =
+    Skv = 1,024), no other kernel; tokens/s beside the FLOP ceiling, peak
+    memory.  ``generate`` (4 prompts of 16 tokens, 32 greedy tokens)
+    against ``encode`` of the prefill's frames: K4 exactly 24 times a step
+    (the cross-attention at Sq = 1, its k and v recomputed from the memory
+    every step), ms/token-step beside its floor, every logit finite.  Then
+    2 + 2 layers at full width in f32 on 77 frames for 100 tokens (Sm !=
+    S): prefill's last logits against the decode loop's within 2e-3.
+    Last, K4 at the prefill's shape (q, k, v (4, 16, 1024, 64) as
+    transposed views, not causal) and at the decode's (Sq = 1) against
+    its plain version (2e-2; f32 2e-5), timed beside its bound and SDPA.
+    Returns K4's row at the prefill's shape, with the path's launches."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import encode, init_params, prefill
+    from repro_torch.train import make_prefill_step
+
+    cfg = get_config(ENCDEC_ARCH)
+    t_phase = time.perf_counter()
+    params, _, step_bytes = serve_model(torch, dev, cfg, ENCDEC_PARAMS,
+                                        "encdec")
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    log(f"[encdec] {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers (nothing cut), d_model {d}, {H}/{Hkv} heads of {hd}, "
+        f"{cfg.norm}, ungated d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, ENCDEC_S))).to(dev),
+        "src_embeds": torch.randn(PREFILL_B, ENCDEC_SRC, d, generator=gen,
+                                  device=dev, dtype=torch.bfloat16)}
+    k4 = cfg.n_encoder_layers + 2 * cfg.n_layers
+    t_prefill, launches, peak = timed_prefill(
+        torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
+        batch, contextlib.nullcontext(), k4, cfg.padded_vocab, "encdec")
+    flops = prefill_flops(cfg, PREFILL_B, ENCDEC_S, 0, Sm=ENCDEC_SRC)
+    log_prefill("encdec", cfg, t_prefill, peak, flops,
+                PREFILL_B * (ENCDEC_SRC + ENCDEC_S),
+                f"B={PREFILL_B}, {ENCDEC_SRC} source frames + {ENCDEC_S} "
+                f"tokens (tokens/s over both)")
+
+    memory = encode(params, batch["src_embeds"], cfg, dtype=torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    served, dec_launches = timed_decode(
+        torch, ops, generate, params, cfg, prompt, SERVE_TOKENS, "encdec",
+        memory=memory, k4_step=cfg.n_layers)
+    ms_step = served.seconds * 1e3 / served.steps
+    # a step reads every weight but the embedding table and, in each
+    # decoder layer, the memory (its k and v are recomputed from it)
+    mem_bytes = cfg.n_layers * memory.numel() * 2
+    kv_flops = cfg.n_layers * 2 * memory.shape[0] * memory.shape[1] * d \
+        * 2 * Hkv * hd
+    floor_ms, floor_by = bound_ms(step_bytes + mem_bytes, kv_flops,
+                                  BF16_OPS_PER_S)
+    log(f"[encdec] decode B={SERVE_B}, prompt {SERVE_PROMPT} + "
+        f"{SERVE_TOKENS} tokens against the encoder's output of the "
+        f"prefill's frames {tuple(memory.shape)}: {served.steps} steps in "
+        f"{served.seconds:.3f} s = {ms_step:.3f} ms/token-step (floor: "
+        f"{step_bytes / 1e9:.3f} GB of weights + {mem_bytes / 1e9:.3f} GB of "
+        f"memory read a step at 3.35 TB/s, beside {kv_flops:.4e} FLOP of the "
+        f"memory's k and v a step at 989 TFLOP/s = {floor_ms:.3f} ms "
+        f"({floor_by}), {floor_ms / ms_step:.1%} of the step); K4 "
+        f"{dec_launches.get('flash_attention', 0)} launches = "
+        f"{cfg.n_layers} a step; logits finite; first tokens "
+        f"{served.tokens[0][:16].tolist()}")
+    del params, served, memory, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 check: 2 + 2 layers at full width, Sm != S
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS,
+                                n_encoder_layers=CHECK_LAYERS)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
+    src = torch.randn(CHECK_B, CHECK_SRC, d, generator=gen, device=dev)
+    ops.reset_launch_counts()
+    pre, _ = prefill(p32, {"tokens": prompt, "src_embeds": src}, small,
+                     dtype=torch.float32)
+    check(ops.launch_counts().get("flash_attention") == 3 * CHECK_LAYERS,
+          f"the f32 encdec prefill launched {ops.launch_counts()}")
+    memory = encode(p32, src, small, dtype=torch.float32)
+    dec = generate(p32, small, prompt, 1, dtype=torch.float32, memory=memory)
+    check(dec.finite, "f32 encdec decode logits not finite")
+    torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    log(f"[encdec] check: {CHECK_LAYERS} + {CHECK_LAYERS} layers at full "
+        f"width, f32, B={CHECK_B}, {CHECK_SRC} source frames, prompt "
+        f"{CHECK_PROMPT}: prefill (K4 f32, non-causal encoder and "
+        f"cross-attention) vs decode loop (cross-attention on K4 at Sq = 1) "
+        f"last logits max |d| "
+        f"{float((dec.prompt_logits - pre[:, -1]).abs().max()):.3e} "
+        f"(tolerance 2e-3)")
+    del p32, pre, dec, memory, src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 at the prefill's shape (the encoder's self-attention; the
+    # decoder's cross-attention runs the same one), as the model passes
+    # it, and at the decode's cross-attention (one q row)
+    def qkv(Sq, Skv):
+        q = torch.randn(PREFILL_B, Sq, H, hd, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(PREFILL_B, Skv, Hkv, hd, generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        return (t.transpose(1, 2) for t in (q, k, v))
+
+    q, k, v = qkv(ENCDEC_SRC, ENCDEC_SRC)
+    err, err_r, ms, plain, lib, got = k4_yardstick(torch, ops, F, q, k, v,
+                                                   False)
+    k4_flops = 4 * hd * ENCDEC_SRC * ENCDEC_SRC * PREFILL_B * H
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    bms, by = bound_ms(nbytes, k4_flops, BF16_OPS_PER_S)
+    err32 = k4_f32_check(torch, ops, dev, H, Hkv, hd, False, 11)
+    q1, k1, v1 = qkv(1, ENCDEC_SRC)
+    err1, _, ms1, plain1, lib1, _ = k4_yardstick(torch, ops, F, q1, k1, v1,
+                                                 False)
+    bms1, by1 = bound_ms(2 * (2 * q1.numel() + k1.numel() + v1.numel()),
+                         4 * hd * ENCDEC_SRC * PREFILL_B * H, BF16_OPS_PER_S)
+    n_dec = dec_launches["flash_attention"]
+    log(f"[encdec] K4 bf16 q/k/v {tuple(q.shape)} not causal (group "
+        f"{H // Hkv}; transposed views): max |d| {err:.3e} against the plain "
+        f"version ({err_r:.3e} against it with p rounded as the kernel "
+        f"rounds it); {ms:.4f} ms/launch = {k4_flops / ms / 1e9:.1f} "
+        f"TFLOP/s; bound {bms:.4f} ms ({by}) = {bms / ms:.1%}; plain "
+        f"{plain:.3f} ms; scaled_dot_product_attention {lib:.4f} ms; "
+        f"{2 * cfg.n_layers} of the prefill's {k4} launches at this shape = "
+        f"{2 * cfg.n_layers * ms / (t_prefill * 1e3):.1%} of the prefill; "
+        f"f32 at ({CHECK_B}, {H}, {F32_S}) max |d| {err32:.3e} (2e-5)")
+    log(f"[encdec] K4 bf16 q {tuple(q1.shape)} over k/v {tuple(k1.shape)} "
+        f"not causal (the decode's cross-attention; 1 of the q tile's 128 "
+        f"rows live): max |d| {err1:.3e}; {ms1:.4f} ms/launch; bound "
+        f"{bms1:.4f} ms ({by1}) = {bms1 / ms1:.1%}; plain {plain1:.3f} ms; "
+        f"scaled_dot_product_attention {lib1:.4f} ms; {cfg.n_layers} "
+        f"launches a step = {cfg.n_layers * ms1 / ms_step:.1%} of the step")
+    row = dict(name="flash_attention_encdec", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:70",
+               launches=launches["flash_attention"] + n_dec,
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+               bound_by=by, library_ms=lib, head_dims=[hd, hd],
+               q_shape=list(q.shape), causal=False,
+               prefill_launches=launches["flash_attention"],
+               decode_launches=n_dec, f32_max_abs_err=err32,
+               decode_q_shape=list(q1.shape), decode_ms=ms1,
+               decode_max_abs_err=err1, decode_bound_ms=bms1,
+               decode_library_ms=lib1)
+    del q, k, v, got, q1, k1, v1
+    torch.cuda.empty_cache()
+    log(f"[encdec] phase {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def vlm_phase(torch, ops, dev) -> dict:
+    """``[vlm]``: pixtral-12b at full width and depth (40 layers, d_model
+    5,120, GQA 32/8 of head dim 160, rope θ 1e9, d_ff 14,336, vocab
+    131,072; nothing cut), bf16, seeded.  The parameter count against
+    ``param_count`` and the published 12,772,070,400; ``make_prefill_step``
+    on 4 × (256 seeded ``prefix_embeds`` + 1,792 tokens) = 4 × 2,048
+    positions with the counts zeroed before and read after: K4 exactly 40
+    times (causal, group 4, D 160), no other kernel; tokens/s beside the
+    FLOP ceiling, peak memory.  ``generate`` (4 prompts of 16 tokens, 32
+    greedy tokens; a vlm's decode embeds tokens only; no kernel),
+    ms/token-step beside the weight-read floor, every logit finite.  Then
+    2 layers at full width in f32: prefill's last logits (K4 f32 at 160)
+    against the decode loop's within 2e-3.  Last, K4 at (4, 32, 2048, 160)
+    over k/v (4, 8, 2048, 160) as the model passes them against its plain
+    version (2e-2; f32 2e-5), timed beside its bound and SDPA.  Returns
+    K4's row at head dim 160."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+    from repro_torch.train import make_prefill_step
+
+    cfg = get_config(VLM_ARCH)
+    t_phase = time.perf_counter()
+    params, _, step_bytes = serve_model(torch, dev, cfg, VLM_PARAMS, "vlm")
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    P = cfg.prefix_tokens
+    log(f"[vlm] {cfg.n_layers} layers (nothing cut), d_model {d}, {H}/{Hkv} "
+        f"heads of {hd}, rope theta {cfg.rope_theta:g}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {P} prefix positions")
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S - P))).to(dev),
+        "prefix_embeds": torch.randn(PREFILL_B, P, d, generator=gen,
+                                     device=dev, dtype=torch.bfloat16)}
+    t_prefill, launches, peak = timed_prefill(
+        torch, ops, make_prefill_step(cfg, dtype=torch.bfloat16), params,
+        batch, contextlib.nullcontext(), cfg.n_layers, cfg.padded_vocab,
+        "vlm")
+    flops = prefill_flops(cfg, PREFILL_B, PREFILL_S, 0)
+    log_prefill("vlm", cfg, t_prefill, peak, flops, PREFILL_B * PREFILL_S,
+                f"B={PREFILL_B}, {P} prefix positions + {PREFILL_S - P} "
+                f"tokens")
+    del batch
+
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+    served, _ = timed_decode(torch, ops, generate, params, cfg, prompt,
+                             SERVE_TOKENS, "vlm")
+    ms_step = served.seconds * 1e3 / served.steps
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[vlm] decode B={SERVE_B}, prompt {SERVE_PROMPT} + {SERVE_TOKENS} "
+        f"tokens (no prefix): {served.steps} steps in {served.seconds:.3f} s "
+        f"= {ms_step:.3f} ms/token-step (floor: {step_bytes / 1e9:.3f} GB of "
+        f"weights per step at 3.35 TB/s = {floor_ms:.3f} ms, "
+        f"{floor_ms / ms_step:.1%} of the step); logits finite; first tokens "
+        f"{served.tokens[0][:16].tolist()}")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 check: 2 layers at full width (a vlm's decode embeds tokens
+    # only, so its prefill runs without the prefix)
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (CHECK_B, CHECK_PROMPT))).to(dev)
+    ops.reset_launch_counts()
+    pre, _ = prefill(p32, {"tokens": prompt}, small, dtype=torch.float32)
+    check(ops.launch_counts().get("flash_attention") == CHECK_LAYERS,
+          "the f32 vlm prefill did not run on K4")
+    dec = generate(p32, small, prompt, 1, dtype=torch.float32)
+    check(dec.finite, "f32 vlm decode logits not finite")
+    torch.testing.assert_close(dec.prompt_logits, pre[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    log(f"[vlm] check: {CHECK_LAYERS} layers at full width, f32, "
+        f"B={CHECK_B}, prompt {CHECK_PROMPT}: prefill (K4 f32 at head dim "
+        f"{hd}) vs decode loop last logits max |d| "
+        f"{float((dec.prompt_logits - pre[:, -1]).abs().max()):.3e} "
+        f"(tolerance 2e-3)")
+    del p32, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 at the prefill's shape, as the model passes it
+    q = torch.randn(PREFILL_B, PREFILL_S, H, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn(PREFILL_B, PREFILL_S, Hkv, hd, generator=gen,
+                        device=dev, dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    err, err_r, ms, plain, lib, got = k4_yardstick(torch, ops, F, q, k, v,
+                                                   True)
+    pairs = PREFILL_B * H * (PREFILL_S * (PREFILL_S + 1) // 2)
+    k4_flops = 4 * hd * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    bms, by = bound_ms(nbytes, k4_flops, BF16_OPS_PER_S)
+    err32 = k4_f32_check(torch, ops, dev, H, Hkv, hd, True, 14)
+    log(f"[vlm] K4 bf16 q {tuple(q.shape)} k/v {tuple(k.shape)} causal "
+        f"(group {H // Hkv}, head dim {hd}; transposed views): max |d| "
+        f"{err:.3e} against the plain version ({err_r:.3e} against it with "
+        f"p rounded as the kernel rounds it); {ms:.4f} ms/launch = "
+        f"{k4_flops / ms / 1e9:.1f} TFLOP/s; bound {bms:.4f} ms ({by}) = "
+        f"{bms / ms:.1%}; plain {plain:.3f} ms; scaled_dot_product_attention "
+        f"{lib:.4f} ms; {cfg.n_layers} launches = "
+        f"{cfg.n_layers * ms / (t_prefill * 1e3):.1%} of the prefill; f32 at "
+        f"({CHECK_B}, {H}, {F32_S}) max |d| {err32:.3e} (2e-5)")
+    row = dict(name="flash_attention_d160", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:70",
+               launches=launches["flash_attention"], max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+               head_dims=[hd, hd], q_shape=list(q.shape),
+               kv_shape=list(k.shape), causal=True,
+               rounded_max_abs_err=err_r, f32_max_abs_err=err32)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    log(f"[vlm] phase {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 def main() -> int:
@@ -2947,6 +3381,12 @@ def main() -> int:
     # ---------------------------------------------------------- phase 8d
     ssm_phase(torch, ops, dev, next(r for r in rows
                                     if r["name"] == "flash_attention"))
+
+    # ---------------------------------------------------------- phase 8e
+    rows.append(encdec_phase(torch, ops, dev))
+
+    # ---------------------------------------------------------- phase 8f
+    rows.append(vlm_phase(torch, ops, dev))
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

@@ -99,12 +99,14 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
     """The reference's LM parameter tree as numpy arrays (``{"embed",
     "lm_head", "ln_f"}`` and one ``g_<group>`` per layer group of ``cfg``
     — ``g_dense``; ``g_moe``, after ``g_dense`` when ``first_k_dense >
-    0``; ``g_ssd``; ``g_hyb``, ``{"sub": [one dict a sublayer]}`` — each
-    with its leaves stacked on a leading layer axis; weights (d_in, d_out)
-    as in ``repro.models.layers``) → the port's parameters: CPU tensors in
-    the tree's dtypes, each group split into one dict per layer.  Raises
-    for a configuration the port cannot run and for a tree that does not
-    fit ``cfg``."""
+    0``; ``g_ssd``; ``g_hyb``, ``{"sub": [one dict a sublayer]}``;
+    ``g_enc`` and ``g_dec``, the latter with ``ln3`` and the
+    cross-attention's ``xattn`` — each with its leaves stacked on a
+    leading layer axis; weights (d_in, d_out) as in
+    ``repro.models.layers``) → the port's parameters: CPU tensors in the
+    tree's dtypes, each group split into one dict per layer.  Raises for
+    a family the port does not know and for a tree that does not fit
+    ``cfg``."""
     require_ported(cfg)
     groups = layer_groups(cfg)
     keys = {"embed", "lm_head", "ln_f"} | {f"g_{g}" for g, _ in groups}

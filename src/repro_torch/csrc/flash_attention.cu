@@ -1,14 +1,15 @@
 // K4 — flash attention (causal or not, GQA), the prefill attention of the
-// LM stack.
+// LM stack and the cross-attention of the encoder-decoder's decode.
 //
 // Replaces: src/repro/kernels/flash_attention.py:70, flash_attention (the
 // Pallas kernel _flash_kernel).  o[b,h] = softmax(q[b,h]·k[b,h/g]^T·scale
 // + mask)·v[b,h/g] with g = Hq/Hkv, by online softmax: f32 running max m,
 // sum l and accumulator acc; masked scores are -1e30, l is clamped at
 // 1e-20, and the output is written in q's dtype.  q and k rows have DQK
-// elements, v and o rows DV: DQK = DV in 32, 64, 128 (GQA), or the MLA
-// pair DQK 192 (nope 128 + rope 64), DV 128 (the reference computes that
-// attention with chunked_attention, the plain form of the same kernel).
+// elements, v and o rows DV: DQK = DV in 32, 64, 128, 160 (GQA; 160 is
+// pixtral's head), or the MLA pair DQK 192 (nope 128 + rope 64), DV 128
+// (the reference computes that attention with chunked_attention, the
+// plain form of the same kernel).
 //
 // What bounds it on the H100: tensor-core operations.  At the serving
 // prefill shape (B=4, Hq=28, Hkv=4, S=2048, D=128, causal) the unmasked
@@ -20,7 +21,8 @@
 // bf16 design (Hopper: TMA, mbarriers, wgmma, setmaxnreg).  The TPU grid
 // walks the KV blocks in order with m, l, acc in VMEM scratch; here one
 // CTA of 384 threads owns a 128-row q tile of one (b, h) and loops over the
-// 128-row KV tiles itself, so the softmax state never leaves registers:
+// KV tiles (128 rows; 64 at DV 160) itself, so the softmax state never
+// leaves registers:
 // - warp 8 is the producer: its warpgroup (warps 8-11) gives registers up
 //   (setmaxnreg.dec; the pool that setmaxnreg.inc draws from is only what
 //   the CTA's own warps released), and one lane loads the Q tile once and
@@ -39,8 +41,9 @@
 //   warpgroups run independently, so one's softmax can overlap the
 //   other's products; a warpgroup's own softmax does not overlap its
 //   products (each waits for its wgmma group before going on).
-// - TMA writes each tile with the 128-byte swizzle (64-byte for D = 32,
-//   whose rows are 64 bytes) in panels of 64 head-dim columns, and the
+// - TMA writes each tile with the 128-byte swizzle in panels of 64
+//   head-dim columns (with the 64-byte swizzle in panels of 32 for D = 32
+//   and 160, which are no whole number of 64-column panels), and the
 //   wgmma descriptors name the same swizzle; rows past Sq / Skv are
 //   zero-filled by TMA, KV rows past Skv are masked, q rows past Sq are
 //   not stored.
@@ -62,6 +65,20 @@
 // panels in Q·K^T (12 k16 steps, not 8) and keeps P·V and the accumulator
 // at 128 columns; K and V stages have their own sizes (48 and 32 KB), so
 // Q and a two-stage ring fill 208 KB, one CTA an SM as at D = 128.
+//
+// At DQK = DV = 160 (no whole number of 64-column panels) every tile is
+// stored as five 32-column panels with the 64-byte swizzle, as D = 32's
+// one panel is: Q·K^T walks 10 k16 steps over them, and P·V is one
+// m64n128k16 over the first four panels (the MN-major descriptor's LBO
+// steps from one 32-column panel to the next, as it steps 64-column
+// panels under the 128-byte swizzle) plus one m64n32k16 over the fifth
+// into accumulator columns 128-159.  The accumulator grows to 80 f32 a
+// thread; ptxas allocates the consumers' registers within the launch's
+// 168 a thread (setmaxnreg moves only the physical pool), where 80 + 64
+// scores of a 128-row KV tile spilled, so the KV tiles are 64 rows here
+// (Q·K^T on m64n64k16, 32 scores a thread; p is rounded against the
+// running max of a 64-row tile).  Q (40 KB) and two stages of K and V
+// (20 KB each) fill 120 KB.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -82,7 +99,6 @@ struct Layout {
 // ------------------------------------------------------------------- bf16
 
 constexpr int BQ = 128;       // q rows per CTA: two warpgroups of 64
-constexpr int BKV = 128;      // KV rows per tile
 // two consumer warpgroups and a producer warpgroup, of which one warp
 // issues the loads and all four hand their registers to the consumers:
 // 128 x (168 - 24) registers released = 256 x (240 - 168) taken
@@ -91,8 +107,9 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int STAGES = 2;     // the K/V ring
 
 // panel width (elements): tiles are stored as panels of 64 head-dim
-// columns (128-byte swizzle), or of 32 when a row has only 32
-constexpr int panel_width(int d) { return d >= 64 ? 64 : 32; }
+// columns (128-byte swizzle), or of 32 (64-byte swizzle) when the row is
+// no whole number of 64-column panels (32, 160)
+constexpr int panel_width(int d) { return d % 64 == 0 ? 64 : 32; }
 
 template <int DQK, int DV>
 struct Tiles {
@@ -101,6 +118,9 @@ struct Tiles {
   static constexpr int ROWB = 2 * PW;           // bytes of one panel row
   static constexpr int KPP = PW / 16;           // k16 steps per panel
   static constexpr int LAYOUT = PW == 64 ? 1 : 2;  // wgmma: B128 / B64
+  // KV rows a tile: 128, or 64 at DV 160, whose accumulator leaves no
+  // room for 64 scores a thread (see the note above)
+  static constexpr int BKV = DV > 128 ? 64 : 128;
   static constexpr int Q_BYTES = BQ * DQK * 2;
   static constexpr int K_BYTES = BKV * DQK * 2;
   static constexpr int V_BYTES = BKV * DV * 2;
@@ -156,7 +176,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one TMA box (PW x 128 x 1 x 1) of a 4-d map into shared memory
+// one TMA box (PW x rows x 1 x 1) of a 4-d map into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
                                          int c3) {
@@ -236,6 +256,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, scale_d);
+  else
+    wgmma_ss_n128(d, da, db, scale_d);
 }
 
 // D (64 x 32, f32) += A (64 x 16, bf16 in registers) * B (16 x 32, bf16 in
@@ -322,15 +375,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "r"(1));
 }
 
-template <int D>
+// O (64 x D) += P (64 x 16) * V (16 x D); db describes V's first panel.
+// At D = 160 (five 32-column panels of ROWS KV rows, 64 bytes a row) the
+// first four panels are one N = 128 product and the fifth, whose address
+// is four panels on (in the descriptor's 16-byte units), one N = 32
+// product into accumulator columns 128-159.
+template <int D, int ROWS>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (D == 32)
+  if constexpr (D == 32) {
     wgmma_rs_n32(d, a, db);
-  else if constexpr (D == 64)
+  } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, db);
-  else
+  } else if constexpr (D == 160) {
     wgmma_rs_n128(d, a, db);
+    wgmma_rs_n32(d + 64, a, db + ((4u * ROWS * 64u) >> 4));
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
 }
 
 template <int DQK, int DV>
@@ -355,7 +417,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int n_kv = (kv_end + BKV - 1) / BKV;
+  const int n_kv = (kv_end + T::BKV - 1) / T::BKV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -386,13 +448,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
         mbar_expect_tx(k_full(s), T::K_BYTES);
 #pragma unroll
         for (int p = 0; p < DQK / T::PW; ++p)
-          tma_load(sK + s * T::K_BYTES + p * BKV * T::ROWB, &tmk, k_full(s),
-                   p * T::PW, i * BKV, hk, b);
+          tma_load(sK + s * T::K_BYTES + p * T::BKV * T::ROWB, &tmk,
+                   k_full(s), p * T::PW, i * T::BKV, hk, b);
         mbar_expect_tx(v_full(s), T::V_BYTES);
 #pragma unroll
         for (int p = 0; p < DV / T::PW; ++p)
-          tma_load(sV + s * T::V_BYTES + p * BKV * T::ROWB, &tmv, v_full(s),
-                   p * T::PW, i * BKV, hk, b);
+          tma_load(sV + s * T::V_BYTES + p * T::BKV * T::ROWB, &tmv,
+                   v_full(s), p * T::PW, i * T::BKV, hk, b);
       }
     }
   } else {
@@ -414,11 +476,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
     for (int i = 0; i < n_kv; ++i) {
       const int s = i % STAGES;
       const uint32_t ph = (i / STAGES) & 1;
-      const int kv0 = i * BKV;
+      const int kv0 = i * T::BKV;
 
-      // S = Q·K^T (64 x 128), both operands K-major in shared memory, over
-      // DQK / 64 panels (3 at DQK 192)
-      float sc[BKV / 2];
+      // S = Q·K^T (64 x BKV), both operands K-major in shared memory, over
+      // the DQK / PW panels (3 at DQK 192, 5 at 160)
+      float sc[T::BKV / 2];
       mbar_wait(k_full(s), ph);
       const uint32_t kb = sK + s * T::K_BYTES;
       wgmma_fence();
@@ -429,9 +491,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
             qa + (kk / T::KPP) * BQ * T::ROWB + koff, 16, 8 * T::ROWB,
             T::LAYOUT);
         const uint64_t db = make_desc(
-            kb + (kk / T::KPP) * BKV * T::ROWB + koff, 16, 8 * T::ROWB,
+            kb + (kk / T::KPP) * T::BKV * T::ROWB + koff, 16, 8 * T::ROWB,
             T::LAYOUT);
-        wgmma_ss_n128(sc, da, db, kk > 0);
+        wgmma_ss<T::BKV>(sc, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -439,10 +501,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 
       // online softmax on the accumulator fragments: element 4n + e is
       // row ra + 8 (e >> 1), column kv0 + 8n + 2 (lane & 3) + (e & 1)
-      const bool edge = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > row0);
+      const bool edge =
+          kv0 + T::BKV > Skv || (causal && kv0 + T::BKV - 1 > row0);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
+      for (int n = 0; n < T::BKV / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = sc[4 * n + e] * scale2;
@@ -467,9 +530,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       }
       // P's A fragments: columns 16kk.. of rows ra, ra + 8 are accumulator
       // chunks 2kk and 2kk + 1, packed to bf16 pairs
-      uint32_t pa[BKV / 16][4];
+      uint32_t pa[T::BKV / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
+      for (int kk = 0; kk < T::BKV / 16; ++kk) {
         float p[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -489,16 +552,17 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
         acc[4 * n + 3] *= alpha[1];
       }
 
-      // O += P·V: V (128 x DV) is the MN-major B operand; LBO steps from
-      // one 64-column panel to the next, SBO from 8 KV rows to the next
+      // O += P·V: V (BKV x DV) is the MN-major B operand; LBO steps from
+      // one panel to the next, SBO from 8 KV rows to the next
       mbar_wait(v_full(s), ph);
       const uint32_t vb = sV + s * T::V_BYTES;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
+      for (int kk = 0; kk < T::BKV / 16; ++kk) {
         const uint64_t db = make_desc(vb + kk * 16 * T::ROWB,
-                                      BKV * T::ROWB, 8 * T::ROWB, T::LAYOUT);
-        wgmma_rs<DV>(acc, pa[kk], db);
+                                      T::BKV * T::ROWB, 8 * T::ROWB,
+                                      T::LAYOUT);
+        wgmma_rs<DV, T::BKV>(acc, pa[kk], db);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -676,11 +740,11 @@ EncodeTiled encode_fn() {
 }
 
 // a (B, S, H, D) bf16 activation with element strides l as a 4-d map of
-// dims (D, S, H, B) and boxes of (PW, 128, 1, 1), swizzled as the kernel's
+// dims (D, S, H, B) and boxes of (PW, ROWS, 1, 1), swizzled as the kernel's
 // descriptors read it; rows past S load as zeros.  The rows may be a
 // slice of wider ones (MLA's v is kv_b's output past its nope columns):
 // only the strides say where the next row starts.
-template <int D>
+template <int D, int ROWS>
 int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
            Layout l) {
   const EncodeTiled fn = encode_fn();
@@ -693,7 +757,7 @@ int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
   // a dimension of extent 1 is never stepped; give it a stride TMA takes
   for (int i = 0; i < 3; ++i)
     if (dims[i + 1] == 1) strides[i] = i ? strides[i - 1] * dims[i] : 2 * D;
-  cuuint32_t box[4] = {(cuuint32_t)PW, 128, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)PW, (cuuint32_t)ROWS, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -710,9 +774,10 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 Layout lk, Layout lv, Layout lo, cudaStream_t stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
   CUtensorMap mq, mk, mv;
-  int err = encode<DQK>(&mq, q, B, Hq, Sq, lq);
-  if (err == 0) err = encode<DQK>(&mk, k, B, Hkv, Skv, lk);
-  if (err == 0) err = encode<DV>(&mv, v, B, Hkv, Skv, lv);
+  constexpr int ROWS = Tiles<DQK, DV>::BKV;
+  int err = encode<DQK, BQ>(&mq, q, B, Hq, Sq, lq);
+  if (err == 0) err = encode<DQK, ROWS>(&mk, k, B, Hkv, Skv, lk);
+  if (err == 0) err = encode<DV, ROWS>(&mv, v, B, Hkv, Skv, lv);
   if (err != 0) return err;
   constexpr int smem = Tiles<DQK, DV>::SMEM;
   static bool sized = false;  // above 48 KB shared memory must be asked for
@@ -754,13 +819,14 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
 template <int N>
 using Dim = std::integral_constant<int, N>;
 
-// the (DQK, DV) pairs K4 is built for: GQA's 32, 64, 128 and MLA's
+// the (DQK, DV) pairs K4 is built for: GQA's 32, 64, 128, 160 and MLA's
 // (192, 128); f(Dim<DQK>, Dim<DV>) launches one of them
 template <class F>
 int dispatch_dims(int D, int Dv, F&& f) {
   if (D == 32 && Dv == 32) return f(Dim<32>{}, Dim<32>{});
   if (D == 64 && Dv == 64) return f(Dim<64>{}, Dim<64>{});
   if (D == 128 && Dv == 128) return f(Dim<128>{}, Dim<128>{});
+  if (D == 160 && Dv == 160) return f(Dim<160>{}, Dim<160>{});
   if (D == 192 && Dv == 128) return f(Dim<192>{}, Dim<128>{});
   return (int)cudaErrorInvalidValue;
 }

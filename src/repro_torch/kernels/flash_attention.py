@@ -6,10 +6,11 @@ head h // (Hq // Hkv); online softmax with f32 state, masked scores −1e30,
 l clamped at 1e-20, output (B, Hq, Sq, Dv) in q's dtype.
 ``flash_attention`` runs the plain version on CPU tensors and launches
 ``csrc/flash_attention.cu`` on CUDA tensors (f32 or bf16; (D, Dv) in
-``HEAD_DIMS``: D = Dv in 32, 64, 128, or MLA's (192, 128); any Sq and
-Skv).  bf16 runs the Hopper kernel: a producer warp loads Q and a ring of
-K/V tiles with TMA, two consumer warpgroups run both products on wgmma
-(128-row q and KV tiles); f32 runs a plain FMA kernel (no TF32).
+``HEAD_DIMS``: D = Dv in 32, 64, 128, 160 (pixtral), or MLA's (192,
+128); any Sq and Skv, Sq = 1 included).  bf16 runs the Hopper kernel: a
+producer warp loads Q and a ring of K/V tiles with TMA, two consumer
+warpgroups run both products on wgmma (128-row q tiles, 128-row KV tiles
+or 64-row at Dv 160); f32 runs a plain FMA kernel (no TF32).
 
 The kernel reads q, k, v (through TMA tensor maps in bf16) and writes o
 through their element strides, so a (B, S, H, D) activation passes as its
@@ -28,7 +29,14 @@ from . import _build
 
 NEG_INF = -1e30
 # (D of q and k, Dv of v and o) pairs the kernel is built for
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (160, 160), (192, 128))
+
+
+def kernel_block_kv(dv: int) -> int:
+    """The KV rows over which the bf16 kernel rounds p against one running
+    max: its KV tiles, 128 rows, or 64 when Dv is 160 (the larger
+    accumulator leaves room for 64 score columns only)."""
+    return 64 if dv > 128 else 128
 _INT_MAX = 2**31 - 1
 
 
@@ -37,10 +45,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           block_kv: int = 1024, p_dtype=None):
     """The same function in PyTorch, by KV blocks like the reference's
     ``chunked_attention``, with GQA folded (k/v stay at Hkv heads) and q
-    scaled in f32 as the TPU kernel does; p stays f32.  With ``block_kv=128,
-    p_dtype=torch.bfloat16`` p is rounded before P·V as the kernel's bf16
-    path rounds it (against the same running max, over its 128-row KV
-    tiles), so a reference can carry that difference."""
+    scaled in f32 as the TPU kernel does; p stays f32.  With
+    ``block_kv=kernel_block_kv(Dv), p_dtype=torch.bfloat16`` p is rounded
+    before P·V as the kernel's bf16 path rounds it (against the same
+    running max, over the same KV rows), so a reference can carry that
+    difference."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     group = Hq // Hkv

@@ -5,10 +5,13 @@
 the full-width model with random weights from ``--seed`` and reports the
 time per token-step; ``--arch`` takes every config ``models.lm`` runs
 (the dense family and MoE, e.g. ``llama4-scout-17b-a16e``,
-``deepseek_v3_671b`` with MLA, decoded from its latent cache, and the SSM
+``deepseek_v3_671b`` with MLA, decoded from its latent cache, the SSM
 and hybrid families, ``mamba2-130m`` and ``jamba-1.5-large-398b``, decoded
-from their SSM state; the prompt fills the state one step a token).  It
-runs on ``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
+from their SSM state, the encoder–decoder ``seamless-m4t-large-v2``,
+whose decoder attends the reference launcher's stub memory, zeros of
+(B, 8, d_model), and the VLM ``pixtral-12b``, whose decode embeds tokens
+only; the prompt fills the cache or state one step a token).  It runs on
+``cuda`` unless ``--device cpu`` is given.  ``--reduced`` (the
 default) serves the smoke-test variant; unlike the reference, whose
 ``--reduced`` cannot be switched off, ``--no-reduced`` serves the
 published widths.  Weights and cache are f32, as in the reference's
@@ -39,11 +42,12 @@ class Generation(NamedTuple):
 
 
 def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
-             dtype=torch.float32) -> Generation:
+             dtype=torch.float32, memory=None) -> Generation:
     """The reference launcher's loop: ``prompt`` (B, P) integer tokens go
     in one decode step each (exact; the batched prefill is
     ``train.make_prefill_step``), then ``new_tokens`` greedy tokens, each
-    the argmax over the unpadded vocabulary, each decoded in turn.  Every
+    the argmax over the unpadded vocabulary, each decoded in turn; an
+    encdec model's every step attends ``memory`` (B, Sm, D).  Every
     step's logits are tested for finiteness on the device; the host reads
     the result once, after the timed loop."""
     B, P = prompt.shape
@@ -55,14 +59,14 @@ def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for t in range(P):
-        logits, cache = step(params, cache, prompt[:, t:t + 1], t)
+        logits, cache = step(params, cache, prompt[:, t:t + 1], t, memory)
         finite &= torch.isfinite(logits).all()
     prompt_logits = logits[:, -1]
     out = []
     for t in range(new_tokens):
         nxt = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
         out.append(nxt)
-        logits, cache = step(params, cache, nxt, P + t)
+        logits, cache = step(params, cache, nxt, P + t, memory)
         finite &= torch.isfinite(logits).all()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -76,8 +80,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-7b",
                     help="a config of repro_torch.configs: the dense and "
                     "MoE families (deepseek_v3_671b with MLA), mamba2-130m "
-                    "(SSM) and jamba-1.5-large-398b (hybrid); encdec and "
-                    "vlm raise")
+                    "(SSM), jamba-1.5-large-398b (hybrid), "
+                    "seamless_m4t_large_v2 (encdec: the stub memory) and "
+                    "pixtral_12b (vlm)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -97,7 +102,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
-    g = generate(params, cfg, prompt, args.tokens)
+    # the reference launcher's stub memory for an encoder–decoder
+    memory = (torch.zeros((args.batch, 8, cfg.d_model), device=dev)
+              if cfg.family == "encdec" else None)
+    g = generate(params, cfg, prompt, args.tokens, memory=memory)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"arch={cfg.name} batch={args.batch} {g.steps} steps in "
           f"{g.seconds:.2f}s ({1000 * g.seconds / g.steps:.1f} "

@@ -1,42 +1,54 @@
-"""Decoder LM of the dense, MoE, SSM and hybrid families (port of those
-parts of ``repro.models.lm``): GQA attention with optional QKV bias and
-RoPE, or MLA (DeepSeek's latent KV), RMSNorm or LayerNorm, SwiGLU or GELU
-FFN or a routed MoE layer with an optional shared expert — qwen2,
-qwen1.5, command-r, stablelm (dense), llama4-scout (MoE), deepseek-v3
-(MLA + MoE after ``first_k_dense`` dense layers) — and Mamba-2 SSD layers
-(``models.mamba``): mamba2-130m (``ssd`` layers only) and jamba (``hyb``
-periods: ``attn_period`` sublayers, sublayer ``attn_index`` GQA attention
-and the rest SSD, each followed by an FFN, an MoE one at every sublayer i
-with i % ``moe.every`` == 1).
+"""The LM stack of every assigned family (port of ``repro.models.lm``):
+GQA attention with optional QKV bias and RoPE, or MLA (DeepSeek's latent
+KV), RMSNorm or LayerNorm, SwiGLU or GELU FFN or a routed MoE layer with
+an optional shared expert — qwen2, qwen1.5, command-r, stablelm (dense),
+llama4-scout (MoE), deepseek-v3 (MLA + MoE after ``first_k_dense`` dense
+layers) —, Mamba-2 SSD layers (``models.mamba``): mamba2-130m (``ssd``
+layers only) and jamba (``hyb`` periods: ``attn_period`` sublayers,
+sublayer ``attn_index`` GQA attention and the rest SSD, each followed by
+an FFN, an MoE one at every sublayer i with i % ``moe.every`` == 1), the
+encoder–decoder seamless-m4t (``enc`` layers over the stub frontend's
+``src_embeds``: non-causal self-attention, then the FFN; ``dec`` layers:
+causal self-attention, cross-attention over the encoder's output, then
+the FFN) and the VLM pixtral (dense layers over ``prefix_embeds`` from the
+stub frontend followed by the token embeddings, positions over both).
 
 Entry points:
   init_params(cfg, gen, dtype)        — random weights from a Generator
   forward(params, batch, cfg, dtype)  — final hidden states (B, S, D)
+  encode(params, src_embeds, cfg, dtype) — encdec: the encoder's output,
+                                        the decoder's memory
   prefill(params, batch, cfg, dtype)  — (last-position logits, hidden)
   init_cache(cfg, B, max_len, ...)    — zeroed KV (GQA), latent (MLA) or
                                         SSM state cache of each layer
                                         group (on ``cuda`` unless a device
                                         is named)
-  decode_step(params, cache, ...)     — one token; writes the cache in place
+  decode_step(params, cache, ..., memory) — one token; writes the cache in
+                                        place; encdec attends ``memory``
 
 Prefill attention runs through K4 (``kernels.flash_attention``; MLA in
 its decompressed form at (192, 128) head dims; jamba's one attention
-sublayer a period at group 8), decode attention through ``dist.decode``
+sublayer a period at group 8; pixtral at head dim 160; the encoder's
+self-attention and the decoder's cross-attention non-causal, the latter
+over Skv = Sm memory rows), decode attention through ``dist.decode``
 (MLA absorbed: attention over the latent cache, with ``kv_b`` split into
-W_uk and W_uv); the MoE layer is ``models.moe``, whose expert products
-are batched matrix products (the reference's are einsums outside any
-Pallas kernel), and the SSD layer ``models.mamba`` (einsums and a loop
-over chunks, as the reference's).  Prefill emits no cache, as in the
-reference: a server fills the SSM state by repeated decode.  Parameters
-are the reference's tree with each stacked layer group (``g_dense``, and
-``g_moe`` after it for an MoE config; ``g_ssd``; ``g_hyb``, whose layer is
-``{"sub": [one dict a sublayer]}``; a leading layer axis walked by
-``lax.scan``) as a list of per-layer dicts walked by a Python loop; the
-cache is keyed by group as the reference's is.  The reference's lowering
-knobs (head padding ``mp``, ``block_kv``, ``remat``, ``unroll``) and its
-``shard`` constraints have no counterpart on one card.  Encdec and vlm
-raise (``require_ported``); training (``lm_loss``, ``forward_train``)
-waits (ROADMAP, Queue 1).
+W_uk and W_uv) except the decoder's cross-attention, which recomputes k
+and v from the memory every step, as the reference does, and runs on K4
+at Sq = 1; the MoE layer is ``models.moe``, whose expert products are
+batched matrix products (the reference's are einsums outside any Pallas
+kernel), and the SSD layer ``models.mamba`` (einsums and a loop over
+chunks, as the reference's).  Prefill emits no cache, as in the
+reference: a server fills the KV cache or SSM state by repeated decode.
+Parameters are the reference's tree with each stacked layer group
+(``g_dense``, and ``g_moe`` after it for an MoE config; ``g_ssd``;
+``g_hyb``, whose layer is ``{"sub": [one dict a sublayer]}``; ``g_enc``
+and ``g_dec``, the latter with a second GQA projection set ``xattn``; a
+leading layer axis walked by ``lax.scan``) as a list of per-layer dicts
+walked by a Python loop; the cache is keyed by group as the reference's
+is.  The reference's lowering knobs (head padding ``mp``, ``block_kv``,
+``remat``, ``unroll``) and its ``shard`` constraints have no counterpart
+on one card.  Training (``lm_loss``, ``forward_train``) waits (ROADMAP,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -76,14 +88,15 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
     return [("dense", cfg.n_layers)]
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for every configuration the port cannot run yet.  The dense
-    and MoE families run, with GQA or MLA attention, and SSM and hybrid;
-    encdec and vlm raise, naming their ROADMAP item."""
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        return
-    raise ValueError(f"{cfg.name} ({cfg.family}) is not ported yet "
-                     f"(ROADMAP, Queue 1: encdec and vlm)")
+    """Raise for a configuration of a family the port does not know; every
+    family of the assigned configurations runs."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not "
+                         f"one of {FAMILIES}")
 
 
 def _gated(cfg: ModelConfig) -> bool:
@@ -153,6 +166,12 @@ def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
                         "ffn": _ffn_init(cfg, _sub_kind(cfg, i), gen,
                                          dtype)})
         return {"sub": sub}
+    if group == "dec":
+        return {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
+                "ln3": _norm_init(cfg, d, dev),
+                "attn": _attn_init(cfg, gen, dtype),
+                "xattn": _attn_init(cfg, gen, dtype),
+                "ffn": _ffn_init(cfg, "ffn", gen, dtype)}
     return {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
             "attn": _attn_init(cfg, gen, dtype),
             "ffn": _ffn_init(cfg, _kind(group), gen, dtype)}
@@ -213,6 +232,9 @@ def _layer_param_count(cfg: ModelConfig, group: str) -> int:
         return sum(2 * norm + _ffn_param_count(cfg, _sub_kind(cfg, i))
                    + (_attn_param_count(cfg) if i == cfg.attn_index else ssd)
                    for i in range(cfg.attn_period))
+    if group == "dec":              # a third norm, the cross-attention
+        return 3 * norm + 2 * _attn_param_count(cfg) + _ffn_param_count(
+            cfg, "ffn")
     return 2 * norm + _attn_param_count(cfg) + _ffn_param_count(
         cfg, _kind(group))
 
@@ -255,6 +277,24 @@ def _self_attention(p, x, cfg: ModelConfig, positions, causal: bool = True):
     return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
 
 
+def _cross_attention(p, x, memory, cfg: ModelConfig):
+    """A decoder layer's attention over the encoder's output: q from x
+    (B, S, D) with no RoPE, k and v from ``memory`` (B, Sm, D) at the KV
+    heads, non-causal on K4 (Sq = S, Skv = Sm; the group folded in the
+    kernel).  The memory is cast to x's dtype first (the reference
+    promotes a mixed pair instead; the two agree where they match, as in
+    every caller here)."""
+    B, S, _ = x.shape
+    mem = memory.to(x.dtype)
+    Sm = mem.shape[1]
+    q = L.linear(p["q"], x).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = L.linear(p["k"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
+    v = L.linear(p["v"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=False).transpose(1, 2)
+    return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
+
+
 def _ffn_apply(p, x, cfg: ModelConfig, kind: str):
     if kind == "moe":
         mo = cfg.moe
@@ -264,9 +304,10 @@ def _ffn_apply(p, x, cfg: ModelConfig, kind: str):
     return L.ffn(p, x)
 
 
-def _block(x, lp, cfg: ModelConfig, positions, kind: str):
+def _block(x, lp, cfg: ModelConfig, positions, kind: str,
+           causal: bool = True):
     x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
-                            positions)
+                            positions, causal)
     return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, kind)
 
 
@@ -274,11 +315,22 @@ def _ssd_apply(p, x, cfg: ModelConfig):
     return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk)
 
 
-def _layer(x, lp, cfg: ModelConfig, positions, group: str):
-    """One layer of ``group``: a dense or MoE block, an SSD layer (no FFN)
-    or a hybrid period (each sublayer attention or SSD, then its FFN)."""
+def _layer(x, lp, cfg: ModelConfig, positions, group: str, memory=None):
+    """One layer of ``group``: a dense or MoE block, an SSD layer (no FFN),
+    a hybrid period (each sublayer attention or SSD, then its FFN), an
+    encoder layer (non-causal self-attention, then the FFN) or a decoder
+    layer (causal self-attention, cross-attention over ``memory``, then
+    the FFN after a third norm)."""
     if group == "ssd":
         return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg)
+    if group == "enc":
+        return _block(x, lp, cfg, positions, "ffn", causal=False)
+    if group == "dec":
+        x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
+                                positions)
+        x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
+                                 memory, cfg)
+        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
     if group != "hyb":
         return _block(x, lp, cfg, positions, _kind(group))
     for i, sub in enumerate(lp["sub"]):
@@ -292,16 +344,50 @@ def _layer(x, lp, cfg: ModelConfig, positions, group: str):
 
 # ---------------------------------------------------------------- forward
 
+def embed_inputs(params, batch, cfg: ModelConfig, dtype):
+    """Returns (x, memory) (the reference also returns the batch's labels,
+    which only training reads): the stub frontends hand over precomputed
+    embeddings.  encdec: x embeds ``tokens`` and the memory is
+    ``src_embeds`` (B, Sm, D) in ``dtype`` (the encoder's input); vlm:
+    ``prefix_embeds`` (B, P, D), where the batch has them, go ahead of the
+    token embeddings."""
+    x = L.embed(params["embed"], batch["tokens"], dtype)
+    memory = None
+    if cfg.family == "encdec":
+        memory = batch["src_embeds"].to(dtype)
+    elif cfg.prefix_tokens and "prefix_embeds" in batch:
+        x = torch.cat([batch["prefix_embeds"].to(dtype), x], 1)
+    return x, memory
+
+
+def encode(params, src_embeds, cfg: ModelConfig,
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """encdec: ``src_embeds`` (B, Sm, D) through the encoder layers (RoPE
+    positions 0..Sm-1, non-causal attention; no final norm, as in the
+    reference) → the decoder's memory (B, Sm, D) in ``dtype``; decode
+    takes it as ``memory``."""
+    x = src_embeds.to(dtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in params["g_enc"]:
+        x = _layer(x, lp, cfg, pos, "enc")
+    return x
+
+
 def forward(params, batch, cfg: ModelConfig,
             dtype=torch.bfloat16) -> torch.Tensor:
-    """batch {"tokens": (B, S) integer} → final hidden states (B, S, D)."""
+    """batch {"tokens": (B, S) integer; encdec: "src_embeds" (B, Sm, D);
+    vlm: "prefix_embeds" (B, P, D), optional} → final hidden states (B, S,
+    D), S counting a vlm's prefix positions."""
     require_ported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, dtype)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x, memory = embed_inputs(params, batch, cfg, dtype)
+    if cfg.family == "encdec":
+        memory = encode(params, memory, cfg, dtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
     for group, _count in layer_groups(cfg):
+        if group == "enc":
+            continue
         for lp in params[f"g_{group}"]:
-            x = _layer(x, lp, cfg, pos, group)
+            x = _layer(x, lp, cfg, pos, group, memory)
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -351,13 +437,20 @@ def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
 
 
 def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
-                  index: int):
+                  index: int, memory=None):
     """One layer of ``group`` at one token; ``c`` is the group's cache and
     ``i`` the layer's row in it.  A hybrid period's SSD sublayers take the
-    rows of its state in order."""
+    rows of its state in order; a decoder layer attends ``memory`` on K4
+    at Sq = 1, its k and v recomputed from it (as in the reference)."""
     if group == "ssd":
         return x + SSM.ssd_decode_step(lp["ssd"], _norm(cfg, lp["ln1"], x),
                                        c["state"][i], **_ssd_dims(cfg))[0]
+    if group == "dec":
+        x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), c["k"][i],
+                             c["v"][i], cfg, index)
+        x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
+                                 memory, cfg)
+        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
     if group != "hyb":
         h = _norm(cfg, lp["ln1"], x)
         if cfg.mla is not None:
@@ -389,12 +482,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     {"state"}}``, (layers, B, H, N, dh) in f32; hybrid ``{"hyb": {"k",
     "v", "state"}}``, the attention sublayer's KV of each period and the
     state of its other sublayers, (periods, period − 1, B, H, N, dh) in
-    f32.  On ``device``: ``cuda`` unless the caller names another; raises
-    without a card."""
+    f32; encdec ``{"dec": {"k", "v"}}`` (the encoder keeps no cache).  On
+    ``device``: ``cuda`` unless the caller names another; raises without a
+    card."""
     require_ported(cfg)
     device = resolve_device(device)
     cache = {}
     for group, count in layer_groups(cfg):
+        if group == "enc":
+            continue
         rows = (count, batch_size, max_len)
         if cfg.mla is not None:
             shapes = {"lat": (*rows, cfg.mla.kv_lora),
@@ -418,16 +514,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 
 def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, memory=None):
     """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
     position being written; unlike the reference, the cache's tensors (KV
     rows and SSM states) are written in place and the same dict is
-    returned."""
+    returned.  encdec needs ``memory`` (B, Sm, D), the encoder's output
+    (``encode``); a vlm's decode embeds tokens only, as the reference's
+    does."""
     require_ported(cfg)
+    if cfg.family == "encdec" and memory is None:
+        raise ValueError(f"{cfg.name}: an encdec decode step needs memory")
     x = L.embed(params["embed"], tokens, dtype)
     for group, _count in layer_groups(cfg):
+        if group == "enc":
+            continue
         for i, lp in enumerate(params[f"g_{group}"]):
-            x = _decode_layer(x, lp, cache[group], i, cfg, group, index)
+            x = _decode_layer(x, lp, cache[group], i, cfg, group, index,
+                              memory)
     x = _norm(cfg, params["ln_f"], x)
     return L.linear(params["lm_head"], x), cache
 

@@ -1122,3 +1122,128 @@ def test_reduced_ssm_prefill_and_decode_on_card_match_cpu(dev, arch):
         torch.testing.assert_close(caches[0][group]["state"].cpu(),
                                    caches[1][group]["state"], rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(100, 100), (300, 300), (100, 300),
+                                    (300, 100), (2048, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd160_on_card(dev, Sq, Skv, causal, dtype):
+    """K4 at pixtral's head dim (D = Dv = 160: five 32-column panels; 16 q
+    heads over 4 KV heads, group 4) against its plain version: 2e-5 in
+    f32, 2e-2 in bf16, and in bf16 within 1e-2 of the plain version that
+    rounds p as the kernel does (64-row KV tiles, p in bf16).  As the
+    model passes them: (B, S, H, D) activations as transposed views; the
+    output is (B, S, H, 160) seen as (B, H, S, 160) and equals the
+    kernel's result on contiguous copies bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(Sq * 5 + Skv + int(causal))
+    q = torch.randn(2, Sq, 16, 160, generator=gen, device=dev).to(dtype)
+    kv = torch.randn(2, Skv, 2, 4, 160, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+                  kv[:, :, 1].transpose(1, 2))
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 16, Sq, 160) and \
+        got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention_plain(qt, kt, vt, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        rounded = ops.flash_attention_plain(
+            qt, kt, vt, causal=causal, block_kv=ops.kernel_block_kv(160),
+            p_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), rounded.float(), rtol=1e-2,
+                                   atol=1e-2)
+    same = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), causal=causal)
+    assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_one_query_row_on_card(dev, dtype):
+    """The encoder-decoder's decode cross-attention: one query row (Sq =
+    1) over Skv = 1,024 memory rows, not causal, D 64, seamless's 16 heads
+    (group 1) and a group-2 split, q a transposed (B, 1, H, D) view:
+    against the plain version, 2e-5 in f32 and 2e-2 in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for hkv in (16, 8):
+        gen = torch.Generator(device=dev).manual_seed(hkv)
+        q = torch.randn(4, 1, 16, 64, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(4, 1024, hkv, 64, generator=gen,
+                            device=dev).to(dtype).transpose(1, 2)
+                for _ in range(2))
+        got = ops.flash_attention(q.transpose(1, 2), k, v, causal=False)
+        torch.cuda.synchronize()
+        want = ops.flash_attention_plain(q.transpose(1, 2), k, v,
+                                         causal=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+# the reduced encoder-decoder and VLM on the card: (arch, head dim), and
+# K4's launches a prefill and a decode step (seamless: encoder, decoder
+# and cross-attention a layer pair, the cross-attention a step)
+ENCDEC_VLM = {("seamless_m4t_large_v2", None): (6, 2),
+              ("pixtral_12b", None): (2, 0), ("pixtral_12b", 160): (2, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", sorted(
+    ENCDEC_VLM, key=lambda c: (c[0], c[1] or 0)))
+def test_reduced_encdec_and_vlm_on_card_match_cpu(dev, arch, head_dim):
+    """Reduced seamless-m4t (2 + 2 layers, 40 source frames for 64 tokens)
+    and pixtral (8 prefix positions; at its reduced head dim and at 160)
+    on the card against the CPU, same weights, f32 without TF32: the last
+    prefill logits, then eight decode steps' logits (seamless attending
+    the encoder's output) and the KV cache, 1e-4.  K4 launches once an
+    attention of the prefill and once a cross-attention of a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, encode, init_cache, \
+        init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    k4_prefill, k4_step = ENCDEC_VLM[(arch, head_dim)]
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _params_to(params, dev, torch.float32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))}
+    side = ("src_embeds", 40) if cfg.family == "encdec" else (
+        "prefix_embeds", cfg.prefix_tokens)
+    batch[side[0]] = torch.from_numpy(rng.standard_normal(
+        (2, side[1], cfg.d_model)).astype(np.float32))
+    ops.reset_launch_counts()
+    got, _ = prefill(on_card, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                     dtype=torch.float32)
+    assert ops.launch_counts() == {"flash_attention": k4_prefill}
+    want, _ = prefill(params, batch, cfg, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    memory = [None, None]
+    if cfg.family == "encdec":
+        memory = [encode(on_card, batch["src_embeds"].to(dev), cfg,
+                         dtype=torch.float32),
+                  encode(params, batch["src_embeds"], cfg,
+                         dtype=torch.float32)]
+    caches = [init_cache(cfg, 2, 8, dtype=torch.float32, device=d)
+              for d in (dev, "cpu")]
+    toks = batch["tokens"]
+    ops.reset_launch_counts()
+    for t in range(8):
+        a, _ = decode_step(on_card, caches[0], toks[:, t:t + 1].to(dev), t,
+                           cfg, dtype=torch.float32, memory=memory[0])
+        b, _ = decode_step(params, caches[1], toks[:, t:t + 1], t, cfg,
+                           dtype=torch.float32, memory=memory[1])
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert ops.launch_counts().get("flash_attention", 0) == 8 * k4_step
+    for group in caches[1]:
+        for name in caches[1][group]:
+            torch.testing.assert_close(caches[0][group][name].cpu(),
+                                       caches[1][group][name], rtol=1e-4,
+                                       atol=1e-4)
