@@ -221,10 +221,32 @@ Phases (any failure raises and exits non-zero):
    decode loop's within 2e-3; K4 at (4, 32, 2048, 160) over k/v (4, 8,
    2048, 160) against its plain version (2e-2; f32 2e-5), timed beside
    its bound and SDPA.
+8g. ``[train]``, with ``[vlm]``'s weights freed: stablelm-1.6b at full
+   width and depth (24 layers, d_model 2,048, 32 heads of 64, layernorm,
+   ungated FFN 5,632, vocab 100,352; 1,367,543,808 parameters; nothing
+   cut) trained on the card: f32 masters, bf16 compute
+   (``make_train_step``), AdamW under the launcher's cosine schedule (lr
+   3e-3, warmup 1), 10 steps of ``batch_at`` (8 × 2,048 tokens).  Per step
+   the loss and ms/step with the counts zeroed before and read after: K4
+   exactly 48 times (24 forward, 24 remat recompute), no other kernel;
+   tokens/s over steps 2–9 beside the ceiling (``train_flops``), peak
+   memory.  Checks: losses finite, the last below the first; at step 0
+   every gradient leaf finite and non-zero (a K4 with no gradient would
+   leave the q/k/v projections at zero).  Then 2 layers at full width in
+   f32: every gradient leaf through K4 and its backward against autograd
+   through the plain version (1e-4 of each leaf's largest magnitude), and
+   the AdamW step on the card against the CPU's (1e-5).  K4's forward
+   (with the rows' log-sum-exp) and backward at (8, 32, 2048, 64) and
+   (4, 28, 2048, 128) over (4, 4, 2048, 128) against the plain version and
+   its autograd (2e-2), timed beside their bounds and SDPA's forward +
+   backward.  Last, ``ft.run`` at the reduced config killed at step 5 by
+   ``fail_at_step`` and resumed: the uninterrupted run's losses within
+   rtol 1e-4.
 9. The ``kernels`` JSON line (ten rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
-   ``[graph-serve]``, K4's the ``[moe]`` and ``[ssm]`` prefills'; K4 at
+   ``[graph-serve]``, K4's the ``[moe]`` and ``[ssm]`` prefills' and the
+   ``[train]`` steps' (with the training shapes' records); K4 at
    MLA's head dims is a row of its own, ``flash_attention_mla``, with the
    ``[mla]`` prefill's launches, and so are K4 on the encoder–decoder
    path, ``flash_attention_encdec`` (non-causal at D 64; the prefill's
@@ -341,6 +363,18 @@ ENCDEC_ARCH, ENCDEC_PARAMS = "seamless_m4t_large_v2", 1_632_356_352
 ENCDEC_SRC, ENCDEC_S = 1024, 1024
 VLM_ARCH, VLM_PARAMS = "pixtral_12b", 12_772_070_400
 CHECK_SRC = 77
+# training on one card: stablelm-1.6b (the training launcher's default
+# arch) at full width and depth, f32 masters, bf16 compute, AdamW under
+# the launcher's cosine schedule (warmup steps // 10) on batch_at's
+# stream; the gradient check at 2 layers of its width in f32; K4's
+# forward and backward at the step's shape and at qwen2-7b's group 7;
+# checkpoint-restart at the reduced config.  The run's arch, batch,
+# sequence, steps and lr are repro_torch.profile's TRAIN_* (its training
+# window profiles the same step)
+TRAIN_PARAMS = 1_367_543_808
+TRAIN_TIMED_FROM = 2                # steps from it on make tokens/s
+GRAD_CHECK_B, GRAD_CHECK_S = 2, 512
+FT_STEPS, FT_FAIL, FT_B, FT_S = 8, 5, 8, 128
 
 
 def check(cond, msg):
@@ -1608,6 +1642,25 @@ def prefill_flops(cfg, B, S, capacity, Sm=0) -> int:
                       for group, count in layer_groups(cfg))
 
 
+def train_flops(cfg, B, S) -> int:
+    """Operations of one training step of B × S tokens of a dense model as
+    the code runs it: every matrix product of a layer (q, k, v, o and the
+    FFN's two or three) and the LM head, 2 a weight a token in the
+    forward, 2 again in the remat recompute (each layer's checkpoint, and
+    each CE chunk's) and 4 in the backward (the input's and the weight's
+    gradients) — 6·N·T plus the remat forward; and causal attention over
+    the unmasked (q, k) pairs of every head, 4·D a pair in the forward and
+    again in the recompute, 10·D in the backward (S recomputed, dP, dV,
+    dQ, dK).  The embedding is a gather: no operations.  A multiply-add
+    counts two."""
+    d, H, hd, T = cfg.d_model, cfg.n_heads, cfg.hd, B * S
+    mats = 3 if cfg.norm == "rmsnorm" else 2       # gated or not
+    layer = d * 2 * (H + cfg.n_kv_heads) * hd + mats * d * cfg.d_ff
+    n_matmul = cfg.n_layers * layer + d * cfg.padded_vocab
+    pairs = B * H * (S * (S + 1) // 2)
+    return 8 * n_matmul * T + cfg.n_layers * 18 * hd * pairs
+
+
 @contextlib.contextmanager
 def spy(*targets):
     """For each (module, name, record): calls ``record(args, kw)`` with
@@ -2712,6 +2765,374 @@ def vlm_phase(torch, ops, dev) -> dict:
     return row
 
 
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def k4_train_shape_f32(torch, ops, q, k, v, do) -> dict:
+    """K4's f32 path at a training shape, causal, on the values of the
+    bf16 check: the forward's log-sum-exp against the plain version's
+    (1e-4 absolute), and dq, dk, dv through ``FlashAttention`` (the f32
+    kernel, then ``flash_attention_backward``) against autograd of the
+    plain version, each within 1e-4 of the plain gradient's largest
+    magnitude.  Returns the LSE's max |d| and each gradient's max |d| over
+    its largest magnitude."""
+    from repro_torch.kernels import flash_attention as K4
+
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    _, lse = K4._kernel(q, k, v, True, None, with_lse=True)
+    _, want = ops.flash_attention_plain(q, k, v, causal=True,
+                                        return_lse=True)
+    out = {"lse": float((lse - want).abs().max())}
+    check(out["lse"] <= 1e-4, f"K4 f32 lse at {tuple(q.shape)}: max |d| "
+          f"{out['lse']:.3e} above 1e-4")
+    del lse, want
+    grads = []
+    for fn in (ops.flash_attention, ops.flash_attention_plain):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, causal=True), leaves,
+                                         do))
+        del leaves
+        torch.cuda.empty_cache()
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        scale = float(want.abs().max())
+        out[name] = float((got - want).abs().max()) / scale
+        check(out[name] <= 1e-4, f"K4 f32 {name} at {tuple(q.shape)}: max "
+              f"|d| {out[name]:.3e} of its largest magnitude {scale:.3e}, "
+              f"above 1e-4")
+    del grads, q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
+    """K4 at a training shape, bf16, causal, as the model passes it
+    (transposed views of (B, S, H, D)): the forward against the plain
+    version's output (2e-2, K4's bf16 tolerance) and log-sum-exp (1e-3
+    absolute: f32 arithmetic on both sides), ``flash_attention_backward``
+    from them against autograd of the plain version (dq, dk, dv within
+    2e-2, K4's bf16 tolerance).  The same in f32 on the same values
+    (``k4_train_shape_f32``: every late row and KV block held, not only
+    the large entries of the first rows).  Timed with CUDA events beside
+    their bounds (forward 4·D a unmasked pair, backward 10·D, forward +
+    backward 12·D, at the bf16 peak; each input read once, each output
+    written once), the plain version's
+    forward + backward and ``scaled_dot_product_attention``'s forward and
+    forward + backward (a yardstick the port never calls)."""
+    from repro_torch.kernels import flash_attention as K4
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def act(h):
+        return torch.randn(B, S, h, D, generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v, do = act(H), act(Hkv), act(Hkv), act(H)
+    o, lse = K4._kernel(q, k, v, True, None, with_lse=True)
+    want_o, want_lse = ops.flash_attention_plain(q, k, v, causal=True,
+                                                 return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    o_err = float((o.float() - want_o.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    del want_o, want_lse
+    got = ops.flash_attention_backward(q, k, v, o, lse, do, True)
+
+    def plain_grads():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ops.flash_attention_plain(
+            *leaves, causal=True), leaves, do)
+    grad_err = {}
+    for name, g, w in zip("qkv", got, plain_grads()):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2)
+        grad_err[f"d{name}"] = float((g.float() - w.float()).abs().max())
+    del got
+    torch.cuda.empty_cache()
+    f32_err = k4_train_shape_f32(torch, ops, q, k, v, do)
+
+    def sdpa_grads():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=H != Hkv)
+        return torch.autograd.grad(out, leaves, do)
+    fwd = event_ms(torch, lambda: K4._kernel(q, k, v, True, None,
+                                             with_lse=True), reps)
+    bwd = event_ms(torch, lambda: ops.flash_attention_backward(
+        q, k, v, o, lse, do, True), 5, warmup=1)
+    plain = event_ms(torch, plain_grads, 2, warmup=1)
+    lib_fwd = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=H != Hkv), reps)
+    lib = event_ms(torch, sdpa_grads, reps)
+    pairs = B * H * (S * (S + 1) // 2)
+    qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
+    fwd_b = bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S)
+    grads = 2 * (q.numel() + k.numel() + v.numel())
+    bwd_b = bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
+                     10 * D * pairs, BF16_OPS_PER_S)
+    both_b = bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
+                      BF16_OPS_PER_S)
+    rec = dict(q_shape=list(q.shape), kv_shape=list(k.shape), causal=True,
+               fwd_ms=fwd, fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
+               bwd_ms=bwd, bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
+               plain_fwd_bwd_ms=plain, sdpa_fwd_ms=lib_fwd,
+               sdpa_fwd_bwd_ms=lib, fwd_bwd_bound_ms=both_b[0],
+               o_max_abs_err=o_err, lse_max_abs_err=lse_err, **grad_err,
+               f32_rel_err=f32_err)
+    log(f"[train] K4 q {tuple(q.shape)} k/v {tuple(k.shape)} causal, bf16: "
+        f"forward with LSE {fwd:.4f} ms (bound {fwd_b[0]:.4f}, {fwd_b[1]}, "
+        f"{fwd_b[0] / fwd:.1%}; o max |d| {o_err:.3e}, lse {lse_err:.3e}); "
+        f"backward (tensor code) {bwd:.4f} ms (bound {bwd_b[0]:.4f}, "
+        f"{bwd_b[1]}, {bwd_b[0] / bwd:.1%}; dq/dk/dv max |d| "
+        + "/".join(f"{e:.3e}" for e in grad_err.values()) + " against "
+        f"autograd of the plain version; in f32 lse max |d| "
+        f"{f32_err['lse']:.3e} (1e-4), dq/dk/dv within "
+        + "/".join(f"{f32_err[n]:.3e}" for n in ("dq", "dk", "dv"))
+        + " of their largest magnitudes (1e-4)); forward + backward "
+        f"{fwd + bwd:.4f} ms against the bound {both_b[0]:.4f}; plain "
+        f"forward + backward {plain:.3f} ms; scaled_dot_product_attention "
+        f"forward {lib_fwd:.4f} ms, forward + backward {lib:.4f} ms")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(torch, ops, dev) -> dict:
+    """``[train]``, with the serving phases' weights freed: stablelm-1.6b
+    (24 layers, d_model 2,048, 32 heads of 64, layernorm, ungated FFN
+    5,632, vocab 100,352; nothing cut) trained on one card: f32 masters
+    and bf16 compute through ``make_train_step(..., dtype=bf16)``, AdamW
+    under the launcher's cosine schedule (lr 3e-3, warmup steps // 10), 10
+    steps of ``batch_at`` (8 × 2,048 tokens, seed 0).  The parameter count
+    against ``param_count`` and 1,367,543,808; per step the loss and
+    ms/step (synchronized), with the counts zeroed before and read after:
+    K4 exactly 48 times (24 forward, 24 remat recompute), no other kernel;
+    over steps 2–9 tokens/s, peak memory and the share of the ceiling
+    (``train_flops`` at 989 TFLOP/s).  Checks: every loss finite, the last
+    below the first; at step 0 every gradient leaf finite and non-zero.
+    Then 2 layers at full width in f32: every gradient leaf through K4's
+    f32 kernel and its backward against the same step with the plain
+    version under autograd (1e-4 of each leaf's largest magnitude), and
+    that step's AdamW update on the card against the same on the CPU
+    (1e-5).  K4's forward and backward at (8, 32, 2048, 64) and qwen2-7b's
+    (4, 28, 2048, 128) over (4, 4, 2048, 128) (``k4_train_shape``).
+    Last, checkpoint-restart at the reduced config through ``ft.run``: a
+    run killed at step 5 by ``fail_at_step`` and resumed from its step-4
+    checkpoint gives the uninterrupted run's losses within rtol 1e-4 (the
+    embedding's gradient sums with float atomics).  Returns K4's launches
+    in the 10 steps and its training-shape records."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.dist import ft
+    from repro_torch.models import init_params, lm, param_count, tree_leaves
+    from repro_torch.profile import (TRAIN_ARCH, TRAIN_B, TRAIN_LR, TRAIN_S,
+                                     TRAIN_STEPS)
+    from repro_torch.train import (Optimizer, adamw, cosine_schedule,
+                                   make_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    t_phase = time.perf_counter()
+    log(f"[train] before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg) == TRAIN_PARAMS, f"train parameter "
+          f"count {n_params}, param_count {param_count(cfg)}, want "
+          f"{TRAIN_PARAMS}")
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers (nothing cut), d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters = "
+        f"param_count ({4 * n_params / 1e9:.3f} GB f32 masters) built in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    base = adamw(schedule=cosine_schedule(TRAIN_LR, warmup=TRAIN_STEPS // 10,
+                                          total=TRAIN_STEPS))
+    step0 = []
+
+    def update(grads, state, p, step):
+        if step == 0:                   # one host read for every leaf
+            names, leaves = zip(*named_leaves(grads))
+            flags = torch.stack([torch.stack([torch.isfinite(g).all(),
+                                              (g != 0).any()])
+                                 for g in leaves]).cpu()
+            step0.extend(zip(names, flags.tolist()))
+        return base.update(grads, state, p, step)
+    opt = Optimizer("adamw", base.init, update)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16)
+    dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    want_k4 = {"flash_attention": 2 * cfg.n_layers}
+    losses, ms, k4_launches = [], [], 0
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_at(dcfg, i).items()}
+        if i == TRAIN_TIMED_FROM:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, batch, i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        launches = ops.launch_counts()
+        losses.append(loss.item())
+        log(f"[train] step {i}: loss {losses[-1]:.4f}, {ms[-1]:.1f} ms, "
+            f"launches {json.dumps(launches)}")
+        check(launches == want_k4, f"train step {i} launched {launches}, "
+              f"not K4 twice a layer {want_k4}")
+        k4_launches += launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [name for name, (finite, nonzero) in step0
+           if not (finite and nonzero)]
+    check(len(step0) == len(tree_leaves(params)) and not bad,
+          f"step 0: gradient leaves not finite or all zero: {bad}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train losses {losses}: not finite, or the last not below the "
+          f"first")
+    lo, hi = TRAIN_TIMED_FROM, TRAIN_STEPS
+    t_step = sum(ms[lo:hi]) / (hi - lo) / 1e3
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    ceiling = flops / BF16_OPS_PER_S
+    log(f"[train] {TRAIN_STEPS} AdamW steps of {TRAIN_B} × {TRAIN_S} tokens "
+        f"(bf16 compute, f32 masters): loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f}; steps {lo}–{hi - 1}: {t_step * 1e3:.3f} ms/step "
+        f"= {tokens / t_step:.1f} tokens/s (ceiling {flops:.4e} FLOP at 989 "
+        f"TFLOP/s = {ceiling * 1e3:.3f} ms = {tokens / ceiling:.1f} "
+        f"tokens/s; {flops / t_step / 1e12:.1f} TFLOP/s = "
+        f"{ceiling / t_step:.1%} of the ceiling); peak device memory "
+        f"{peak:.2f} GiB; every one of the {len(step0)} gradient leaves "
+        f"finite and non-zero at step 0; K4 {want_k4['flash_attention']} "
+        f"launches a step")
+    del params, opt_state, step_fn, loss, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gradient against the plain path: 2 layers at full width, f32
+    small = dataclasses.replace(cfg, n_layers=2)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(
+        DataConfig(cfg.vocab, GRAD_CHECK_S, GRAD_CHECK_B, seed=1), 0).items()}
+    base32, seen = adamw(lr=1e-3), []
+
+    def record(grads, state, p, step):
+        seen.append(grads)
+        return base32.update(grads, state, p, step)
+    spy32 = Optimizer("adamw", base32.init, record)
+    state0 = spy32.init(p32)
+    ops.reset_launch_counts()
+    card_p, card_s, _ = make_train_step(small, spy32, dtype=torch.float32)(
+        p32, state0, batch, 0)
+    check(ops.launch_counts() == {"flash_attention": 2 * small.n_layers},
+          f"the f32 check's step launched {ops.launch_counts()}")
+    real = lm.flash_attention
+    lm.flash_attention = ops.flash_attention_plain
+    try:
+        ops.reset_launch_counts()
+        make_train_step(small, spy32, dtype=torch.float32)(p32, state0,
+                                                           batch, 0)
+        check(not ops.launch_counts(), "the plain step launched a kernel")
+    finally:
+        lm.flash_attention = real
+    worst = 0.0
+    for (name, got), want in zip(named_leaves(seen[0]), tree_leaves(seen[1])):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-4 * scale, f"gradient {name}: max |d| {err:.3e} "
+              f"between K4 and the plain version, above 1e-4 × {scale:.3e}")
+        worst = max(worst, err / scale)
+    del seen[1]
+    torch.cuda.empty_cache()
+
+    def host(tree):
+        return [x.cpu() for x in tree_leaves(tree)]
+    from repro_torch.train.optimizer import tree_unflatten
+    cpu_g, cpu_s0, cpu_p = (tree_unflatten(tr, host(tr))
+                            for tr in (seen[0], state0, p32))
+    t = time.perf_counter()
+    want_p, want_s = base32.update(cpu_g, cpu_s0, cpu_p, 0)
+    t_host = time.perf_counter() - t
+    opt_err = 0.0
+    for got, want in zip(host([card_p, card_s]),
+                         tree_leaves([want_p, want_s])):
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+        opt_err = max(opt_err, float((got - want).abs().max()))
+    log(f"[train] check: {small.n_layers} layers at full width, f32, "
+        f"{GRAD_CHECK_B} × {GRAD_CHECK_S} tokens: every gradient leaf "
+        f"through K4 (f32 kernel, its backward) within "
+        f"{worst:.3e} of its largest magnitude of autograd through the "
+        f"plain version (1e-4); the AdamW step on the card against the CPU's "
+        f"(host {t_host:.1f} s): max |d| {opt_err:.3e} (1e-5 relative)")
+    del p32, card_p, card_s, seen, state0, batch, cpu_g, cpu_s0, cpu_p
+    del want_p, want_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 forward and backward at the training shapes
+    records = [k4_train_shape(torch, ops, F, dev, TRAIN_B, cfg.n_heads,
+                              cfg.n_kv_heads, TRAIN_S, cfg.hd, 21),
+               k4_train_shape(torch, ops, F, dev, PREFILL_B, 28, 4,
+                              PREFILL_S, 128, 22)]
+
+    # checkpoint-restart at the reduced config
+    red = cfg.reduced()
+
+    def ft_run(ckpt_dir, **kw):
+        o = adamw(schedule=cosine_schedule(TRAIN_LR, FT_STEPS // 10,
+                                           FT_STEPS))
+        fn = make_train_step(red, o, dtype=torch.float32,
+                             loss_chunk=max(32, FT_S // 4))
+        p = init_params(red, torch.Generator(device=dev).manual_seed(3))
+        d = DataConfig(red.vocab, FT_S, FT_B, seed=3)
+
+        def data_fn(i):
+            return {k: torch.from_numpy(v).to(dev)
+                    for k, v in batch_at(d, i).items()}
+        return ft.run(fn, p, o.init(p), data_fn, FT_STEPS,
+                      ft.FTConfig(ckpt_dir=ckpt_dir, ckpt_every=2, **kw),
+                      log_every=0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, full, _ = ft_run(f"{tmp}/a")
+        failed = None
+        try:
+            ft_run(f"{tmp}/b", fail_at_step=FT_FAIL)
+        except RuntimeError as e:
+            failed = str(e)
+        check(failed == f"injected failure at step {FT_FAIL}",
+              f"the killed run did not fail at step {FT_FAIL}: {failed}")
+        _, _, tail, state = ft_run(f"{tmp}/b")
+    check(state.restarts == 1 and len(tail) == FT_STEPS - FT_FAIL,
+          f"the resumed run: restarts {state.restarts}, {len(tail)} steps")
+    np.testing.assert_allclose(tail, full[FT_FAIL:], rtol=1e-4)
+    log(f"[train] checkpoint-restart at the reduced config ({red.n_layers} "
+        f"layers, d_model {red.d_model}, f32, {FT_B} × {FT_S} tokens, "
+        f"checkpoints every 2 steps): killed at step {FT_FAIL}, resumed from "
+        f"step {FT_FAIL - 1}: losses {[round(x, 6) for x in tail]} against "
+        f"the uninterrupted run's {[round(x, 6) for x in full[FT_FAIL:]]} "
+        f"(rtol 1e-4; max rel "
+        f"{max(abs(a / b - 1) for a, b in zip(tail, full[FT_FAIL:])):.2e})")
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": k4_launches, "shapes": records, "losses": losses,
+            "ms": ms, "peak_gib": peak}
+
+
 def main() -> int:
     try:
         import torch
@@ -3387,6 +3808,12 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8f
     rows.append(vlm_phase(torch, ops, dev))
+
+    # ---------------------------------------------------------- phase 8g
+    train = train_phase(torch, ops, dev)
+    k4_row = next(r for r in rows if r["name"] == "flash_attention")
+    k4_row["launches"] += train["launches"]
+    k4_row["train_shapes"] = train["shapes"]
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

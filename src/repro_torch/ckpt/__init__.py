@@ -1,1 +1,2 @@
-from .checkpoint import list_steps, restore_raw, save  # noqa: F401
+from .checkpoint import (list_steps, restore, restore_latest,  # noqa: F401
+                         restore_raw, save)

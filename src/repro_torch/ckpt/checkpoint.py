@@ -13,9 +13,13 @@ paths ``jax.tree_util.keystr`` writes: ``['src']`` for a dict entry,
 ``[0]`` for a sequence item, concatenated for nested trees; this module
 builds them itself, with numpy, and imports nothing of JAX.
 
-The shape-checked ``restore`` and ``restore_latest`` of a training run
-are not ported yet (ROADMAP, Queue 1: training); ``restore_raw`` is the
-shape-blind restore a service uses, whose arrays grow between snapshots.
+``restore`` and ``restore_latest`` bring a training run's checkpoint
+back onto a template tree (the port's: nested dicts, and lists of
+per-layer dicts), checking every leaf's shape and restoring bf16 leaves
+from the manifest's dtypes; they take a ``device`` where the reference
+takes ``shardings`` (one card has no mesh to re-shard onto).
+``restore_raw`` is the shape-blind restore a service uses, whose arrays
+grow between snapshots.
 """
 from __future__ import annotations
 
@@ -93,6 +97,49 @@ def list_steps(path: str | Path) -> list[int]:
             except (ValueError, json.JSONDecodeError):
                 continue   # torn write: skip
     return sorted(out)
+
+
+def _rebuild(tree, fn, prefix=""):
+    """``tree``'s structure with each leaf replaced by ``fn(keystr path,
+    leaf)``, walked as ``_leaves`` walks it."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, f"{prefix}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def restore(path: str | Path, step: int, target_tree, device=None):
+    """Step ``step`` onto ``target_tree``'s structure: each leaf the stored
+    array of its path, whose shape must equal the template leaf's
+    (AssertionError otherwise; a missing path raises KeyError), as a
+    tensor in the manifest's dtype (bf16 brought back from its lossless
+    f32 copy) on ``device`` (default: the template leaf's)."""
+    path = Path(path) / f"step_{step:08d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    dtypes = manifest.get("dtypes", {})
+    with np.load(path / "arrays.npz") as data:
+        def load(key, leaf):
+            arr = data[key]
+            assert arr.shape == tuple(leaf.shape), (key, arr.shape,
+                                                    tuple(leaf.shape))
+            t = torch.from_numpy(np.array(arr))
+            if "bfloat16" in dtypes.get(key, str(arr.dtype)):
+                t = t.to(torch.bfloat16)
+            dev = device if device is not None else getattr(leaf, "device",
+                                                             "cpu")
+            return t.to(dev)
+        return _rebuild(target_tree, load)
+
+
+def restore_latest(path: str | Path, target_tree, device=None):
+    """(tree, step) of the newest intact checkpoint under ``path``
+    (``restore``), or (None, -1) when there is none."""
+    steps = list_steps(path)
+    if not steps:
+        return None, -1
+    return restore(path, steps[-1], target_tree, device), steps[-1]
 
 
 def restore_raw(path: str | Path, step: int):

@@ -57,6 +57,16 @@
 // before the product: the two differ by rounding only); p is rounded to
 // bf16 before P·V (the TPU kernel keeps it in f32) while l sums the f32 p.
 //
+// Training: where the caller passes an lse buffer (f32, (B, Hq, Sq),
+// contiguous), each kernel's epilogue also writes the row's log-sum-exp of
+// the scaled scores, m + log(l) in natural units, from the final running
+// max and sum (the bf16 kernel's m is in log2 units: (m + log2 l)·ln 2).
+// The backward (tensor code in kernels/flash_attention.py; the TPU kernel
+// has no backward) recomputes p = exp(s·scale − lse) from it.  The serving
+// path passes a null pointer and runs the instantiation without the
+// write (the LSE template flag), the kernel as it was; the main loop is the
+// same in both.
+//
 // f32 inputs take a plain FMA path with no TF32 (kept exact enough for
 // the 2e-3 prefill-vs-decode check): a CTA of 4 warps owns 16 q rows, one
 // lane per KV column for the scores and one lane per output column for P·V.
@@ -91,6 +101,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Layout {
   int sb, sh, ss;  // element strides of batch, head, sequence
@@ -395,13 +406,14 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
                   const __grid_constant__ CUtensorMap tmk,
                   const __grid_constant__ CUtensorMap tmv,
-                  __nv_bfloat16* __restrict__ o, int group, int Sq, int Skv,
-                  int causal, float scale, Layout lo) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int group, int Sq, int Skv, int causal, float scale,
+                  Layout lo) {
   using T = Tiles<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -583,6 +595,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
     for (int r = 0; r < 2; ++r) {
       const int row = ra + r * 8;
       if (row >= Sq) continue;
+      // the row's log-sum-exp of the scaled scores (natural log), for the
+      // backward: m is in log2 units, and every lane of the quad holds the
+      // row's m and l
+      if constexpr (LSE) {
+        if ((lane & 3) == 0)
+          lse[((size_t)b * gridDim.x + h) * Sq + row] =
+              (m[r] + log2f(fmaxf(l[r], 1e-20f))) * LN2;
+      }
       __nv_bfloat16* orow = ob + (size_t)row * lo.ss + 2 * (lane & 3);
 #pragma unroll
       for (int n = 0; n < DV / 8; ++n)
@@ -605,11 +625,12 @@ constexpr int f32_smem() {
   return 4 * (F32_BQ * DQK + F32_BKV * (DQK + 1) + F32_BKV * DV);
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(128)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int group, int Sq, int Skv, int causal, float scale,
+                 float* __restrict__ lse, int group, int Sq, int Skv,
+                 int causal, float scale,
                  Layout lq, Layout lk, Layout lv, Layout lo) {
   constexpr int BQ = F32_BQ, BKV = F32_BKV, RW = BQ / 4, DL = DV / 32;
   extern __shared__ __align__(16) float smem_f32[];
@@ -701,6 +722,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = tile * BQ + warp * RW + r;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    if constexpr (LSE) {
+      if (lane == 0)                    // every lane holds the row's m, l
+        lse[((size_t)b * gridDim.y + h) * Sq + row] =
+            m[r] + logf(fmaxf(l[r], 1e-20f));
+    }
 #pragma unroll
     for (int i = 0; i < DL; ++i)
       ob[(size_t)row * lo.ss + lane + 32 * i] = acc[r][i] * inv;
@@ -767,11 +793,33 @@ int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
+// one instantiation of the bf16 kernel: with the log-sum-exp output or
+// without it (the serving path's, the kernel as it was before training)
+template <int DQK, int DV, bool LSE>
+int run_bf16(dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk,
+             const CUtensorMap& mv, __nv_bfloat16* o, float* lse, int group,
+             int Sq, int Skv, int causal, float scale, Layout lo,
+             cudaStream_t stream) {
+  constexpr int smem = Tiles<DQK, DV>::SMEM;
+  static bool sized = false;  // above 48 KB shared memory must be asked for
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16_kernel<DQK, DV, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  flash_bf16_kernel<DQK, DV, LSE><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, o, lse, group, Sq, Skv, causal, scale, lo);
+  return (int)cudaGetLastError();
+}
+
 template <int DQK, int DV>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq,
-                int Hkv, int Sq, int Skv, int causal, float scale, Layout lq,
-                Layout lk, Layout lv, Layout lo, cudaStream_t stream) {
+                const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B,
+                int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+                Layout lq, Layout lk, Layout lv, Layout lo,
+                cudaStream_t stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
   CUtensorMap mq, mk, mv;
   constexpr int ROWS = Tiles<DQK, DV>::BKV;
@@ -779,41 +827,47 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err == 0) err = encode<DQK, ROWS>(&mk, k, B, Hkv, Skv, lk);
   if (err == 0) err = encode<DV, ROWS>(&mv, v, B, Hkv, Skv, lv);
   if (err != 0) return err;
-  constexpr int smem = Tiles<DQK, DV>::SMEM;
-  static bool sized = false;  // above 48 KB shared memory must be asked for
+  const dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  return lse != nullptr
+             ? run_bf16<DQK, DV, true>(grid, mq, mk, mv, o, lse, Hq / Hkv, Sq,
+                                       Skv, causal, scale, lo, stream)
+             : run_bf16<DQK, DV, false>(grid, mq, mk, mv, o, lse, Hq / Hkv,
+                                        Sq, Skv, causal, scale, lo, stream);
+}
+
+template <int DQK, int DV, bool LSE>
+int run_f32(dim3 grid, const float* q, const float* k, const float* v,
+            float* o, float* lse, int group, int Sq, int Skv, int causal,
+            float scale, Layout lq, Layout lk, Layout lv, Layout lo,
+            cudaStream_t stream) {
+  constexpr int smem = f32_smem<DQK, DV>();
+  static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<DQK, DV>,
+        flash_f32_kernel<DQK, DV, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
-  flash_bf16_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, o, Hq / Hkv, Sq, Skv, causal, scale, lo);
+  flash_f32_kernel<DQK, DV, LSE><<<grid, 128, smem, stream>>>(
+      q, k, v, o, lse, group, Sq, Skv, causal, scale, lq, lk, lv, lo);
   return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                float scale, Layout lq, Layout lk, Layout lv, Layout lo,
                cudaStream_t stream) {
-  if (B > 0 && Hq > 0 && Sq > 0) {
-    constexpr int smem = f32_smem<DQK, DV>();
-    static bool sized = false;
-    if (!sized) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          flash_f32_kernel<DQK, DV>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      sized = true;
-    }
-    dim3 grid((Sq + F32_BQ - 1) / F32_BQ, Hq, B);
-    flash_f32_kernel<DQK, DV><<<grid, 128, smem, stream>>>(
-        q, k, v, o, Hq / Hkv, Sq, Skv, causal, scale, lq, lk, lv, lo);
-  }
-  return (int)cudaGetLastError();
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
+  const dim3 grid((Sq + F32_BQ - 1) / F32_BQ, Hq, B);
+  return lse != nullptr
+             ? run_f32<DQK, DV, true>(grid, q, k, v, o, lse, Hq / Hkv, Sq,
+                                      Skv, causal, scale, lq, lk, lv, lo,
+                                      stream)
+             : run_f32<DQK, DV, false>(grid, q, k, v, o, lse, Hq / Hkv, Sq,
+                                       Skv, causal, scale, lq, lk, lv, lo,
+                                       stream);
 }
 
 template <int N>
@@ -834,8 +888,8 @@ int dispatch_dims(int D, int Dv, F&& f) {
 }  // namespace
 
 #define K4_ENTRY(NAME, T, LAUNCH)                                            \
-  extern "C" int NAME(const T* q, const T* k, const T* v, T* o, int B,       \
-                      int Hq, int Hkv, int Sq, int Skv, int D, int Dv,       \
+  extern "C" int NAME(const T* q, const T* k, const T* v, T* o, float* lse,  \
+                      int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,\
                       int causal, float scale, int qsb, int qsh, int qss,    \
                       int ksb, int ksh, int kss, int vsb, int vsh, int vss,  \
                       int osb, int osh, int oss, cudaStream_t stream) {      \
@@ -843,8 +897,8 @@ int dispatch_dims(int D, int Dv, F&& f) {
         lo{osb, osh, oss};                                                   \
     return dispatch_dims(D, Dv, [&](auto dqk, auto dv) {                     \
       return LAUNCH<decltype(dqk)::value, decltype(dv)::value>(              \
-          q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, lq, lk, lv, lo,    \
-          stream);                                                           \
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale, lq, lk, lv,   \
+          lo, stream);                                                       \
     });                                                                      \
   }
 

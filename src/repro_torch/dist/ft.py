@@ -1,23 +1,55 @@
-"""Fault tolerance for a long-lived service (port of ``repro.dist.ft``).
+"""Fault tolerance: checkpoint-restart and the straggler watch (port of
+``repro.dist.ft``).
+
+``run`` wraps any ``step_fn(params, opt_state, batch, i)`` in a loop that
+- restores the latest intact checkpoint on entry (``ckpt.restore_latest``
+  onto the current trees),
+- checkpoints every ``ckpt_every`` steps (optionally on a background
+  thread) and once at completion,
+- times every step, synchronized on its loss (``loss.item()``), and
+  flags stragglers (a step above factor × the running median),
+- can inject a failure at a given step for restart tests.
 
 ``ServiceFT`` gives the graph server (``repro_torch.serve``) atomic,
 shape-blind checkpoints of its resident edges and assignment through
 ``repro_torch.ckpt``, optionally written on a background thread, and
 times its microbatches with a ``StragglerWatch``.
-
-The training half of the reference module (``FTConfig``, ``FTState``,
-``run``) waits for the port's training slice (ROADMAP, Queue 1: training).
 """
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import threading
+import time
 from collections import deque
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import ckpt
+
+
+@dataclasses.dataclass
+class FTConfig:
+    ckpt_dir: str
+    ckpt_every: int = 50
+    resume: str = "auto"               # "auto" restores latest; "none" skips
+    async_checkpoint: bool = False     # save on a background thread
+    fail_at_step: int | None = None    # inject RuntimeError (tests)
+    straggler_factor: float = 0.0      # 0 disables detection
+    straggler_warmup: int = 2          # steps of timing history required
+
+
+@dataclasses.dataclass
+class FTState:
+    step: int = 0          # next step to execute (== total when done)
+    stragglers: int = 0
+    restarts: int = 0
+
+
+def _tree(params, opt_state):
+    return {"params": params, "opt": opt_state}
 
 
 class StragglerWatch:
@@ -91,6 +123,65 @@ class _Saver:
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("async checkpoint save failed") from err
+
+
+def run(step_fn: Callable, params, opt_state, data_fn: Callable,
+        total_steps: int, cfg: FTConfig, *, log_every: int = 10,
+        log_fn: Callable = print, on_straggler: Callable | None = None):
+    """Drive ``total_steps`` of training with checkpoint-restart.
+
+    ``step_fn(params, opt_state, batch, i) → (params, opt_state, loss)``
+    with ``i`` a Python int and ``loss`` a 0-d tensor; ``data_fn(i)`` gives
+    step i's batch.  A restored checkpoint lands on the devices of the
+    current ``params`` and ``opt_state``.  Returns (params, opt_state,
+    losses, state); ``losses`` covers only the steps executed in *this*
+    invocation (a restart resumes mid-stream)."""
+    state = FTState()
+    start = 0
+    if cfg.resume == "auto":
+        try:
+            restored, step = ckpt.restore_latest(
+                cfg.ckpt_dir, _tree(params, opt_state))
+        except (AssertionError, KeyError) as e:
+            raise RuntimeError(
+                f"checkpoint in {cfg.ckpt_dir!r} does not match the current "
+                f"model (different arch/config?) — pass resume='none' or a "
+                f"fresh ckpt_dir to start over: {e}") from e
+        if step >= 0:
+            params, opt_state = restored["params"], restored["opt"]
+            start = step + 1
+            state.restarts = 1
+            if log_every:
+                log_fn(f"[ft] restored step {step}, resuming at {start}")
+    saver = _Saver(cfg.async_checkpoint)
+    losses: list[float] = []
+    watch = StragglerWatch(cfg.straggler_factor, cfg.straggler_warmup)
+    last_saved = -1
+    for i in range(start, total_steps):
+        if cfg.fail_at_step is not None and i == cfg.fail_at_step:
+            saver.wait()
+            raise RuntimeError(f"injected failure at step {i}")
+        batch = data_fn(i)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, batch, i)
+        loss = loss.item()               # waits for the step
+        dt = time.perf_counter() - t0
+        if watch.observe(dt):
+            state.stragglers += 1
+            if on_straggler is not None:
+                on_straggler(i, dt, watch.last_median)
+        losses.append(loss)
+        state.step = i + 1
+        if log_every and i % log_every == 0:
+            log_fn(f"[ft] step {i} loss {loss:.4f} {dt*1e3:.1f}ms")
+        if cfg.ckpt_every and i > 0 and i % cfg.ckpt_every == 0:
+            saver.save(cfg.ckpt_dir, i, _tree(params, opt_state))
+            last_saved = i
+    if total_steps > start and last_saved != total_steps - 1:
+        saver.save(cfg.ckpt_dir, total_steps - 1, _tree(params, opt_state))
+    saver.wait()
+    state.step = max(state.step, start)
+    return params, opt_state, losses, state
 
 
 class ServiceFT:

@@ -18,6 +18,15 @@ through their element strides, so a (B, S, H, D) activation passes as its
 rows (MLA's ``kv_b`` output past its nope columns); the output keeps q's
 order of dims with Dv columns.  A tensor map that cannot be encoded
 raises.
+
+Gradients: when a gradient is being taken through q, k or v,
+``flash_attention`` runs as a ``torch.autograd.Function``.  Its forward is
+K4 on CUDA tensors (the kernel then also writes the rows' log-sum-exp,
+f32 (B, Hq, Sq)) and the plain version on CPU tensors; its backward is
+``flash_attention_backward``, tensor code by KV blocks (the TPU kernel
+has no backward: the reference differentiates ``chunked_attention``).
+The serving path, which takes no gradient, launches the kernel with no
+log-sum-exp buffer.
 """
 from __future__ import annotations
 
@@ -32,6 +41,10 @@ NEG_INF = -1e30
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (160, 160), (192, 128))
 
 
+# KV rows a step of ``flash_attention_backward`` takes at once
+BACKWARD_BLOCK_KV = 512
+
+
 def kernel_block_kv(dv: int) -> int:
     """The KV rows over which the bf16 kernel rounds p against one running
     max: its KV tiles, 128 rows, or 64 when Dv is 160 (the larger
@@ -42,14 +55,16 @@ _INT_MAX = 2**31 - 1
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           sm_scale: float | None = None,
-                          block_kv: int = 1024, p_dtype=None):
+                          block_kv: int = 1024, p_dtype=None,
+                          return_lse: bool = False):
     """The same function in PyTorch, by KV blocks like the reference's
     ``chunked_attention``, with GQA folded (k/v stay at Hkv heads) and q
     scaled in f32 as the TPU kernel does; p stays f32.  With
     ``block_kv=kernel_block_kv(Dv), p_dtype=torch.bfloat16`` p is rounded
     before P·V as the kernel's bf16 path rounds it (against the same
     running max, over the same KV rows), so a reference can carry that
-    difference."""
+    difference.  ``return_lse`` also returns the rows' log-sum-exp of the
+    scaled scores, f32 (B, Hq, Sq), as the kernel writes it."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     group = Hq // Hkv
@@ -77,8 +92,66 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             p = p.to(p_dtype).to(torch.float32)
         acc = acc * alpha[..., None] + p @ vf[:, :, :, start:start + block_kv]
         m = m_new
-    out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    l = torch.clamp(l, min=1e-20)
+    out = (acc / l[..., None]).reshape(B, Hq, Sq, Dv).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, Sq)
+    return out
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
+                             sm_scale: float | None = None):
+    """The gradient of ``flash_attention`` with respect to (q, k, v), given
+    its output ``o``, the rows' log-sum-exp ``lse`` (B, Hq, Sq) and the
+    output's gradient ``do``; tensor code by KV blocks of
+    ``BACKWARD_BLOCK_KV`` rows, in f32.  Per block: P = exp(S·scale −
+    lse) recomputed in f32, dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘ (dP −
+    rowsum(dO ∘ O)), dQ += dS·K·scale, dK = dSᵀ·Q·scale; the q heads of a GQA group are stacked as rows of
+    their KV head, so dK and dV come out summed over the group at Hkv
+    heads.  Under ``causal`` the q rows that lie wholly before a block
+    (they see none of it) are skipped.  This is the gradient the reference
+    gets by autodiff of ``chunked_attention``; the forward rounds p to
+    bf16 before P·V on the kernel's bf16 path, the backward recomputes it
+    in f32.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    f32, dev = torch.float32, q.device
+    qf = (q.to(f32) * scale).reshape(B, Hkv, g, Sq, D)
+    dof = do.to(f32).reshape(B, Hkv, g, Sq, Dv)
+    delta = (dof * o.to(f32).reshape(B, Hkv, g, Sq, Dv)).sum(-1)
+    lse = lse.reshape(B, Hkv, g, Sq)
+    qpos = torch.arange(Sq, device=dev)
+    dq = torch.zeros((B, Hkv, g, Sq, D), dtype=f32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, Dv), dtype=f32, device=dev)
+    for start in range(0, Skv, BACKWARD_BLOCK_KV):
+        end = min(start + BACKWARD_BLOCK_KV, Skv)
+        q0 = min(start, Sq) if causal else 0
+        n = Sq - q0
+        if n == 0:                       # no q row sees this block
+            continue
+
+        def rows(t):                     # (B, Hkv, g, Sq, ·) → (.., g·n, ·)
+            return t[:, :, :, q0:].reshape(B, Hkv, g * n, *t.shape[4:])
+
+        kb = k[:, :, start:end].to(f32)
+        vb = v[:, :, start:end].to(f32)
+        qs, dos = rows(qf), rows(dof)
+        s = qs @ kb.transpose(-1, -2)                # (B, Hkv, g·n, end-start)
+        if causal:
+            kpos = torch.arange(start, end, device=dev)
+            s.view(B, Hkv, g, n, end - start).masked_fill_(
+                kpos[None, :] > qpos[q0:, None], NEG_INF)
+        p = s.sub_(rows(lse[..., None])).exp_()
+        dv[:, :, start:end] = p.transpose(-1, -2) @ dos
+        ds = (dos @ vb.transpose(-1, -2)).sub_(rows(delta[..., None])).mul_(p)
+        del p, s
+        dq[:, :, :, q0:] += (ds @ kb).view(B, Hkv, g, n, D)
+        dk[:, :, start:end] = ds.transpose(-1, -2) @ qs
+    return ((dq * scale).reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q, k, v):
@@ -110,14 +183,8 @@ def _check(q, k, v):
             raise ValueError("flash_attention: offsets exceed int32")
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None):
-    """q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv) →
-    (B, Hq, Sq, Dv) in q's dtype and order of dims: a transposed view of
-    (B, Sq, Hq, Dv) when q is one of (B, Sq, Hq, D)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
+def _kernel(q, k, v, causal: bool, sm_scale, with_lse: bool):
+    """Launch K4 on CUDA tensors: (o, lse), lse None unless asked for."""
     _check(q, k, v)
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -128,7 +195,49 @@ def flash_attention(q, k, v, *, causal: bool = True,
         o = q.new_empty((B, Hq, Sq, Dv))
     fn = "k4_flash_attention_bf16" if q.dtype == torch.bfloat16 \
         else "k4_flash_attention_f32"
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = [int(s) for t in (q, k, v, o) for s in t.stride()[:3]]
-    _build.launch("flash_attention", fn, q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                  Dv, int(causal), float(scale), *strides)
-    return o
+    _build.launch("flash_attention", fn, q, k, v, o, lse, B, Hq, Hkv, Sq,
+                  Skv, D, Dv, int(causal), float(scale), *strides)
+    return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with a gradient: the forward is the kernel (writing the rows'
+    log-sum-exp) on CUDA tensors and the plain version on CPU tensors; the
+    backward is ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, return_lse=True)
+        else:
+            o, lse = _kernel(q, k, v, causal, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.causal,
+                                              ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None):
+    """q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv) →
+    (B, Hq, Sq, Dv) in q's dtype and order of dims: a transposed view of
+    (B, Sq, Hq, Dv) when q is one of (B, Sq, Hq, D).  Differentiable
+    (``FlashAttention``) when a gradient is being taken through q, k or
+    v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+    return _kernel(q, k, v, causal, sm_scale, with_lse=False)[0]

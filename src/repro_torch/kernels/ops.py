@@ -10,6 +10,7 @@ from .cluster_scatter import (cluster_pass, cluster_pass_plain,  # noqa: F401
                               cluster_scatter, cluster_scatter_plain)
 from .ell_spmv import ell_spmv, ell_spmv_plain, row_split_ell  # noqa: F401
 from .flash_attention import (flash_attention,  # noqa: F401
+                              flash_attention_backward,
                               flash_attention_plain, kernel_block_kv)
 from .game_bestresponse import (game_bestresponse,  # noqa: F401
                                 game_bestresponse_csr,

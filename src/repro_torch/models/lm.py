@@ -25,6 +25,8 @@ Entry points:
                                         is named)
   decode_step(params, cache, ..., memory) — one token; writes the cache in
                                         place; encdec attends ``memory``
+  lm_loss(params, x, labels, cfg, chunk) — chunked cross-entropy
+  forward_train(params, batch, cfg, dtype, loss_chunk) — the training loss
 
 Prefill attention runs through K4 (``kernels.flash_attention``; MLA in
 its decompressed form at (192, 128) head dims; jamba's one attention
@@ -46,15 +48,22 @@ and ``g_dec``, the latter with a second GQA projection set ``xattn``; a
 leading layer axis walked by ``lax.scan``) as a list of per-layer dicts
 walked by a Python loop; the cache is keyed by group as the reference's
 is.  The reference's lowering knobs (head padding ``mp``, ``block_kv``,
-``remat``, ``unroll``) and its ``shard`` constraints have no counterpart
-on one card.  Training (``lm_loss``, ``forward_train``) waits (ROADMAP,
-Queue 1).
+``unroll``) and its ``shard`` constraints have no counterpart on one
+card, and neither has the reference's ``remat`` switch: when a gradient
+is being taken, each layer always runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference's ``_scan_group`` wraps its body in
+``jax.checkpoint`` by default, so only the layers' inputs are kept and
+each layer is run again in the backward (K4 twice a layer: its
+``FlashAttention`` forward, then the recompute).  Training's
+loss (``lm_loss``, ``forward_train``) is the reference's chunked
+cross-entropy, each chunk's logits recomputed in the backward.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.partitioner import resolve_device
 from ..dist import decode as DEC
@@ -360,6 +369,22 @@ def embed_inputs(params, batch, cfg: ModelConfig, dtype):
     return x, memory
 
 
+def _needs_grad(*trees) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in tree_leaves(tree)
+        if isinstance(t, torch.Tensor))
+
+
+def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, memory=None):
+    """One layer; when a gradient is being taken, inside a non-reentrant
+    checkpoint (only its inputs are saved; it runs again in the
+    backward)."""
+    if _needs_grad(x, lp, memory):
+        return checkpoint(_layer, x, lp, cfg, pos, group, memory,
+                          use_reentrant=False)
+    return _layer(x, lp, cfg, pos, group, memory)
+
+
 def encode(params, src_embeds, cfg: ModelConfig,
            dtype=torch.bfloat16) -> torch.Tensor:
     """encdec: ``src_embeds`` (B, Sm, D) through the encoder layers (RoPE
@@ -369,7 +394,7 @@ def encode(params, src_embeds, cfg: ModelConfig,
     x = src_embeds.to(dtype)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params["g_enc"]:
-        x = _layer(x, lp, cfg, pos, "enc")
+        x = _run_layer(x, lp, cfg, pos, "enc")
     return x
 
 
@@ -377,7 +402,8 @@ def forward(params, batch, cfg: ModelConfig,
             dtype=torch.bfloat16) -> torch.Tensor:
     """batch {"tokens": (B, S) integer; encdec: "src_embeds" (B, Sm, D);
     vlm: "prefix_embeds" (B, P, D), optional} → final hidden states (B, S,
-    D), S counting a vlm's prefix positions."""
+    D), S counting a vlm's prefix positions.  Each layer is checkpointed
+    when a gradient is being taken (``_run_layer``)."""
     require_ported(cfg)
     x, memory = embed_inputs(params, batch, cfg, dtype)
     if cfg.family == "encdec":
@@ -387,8 +413,53 @@ def forward(params, batch, cfg: ModelConfig,
         if group == "enc":
             continue
         for lp in params[f"g_{group}"]:
-            x = _layer(x, lp, cfg, pos, group, memory)
+            x = _run_layer(x, lp, cfg, pos, group, memory)
     return _norm(cfg, params["ln_f"], x)
+
+
+def _ce_chunk(w, xb, lb):
+    """(summed CE, label count) of one chunk: logits (B, chunk, V) in f32
+    from the compute-dtype product, labels −1 masked."""
+    logits = (xb @ w.to(xb.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, lb.clamp(min=0).long()[..., None])[..., 0]
+    mask = lb >= 0
+    return (torch.where(mask, lse - gold, 0.0).sum(),
+            mask.sum(dtype=torch.float32))
+
+
+def lm_loss(params, x, labels, cfg: ModelConfig, chunk: int = 512):
+    """Chunked CE (the reference's ``lm_loss``): x (B, S, D) and labels
+    (B, S), label −1 masked; S padded to whole chunks of ``chunk`` rows
+    (pad labels −1); the mean over the unmasked labels, ``tot / max(cnt,
+    1)``.  No (B, S, V) tensor is alive at once: each chunk's logits are
+    reduced to a sum at once and, when a gradient is being taken,
+    recomputed in the backward (a non-reentrant checkpoint a chunk)."""
+    B, S, _ = x.shape
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    w = params["lm_head"]["w"]
+    grad = _needs_grad(x, w)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nch):
+        xb, lb = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:
+                                                          (c + 1) * chunk]
+        t, n = (checkpoint(_ce_chunk, w, xb, lb, use_reentrant=False)
+                if grad else _ce_chunk(w, xb, lb))
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def forward_train(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
+                  loss_chunk: int = 512):
+    """The training loss of ``batch`` (its "labels" (B, S), −1 masked):
+    ``forward``, then ``lm_loss``."""
+    x = forward(params, batch, cfg, dtype)
+    return lm_loss(params, x, batch["labels"], cfg, loss_chunk)
 
 
 # ---------------------------------------------------------------- serving

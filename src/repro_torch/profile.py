@@ -3,6 +3,7 @@
     python -m repro_torch.profile [--scale 20] [--k 64] [--blocks N]
     python -m repro_torch.profile --path gas [--scale 20] [--k 64]
     python -m repro_torch.profile --path lm
+    python -m repro_torch.profile --path train
 
 The graph path: partitions ``web_graph(scale)`` once through
 ``GraphSession`` (not profiled), then runs ``torch.profiler`` (CPU and
@@ -32,6 +33,17 @@ from a seeded generator, then two windows, each after a warm-up:
   tokens (K4 once per layer);
 - ``decode``: 8 decode steps at batch 4 (positions 16–23 of the cache).
 
+The training path (``--path train``): stablelm-1.6b at full width and
+depth, f32 masters, bf16 compute, AdamW (``make_train_step``), one
+window:
+
+- ``train_step``: one step of 8 × 2,048 tokens of ``batch_at``'s stream,
+  after two warm-up steps (K4 48 launches: forward and remat recompute;
+  the attention backward in tensor code; the chunked CE; AdamW).
+
+Its device time is also summed by kind: K4's kernel, the matrix
+products (cuBLAS and CUTLASS kernels) and the rest.
+
 For each window it prints the wall time, the device busy time (the union
 of the device-side kernel, copy and fill events, so no work is counted
 twice), the device idle share, the host operations with the most self
@@ -55,6 +67,13 @@ from .core.stages import cluster_graph_arrays, lambda_from_totals
 from .core.transform import majority_vertex_map, transform
 from .session import GraphSession, SessionConfig
 
+# the training window's run, which chip_smoke.py's [train] drives too:
+# stablelm-1.6b at full width and depth, TRAIN_B × TRAIN_S tokens a step
+# of batch_at's stream, AdamW at TRAIN_LR under the cosine schedule of a
+# TRAIN_STEPS-step run (warmup TRAIN_STEPS // 10), bf16 compute
+TRAIN_ARCH = "stablelm_1_6b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 2048, 10, 3e-3
+
 
 def _device_events(prof):
     """The device-side events (kernels, copies, fills) of a trace; the
@@ -74,7 +93,9 @@ def _busy_us(events) -> float:
     return busy
 
 
-def _profile(name: str, fn, top: int = 6) -> dict:
+def _profile(name: str, fn, top: int = 6, kind=None) -> dict:
+    """Profile one call of ``fn``; ``kind(kernel name)`` (optional) sorts
+    the device time into named kinds."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -105,6 +126,11 @@ def _profile(name: str, fn, top: int = 6) -> dict:
                      for e in by_host],
         "top_device": [(k, n, us * 1e-3) for k, (n, us) in by_dev],
     }
+    if kind is not None:
+        kinds = collections.Counter()
+        for k, (_n, us) in per_kernel.items():
+            kinds[kind(k)] += us * 1e-3
+        out["device_ms_by_kind"] = dict(kinds.most_common())
     print(json.dumps(out), flush=True)
     return out
 
@@ -135,6 +161,39 @@ def _profile_lm(dev) -> None:
     _profile("decode", decode_steps)
 
 
+def _kernel_kind(name: str) -> str:
+    if "flash_" in name:
+        return "K4"
+    if any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass", "Gemm")):
+        return "matrix products"
+    return "other"
+
+
+def _profile_train(dev) -> None:
+    from .configs import get_config
+    from .data import DataConfig, batch_at
+    from .models import init_params
+    from .train import adamw, cosine_schedule, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adamw(schedule=cosine_schedule(TRAIN_LR, TRAIN_STEPS // 10,
+                                         TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, dtype=torch.bfloat16)
+    dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in batch_at(dcfg, i).items()} for i in range(3)]
+    print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers,
+                      "tokens_a_step": TRAIN_B * TRAIN_S,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    for i in range(2):                                   # warm-up
+        params, state, _ = step(params, state, batches[i], i)
+
+    def one_step():
+        step(params, state, batches[2], 2)
+    _profile("train_step", one_step, top=12, kind=_kernel_kind)
+
+
 def _profile_gas(sess, g) -> None:
     bundle = ("pagerank", "ppr", "centrality")
     sess.run("labelprop", iters=40)                      # warm-up
@@ -148,7 +207,7 @@ def _profile_gas(sess, g) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("graph", "gas", "lm"),
+    ap.add_argument("--path", choices=("graph", "gas", "lm", "train"),
                     default="graph")
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--k", type=int, default=64)
@@ -160,6 +219,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.path == "lm":
         _profile_lm(dev)
+        return 0
+    if args.path == "train":
+        _profile_train(dev)
         return 0
     g = web_graph(scale=args.scale, edge_factor=8, seed=0)
     cfg = CLUGPConfig.optimized(args.k, restream=1)

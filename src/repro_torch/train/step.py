@@ -1,19 +1,96 @@
-"""Serving step builders (port of ``make_prefill_step`` and
-``make_decode_fn`` of ``repro.train.step``): the functions the serving
-launcher and ``chip_smoke.py`` run, for every family ``models.lm`` runs
-(dense and MoE, with GQA or MLA attention; SSM and hybrid; the
-encoder–decoder, whose decode step takes the encoder's output as
-``memory``; the VLM, whose prefill batch may carry ``prefix_embeds``).
-PyTorch runs eagerly, so there is nothing to jit; the reference's ``mp``,
-``block_kv`` and ``unroll`` are lowering knobs with no counterpart on one
-card."""
+"""Step builders (port of ``repro.train.step``): the training step the
+training launcher and ``chip_smoke.py`` run (``make_train_step``: f32
+masters cast to the compute dtype inside the loss, the gradient of
+``models.forward_train`` by ``torch.autograd.grad``, micro-batches summed
+in f32, an optional gradient compressor, then the optimizer), and the
+serving steps, for every family ``models.lm`` runs (dense and MoE, with
+GQA or MLA attention; SSM and hybrid; the encoder–decoder, whose decode
+step takes the encoder's output as ``memory``; the VLM, whose prefill
+batch may carry ``prefix_embeds``).  PyTorch runs eagerly, so there is
+nothing to jit; the reference's ``mp``, ``block_kv`` and ``unroll`` are
+lowering knobs with no counterpart on one card."""
 from __future__ import annotations
 
 import torch
 
 from ..models import decode_step as _decode_step
+from ..models import forward_train, tree_leaves
 from ..models import prefill as _prefill
 from ..models.config import ModelConfig
+from .optimizer import Optimizer, tree_map, tree_unflatten
+
+
+def _compute_copy(params, dtype):
+    """The parameters as the loss reads them (a differentiable cast, so the
+    gradient lands on the f32 master).  The reference casts every f32 leaf
+    of ≥ 2 dims; its layer groups are stacked, so that is every f32 leaf
+    of a layer (norm scales and biases included, (L, d) there) and the
+    top-level matrices, while ``ln_f`` stays f32.  The port's layers are
+    lists of per-layer leaves, so every f32 leaf under a ``g_*`` group is
+    cast whatever its dims.  The embedding table is not cast:
+    ``layers.embed`` gathers its rows and casts them, the same forward
+    values as the reference's cast-then-gather, with the gradient summed
+    into the f32 rows (the reference sums it in ``dtype``; ROADMAP, Queue
+    3) and no copy of the table."""
+    def cast(p):
+        return p.to(dtype) if p.dtype == torch.float32 else p
+
+    out = {}
+    for key, sub in params.items():
+        if key.startswith("g_"):
+            out[key] = tree_map(cast, sub)
+        elif key == "embed":
+            out[key] = sub
+        else:
+            out[key] = tree_map(lambda p: cast(p) if p.dim() >= 2 else p,
+                                sub)
+    return out
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
+                    dtype=torch.bfloat16, micro_batches: int = 1,
+                    loss_chunk: int = 512, compress_grads=None):
+    """Returns train_step(params, opt_state, batch, step) → (params,
+    opt_state, loss); ``loss`` is an f32 0-d tensor on the parameters'
+    device (reading it waits for the step).  With ``micro_batches`` > 1
+    the batch's tensors are split into that many contiguous slices along
+    the batch dim, the f32 gradients and losses summed over them, then
+    divided by their number.  ``compress_grads`` (e.g.
+    ``dist.compress.make_grad_compressor()``) maps the gradient tree
+    before the optimizer."""
+
+    def grad_fn(params, batch):
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = _compute_copy(tree_unflatten(params, live), dtype)
+        loss = forward_train(tree, batch, cfg, dtype=dtype,
+                             loss_chunk=loss_chunk)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(live, grads)]
+
+    def train_step(params, opt_state, batch, step):
+        if micro_batches == 1:
+            loss, grads = grad_fn(params, batch)
+        else:
+            parts = {k: torch.chunk(v, micro_batches) for k, v in batch.items()}
+            loss, grads = None, None
+            for i in range(micro_batches):
+                li, gi = grad_fn(params, {k: v[i] for k, v in parts.items()})
+                gi = [g.to(torch.float32) for g in gi]
+                loss = li if loss is None else loss + li
+                grads = gi if grads is None else [a + b for a, b in
+                                                  zip(grads, gi)]
+            n = torch.full((), float(micro_batches), dtype=torch.float32,
+                           device=loss.device)
+            loss = loss / n
+            grads = [g / n for g in grads]
+        grads = tree_unflatten(params, grads)
+        if compress_grads is not None:
+            grads = compress_grads(grads)
+        params, opt_state = optimizer.update(grads, opt_state, params, step)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):

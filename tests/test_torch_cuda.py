@@ -1247,3 +1247,116 @@ def test_reduced_encdec_and_vlm_on_card_match_cpu(dev, arch, head_dim):
             torch.testing.assert_close(caches[0][group][name].cpu(),
                                        caches[1][group][name], rtol=1e-4,
                                        atol=1e-4)
+
+
+# ------------------------------------------------------------------ training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,Dv,causal", [
+    (2, 4, 4, 300, 64, 64, True), (1, 28, 4, 200, 128, 128, False),
+    (1, 8, 8, 130, 192, 128, True), (1, 8, 2, 150, 160, 160, True),
+    (2, 6, 2, 77, 32, 32, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
+                                     dtype):
+    """The rows' log-sum-exp K4 writes for the backward, at every head-dim
+    pair, against the plain version's on the same inputs: 1e-5 on the f32
+    path; 1e-3 absolute on the bf16 path, whose scores are exact products
+    of bf16 values summed in f32, as the plain version's are, the
+    log-sum-exp f32 arithmetic on both sides)."""
+    from repro_torch.kernels import flash_attention as K4
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(S + D)
+    q = torch.randn(B, Hq, S, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Hkv, S, Dv, generator=gen, device=dev).to(dtype)
+    o, lse = K4._kernel(q, k, v, causal, None, with_lse=True)
+    torch.cuda.synchronize()
+    want_o, want = ops.flash_attention_plain(q, k, v, causal=causal,
+                                             return_lse=True)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(lse, want, rtol=0 if dtype == torch.bfloat16
+                               else tol, atol=tol)
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,Dv,causal,dtype", [
+    (2, 8, 8, 256, 64, 64, True, torch.bfloat16),
+    (1, 28, 4, 300, 128, 128, True, torch.bfloat16),
+    (1, 8, 8, 200, 192, 128, False, torch.float32),
+    (2, 7, 1, 150, 64, 64, True, torch.float32)])
+def test_flash_attention_backward_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
+                                          dtype):
+    """dq, dk, dv through K4's ``FlashAttention`` (the kernel's forward and
+    log-sum-exp, then ``flash_attention_backward``) against autograd of
+    the plain version on the same card: 2e-2 in bf16 (K4's bf16
+    tolerance: the kernel rounds p before P·V, the backward reads its
+    output), 1e-4 of each gradient's largest magnitude in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(S * 3 + D)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    q, k, v = rand(B, Hq, S, D), rand(B, Hkv, S, D), rand(B, Hkv, S, Dv)
+    do = rand(B, Hq, S, Dv)
+    grads = []
+    for fn in (ops.flash_attention, ops.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        out = fn(*leaves, causal=causal)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        if fn is ops.flash_attention:
+            assert ops.launch_counts() == {"flash_attention": 1}
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+        else:
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
+    """One ``make_train_step`` of a 2-layer stablelm-like model (head dim
+    64) on the card: K4 twice a layer (the forward and the remat
+    recompute), every gradient leaf finite and non-zero, and in f32 every
+    leaf within 1e-4 of its largest magnitude of the same step with the
+    plain version (differentiated by autograd) in K4's place."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, lm, tree_leaves
+    from repro_torch.train import Optimizer, adamw, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("stablelm_1_6b").reduced(),
+                              n_heads=4, n_kv_heads=4, head_dim=64,
+                              d_model=256)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    base, seen = adamw(), []
+
+    def update(grads, state, p, step):
+        seen.append(tree_leaves(grads))
+        return base.update(grads, state, p, step)
+    spy = Optimizer("adamw", base.init, update)
+
+    ops.reset_launch_counts()
+    make_train_step(cfg, spy, dtype=dtype)(params, spy.init(params), batch, 0)
+    assert ops.launch_counts() == {"flash_attention": 2 * cfg.n_layers}
+    for g in seen[0]:
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+    if dtype == torch.float32:
+        monkeypatch.setattr(lm, "flash_attention", ops.flash_attention_plain)
+        make_train_step(cfg, spy, dtype=dtype)(params, spy.init(params),
+                                               batch, 0)
+        for got, want in zip(*seen):
+            torch.testing.assert_close(
+                got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
