@@ -16,6 +16,28 @@ Phases (any failure raises and exits non-zero):
    clustering pass (its pass walks the whole stream in one launch).
    Checks: RF below a uniform random assignment's, every partition load
    ≤ τ·E/k + 1, PageRank finite and within L1 1e-4 of the float64 oracle.
+2b. The paper's parallel mechanism as ranks on this card (``[dist]``;
+   the kernels are built before any rank is spawned, and every rank runs
+   on cuda:0 over gloo, which stages through host memory).  At scale 16,
+   4 stream slices, k = 64 with the graph path's profile: game off equal
+   to the np host combine over 4 nodes edge for edge; game on equal to
+   the same sharded run on 4 CPU ranks edge for edge (the rank-folded
+   draws).  At scale 20 on 4 ranks: per-rank stage seconds, the restream
+   count table's all-reduce seconds and bytes, the game each rank played,
+   µs/edge and RF beside the one-card partition of phase 2; gates:
+   balance ≤ τ + 0.05, RF below random's, every edge assigned.  Then a
+   k = 8 partition of the same stream, its layout one partition a rank
+   on 8 ranks: pagerank and cc for 30 iterations on all five wires, the
+   fused (pagerank, ppr, centrality) bundle on halo, pagerank to tol 1e-6
+   on halo and overlapped on ragged, each held against the stacked
+   engine on the same layout (f32 rtol 1e-5, integers equal, tol
+   iterations ±1; the lossy wires' pagerank within 5e-4 of the float64
+   oracle, ``[exchange]``'s bound), with ms/iteration and the bytes every
+   rank handed to the wire against ``comm_bytes``.  Every rank reports
+   its launches: a partition rank K1 once a clustering pass, T twice, the
+   CSR K2 when the game is on; a GAS rank K3 once an iteration of each
+   program that gathers on it; nothing else.  Last, the sharded
+   partitioner on one rank over NCCL.
 3. The GAS program library on the same scale-20 layout (``[gas]``): all
    eight programs through ``sess.run`` on the halo and the dense
    exchange (f32 programs 30 iterations, min programs 40, degree 1, cc to
@@ -258,6 +280,7 @@ The script imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -3133,6 +3156,297 @@ def train_phase(torch, ops, dev) -> dict:
             "ms": ms, "peak_gib": peak}
 
 
+# ------------------------------------------------------------- [dist]
+# the paper's parallel mechanism as ranks on one card: the sharded
+# partitioner (stream slices), then the GAS engine one partition a rank
+
+DIST_NODES = 4                   # stream slices of the sharded partitioner
+DIST_GAS_K = 8                   # partitions = ranks of the per-rank engine
+DIST_ITERS = 30
+DIST_WIRES = ("dense", "halo", "quantized", "ragged", "ragged_quantized")
+DIST_LOSSY = ("quantized", "ragged_quantized")
+DIST_LOSSY_BOUND = 5e-4          # [exchange]'s bound on a lossy pagerank
+
+
+def dist_gas_job(mesh, lay):
+    """``[dist]``'s per-rank runs in one spawn of k ranks (SPMD on the
+    bound mesh; rank 0 returns the values and every rank's report)."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.graph import engine as eng
+    V = lay.num_vertices
+    pr = eng.pagerank_program(V)
+    out = {"started": float(coll.pmax(torch.tensor(
+        [time.time()], dtype=torch.float64), mesh))}
+    for ex in DIST_WIRES:
+        for name in ("pagerank", "cc"):
+            out[ex, name] = eng.shard_map_gas(
+                eng.get_program(name, V), lay, mesh, DIST_ITERS, exchange=ex,
+                return_wire=True)
+    out["bundle"] = eng.shard_map_gas_many(
+        [eng.get_program(p, V) for p in GAS_F32_BUNDLE], lay, mesh,
+        DIST_ITERS, exchange="halo", return_wire=True)
+    out["tol"] = eng.shard_map_gas(pr, lay, mesh, GAS_CAP, exchange="halo",
+                                   tol=PR_TOL, return_iters=True,
+                                   return_wire=True)
+    out["overlap"] = eng.shard_map_gas(pr, lay, mesh, DIST_ITERS,
+                                       exchange="ragged", overlap=True,
+                                       return_wire=True)
+    return out
+
+
+def dist_partition_job(mesh, runs):
+    """``[dist]``'s card partitions, SPMD on one spawn of the stream
+    mesh's ranks: ``partition(..., backend="sharded")`` of each (graph,
+    config), timed on the ranks.  Rank 0 returns the results, the wall
+    seconds of each and ``started``, the wall-clock time at which the last
+    rank began its job."""
+    import torch
+    from repro_torch.core.partitioner import partition
+    from repro_torch.dist import collectives as coll
+    started = coll.pmax(torch.tensor([time.time()], dtype=torch.float64),
+                        mesh)
+    out = []
+    for gr, cfg in runs:
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = partition(gr.src, gr.dst, gr.num_vertices, cfg,
+                        backend="sharded", nodes=mesh.size, mesh=mesh)
+        out.append((res, time.perf_counter() - t))
+    return {"results": out, "started": float(started)}
+
+
+def dist_check_partition_launches(res, game: bool, tag):
+    """Every rank of a sharded partition on the card: K1 once a
+    clustering pass, T twice (the first walk and the restream), the CSR
+    K2 when the game is on, no other kernel."""
+    for n in res.stats["per_node"]:
+        got = {k: v for k, v in n["launches"].items() if v}
+        want = {"cluster_scatter": 1 + n["cap_retries"],
+                "transform_scan": 2}
+        if game:
+            check(got.get("game_bestresponse_csr", 0) > 0,
+                  f"{tag}: rank {n['node']} never launched the CSR K2")
+            want["game_bestresponse_csr"] = got["game_bestresponse_csr"]
+        check(got == want, f"{tag}: rank {n['node']} launched {got}, "
+              f"not {want}")
+
+
+def dist_check_k3(reports, per_iter, iters, tag):
+    """Every rank of a per-rank GAS run: K3 ``per_iter`` times an
+    iteration, no other kernel."""
+    for r, w in enumerate(reports):
+        got = {k: v for k, v in w["launches"].items() if v}
+        want = {"ell_spmv": per_iter * iters} if per_iter else {}
+        check(got == want, f"[dist] {tag}: rank {r} launched {got}, not "
+              f"{want}")
+
+
+def dist_phase(g, main_res, main_seconds, pr_ref):
+    """``[dist]``: the sharded partitioner at scale 16 and 20 and the
+    per-rank GAS engine at scale 20 on every wire, ranks on this card
+    over gloo; then the sharded partitioner on one NCCL rank."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import CLUGPConfig, metrics, web_graph
+    from repro_torch.core.partitioner import partition
+    from repro_torch.graph import engine as eng
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.launch.mesh import make_graph_mesh, make_stream_mesh
+    from repro_torch.session import GraphSession, SessionConfig
+
+    t_phase = time.perf_counter()
+    note = ("ranks share this one card over gloo (staged through host "
+            "memory): these times measure that transport, not a network")
+    cfg = CLUGPConfig.optimized(K, restream=1)
+
+    def sharded(gr, c, device=None, nodes=DIST_NODES, mesh=None):
+        t = time.perf_counter()
+        res = partition(gr.src, gr.dst, gr.num_vertices, c,
+                        backend="sharded", nodes=nodes, device=device,
+                        mesh=mesh)
+        return res, time.perf_counter() - t
+
+    # the CPU ranks' scale-16 partition (the card's witness) and the np
+    # host combine run while the card's ranks work: one spawn of 4 card
+    # ranks runs every card partition of the phase SPMD
+    g16 = web_graph(scale=SMALL_SCALE, edge_factor=EDGE_FACTOR, seed=0)
+    off = dataclasses.replace(cfg, game=False)
+
+    def host_combine():
+        t = time.perf_counter()
+        res = partition(g16.src, g16.dst, g16.num_vertices, off,
+                        backend="np", nodes=DIST_NODES)
+        return res, time.perf_counter() - t
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    cpu_run = pool.submit(sharded, g16, cfg, "cpu")
+    host_run = pool.submit(host_combine)
+    t, wall = time.perf_counter(), time.time()
+    runs = run_on_ranks(dist_partition_job, make_stream_mesh(DIST_NODES),
+                        [(g16, off), (g16, cfg), (g, cfg)], timeout=900)
+    s_spawn = time.perf_counter() - t
+    (host, s_host), (cpu, s_cpu) = host_run.result(), cpu_run.result()
+    (card, s_card), (on, s_on), (res, s20) = runs["results"]
+    m = card.stats["mesh"]
+    check(m["transport"] == "gloo" and m["device"] == "cuda",
+          f"[dist] the ranks ran as {m}")
+    check(np.array_equal(card.assign, host.assign),
+          "[dist] game off: the sharded partition differs from the np host "
+          "combine")
+    dist_check_partition_launches(card, False, "[dist] scale 16 game off")
+    log(f"[dist] {DIST_NODES} ranks on {m['device']} over {m['transport']} "
+        f"in one spawn: {s_spawn:.1f} s, of which "
+        f"{runs['started'] - wall:.1f} s until every rank ran (spawn, "
+        f"imports, CUDA contexts)")
+    log(f"[dist] scale {SMALL_SCALE} game off: equal to the np host combine "
+        f"over {DIST_NODES} nodes edge for edge (rf {card.stats['rf']:.4f}; "
+        f"{s_card:.2f} s on the card, {s_host:.2f} s host combine beside "
+        f"the ranks)")
+    diff = int((on.assign != cpu.assign).sum())
+    check(diff == 0 and on.stats["game_rounds"] == cpu.stats["game_rounds"],
+          f"[dist] game on: the card's sharded partition differs from the "
+          f"CPU ranks' in {diff} edges")
+    dist_check_partition_launches(on, True, "[dist] scale 16 game on")
+    log(f"[dist] scale {SMALL_SCALE} game on: the card's partition equals 4 "
+        f"CPU ranks' edge for edge (rf {on.stats['rf']:.4f}, "
+        f"{on.stats['game_rounds']} rounds; {s_on:.2f} s card, {s_cpu:.2f} s "
+        f"CPU with its spawn); launches per rank "
+        f"{[n['launches'] for n in on.stats['per_node']]}")
+
+    # scale 20: the graph path's stream on 4 ranks
+    E, V = g.num_edges, g.num_vertices
+    st = res.stats
+    dist_check_partition_launches(res, True, "[dist] scale 20")
+    rng = np.random.default_rng(0)
+    rf_random = metrics.replication_factor(
+        g.src, g.dst, rng.integers(0, K, E).astype(np.int32), V, K)
+    check(res.assign.shape == (E,) and res.assign.min() >= 0
+          and res.assign.max() < K, "[dist] scale 20: an edge unassigned")
+    check(st["balance"] <= cfg.tau + 0.05,
+          f"[dist] scale 20: balance {st['balance']:.4f} > tau + 0.05")
+    check(st["rf"] < rf_random, "[dist] scale 20: RF not below random's")
+    for n in st["per_node"]:
+        game_calls = sum(v["calls"] for key, v in n["collectives"].items()
+                         if key.startswith("game."))
+        log(f"[dist] scale {SCALE} rank {n['node']}: {n['edges']} edges, "
+            f"{n['clusters']} clusters, game {n['game_form']} "
+            f"{n['game_rounds']} rounds, stage seconds "
+            + json.dumps({k: round(v, 4)
+                          for k, v in n["stage_seconds"].items()})
+            + f", count-table all-reduce {n['prior_allreduce_seconds']:.4f} "
+            f"s ({n['collectives']['restream.counts']['bytes'] / 2**20:.1f} "
+            f"MiB), game collectives {game_calls}")
+    log(f"[dist] scale {SCALE}, {DIST_NODES} ranks: {s20:.3f} s = "
+        f"{s20 * 1e6 / E:.4f} us/edge on the ranks (one card, torch "
+        f"backend: {main_seconds:.3f} s = {main_seconds * 1e6 / E:.4f} "
+        f"us/edge); rf {st['rf']:.4f} (one card {main_res.stats['rf']:.4f}, "
+        f"random {rf_random:.4f}), balance {st['balance']:.4f}, m_cap "
+        f"{st['m_cap']}, cap retries {st['cap_retries']}; {note}")
+    del res, runs
+
+    # one rank over NCCL (the sharded partitioner's NCCL path) while the
+    # k = 8 partition below is made; then the per-rank engine on 8 ranks
+    nccl_run = pool.submit(sharded, g16, cfg, nodes=1,
+                           mesh=make_stream_mesh(1))
+    sess = GraphSession(SessionConfig(clugp=CLUGPConfig.optimized(
+        DIST_GAS_K, restream=1), backend="torch", iters=DIST_ITERS))
+    sess.partition(g.src, g.dst, V).layout()
+    lay = sess.partition_layout
+    t, wall = time.perf_counter(), time.time()
+    runs = run_on_ranks(dist_gas_job, make_graph_mesh(DIST_GAS_K), lay,
+                        timeout=600)
+    s_ranks = time.perf_counter() - t
+    s_start = runs["started"] - wall
+    t = time.perf_counter()
+
+    def stacked(name, ex, **kw):
+        return eng.simulate_gas(eng.get_program(name, V), lay,
+                                kw.pop("iters", DIST_ITERS), ex, **kw)
+
+    for ex in DIST_WIRES:
+        for name in ("pagerank", "cc"):
+            got, reports = runs[ex, name]
+            want = stacked(name, ex)
+            lossy = name == "pagerank" and ex in DIST_LOSSY
+            if name == "cc":
+                check(np.array_equal(got, want), f"[dist] cc on {ex}: the "
+                      "ranks differ from the stacked engine")
+                err = "equal to the stacked engine"
+            elif lossy:
+                e = float(np.abs(got.astype(np.float64) - pr_ref).max())
+                check(e < DIST_LOSSY_BOUND, f"[dist] pagerank on {ex}: max "
+                      f"|d| {e:.3e} to the oracle")
+                err = f"max |d| to the float64 oracle {e:.3e}"
+            else:
+                check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+                      f"[dist] pagerank on {ex}: not within rtol 1e-5 of "
+                      "the stacked engine")
+                rel = np.abs(got / np.maximum(want, 1e-30) - 1).max()
+                err = f"max rel |d| to the stacked engine {float(rel):.2e}"
+            dist_check_k3(reports, 1 if name == "pagerank" else 0,
+                          DIST_ITERS, f"{name} on {ex}")
+            site = ex if name == "pagerank" or ex not in DIST_LOSSY else \
+                {"quantized": "halo", "ragged_quantized": "ragged"}[ex]
+            counted = sum(w["collectives"][f"{site}.{p}"]["bytes"]
+                          for w in reports for p in ("reduce", "broadcast"))
+            model = lay.comm_bytes(ex, lossy=name == "pagerank")
+            per_iter = counted / DIST_ITERS
+            want_b = model * (DIST_GAS_K - 1) / DIST_GAS_K \
+                if ex == "dense" else model
+            check(per_iter == want_b, f"[dist] {name} on {ex}: counted "
+                  f"{per_iter} bytes an iteration, model {model}")
+            ms = 1e3 * max(w["loop_seconds"] for w in reports) / DIST_ITERS
+            log(f"[dist] {name} on {ex}, {DIST_GAS_K} ranks: {ms:.3f} "
+                f"ms/iteration over gloo on this one card (the transport, "
+                f"not a network); {per_iter:.0f} bytes an iteration counted "
+                f"on the wire against comm_bytes {model}"
+                + (" (the model counts the block a rank gathers from "
+                   "itself)" if ex == "dense" else "")
+                + f"; {err}")
+    gots, reports = runs["bundle"]
+    for name, got, want in zip(GAS_F32_BUNDLE, gots, eng.simulate_gas_many(
+            [eng.get_program(p, V) for p in GAS_F32_BUNDLE], lay,
+            DIST_ITERS, "halo")):
+        check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+              f"[dist] fused {name}: not within rtol 1e-5")
+    dist_check_k3(reports, len(GAS_F32_BUNDLE), DIST_ITERS, "the fused bundle")
+    ms_b = 1e3 * max(w["loop_seconds"] for w in reports) / DIST_ITERS
+    (got, it, reports) = runs["tol"]
+    want, want_it = stacked("pagerank", "halo", iters=GAS_CAP, tol=PR_TOL,
+                            return_iters=True)
+    check(abs(it - want_it) <= 1, f"[dist] tol: {it} iterations on the "
+          f"ranks, {want_it} stacked")
+    check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+          "[dist] tol: not within rtol 1e-5")
+    dist_check_k3(reports, 1, it, "pagerank to tol")
+    got, reports = runs["overlap"]
+    check(np.allclose(got, stacked("pagerank", "ragged", overlap=True),
+                      rtol=1e-5, atol=0.0), "[dist] overlap on ragged: not "
+          "within rtol 1e-5")
+    ms_o = 1e3 * max(w["loop_seconds"] for w in reports) / DIST_ITERS
+    log(f"[dist] fused (pagerank, ppr, centrality) on halo {ms_b:.3f} "
+        f"ms/iteration; pagerank to tol {PR_TOL:g} in {it} iterations "
+        f"(stacked {want_it}); overlap on ragged {ms_o:.3f} ms/iteration; "
+        f"the spawn and every run {s_ranks:.1f} s ({s_start:.1f} s until "
+        f"every rank ran), the stacked checks "
+        f"{time.perf_counter() - t:.1f} s; {note}")
+    del sess, lay, runs
+
+    one, s_one = nccl_run.result()
+    pool.shutdown()
+    check(one.stats["mesh"]["transport"] == "nccl",
+          f"[dist] the one-rank run used {one.stats['mesh']}")
+    check(one.stats["balance"] <= cfg.tau + 0.05, "[dist] nccl: balance")
+    dist_check_partition_launches(one, True, "[dist] nccl")
+    log(f"[dist] scale {SMALL_SCALE} on 1 rank over nccl: rf "
+        f"{one.stats['rf']:.4f}, {s_one:.2f} s (several cards over NCCL: "
+        f"not run, one card here)")
+    log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3239,6 +3553,9 @@ def main() -> int:
     log(f"[main] pagerank L1 vs float64 oracle {l1:.3e}")
     check(l1 <= 1e-4, f"PageRank L1 {l1} > 1e-4")
     main_assign = sess.assign.copy()      # the sweep's k = K entry's witness
+
+    # ---------------------------------------------------------- phase 2b
+    dist_phase(g, sess.result, t1 - t0, ref)
 
     # ---------------------------------------------------------- phase 3
     gas = gas_phase(torch, ops, sess, g)

@@ -21,7 +21,8 @@ from .models.lm import (layer_groups, param_count, require_ported,
                         tree_leaves)
 from .session import SessionConfig
 
-_BACKENDS = {"jit": "torch", "np": "np", "torch": "torch"}
+_BACKENDS = {"jit": "torch", "np": "np", "torch": "torch",
+             "sharded": "sharded"}
 # the game kernel: the reference resolves "auto" off a TPU to the scan
 # (repro.core.stages.resolve_game_mode); the clustering kernel's "auto"
 # means the kernels on both sides
@@ -31,11 +32,6 @@ _CLUSTER_KERNELS = {"auto": "auto", "pallas": "cuda", "xla": "torch",
                     "cuda": "cuda", "torch": "torch"}
 # lowering-only knobs of the reference with no counterpart in the port
 _DROPPED = ("unroll",)
-_SHARDED = "the sharded partitioner and multi-GPU engine"
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP, Queue 1: {item})")
 
 
 def config_from_reference(json_text: str) -> SessionConfig:
@@ -43,7 +39,8 @@ def config_from_reference(json_text: str) -> SessionConfig:
     resolved as the reference resolves it off a TPU:
 
     - backend ``np`` → ``np`` (the host oracle; ``nodes > 1`` → its host
-      combine) and ``jit`` → ``torch``;
+      combine), ``jit`` → ``torch`` (whose ``nodes`` the reference
+      ignores, so it becomes 1) and ``sharded`` → ``sharded``;
     - game kernel ``scan`` and ``auto`` → ``scan`` (the Gauss–Seidel game,
       falling back to the Jacobi CSR game above the pair-key limit as the
       reference falls back to ``xla``), ``pallas`` → ``cuda``, ``xla`` →
@@ -53,15 +50,12 @@ def config_from_reference(json_text: str) -> SessionConfig:
     So a converted config gives the reference's partition with the game
     on too: bit for bit on the CPU, given the reference's draws (the
     device games take the reference's start assignment injected).
-    Raises on what the port does not have yet: the sharded backend, and
-    ``jit`` with ``nodes > 1``."""
+    Raises on a backend neither package has."""
     d = json.loads(json_text)
     backend = d.get("backend", "np")
     if backend not in _BACKENDS:
-        raise _not_ported(f"backend {backend!r}", _SHARDED)
-    nodes = int(d.get("nodes", 1))
-    if nodes != 1 and backend != "np":
-        raise _not_ported(f"backend {backend!r} with nodes > 1", _SHARDED)
+        raise ValueError(f"unknown backend {backend!r}")
+    nodes = int(d.get("nodes", 1)) if backend != "jit" else 1
     clugp = dict(d["clugp"])
     for key in _DROPPED:
         clugp.pop(key, None)

@@ -31,6 +31,18 @@ an optional damping draw ``draw(rnd, b) -> bool mask``); by default they
 come from ``hash_draws``, a counter-based hash of (seed, stream, row) in
 int64 arithmetic that gives the same bits on every device, as
 ``jax.random`` does (a ``torch.Generator``'s stream is the device's own).
+
+On a mesh (``axis``, the sharded partitioner's bound mesh) each rank
+plays its slice's private clusters as one §V-D batch against global
+loads: the start loads, every batch's load delta and move count (Jacobi)
+or each round's loads and moves (scan), and Φ's cut are summed over the
+ranks (``dist.collectives.psum``).  Φ weighs the loads by the rank's own
+λ, so the stall counter counts rounds in which no rank improved: every
+rank leaves the round loop together (the reference's per-device
+``while_loop`` leaves that to each device).  Where the reference folds
+the rank into its key (``fold_in(key, axis_index)``), the port folds it
+into the hash's seed (``rank_seed``), only when an axis is bound, so one
+rank's draws are the same on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..dist import collectives as coll
 from ..kernels.game_bestresponse import (game_bestresponse_csr,
                                          game_bestresponse_plain)
 from ..kernels.game_gs import game_gs
@@ -54,6 +67,7 @@ _MASK32 = 0xFFFFFFFF
 _ROW_MUL = 0x61C88647
 _MIX_MUL = (0x7FEB352D, 0x5BD1E995)
 _SEED_SALT = 0x9E3779B9    # keeps seed 0 off the finalizer's fixed point 0
+_RANK_SALT = 0x85EBCA6B    # separates a rank's seed from the seed's streams
 _DRAW_BITS = 24            # a Bernoulli draw compares the hash's top 24 bits
 
 
@@ -228,6 +242,27 @@ def stream_base(seed: int, stream: int) -> int:
                   ^ (int(stream) & _MASK32))
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed a rank of a sharded run draws from: ``seed`` and the rank
+    mixed (the counterpart of the reference's ``fold_in(key,
+    axis_index)``)."""
+    return _mix32(stream_base(seed, rank) ^ _RANK_SALT)
+
+
+def _axis_seed(seed: int, axis) -> int:
+    return seed if axis is None else rank_seed(seed, coll.axis_index(axis))
+
+
+def _any_rank(flag, axis):
+    """A round's Φ-improvement flag as an int64 0-dim, true on every rank
+    when any rank improved.  Φ carries each rank's own λ (local cluster
+    graph), so the flags differ across ranks; the stall counter, which
+    ends the loop, must not, or the ranks would leave the loop apart and
+    wait on each other's collectives."""
+    return coll.pmax(flag.to(torch.int64).reshape(()), axis,
+                     site="game.improved")
+
+
 def hash_draws(base, rows):
     """(rows,) 32-bit draws of the hash: ``base`` (a Python int or an
     int64 tensor broadcast over ``rows``) plus the row times an odd
@@ -305,12 +340,15 @@ def cluster_csr(xs, xd, m_cap: int):
 
 def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
                 max_rounds: int, seed: int, mode: str = "cuda",
-                assign0=None, draw=None):
+                assign0=None, draw=None, axis=None):
     """Batched best-response rounds (Alg. 3 + §V-D).
 
     ``xs``/``xd``: cross-edge cluster endpoints, padded with the sentinel
     ``m_cap`` (dropped).  ``sizes``/``row_tot``: (m_cap,) f32.  ``lam``: a
-    0-dim or (1,) f32 tensor.  Returns (assign (m_cap,) int32, rounds)."""
+    0-dim or (1,) f32 tensor.  Returns (assign (m_cap,) int32, rounds).
+    Under ``axis`` the loads, each batch's load delta and move count and
+    Φ's cut are summed over the ranks, and a batch no rank has a live row
+    in is skipped by every rank."""
     device = sizes.device
     m_cap = sizes.shape[0]
     sizes = sizes.to(torch.float32)
@@ -330,8 +368,9 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
         live = ((sizes != 0) | (row_tot != 0)).long()
         has_live = torch.zeros(n_batches, dtype=torch.int64, device=device)
         has_live.index_add_(0, ar // batch_size, live)
-        has_live = (has_live > 0).tolist()
+        has_live = (coll.pmax(has_live, axis, site="game.live") > 0).tolist()
 
+    seed = _axis_seed(seed, axis)
     if assign0 is None:
         assign0 = start_assignment(m_cap, k, seed, device)
     if draw is None:
@@ -340,6 +379,7 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
     assign = assign0.to(device=device, dtype=torch.int32)
     loads = torch.zeros(k, dtype=torch.float32, device=device)
     loads.index_add_(0, assign.long(), sizes)
+    loads = coll.psum(loads, axis, site="game.loads")
     total_tot = row_tot.sum()
 
     def potential(assign, loads):
@@ -348,7 +388,7 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
         endpoints share a partition}: integers, exact in f32 (as the
         reference's dense sum is) while Σ row_tot = 2·n_cross < 2²⁴."""
         same = (assign[xs] == assign[xd]).sum().to(torch.float32)
-        cut = total_tot - 2.0 * same
+        cut = coll.psum(total_tot - 2.0 * same, axis, site="game.cut")
         return (lam / (2 * kf)) * torch.sum(loads * loads) + 0.25 * cut
 
     best_assign = assign
@@ -382,18 +422,22 @@ def game_rounds(xs, xd, sizes, row_tot, k: int, lam, *, batch_size: int,
             wants = best_cost + margin < cost_cur
             move = wants & keep
             msz = torch.where(move, sizes[r0:r1], 0.0)
-            delta = torch.zeros(k, dtype=torch.float32, device=device)
+            # the load delta and the move count in one vector, so a mesh
+            # sums both in one call (integer-valued f32, exact below 2²⁴)
+            delta = torch.zeros(k + 1, dtype=torch.float32, device=device)
             delta.index_add_(0, best.long(), msz)
             delta.index_add_(0, cur, -msz)
+            delta[k] = wants.sum()
+            delta = coll.psum(delta, axis, site="game.delta")
             assign[r0:r1] = torch.where(move, best, assign[r0:r1])
-            loads = loads + delta
-            moved_t = moved_t + wants.sum()
+            loads = loads + delta[:k]
+            moved_t = moved_t + delta[k].to(torch.int64)
         phi = potential(assign, loads)
         better = phi < best_phi - 1e-6 * torch.abs(best_phi)
         best_assign = torch.where(better, assign, best_assign)
         best_phi = torch.minimum(phi, best_phi)
         moved, improved = torch.stack(
-            [moved_t, better.to(torch.int64).reshape(())]).tolist()
+            [moved_t, _any_rank(better, axis)]).tolist()
         stall = 0 if improved else stall + 1
         rnd += 1
     return best_assign, rnd
@@ -430,7 +474,7 @@ def _sum32(x):
 
 
 def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
-                   max_rounds: int, seed: int, assign0=None):
+                   max_rounds: int, seed: int, assign0=None, axis=None):
     """Gauss–Seidel-on-loads best response (``jax_game_rounds_gs``).
 
     ``row``/``col``/``w``: the aggregated cluster pairs
@@ -447,7 +491,13 @@ def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
     of a k_max-padded sweep step; the port runs each k at its own lane
     count (``partitioner.partition_sweep``), so every lane is live here.
     The sweep walks the rows up to the last one with a size or a row
-    total: the rows past it cost 0 on every lane and never move."""
+    total: the rows past it cost 0 on every lane and never move.
+
+    Under ``axis`` each rank sweeps its private clusters (one batch a
+    rank): the start loads and Φ's cut are summed over the ranks, and
+    after each sweep the loads are recounted from the assignment and
+    summed with the move counts (the other ranks see a round's moves
+    only then, the reference's §V-D shared-nothing approximation)."""
     device = sizes.device
     m_cap = sizes.shape[0]
     sizes = sizes.to(torch.float32)
@@ -458,10 +508,15 @@ def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
     n = int(live.max()) + 1 if live.numel() else 0
     ar = torch.arange(m_cap, device=device)
     if assign0 is None:
-        assign0 = start_assignment(m_cap, k, seed, device)
+        assign0 = start_assignment(m_cap, k, _axis_seed(seed, axis), device)
     assign = assign0.to(device=device, dtype=torch.int32)
-    loads = torch.zeros(k, dtype=torch.float32, device=device)
-    loads.index_add_(0, assign.long(), sizes)
+
+    def loads_of(assign):
+        loads = torch.zeros(k, dtype=torch.float32, device=device)
+        loads.index_add_(0, assign.long(), sizes)
+        return coll.psum(loads, axis, site="game.loads")
+
+    loads = loads_of(assign)
 
     def aff_of(assign):
         aff = torch.zeros(m_cap, k, dtype=torch.float32, device=device)
@@ -470,7 +525,8 @@ def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
     def phi_of(assign, loads, aff):
         """Φ (Definition 4); Σ_i (row_tot − aff[i, a_i]) counts each
         symmetrized pair twice, hence the 0.25."""
-        cut = _sum32(row_tot - aff[ar, assign.long()])
+        cut = coll.psum(_sum32(row_tot - aff[ar, assign.long()]), axis,
+                        site="game.cut")
         return (lam / (2 * kf)) * _sum32(loads * loads) + 0.25 * cut
 
     best_assign = assign
@@ -484,9 +540,13 @@ def game_rounds_gs(row, col, w, sizes, row_tot, k: int, lam, *,
         best_phi = torch.minimum(phi, best_phi)
         assign, loads, moved_t = game_gs(aff, sizes, row_tot, assign, loads,
                                          lam=lam, k=k, n=n)
+        if axis is not None:
+            loads = loads_of(assign)
+            moved_t = coll.psum(moved_t.to(torch.int64).reshape(1), axis,
+                                site="game.moves")
         moved, improved = torch.stack(
             [moved_t.to(torch.int64).reshape(()),
-             improved.to(torch.int64).reshape(())]).tolist()
+             _any_rank(improved, axis)]).tolist()
         stall = 0 if improved else stall + 1
         rnd += 1
     phi = phi_of(assign, loads, aff_of(assign))

@@ -7,7 +7,11 @@ cluster → contract → game → transform (→ restream) sequence exists.
 the numpy copy of its host oracle, which the ``np`` backend runs.
 ``StageCtx`` carries what distinguishes a run: the device, the resolved
 kernels, the static id/m caps of the partitioner's retry loop and a
-k-sweep step's transform cap.
+k-sweep step's transform cap; the sharded partitioner adds its stream
+slice's live-edge ``mask`` (pad lanes are masked self-loops), the slice's
+cap ``lmax`` and the mesh ``axis`` its reductions go over: the game's
+loads, moves and cut, the cap check and the restream prior's count table
+(``dist.collectives``; each the identity when ``axis`` is None).
 
 The body records each stage's wall time (``PipelineOut.seconds``),
 synchronizing the card between stages so every time covers its own
@@ -28,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..dist import collectives as coll
 from . import metrics
 from .clustering import (compact_labels, streaming_clustering,
                          streaming_clustering_np)
@@ -63,7 +68,9 @@ class StageCtx:
     m_cap: int = 0               # compacted-cluster cap of the game tables
     assign0: Any = None          # injected game start assignment (tests)
     draw: Callable | None = None  # injected damping draw (tests)
-    lmax: float | None = None    # a k-sweep step's f32 transform cap
+    lmax: float | None = None    # a k-sweep step's / a slice's f32 cap
+    mask: Any = None             # live-edge mask; None = every lane real
+    axis: Any = None             # bound mesh of the sharded run; None = local
 
 
 @dataclass(frozen=True)
@@ -114,7 +121,10 @@ class PipelineOut(NamedTuple):
 class CapOverflow(Exception):
     """The clustering pass overflowed ``id_cap`` or ``m_cap``: the
     partitioner grows the caps and runs again (the reference detects the
-    same after the whole body; stopping here skips a wasted game)."""
+    same after the whole body; stopping here skips a wasted game).  On a
+    mesh the check reduces (next_id, m) by a max over the ranks first, so
+    every rank raises at the same point with the same values and they
+    retry together."""
 
     def __init__(self, next_id: int, m: int):
         super().__init__(f"cap overflow: next_id={next_id}, m={m}")
@@ -202,13 +212,17 @@ def resolve_game_mode(kernel: str, m_cap: int) -> str:
     return mode
 
 
-def cluster_graph_arrays(src, dst, compact, m_cap: int, effective: bool):
+def cluster_graph_arrays(src, dst, compact, m_cap: int, effective: bool,
+                         mask=None):
     """Contract the streamed graph against compacted labels: per-cluster
     intra sizes, boundary row totals and the cross-edge cluster endpoints
     (padded with the drop sentinel ``m_cap``).  Self-loop edges of
-    clustered vertices count toward their cluster's intra size."""
+    clustered vertices count toward their cluster's intra size; ``mask``
+    drops a sharded slice's pad lanes (fake self-loops)."""
     cs, cd = compact[src.long()], compact[dst.long()]
     ok = (cs >= 0) & (cd >= 0)
+    if mask is not None:
+        ok = ok & mask
     intra = ok & (cs == cd)
     cross = ok & (cs != cd)
     sent = m_cap
@@ -252,33 +266,38 @@ def _cluster(src, dst, ctx, cfg):
         split_degree_factor=cfg.split_degree_factor, id_cap=ctx.id_cap,
         kernel=ctx.cluster_mode)
     compact, m = compact_labels(clu_raw, ctx.id_cap)
-    next_id, m = (int(x) for x in torch.stack([next_id.long(),
-                                               m.long()]).tolist())
-    if next_id > ctx.id_cap - 2 or m > ctx.m_cap:
-        raise CapOverflow(next_id, m)
+    seen = torch.stack([next_id.long(), m.long()])
+    # the caps are every rank's: each decides on the largest slice
+    grown = coll.pmax(seen, ctx.axis, site="partition.caps")
+    (next_id, m), (top_id, top_m) = torch.stack([seen, grown]).tolist()
+    if top_id > ctx.id_cap - 2 or top_m > ctx.m_cap:
+        raise CapOverflow(top_id, top_m)
     return TorchCluster(compact, deg, divided, replicas, m)
 
 
 def _contract(src, dst, cstate, ctx, cfg):
     return cluster_graph_arrays(src, dst, cstate.compact, ctx.m_cap,
-                                cfg.effective_sizes)
+                                cfg.effective_sizes, mask=ctx.mask)
 
 
 def _game(gstate, ctx, cfg):
     if not cfg.game:
         return greedy_assign(gstate.sizes, cfg.k), 0
+    # λ from the local cluster graph on a mesh too (Thm 5's range is a
+    # per-id-space quantity); the loads the game plays against are global
     lam = lambda_from_totals(gstate.sizes.sum(), gstate.n_cross, cfg.k,
                              cfg.relative_weight)
     if ctx.game_mode == "scan":
         row, col, w = cluster_pairs(gstate.xs, gstate.xd, ctx.m_cap)
         return game_rounds_gs(row, col, w, gstate.sizes, gstate.row_tot,
                               cfg.k, lam, max_rounds=cfg.max_rounds,
-                              seed=cfg.seed, assign0=ctx.assign0)
+                              seed=cfg.seed, assign0=ctx.assign0,
+                              axis=ctx.axis)
     return game_rounds(gstate.xs, gstate.xd, gstate.sizes, gstate.row_tot,
                        cfg.k, lam, batch_size=cfg.batch_size,
                        max_rounds=cfg.max_rounds, seed=cfg.seed,
                        mode=ctx.game_mode, assign0=ctx.assign0,
-                       draw=ctx.draw)
+                       draw=ctx.draw, axis=ctx.axis)
 
 
 def _vertex_part(cluster_assign, cstate, ctx):
@@ -289,11 +308,15 @@ def _transform(src, dst, vp, cstate, ctx, cfg):
     # the transform walk is the other stream scan: it follows the
     # clustering's kernel choice
     return transform(src, dst, vp, cstate.deg, cstate.divided, cfg.k,
-                     cfg.tau, kernel=ctx.cluster_mode, lmax=ctx.lmax)
+                     cfg.tau, mask=ctx.mask, kernel=ctx.cluster_mode,
+                     lmax=ctx.lmax)
 
 
 def _prior(src, dst, assign, ctx, cfg):
-    return majority_vertex_map(src, dst, assign, ctx.num_vertices, cfg.k)
+    # on a mesh the (V, k) count table is summed over the ranks: the
+    # prior spans every slice (the host combine's ``restream_loop`` twin)
+    return majority_vertex_map(src, dst, assign, ctx.num_vertices, cfg.k,
+                               mask=ctx.mask, axis=ctx.axis)
 
 
 TORCH_STAGES = StageSet(cluster=_cluster, contract=_contract, game=_game,

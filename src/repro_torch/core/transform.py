@@ -4,7 +4,8 @@ Port of ``repro.core.transform``: ``transform`` (``transform_jax``) turns
 the vertex → partition prior into an edge → partition assignment under
 the balance cap L_max = τ·|E|/k, walking the stream on the T kernel
 (``kernels.transform_scan``); ``majority_vertex_map``
-(``majority_vertex_map_jax``) is the prioritized-restream prior.  Both
+(``majority_vertex_map_jax``) is the prioritized-restream prior, its count
+table summed over the ranks of a sharded run.  Both
 are bit-identical to the reference.
 
 ``transform(..., loads=, lmax=)`` is the counterpart of the host oracle
@@ -21,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from ..dist import collectives as coll
 from ..kernels.transform_scan import (transform_inputs, transform_scan,
                                       transform_scan_plain)
 
@@ -134,8 +136,12 @@ def partition_counts(src, dst, assign, num_vertices: int, k: int,
 
 
 def majority_vertex_map(src, dst, assign, num_vertices: int, k: int,
-                        mask=None):
+                        mask=None, axis=None):
     """Per vertex, the partition holding most of its edges (ties → the
-    lowest partition id, as ``jnp.argmax``)."""
-    cnt = partition_counts(src, dst, assign, num_vertices, k, mask)
+    lowest partition id, as ``jnp.argmax``).  Under a mesh ``axis`` each
+    rank counts its slice and the (V, k) tables are summed over the ranks
+    (``majority_vertex_map_jax``'s psum), so the prior is global while
+    the streams stay local."""
+    cnt = coll.psum(partition_counts(src, dst, assign, num_vertices, k,
+                                     mask), axis, site="restream.counts")
     return torch.argmax(cnt, dim=1).to(torch.int32)

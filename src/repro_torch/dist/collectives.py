@@ -1,0 +1,236 @@
+"""Named-axis collectives — the one door ``torch.distributed`` goes through.
+
+Port of ``repro.dist.collectives``.  Every ``torch.distributed`` call of
+the port is in this module: the process group's set-up and tear-down,
+the axis-wide reductions the shared stage and engine bodies call
+(``psum``, ``pmax``, ``pmin``, ``axis_index``; each the identity when
+``axis`` is None, so one body serves one device and a mesh), the two
+wire primitives of the mirror exchanges (``all_to_all`` over equal lanes
+and ``ring_hop`` to rank ± d) and the gathers to rank 0.
+
+``axis`` is a bound ``dist.mesh.Mesh`` (its process group, rank, size,
+device and transport).  On the ``gloo`` transport a CUDA tensor is
+staged to the host before the call and back after it; ``nccl`` takes
+device tensors as they are.  Float sums are made deterministic: the
+ranks' values are gathered and added in rank order, so every rank gets
+the same bits.  int32/int64 sums and extrema are exact in any order and
+go through ``all_reduce``.
+
+Each call counts, by its call site, the bytes it hands to other ranks
+(``all_to_all``: the lanes addressed to the other ranks — the self block
+stays home; ``ring_hop``: the whole payload; ``all_gather`` and a
+gathered sum: the payload once for each other rank; an ``all_reduce``:
+its payload) and its wall
+seconds; ``counts()`` reads them, ``reset_counts()`` zeroes them.  The
+counts live in the process, one set a rank.
+"""
+from __future__ import annotations
+
+import time
+from collections import Counter
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+_bytes: Counter = Counter()
+_seconds: Counter = Counter()
+_calls: Counter = Counter()
+
+
+# ------------------------------------------------------------ the group
+
+def init_group(backend: str, store_path: str, rank: int, size: int,
+               timeout_s: float) -> None:
+    """Join the default process group through a ``FileStore`` at
+    ``store_path``; every collective of the group raises after
+    ``timeout_s`` seconds instead of waiting for a lost rank forever."""
+    store = dist.FileStore(store_path, size)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=size,
+                            timeout=timedelta(seconds=timeout_s))
+
+
+def destroy_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def world() -> tuple | None:
+    """(rank, size, backend) of the initialized default group, or None."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return dist.get_rank(), dist.get_world_size(), dist.get_backend()
+
+
+def nccl_available() -> bool:
+    return dist.is_available() and dist.is_nccl_available()
+
+
+# ------------------------------------------------------------ counting
+
+def reset_counts() -> None:
+    _bytes.clear()
+    _seconds.clear()
+    _calls.clear()
+
+
+def counts() -> dict:
+    """``{site: {"bytes", "seconds", "calls"}}`` since the last reset."""
+    return {s: {"bytes": int(_bytes[s]), "seconds": float(_seconds[s]),
+                "calls": int(_calls[s])} for s in _calls}
+
+
+class _Timed:
+    """Counts one call: its bytes and its wall seconds (the device is
+    synchronized on both sides on an NCCL mesh, whose calls return
+    before the device is done)."""
+
+    def __init__(self, axis, site: str, nbytes: int):
+        self.axis, self.site, self.nbytes = axis, site, nbytes
+
+    def __enter__(self):
+        self._sync()
+        self.t = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self._sync()
+        _seconds[self.site] += time.perf_counter() - self.t
+        _bytes[self.site] += self.nbytes
+        _calls[self.site] += 1
+
+    def _sync(self):
+        if self.axis.transport == "nccl":
+            torch.cuda.synchronize(self.axis.device)
+
+
+def _host(axis, x):
+    """The tensor the transport takes: gloo stages CUDA tensors to the
+    host."""
+    x = x.contiguous()
+    if axis.transport == "gloo" and x.is_cuda:
+        return x.cpu()
+    return x
+
+
+# ----------------------------------------------------------- reductions
+
+def psum(x, axis=None, *, site: str = "psum"):
+    """Sum ``x`` across ``axis``; identity when ``axis`` is None.  int32
+    and int64 tensors go through ``all_reduce`` (exact in any order);
+    every other dtype (floats, and int16, which neither transport
+    reduces) is gathered and added in rank order, deterministic on every
+    rank."""
+    if axis is None:
+        return x
+    if x.dtype in (torch.int32, torch.int64):
+        with _Timed(axis, site, x.numel() * x.element_size()):
+            out = _host(axis, x.reshape(-1)).clone()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+        return out.to(x.device).reshape(x.shape)
+    parts = all_gather(x, axis, site=site)
+    out = parts[0]
+    for p in parts[1:]:      # in rank order: the same bits on every rank
+        out = out + p
+    return out
+
+
+def _extremum(x, axis, op, site):
+    if axis is None:
+        return x
+    with _Timed(axis, site, x.numel() * x.element_size()):
+        out = _host(axis, x.reshape(-1)).clone()
+        dist.all_reduce(out, op=op, group=axis.group)
+    return out.to(x.device).reshape(x.shape)
+
+
+def pmax(x, axis=None, *, site: str = "pmax"):
+    """Max of ``x`` across ``axis``; identity when ``axis`` is None."""
+    return _extremum(x, axis, dist.ReduceOp.MAX, site)
+
+
+def pmin(x, axis=None, *, site: str = "pmin"):
+    """Min of ``x`` across ``axis``; identity when ``axis`` is None."""
+    return _extremum(x, axis, dist.ReduceOp.MIN, site)
+
+
+def axis_index(axis) -> int:
+    """This rank's position along ``axis`` (0 when unbound)."""
+    return 0 if axis is None else axis.rank
+
+
+# --------------------------------------------------------------- wires
+
+def _as_bytes(x):
+    """(n, ...) → (n, bytes a lane) uint8 view: one transport path for
+    every dtype (bool and fp16 included)."""
+    flat = x.contiguous().reshape(x.shape[0], -1)
+    return flat.view(torch.uint8) if flat.dtype != torch.uint8 else flat
+
+
+def all_to_all(x, axis, *, site: str):
+    """Equal lanes: ``x`` (n, ...) sends ``x[q]`` to rank q; returns
+    (n, ...) with row p what rank p addressed to this rank."""
+    n = axis.size
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} != axis "
+                         f"size {n}")
+    raw = _as_bytes(x)
+    with _Timed(axis, site, raw.shape[1] * (n - 1)):
+        h = _host(axis, raw)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=axis.group)
+    return out.to(x.device).view(x.dtype).reshape(x.shape)
+
+
+def ring_hop(x, axis, d: int, *, site: str):
+    """Send ``x`` to rank (r + d) mod n and return what rank (r − d) mod n
+    sent here (the ring's hop at distance d; every rank calls it with
+    the same d and shape)."""
+    n, r = axis.size, axis.rank
+    if d % n == 0:
+        return x.clone()
+    raw = _as_bytes(x[None])
+    with _Timed(axis, site, raw.numel()):
+        h = _host(axis, raw)
+        out = torch.empty_like(h)
+        ops = [dist.P2POp(dist.isend, h, (r + d) % n, axis.group),
+               dist.P2POp(dist.irecv, out, (r - d) % n, axis.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(x.device).view(x.dtype).reshape(x.shape)
+
+
+def all_gather(x, axis, *, site: str):
+    """(n, *x.shape): every rank's ``x`` in rank order."""
+    raw = _as_bytes(x[None])
+    with _Timed(axis, site, raw.numel() * (axis.size - 1)):
+        h = _host(axis, raw)
+        parts = [torch.empty_like(h) for _ in range(axis.size)]
+        dist.all_gather(parts, h, group=axis.group)
+        out = torch.cat(parts)
+    return out.to(x.device).view(x.dtype).reshape(axis.size, *x.shape)
+
+
+def gather_to_root(x, axis, *, site: str):
+    """(n, *x.shape) on rank 0 (every rank's ``x`` in rank order), None on
+    the others."""
+    raw = _as_bytes(x[None])
+    root = axis.rank == 0
+    with _Timed(axis, site, 0 if root else raw.numel()):
+        h = _host(axis, raw)
+        parts = [torch.empty_like(h) for _ in range(axis.size)] \
+            if root else None
+        dist.gather(h, parts, dst=0, group=axis.group)
+    if not root:
+        return None
+    return torch.cat(parts).to(x.device).view(x.dtype) \
+        .reshape(axis.size, *x.shape)
+
+
+def gather_objects(obj, axis) -> list | None:
+    """Every rank's picklable ``obj`` on rank 0, in rank order; None on
+    the others."""
+    out = [None] * axis.size if axis.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=axis.group)
+    return out

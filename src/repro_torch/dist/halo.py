@@ -1,5 +1,5 @@
-"""Mirror sync of the vertex-cut engine — the stacked halves of the five
-wire formats.
+"""Mirror sync of the vertex-cut engine — the stacked and the per-rank
+halves of the five wire formats.
 
 Port of ``repro.dist.halo``: ``DenseExchange``, ``HaloExchange``,
 ``QuantizedHaloExchange``, ``RaggedHaloExchange`` and
@@ -50,15 +50,27 @@ holds, per hop s and row p (the pair (p, p+s)), the reference's with
 those arrays rolled by −s, laid hop-major in one flat vector.  The
 receiver still decodes from the wire: the codes, scales and indices the
 sender made.
+
+**Per-rank halves.**  With one partition a rank (``get_exchange(...,
+axis=mesh)``), each rank holds its own row of the tables and values, and
+the wires are real collectives (``dist.collectives``): dense an
+all-gather of the (N, L_max) slab, halo and quantized an ``all_to_all``
+of (k, N, H_max) lanes (codes and scales on the quantized wire), the
+ragged two a ``ring_hop`` a populated distance.  Received lanes combine
+in rank order (hop order on the ring), as the stacked routes order them,
+so on the CPU a rank's result equals its row of the stacked result bit
+for bit, f32 sums included.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from . import collectives as coll
 from .compress import _QMAX, _div, dequantize_rows, quantize_rows
 
 
@@ -325,6 +337,87 @@ def _hop_accumulate(acc, slots, recv, combine: str):
 DEFAULT_TOP_DELTA = 0.25
 
 
+
+# -------------------------------------------------- per-rank wire helpers
+# One rank of a mesh holds its partition's row of each table: values
+# (N, L_max), halo tables (k, H_max) (``halo_send[q]``: my mirror slots
+# whose values go to owner q; ``halo_recv[p]``: my master slots where
+# lanes from p land).  Received lanes are combined in rank order, hop
+# order on the ring, so a rank's result equals the stacked half's row
+# bit for bit wherever the arithmetic runs in one order (the CPU).
+
+def _ext_rank(values, combine: str):
+    """(N, L) → (N, L+1) with the combine's identity in the pad column."""
+    pad = torch.full((values.shape[0], 1), _pad_value(combine, values.dtype),
+                     dtype=values.dtype, device=values.device)
+    return torch.cat([values, pad], dim=1)
+
+
+def _lanes_rank(values, table, combine: str):
+    """values (N, L) → the lanes at ``table`` (k, H) as (k, N, H)."""
+    return _ext_rank(values, combine)[:, table.long()].permute(1, 0, 2) \
+        .contiguous()
+
+
+def _slot_index(slots, n: int, width: int):
+    """Slots (…, H) of one program → flat indices into an (n, width)
+    table laid out like received lanes (…, n, H)."""
+    prog = torch.arange(n, device=slots.device).view(n, 1) * width
+    return slots.long().unsqueeze(-2) + prog
+
+
+def _combine_rank(recv, slots, L: int, combine: str, fill=None):
+    """Received lanes (…, N, H) into the master slots ``slots`` (…, H)
+    → (N, L), in the lanes' order; slots no lane reaches hold the
+    identity (``fill``: a hopwise accumulator's start)."""
+    n = recv.shape[-2]
+    idx = _slot_index(slots, n, L + 1).reshape(-1)
+    if fill is None:
+        out = _segment_combine(recv.reshape(-1), idx, n * (L + 1), combine)
+    else:
+        out = _hop_accumulate(fill, idx, recv.reshape(-1), combine)
+    return out.view(n, L + 1)[:, :L]
+
+
+def _unpack_rank(new_master, recv, slots, dev):
+    """Received master values (…, N, H) into this rank's mirror slots
+    ``slots`` (…, H) (distinct for real lanes; pads hit the pad column);
+    master slots keep their value, others read 0."""
+    n, L = new_master.shape
+    out = torch.zeros(n * (L + 1), dtype=new_master.dtype,
+                      device=new_master.device)
+    out[_slot_index(slots, n, L + 1).reshape(-1)] = \
+        recv.reshape(-1).to(new_master.dtype)
+    return torch.where(dev["is_master"].reshape(1, L), new_master,
+                       out.view(n, L + 1)[:, :L])
+
+
+class _PerRank:
+    """The single-program per-rank halves as the N = 1 case of the multi
+    ones (an exchange with an ``axis``: a bound ``dist.mesh.Mesh``)."""
+
+    def init_state_rank(self, dev, dtype, combine: str = "sum"):
+        return self.init_state_rank_multi(dev, dtype, combine, 1)
+
+    def init_state_rank_multi(self, dev, dtype, combine: str, n: int):
+        return ()
+
+    def reduce_to_masters(self, partial, dev, combine: str = "sum",
+                          state=(), **kw):
+        total, state = self.reduce_to_masters_multi(partial[None], dev,
+                                                    combine, state, **kw)
+        return total[0], state
+
+    def broadcast_from_masters(self, new_master, dev, combine: str = "sum",
+                               state=()):
+        value, state = self.broadcast_from_masters_multi(
+            new_master[None], dev, combine, state)
+        return value[0], state
+
+    def rank_routes(self, dev, l_max: int) -> dict:
+        return {}
+
+
 # --------------------------------------------------------------- exchanges
 
 class _Stacked:
@@ -350,11 +443,13 @@ class _Stacked:
 
 
 @dataclass(frozen=True)
-class HaloExchange(_Stacked):
-    """Mirror-routed sync over the layout's halo tables (stacked form).
-    Reduce: mirror partials travel to their masters and combine with the
-    masters' own partials.  Broadcast: master values travel back to their
-    mirrors; master slots keep theirs."""
+class HaloExchange(_Stacked, _PerRank):
+    """Mirror-routed sync over the layout's halo tables.  Reduce: mirror
+    partials travel to their masters and combine with the masters' own
+    partials.  Broadcast: master values travel back to their mirrors;
+    master slots keep theirs.  Per rank each phase is one ``all_to_all``
+    of (k, N, H_max) lanes."""
+    axis: Any = None
     name = "halo"
 
     @staticmethod
@@ -378,17 +473,33 @@ class HaloExchange(_Stacked):
         return _unpack_multi(masters, lanes, _route(dev, "mirror", n, width),
                              dev), state
 
+    def reduce_to_masters_multi(self, partials, dev, combine: str = "sum",
+                                state=()):
+        send = _lanes_rank(partials, dev["halo_send"], combine)
+        recv = coll.all_to_all(send, self.axis, site="halo.reduce")
+        agg = _combine_rank(recv, dev["halo_recv"], partials.shape[1],
+                            combine)
+        return _merge(partials, agg, combine), state
+
+    def broadcast_from_masters_multi(self, new_masters, dev,
+                                     combine: str = "sum", state=()):
+        send = _lanes_rank(new_masters, dev["halo_recv"], combine)
+        recv = coll.all_to_all(send, self.axis, site="halo.broadcast")
+        return _unpack_rank(new_masters, recv, dev["halo_send"], dev), state
+
     def bytes_per_iter(self, layout, value_bytes: int = 4) -> int:
         return layout.comm_bytes("halo", value_bytes=value_bytes)
 
 
 @dataclass(frozen=True)
-class DenseExchange(_Stacked):
+class DenseExchange(_Stacked, _PerRank):
     """All-gather sync over ``red_index`` and ``(owner, own_slot)``
     (stacked form).  Reduce: every replica's partial, the master's own
     included, combines into its owner's slot; other slots read the
     identity.  Broadcast: every slot reads its owner's value (pad slots
-    read partition 0's slot 0, as in the reference)."""
+    read partition 0's slot 0, as in the reference).  Per rank each phase
+    is one all-gather of the (N, L_max) slab."""
+    axis: Any = None
     name = "dense"
 
     @staticmethod
@@ -416,6 +527,33 @@ class DenseExchange(_Stacked):
             dev["routes"][key] = (flat // L * n + prog) * L + flat % L
         return masters.reshape(-1)[dev["routes"][key]], state
 
+    def rank_routes(self, dev, l_max: int) -> dict:
+        """One rank's ``red_index`` row as lanes: ``dense_gathered`` the
+        live entries' flat (k·L_max) indices in the gathered slab (in
+        order), ``dense_owned`` the slot each lands in; ``dense_owned_by``
+        every slot's owner slot in the slab."""
+        red = dev["red_index"].reshape(-1)
+        j = torch.nonzero(red != l_max).reshape(-1)
+        return {"dense_gathered": j, "dense_owned": red[j].long(),
+                "dense_owned_by": (dev["owner"].long() * l_max
+                                   + dev["own_slot"].long()).reshape(-1)}
+
+    def _gather(self, values, site):
+        g = coll.all_gather(values, self.axis, site=site)   # (k, N, L)
+        return g.permute(1, 0, 2).reshape(values.shape[0], -1)
+
+    def reduce_to_masters_multi(self, partials, dev, combine: str = "sum",
+                                state=()):
+        flat = self._gather(partials, "dense.reduce")
+        lanes = flat[:, dev["dense_gathered"]]
+        return _combine_rank(lanes, dev["dense_owned"], partials.shape[1],
+                             combine), state
+
+    def broadcast_from_masters_multi(self, new_masters, dev,
+                                     combine: str = "sum", state=()):
+        flat = self._gather(new_masters, "dense.broadcast")
+        return flat[:, dev["dense_owned_by"]], state
+
     def bytes_per_iter(self, layout, value_bytes: int = 4) -> int:
         return layout.comm_bytes("dense", value_bytes=value_bytes)
 
@@ -427,7 +565,7 @@ def _lane_state(shape, device) -> dict:
 
 
 @dataclass(frozen=True)
-class QuantizedHaloExchange:
+class QuantizedHaloExchange(_PerRank):
     """Halo routing with a delta-coded payload and error feedback: per
     phase (k, k, H_max) int8 codes and one f32 scale a (pair) lane row; the
     fused form int4 codes two to a byte and 8 fp16 scales a (pair,
@@ -435,7 +573,11 @@ class QuantizedHaloExchange:
     ``rref`` advance by the same dequantized step, and ``sres`` carries
     the quantization error, so a converging fixed point (pagerank) lands
     on the exact one.  Min-combine and integer payloads are exact already
-    and ride the plain halo wire (``init_state`` returns ``()``)."""
+    and ride the plain halo wire (``init_state`` returns ``()``).  Per
+    rank the state holds the lanes this rank sends (``sref``, ``sres``,
+    (k, [N,] H) by destination) and receives (``rref``, by source): the
+    stacked state's row and column of the rank."""
+    axis: Any = None
     name = "quantized"
     _exact = HaloExchange()
 
@@ -518,6 +660,89 @@ class QuantizedHaloExchange:
                                                        combine, state)
         return self._broadcast(masters, dev, combine, state, True)
 
+    # -- per-rank halves: the codes and scales ride two all_to_alls --
+    @property
+    def _exact_rank(self) -> HaloExchange:
+        return HaloExchange(axis=self.axis)
+
+    def init_state_rank(self, dev, dtype, combine: str = "sum"):
+        if not lossy_payload(combine, dtype):
+            return ()
+        return _lane_state(dev["halo_send"].shape, dev["halo_send"].device)
+
+    def init_state_rank_multi(self, dev, dtype, combine: str, n: int):
+        if not lossy_payload(combine, dtype):
+            return ()
+        k, h = dev["halo_send"].shape
+        return _lane_state((k, n, h), dev["halo_send"].device)
+
+    def _rank_phase(self, values, table, st, site, fused: bool):
+        """One lossy phase of a rank: (the received lanes (k, N, H) on the
+        receiver's reference, the new state)."""
+        lanes = _lanes_rank(values, table, "sum")
+        if fused:
+            sref, sres, codes, scales = _ef_encode_fused(lanes, st["sref"],
+                                                         st["sres"])
+        else:
+            sref, sres, codes, scales = _ef_encode(lanes[:, 0], st["sref"],
+                                                   st["sres"])
+        rcodes = coll.all_to_all(codes, self.axis, site=site)
+        rscales = coll.all_to_all(scales, self.axis, site=site)
+        if fused:
+            rref = st["rref"] + _ef_decode_fused(rcodes, rscales,
+                                                 lanes.shape[-1])
+            lanes_in = rref
+        else:
+            rref = st["rref"] + dequantize_rows(rcodes, rscales)
+            lanes_in = rref[:, None]
+        return lanes_in, {"sref": sref, "sres": sres, "rref": rref}
+
+    def _rank_reduce(self, partials, dev, combine, state, fused):
+        rref, st = self._rank_phase(partials, dev["halo_send"],
+                                    state["reduce"], "quantized.reduce",
+                                    fused)
+        agg = _combine_rank(rref, dev["halo_recv"], partials.shape[1],
+                            combine)
+        return _merge(partials, agg, combine), {**state, "reduce": st}
+
+    def _rank_broadcast(self, masters, dev, combine, state, fused):
+        rref, st = self._rank_phase(masters, dev["halo_recv"],
+                                    state["bcast"], "quantized.broadcast",
+                                    fused)
+        return _unpack_rank(masters, rref, dev["halo_send"], dev), \
+            {**state, "bcast": st}
+
+    def reduce_to_masters(self, partial, dev, combine: str = "sum",
+                          state=()):
+        if not state:
+            return self._exact_rank.reduce_to_masters(partial, dev, combine)
+        total, state = self._rank_reduce(partial[None], dev, combine, state,
+                                         False)
+        return total[0], state
+
+    def broadcast_from_masters(self, new_master, dev, combine: str = "sum",
+                               state=()):
+        if not state:
+            return self._exact_rank.broadcast_from_masters(new_master, dev,
+                                                           combine)
+        value, state = self._rank_broadcast(new_master[None], dev, combine,
+                                            state, False)
+        return value[0], state
+
+    def reduce_to_masters_multi(self, partials, dev, combine: str = "sum",
+                                state=()):
+        if not state:
+            return self._exact_rank.reduce_to_masters_multi(partials, dev,
+                                                            combine)
+        return self._rank_reduce(partials, dev, combine, state, True)
+
+    def broadcast_from_masters_multi(self, new_masters, dev,
+                                     combine: str = "sum", state=()):
+        if not state:
+            return self._exact_rank.broadcast_from_masters_multi(
+                new_masters, dev, combine)
+        return self._rank_broadcast(new_masters, dev, combine, state, True)
+
     def bytes_per_iter(self, layout, value_bytes: int = 4,
                        combine: str = "sum", dtype=torch.float32) -> int:
         return layout.comm_bytes("quantized",
@@ -531,7 +756,7 @@ def _hops(schedule):
 
 
 @dataclass(frozen=True)
-class RaggedHaloExchange(_Stacked):
+class RaggedHaloExchange(_Stacked, _PerRank):
     """Mirror-routed sync over the k−1 ring hops of ``schedule`` (the
     layout's ``halo_schedule()``).  On one device every hop lands at
     once, so the real lanes of all hops form one route a phase
@@ -539,8 +764,10 @@ class RaggedHaloExchange(_Stacked):
     accumulator that starts from the reference's hop fill, in hop order
     per slot as the hop loop does — the reduce the overlapped GAS body
     (``engine._gas_body(overlap=True)``) runs; it equals the deferred
-    reduce bit for bit."""
+    reduce bit for bit.  Per rank hop s is one ``ring_hop`` of (N, H_s)
+    lanes to rank r + s (reduce) or r − s (broadcast)."""
     schedule: tuple = ()
+    axis: Any = None
     name = "ragged"
 
     @property
@@ -574,12 +801,52 @@ class RaggedHaloExchange(_Stacked):
                              _route(dev, "ring_mirror", n, width),
                              dev), state
 
+    def _rank_rows(self, dev, s: int, h: int):
+        """Hop s's rows of this rank: the mirror slots it sends to r + s
+        and the master slots that r − s's lanes land in."""
+        k, me = self.k, self.axis.rank
+        return (dev["halo_send"][(me + s) % k, :h],
+                dev["halo_recv"][(me - s) % k, :h])
+
+    def reduce_to_masters_multi(self, partials, dev, combine: str = "sum",
+                                state=(), *, hopwise: bool = False):
+        n, L = partials.shape
+        ext = _ext_rank(partials, combine)
+        recvs, slots = [], []
+        for s, h in _hops(self.schedule):
+            send_rows, recv_rows = self._rank_rows(dev, s, h)
+            recvs.append(coll.ring_hop(ext[:, send_rows.long()], self.axis,
+                                       s, site="ragged.reduce"))
+            slots.append(recv_rows)
+        if not recvs:
+            return partials, state
+        fill = _acc_init((n * (L + 1),), partials.dtype, combine,
+                         partials.device) if hopwise else None
+        agg = _combine_rank(torch.cat(recvs, dim=1), torch.cat(slots), L,
+                            combine, fill)
+        return _merge(partials, agg, combine), state
+
+    def broadcast_from_masters_multi(self, new_masters, dev,
+                                     combine: str = "sum", state=()):
+        ext = _ext_rank(new_masters, combine)
+        recvs, slots = [], []
+        for s, h in _hops(self.schedule):
+            send_rows, recv_rows = self._rank_rows(dev, s, h)
+            # the reverse route of reduce hop s: owner r ships to r − s
+            recvs.append(coll.ring_hop(ext[:, recv_rows.long()], self.axis,
+                                       -s, site="ragged.broadcast"))
+            slots.append(send_rows)
+        if not recvs:
+            return new_masters, state
+        return _unpack_rank(new_masters, torch.cat(recvs, dim=1),
+                            torch.cat(slots), dev), state
+
     def bytes_per_iter(self, layout, value_bytes: int = 4) -> int:
         return layout.comm_bytes("ragged", value_bytes=value_bytes)
 
 
 @dataclass(frozen=True)
-class RaggedQuantizedHaloExchange(_Stacked):
+class RaggedQuantizedHaloExchange(_Stacked, _PerRank):
     """Ragged ring routing with a top-Δ error-feedback payload: per hop
     only the T_s = ⌈top_delta·H_s⌉ largest-|Δ| lanes of each row ship, as
     int16 lane indices, int8 codes and one f32 scale.  References advance
@@ -595,9 +862,16 @@ class RaggedQuantizedHaloExchange(_Stacked):
     reference's hop loop.  One stable sort by (segment, −|Δ|) ranks every
     row at once — ties to the lower lane, as ``jax.lax.top_k`` sends them
     — and each segment's first T_s entries are its wire.  The state holds
-    ``sref`` and ``rref`` as such flat f32 vectors."""
+    ``sref`` and ``rref`` as such flat f32 vectors.
+
+    Per rank each hop encodes its (N, H_s) rows on their own (the same
+    stable ranking, row by row) and ships indices, codes and scales with
+    three ``ring_hop`` calls; the state holds, per hop, the (N, H_s)
+    ``sref`` of the lanes this rank sends and ``rref`` of those it
+    receives."""
     schedule: tuple = ()
     top_delta: float = DEFAULT_TOP_DELTA
+    axis: Any = None
     name = "ragged_quantized"
 
     @property
@@ -739,6 +1013,90 @@ class RaggedQuantizedHaloExchange(_Stacked):
         return _unpack_multi(masters, rref, seg["mirror"], dev), \
             {**state, "bcast": st}
 
+    # -- per-rank halves --
+    @property
+    def _exact_rank(self) -> RaggedHaloExchange:
+        return RaggedHaloExchange(schedule=self.schedule, axis=self.axis)
+
+    def init_state_rank_multi(self, dev, dtype, combine: str, n: int):
+        if not lossy_payload(combine, dtype):
+            return ()
+        device = dev["halo_send"].device
+
+        def lanes():
+            return tuple({"sref": torch.zeros(n, h, device=device),
+                          "rref": torch.zeros(n, h, device=device)}
+                         for _, h in _hops(self.schedule))
+
+        return {"reduce": lanes(), "bcast": lanes()}
+
+    def _rank_hop(self, lanes, st, h: int, d: int, site: str):
+        """One hop of a rank: the top-T_s step of its (N, h) rows, the
+        wire over the ring to r + d, decoded onto the receiver's
+        reference.  Returns (rref, the hop's new state)."""
+        err = lanes - st["sref"]
+        bits = torch.abs(err).view(torch.int32).to(torch.int64)
+        order = torch.argsort((1 << 31) - 1 - bits, dim=-1, stable=True)
+        sel = order[:, :self._top(h)]
+        vals = torch.gather(err, 1, sel)
+        amax = torch.amax(torch.abs(vals), dim=-1)
+        scales = torch.where(amax > 0, _div(amax, _QMAX), 1.0)
+        s = scales[:, None]
+        codes = torch.clamp(torch.round(vals / s), -_QMAX, _QMAX) \
+            .to(torch.int8)
+        sref = st["sref"] + _scatter_last(sel, codes.to(torch.float32) * s, h)
+        ridx, rcodes, rscales = (
+            coll.ring_hop(w, self.axis, d, site=site)
+            for w in (sel.to(torch.int16), codes, scales))
+        rref = st["rref"] + _scatter_last(
+            ridx.long(), rcodes.to(torch.float32) * rscales[:, None], h)
+        return rref, {"sref": sref, "rref": rref}
+
+    def reduce_to_masters_multi(self, partials, dev, combine: str = "sum",
+                                state=(), *, hopwise: bool = False):
+        if not state:
+            return self._exact_rank.reduce_to_masters_multi(
+                partials, dev, combine, hopwise=hopwise)
+        n, L = partials.shape
+        ext = _ext_rank(partials, combine)
+        rrefs, slots, new_st = [], [], []
+        for (s, h), st in zip(_hops(self.schedule), state["reduce"]):
+            send_rows, recv_rows = self._exact_rank._rank_rows(dev, s, h)
+            rref, st = self._rank_hop(ext[:, send_rows.long()], st, h, s,
+                                      "ragged_quantized.reduce")
+            rrefs.append(rref)
+            slots.append(recv_rows)
+            new_st.append(st)
+        if not rrefs:
+            return partials, state
+        recv = torch.cat(rrefs, dim=1)
+        fill = _acc_init((n * (L + 1),), partials.dtype, combine,
+                         partials.device) if hopwise else None
+        agg = _combine_rank(recv.to(partials.dtype) if hopwise else recv,
+                            torch.cat(slots), L, combine, fill)
+        return _merge(partials, agg, combine), \
+            {**state, "reduce": tuple(new_st)}
+
+    def broadcast_from_masters_multi(self, new_masters, dev,
+                                     combine: str = "sum", state=()):
+        if not state:
+            return self._exact_rank.broadcast_from_masters_multi(
+                new_masters, dev, combine)
+        ext = _ext_rank(new_masters, combine)
+        rrefs, slots, new_st = [], [], []
+        for (s, h), st in zip(_hops(self.schedule), state["bcast"]):
+            send_rows, recv_rows = self._exact_rank._rank_rows(dev, s, h)
+            rref, st = self._rank_hop(ext[:, recv_rows.long()], st, h, -s,
+                                      "ragged_quantized.broadcast")
+            rrefs.append(rref)
+            slots.append(send_rows)
+            new_st.append(st)
+        if not rrefs:
+            return new_masters, state
+        return _unpack_rank(new_masters, torch.cat(rrefs, dim=1),
+                            torch.cat(slots), dev), \
+            {**state, "bcast": tuple(new_st)}
+
     def bytes_per_iter(self, layout, value_bytes: int = 4,
                        combine: str = "sum", dtype=torch.float32) -> int:
         return layout.comm_bytes("ragged_quantized",
@@ -761,17 +1119,15 @@ def get_exchange(name: str, layout=None, *, axis: str | None = None,
     """Exchange registry: ``name`` ∈ ``EXCHANGE_NAMES``.  The ragged wire
     formats need ``layout`` for their per-distance lane schedule
     (``layout.halo_schedule()``); ``top_delta`` tunes the ragged-quantized
-    sparsification.  The port runs the stacked halves only, so a mesh
-    ``axis`` raises."""
+    sparsification.  ``axis`` (a bound ``dist.mesh.Mesh``, one
+    partition a rank) is what the per-rank halves
+    (``init_state_rank[_multi]``, ``reduce_to_masters[_multi]``,
+    ``broadcast_from_masters[_multi]``) go over; the stacked halves
+    ignore it."""
     if name not in EXCHANGES:
         raise ValueError(
             f"unknown exchange {name!r}; expected one of "
             f"{sorted(EXCHANGE_NAMES)}")
-    if axis is not None:
-        raise ValueError(
-            "axis= (the per-device halves) is not ported yet (ROADMAP, "
-            "Queue 1: the sharded partitioner and the multi-GPU engine); "
-            "the port runs the stacked halves on one device")
     if name in RAGGED_EXCHANGES:
         if layout is None:
             raise ValueError(
@@ -779,8 +1135,9 @@ def get_exchange(name: str, layout=None, *, axis: str | None = None,
                 "per-distance lane schedule (layout.halo_schedule())")
         schedule = tuple(int(h) for h in layout.halo_schedule())
         if name == "ragged":
-            return RaggedHaloExchange(schedule=schedule)
+            return RaggedHaloExchange(schedule=schedule, axis=axis)
         return RaggedQuantizedHaloExchange(
             schedule=schedule,
-            top_delta=DEFAULT_TOP_DELTA if top_delta is None else top_delta)
-    return EXCHANGES[name]()
+            top_delta=DEFAULT_TOP_DELTA if top_delta is None else top_delta,
+            axis=axis)
+    return EXCHANGES[name](axis=axis)

@@ -1,11 +1,16 @@
-"""Vertex-cut GAS engine (PowerGraph semantics), stacked on one device.
+"""Vertex-cut GAS engine (PowerGraph semantics): stacked on one device,
+or one partition per rank.
 
-Port of ``repro.graph.engine``'s stacked drivers and its program library:
-the k partitions are a leading axis of every table (the reference's
-``vmap`` written out), and each iteration is local gather → mirror
-partials reduced to masters → apply → master values broadcast to mirrors,
-the two sync phases going through the exchange (``repro_torch.dist.halo``:
-any of its five wire formats).
+Port of ``repro.graph.engine``'s drivers and its program library.  In the
+stacked drivers (``simulate_*``) the k partitions are a leading axis of
+every table (the reference's ``vmap`` written out); in the per-rank
+drivers (``shard_map_*``, the reference's shard_map path) each rank of a
+``dist.mesh`` graph mesh holds one partition's row of every table and
+runs the same program callables on it.  Each iteration is local gather →
+mirror partials reduced to masters → apply → master values broadcast to
+mirrors, the two sync phases going through the exchange
+(``repro_torch.dist.halo``: any of its five wire formats, its stacked or
+its per-rank halves).
 
 The library spans the exchange's wire cells: (sum, f32) pagerank, ppr and
 centrality; (min, i32) cc, labelprop, sssp and bfs; (sum, i32) degree.
@@ -25,9 +30,19 @@ atomics on the card vary the order from run to run, so the f32 programs
 are held to a tolerance; the min and integer-sum gathers (``scatter_reduce_``
 "amin" from the int32 sentinel, ``index_add_``) are exact in any order,
 so those programs match the reference bit for bit.
+
+The programs' global scalars (pagerank's dangling mass, centrality's L1
+norm) are one reduction over the (k,) vector of per-partition sums: the
+stacked run reduces its own, a rank reduces the vector gathered from the
+ranks.  So on the CPU a per-rank run equals the stacked run bit for bit:
+the local gathers
+keep their order (a rank's K3 table takes the layout's row width) and
+the exchanges combine received lanes in rank order.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -35,8 +50,11 @@ import numpy as np
 import torch
 
 from ..core.partitioner import resolve_device
+from ..dist import collectives as coll
 from ..dist.halo import RAGGED_EXCHANGES, _segment_combine, get_exchange
-from ..kernels.ell_spmv import row_split_ell
+from ..kernels import _build
+from ..kernels.ell_spmv import choose_width, row_split_ell
+from ..dist.mesh import Mesh, as_axis, run_on_ranks
 from .partition import PartitionLayout
 
 DAMPING = 0.85
@@ -55,11 +73,15 @@ class GASProgram:
       local(value, dev)       -> gather partials over each partition's edges
       apply(total, aux, dev)  -> new master-slot values (others get the
                                  combine's identity / the sentinel)
-      aux(value, dev)         -> optional global scalar (pagerank's
-                                 dangling mass) reduced before ``apply``
+      aux(value, dev)         -> optional per-partition (k,) sums of a
+                                 global scalar (pagerank's dangling
+                                 mass), added in partition order before
+                                 ``apply``
 
     ``combine`` ("sum" | "min") and ``dtype`` (a torch dtype) fix how
-    partials combine across partitions."""
+    partials combine across partitions.  ``spec`` names a library
+    program's factory and its arguments: such a program pickles as its
+    spec (the per-rank drivers send programs to spawned ranks)."""
     name: str
     combine: str
     dtype: torch.dtype
@@ -67,6 +89,13 @@ class GASProgram:
     local: Callable
     apply: Callable
     aux: Callable | None = None
+    spec: tuple = dataclasses.field(default=(), compare=False)
+
+    def __reduce__(self):
+        if self.spec:
+            return _program_from_spec, self.spec
+        return GASProgram, tuple(getattr(self, f.name)
+                                 for f in dataclasses.fields(self))
 
 
 # ------------------------------------------------------- per-slot helpers
@@ -113,9 +142,10 @@ def _local_rank_partial(rank, dev):
 
 
 def _local_dangle(rank, dev):
-    """Rank mass sitting on dangling masters (out_deg == 0)."""
+    """Rank mass sitting on dangling masters (out_deg == 0), per
+    partition."""
     m = _masters(dev) & (dev["out_deg"] == 0)
-    return torch.sum(torch.where(m, rank, 0.0))
+    return torch.sum(torch.where(m, rank, 0.0), dim=-1)
 
 
 def _pagerank_apply(total_in, dangle, dev, num_vertices):
@@ -135,7 +165,7 @@ def pagerank_program(num_vertices: int) -> GASProgram:
 
     return GASProgram(name="pagerank", combine="sum", dtype=torch.float32,
                       init=init, local=_local_rank_partial, apply=apply,
-                      aux=_local_dangle)
+                      aux=_local_dangle, spec=("pagerank", num_vertices))
 
 
 def default_num_seeds(num_vertices: int) -> int:
@@ -162,7 +192,7 @@ def ppr_program(num_vertices: int, num_seeds: int | None = None
 
     return GASProgram(name="ppr", combine="sum", dtype=torch.float32,
                       init=init, local=_local_rank_partial, apply=apply,
-                      aux=_local_dangle)
+                      aux=_local_dangle, spec=("ppr", num_vertices, ns))
 
 
 # ------------------------------------------------------------- centrality
@@ -173,8 +203,8 @@ def _cent_local(value, dev):
 
 
 def _cent_aux(value, dev):
-    """Global L1 mass of the current iterate (masters only)."""
-    return torch.sum(torch.where(_masters(dev), value, 0.0))
+    """L1 mass of the current iterate (masters only), per partition."""
+    return torch.sum(torch.where(_masters(dev), value, 0.0), dim=-1)
 
 
 def centrality_program(num_vertices: int) -> GASProgram:
@@ -192,7 +222,7 @@ def centrality_program(num_vertices: int) -> GASProgram:
 
     return GASProgram(name="centrality", combine="sum", dtype=torch.float32,
                       init=init, local=_cent_local, apply=apply,
-                      aux=_cent_aux)
+                      aux=_cent_aux, spec=("centrality", num_vertices))
 
 
 # --------------------------------------------------------- cc, labelprop
@@ -217,7 +247,8 @@ def _cc_apply(total, aux, dev):
 
 # connected components by min-label contagion (min, i32)
 CC_PROGRAM = GASProgram(name="cc", combine="min", dtype=torch.int32,
-                        init=_cc_init, local=_cc_local_min, apply=_cc_apply)
+                        init=_cc_init, local=_cc_local_min, apply=_cc_apply,
+                        spec=("cc",))
 
 
 def labelprop_program(num_vertices: int, num_seeds: int | None = None
@@ -243,7 +274,8 @@ def labelprop_program(num_vertices: int, num_seeds: int | None = None
         return torch.where(_masters(dev), clamped, CC_SENTINEL)
 
     return GASProgram(name="labelprop", combine="min", dtype=torch.int32,
-                      init=init, local=local, apply=apply)
+                      init=init, local=local, apply=apply,
+                      spec=("labelprop", num_vertices, ns))
 
 
 # -------------------------------------------------------------- sssp, bfs
@@ -276,6 +308,7 @@ def _relax_local(dist, dev, weight_fn):
 
 
 def _distance_program(name: str, source: int, weight_fn) -> GASProgram:
+    """sssp / bfs from ``source`` under ``weight_fn``."""
     def init(dev):
         at_src = dev["vert_mask"] & (dev["vert_gid"] == source)
         return torch.where(at_src, 0, CC_SENTINEL).to(torch.int32)
@@ -288,7 +321,8 @@ def _distance_program(name: str, source: int, weight_fn) -> GASProgram:
         return torch.where(_masters(dev), clamped, CC_SENTINEL)
 
     return GASProgram(name=name, combine="min", dtype=torch.int32,
-                      init=init, local=local, apply=apply)
+                      init=init, local=local, apply=apply,
+                      spec=(name, source))
 
 
 def sssp_program(source: int = DEFAULT_SOURCE) -> GASProgram:
@@ -318,7 +352,8 @@ DEGREE_PROGRAM = GASProgram(
     name="degree", combine="sum", dtype=torch.int32,
     init=lambda dev: torch.zeros_like(dev["vert_gid"]),
     local=_degree_local,
-    apply=lambda total, aux, dev: torch.where(_masters(dev), total, 0))
+    apply=lambda total, aux, dev: torch.where(_masters(dev), total, 0),
+    spec=("degree",))
 
 
 PROGRAM_NAMES = ("pagerank", "cc", "labelprop", "sssp", "bfs", "degree",
@@ -340,6 +375,15 @@ def get_program(name: str, num_vertices: int) -> GASProgram:
         raise ValueError(f"unknown program {name!r}; expected one of "
                          f"{PROGRAM_NAMES}")
     return factories[name]()
+
+
+def _program_from_spec(name: str, *args) -> GASProgram:
+    """A library program from its ``spec`` (what it pickles as)."""
+    return {"pagerank": pagerank_program, "ppr": ppr_program,
+            "centrality": centrality_program,
+            "labelprop": labelprop_program, "sssp": sssp_program,
+            "bfs": bfs_program, "cc": lambda: CC_PROGRAM,
+            "degree": lambda: DEGREE_PROGRAM}[name](*args)
 
 
 # ------------------------------------------------------------ device tables
@@ -367,8 +411,21 @@ def _edge_tables(layout: PartitionLayout, device) -> dict:
     dev["ell"] = row_split_ell(e_dst, e_src, np.ones(e_src.shape[0],
                                                      np.float32),
                                layout.k * stride, pad_col=layout.l_max,
-                               device=device)
+                               device=device, width=ell_width(layout))
     return dev
+
+
+def ell_width(layout: PartitionLayout) -> int:
+    """K3's row width for the layout: chosen once from every partition's
+    in-degrees, shared by the stacked table and each rank's share."""
+    w = layout.cache.get("ell_width")
+    if w is None:
+        stride = layout.l_max + 1
+        row = np.arange(layout.k, dtype=np.int64)[:, None] * stride
+        dst = (layout.edge_dst + row)[layout.edge_mask]
+        w = layout.cache["ell_width"] = choose_width(
+            np.bincount(dst, minlength=layout.k * stride))
+    return w
 
 
 def stack_dev(layout: PartitionLayout, exchange: str, device) -> dict:
@@ -416,7 +473,7 @@ def _gas_body(program: GASProgram, ex, dev, overlap: bool = False):
     slot's total is its partial (the accumulator holds the identity
     there), so the values equal the phase-ordered body's."""
     def body(value, state):
-        aux = program.aux(value, dev) if program.aux is not None else None
+        aux = _stacked_aux(program, value, dev)
         partial = program.local(value, dev)
         if overlap:
             total, state = ex.reduce_stacked(partial, dev, program.combine,
@@ -432,6 +489,14 @@ def _gas_body(program: GASProgram, ex, dev, overlap: bool = False):
     return body
 
 
+def _stacked_aux(program: GASProgram, value, dev):
+    """The program's global scalar: one sum over its (k,) per-partition
+    sums (None without an aux)."""
+    if program.aux is None:
+        return None
+    return program.aux(value, dev).sum()
+
+
 def _residual(new, old, mask):
     """Masked max-norm residual between iterates, as f32.  Integer
     programs difference as max − min, exact in the native dtype (values
@@ -444,17 +509,21 @@ def _residual(new, old, mask):
     return torch.max(torch.where(mask, d, 0)).to(torch.float32)
 
 
-def _converge_loop(body, value, state, iters: int, tol: float, mask):
+def _converge_loop(body, value, state, iters: int, tol: float, mask,
+                   axis=None):
     """The GAS loop with early exit: ``iters`` is a cap and the loop ends
     once the masked master residual drops to ``tol``.  Returns (value,
     iters_run).  The residual is read back to the host once an iteration
     (one device-to-host copy that waits for the iteration) — the
-    reference's ``while_loop`` tests it on the device."""
+    reference's ``while_loop`` tests it on the device.  Under a mesh
+    ``axis`` it is max-reduced over the ranks first, so every rank leaves
+    on the same iteration."""
     tol32 = float(np.float32(tol))      # the reference compares in f32
     i, res = 0, float("inf")
     while i < iters and res > tol32:
         new, state = body(value, state)
-        res = float(_residual(new, value, mask))
+        res = float(coll.pmax(_residual(new, value, mask), axis,
+                              site="gas.residual"))
         value, i = new, i + 1
     return value, i
 
@@ -480,12 +549,12 @@ def _warm_tables(dev, dtype, init_values):
     return torch.where(known, vals[gid.long().clamp(0, n - 1)], 0), known
 
 
-def _run_loop(body, value, state, iters: int, tol, mask):
+def _run_loop(body, value, state, iters: int, tol, mask, axis=None):
     if tol is None:
         for _ in range(iters):
             value, state = body(value, state)
         return value, iters
-    return _converge_loop(body, value, state, iters, tol, mask)
+    return _converge_loop(body, value, state, iters, tol, mask, axis)
 
 
 def _sim_gas(program: GASProgram, dev, iters: int, ex, tol=None,
@@ -501,8 +570,10 @@ def _sim_gas(program: GASProgram, dev, iters: int, ex, tol=None,
 
 
 def collect_master_values(layout: PartitionLayout, stacked) -> np.ndarray:
-    """(k, L_max) per-partition values → dense (V,) from master slots."""
-    vals = stacked.cpu().numpy()
+    """(k, L_max) per-partition values (a tensor or numpy) → dense (V,)
+    from master slots."""
+    vals = stacked.cpu().numpy() if isinstance(stacked, torch.Tensor) \
+        else np.asarray(stacked)
     out = np.zeros(layout.num_vertices, dtype=vals.dtype)
     sel = layout.is_master & layout.vert_mask
     out[layout.vert_gid[sel]] = vals[sel]
@@ -601,7 +672,7 @@ def _gas_body_multi(fused: FusedGAS, ex, dev, overlap: bool = False):
                             for i, p in enumerate(programs)], dim=1)
 
     def body(value, state):
-        auxes = [p.aux(value[:, i], dev) if p.aux is not None else None
+        auxes = [_stacked_aux(p, value[:, i], dev)
                  for i, p in enumerate(programs)]
         partials = torch.stack([p.local(value[:, i], dev)
                                 for i, p in enumerate(programs)], dim=1)
@@ -662,6 +733,276 @@ def simulate_gas_many(programs, layout: PartitionLayout, iters: int = 30,
     dense = [collect_master_values(layout, value[:, i])
              for i in range(len(fused.programs))]
     return (dense, iters_run) if return_iters else dense
+
+
+# ------------------------------------------------------- per-rank drivers
+# One partition a rank of a graph mesh (the reference's shard_map path):
+# each rank holds its row of every table as a (1, …) stack, so the
+# program callables run unchanged, and its exchange halves go over the
+# mesh (``dist.halo``'s per-rank halves, ``dist.collectives``).
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_tables(layout: PartitionLayout, exchange: str, r: int) -> dict:
+    """Partition r's share of the layout (numpy): its rows of the common
+    tables and of the exchange's, its real edges as slot indices and
+    global ids, and the layout-wide K3 width."""
+    L = layout.l_max
+    t = {name: getattr(layout, name)[r:r + 1]
+         for name in PartitionLayout.COMMON_TABLES}
+    for name in PartitionLayout.EXCHANGE_TABLES[exchange]:
+        a = getattr(layout, name)
+        t[name] = a[r:r + 1] if name == "frontier" else a[r]
+    em = layout.edge_mask[r]
+    gid = np.concatenate([layout.vert_gid[r], [-1]]).astype(np.int32)
+    for end in ("src", "dst"):
+        idx = getattr(layout, f"edge_{end}")[r][em].astype(np.int64)
+        t[f"e_{end}"], t[f"e_g{end}"] = idx, gid[idx]
+    t["meta"] = {"k": layout.k, "l_max": L, "ell_width": ell_width(layout)}
+    return t
+
+
+def _rank_dev(tables: dict, ex, device) -> dict:
+    """A rank's device tables from ``_rank_tables``: the (1, …) rows, the
+    edge indices, K3's table over its edges and the exchange's routes."""
+    meta = tables["meta"]
+    L = meta["l_max"]
+    dev = {name: _tensor(a, device) for name, a in tables.items()
+           if name != "meta"}
+    dev["ell"] = row_split_ell(tables["e_dst"], tables["e_src"],
+                               np.ones(tables["e_src"].shape[0], np.float32),
+                               L + 1, pad_col=L, device=device,
+                               width=meta["ell_width"])
+    dev.update(ex.rank_routes(dev, L))
+    return dev
+
+
+def _rank_aux(program: GASProgram, value, dev, axis):
+    """The global scalar over the ranks: one sum over the (k,) vector of
+    the ranks' partition sums (the stacked ``_stacked_aux`` bit for
+    bit)."""
+    if program.aux is None:
+        return None
+    return coll.all_gather(program.aux(value, dev).reshape(()), axis,
+                           site="gas.aux").sum()
+
+
+def _rank_body(program: GASProgram, ex, dev, overlap: bool):
+    """One GAS iteration of a rank over (value (1, L_max), state):
+    ``_gas_body`` with the exchange's per-rank halves."""
+    def body(value, state):
+        aux = _rank_aux(program, value, dev, ex.axis)
+        partial = program.local(value, dev)
+        if overlap:
+            total, state = ex.reduce_to_masters(
+                partial[0], dev, program.combine, state, hopwise=True)
+            new_master = torch.where(dev["frontier"],
+                                     program.apply(total[None], aux, dev),
+                                     program.apply(partial, aux, dev))
+        else:
+            total, state = ex.reduce_to_masters(partial[0], dev,
+                                                program.combine, state)
+            new_master = program.apply(total[None], aux, dev)
+        value, state = ex.broadcast_from_masters(new_master[0], dev,
+                                                 program.combine, state)
+        return value[None], state
+    return body
+
+
+def _rank_body_multi(fused: FusedGAS, ex, dev, overlap: bool):
+    """One fused GAS iteration of a rank over (values (1, N, L_max),
+    state): ``_gas_body_multi`` with the per-rank ``*_multi`` halves."""
+    programs = fused.programs
+
+    def apply_all(total, auxes):
+        return torch.stack([p.apply(total[:, i], auxes[i], dev)
+                            for i, p in enumerate(programs)], dim=1)
+
+    def body(value, state):
+        auxes = [_rank_aux(p, value[:, i], dev, ex.axis)
+                 for i, p in enumerate(programs)]
+        partials = torch.stack([p.local(value[:, i], dev)
+                                for i, p in enumerate(programs)], dim=1)
+        if overlap:
+            total, state = ex.reduce_to_masters_multi(
+                partials[0], dev, fused.combine, state, hopwise=True)
+            new_master = torch.where(dev["frontier"][:, None, :],
+                                     apply_all(total[None], auxes),
+                                     apply_all(partials, auxes))
+        else:
+            total, state = ex.reduce_to_masters_multi(
+                partials[0], dev, fused.combine, state)
+            new_master = apply_all(total[None], auxes)
+        value, state = ex.broadcast_from_masters_multi(
+            new_master[0], dev, fused.combine, state)
+        return value[None], state
+    return body
+
+
+def _gas_rank(mesh, programs, ex, iters, tol, overlap, init_values,
+              tables):
+    """A spawned rank's run: its share of the tables on its device, then
+    ``_gas_loop``."""
+    ex = dataclasses.replace(ex, axis=mesh)
+    return _gas_loop(mesh, programs, ex, iters, tol, overlap, init_values,
+                     _rank_dev(tables, ex, mesh.device))
+
+
+def _cached_rank_dev(layout: PartitionLayout, exchange: str, ex, mesh):
+    """A bound rank's device tables for ``exchange``, built once per
+    layout, device and rank and kept in ``layout.cache`` (as
+    ``stack_dev`` keeps the stacked ones)."""
+    key = ("rank", str(mesh.device), exchange, mesh.rank)
+    dev = layout.cache.get(key)
+    if dev is None:
+        dev = layout.cache[key] = _rank_dev(
+            _rank_tables(layout, exchange, mesh.rank), ex, mesh.device)
+    return dev
+
+
+def _gas_loop(mesh, programs, ex, iters, tol, overlap, init_values, dev):
+    """One rank's loop on its device tables, the values gathered on rank
+    0.  ``programs`` is a GASProgram or a FusedGAS.  Returns, on rank 0,
+    (every rank's values (k, [N,] L_max) as numpy, iterations run, every
+    rank's report); None on the others.  A report holds the loop's
+    collective counts (``dist.collectives.counts``), its kernel launches
+    and its wall seconds (the device synchronized)."""
+    coll.reset_counts()
+    _build.reset_launch_counts()
+    _sync(mesh.device)
+    t = time.perf_counter()
+    fused = isinstance(programs, FusedGAS)
+    mask = _masters(dev)
+    if fused:
+        value = torch.stack([p.init(dev) for p in programs.programs], dim=1)
+        warm = None if init_values is None \
+            else _warm_tables_many(dev, programs, init_values)
+        mask = mask[:, None, :]
+    else:
+        value = programs.init(dev)
+        warm = None if init_values is None \
+            else _warm_tables(dev, programs.dtype, init_values)
+    if warm is not None:
+        value = torch.where(warm[1], warm[0], value)
+    iters_run = 0
+    if iters:
+        if fused:
+            state = ex.init_state_rank_multi(dev, programs.dtype,
+                                             programs.combine,
+                                             len(programs.programs))
+            body = _rank_body_multi(programs, ex, dev, overlap)
+        else:
+            state = ex.init_state_rank(dev, programs.dtype,
+                                       programs.combine)
+            body = _rank_body(programs, ex, dev, overlap)
+        value, iters_run = _run_loop(body, value, state, iters, tol, mask,
+                                     mesh)
+    _sync(mesh.device)
+    wire = coll.gather_objects({"collectives": coll.counts(),
+                                "launches": _build.launch_counts(),
+                                "loop_seconds": time.perf_counter() - t},
+                               mesh)
+    rows = coll.gather_to_root(value[0], mesh, site="gas.collect")
+    if rows is None:
+        return None
+    return rows.cpu().numpy(), iters_run, wire
+
+
+def check_graph_mesh(mesh, k: int) -> None:
+    """A per-rank driver's mesh: a ``dist.mesh.Mesh`` of k ranks, one
+    partition a rank."""
+    if not isinstance(mesh, Mesh) or mesh.size != k:
+        raise ValueError(f"mesh= takes a graph mesh of k = {k} "
+                         f"ranks (one partition a rank), got {mesh!r}")
+
+
+def _on_ranks(layout: PartitionLayout, mesh, axis: str, exchange: str,
+              programs, iters, tol, overlap, init_values):
+    """Run ``_gas_rank`` one partition a rank: SPMD on a bound mesh
+    (every rank holds the layout), else on ranks spawned here (each
+    gets its own share of the tables).  Returns rank 0's result, None on
+    the other ranks of a bound mesh."""
+    _check_overlap(exchange, overlap)
+    check_graph_mesh(mesh, layout.k)
+    mesh = as_axis(mesh, axis)
+    ex = get_exchange(exchange, layout)
+    args = (programs, ex, iters, tol, overlap, init_values)
+    if mesh.bound:
+        ex = dataclasses.replace(ex, axis=mesh)
+        return _gas_loop(mesh, programs, ex, iters, tol, overlap,
+                         init_values,
+                         _cached_rank_dev(layout, exchange, ex, mesh))
+    return run_on_ranks(_gas_rank, mesh, *args, rank_args=[
+        (_rank_tables(layout, exchange, r),) for r in range(layout.k)])
+
+
+def shard_map_gas(program: GASProgram, layout: PartitionLayout, mesh,
+                  iters: int = 30, axis: str = "parts",
+                  exchange: str = "dense", *, tol: float | None = None,
+                  overlap: bool = False, init_values=None,
+                  return_iters: bool = False, return_wire: bool = False):
+    """Production path: one partition per rank of ``mesh`` (a
+    ``make_graph_mesh`` mesh of k = ``layout.k`` ranks) over
+    ``torch.distributed``, the exchange's per-rank halves carrying the
+    mirror sync.  Returns the dense (V,) master values, gathered on rank
+    0 (None on the other ranks of a bound mesh).  From a single process
+    the ranks are spawned here; inside an initialized process group of k
+    ranks (``torchrun``) every rank calls it with the same arguments.
+    ``tol`` (the residual max-reduced over the ranks, so every rank
+    leaves on the same iteration), ``overlap``, ``init_values`` and
+    ``return_iters`` as in ``simulate_gas``; ``return_wire`` also
+    returns every rank's report of the loop (its collective counts,
+    kernel launches and wall seconds; see ``_gas_rank``)."""
+    out = _on_ranks(layout, mesh, axis, exchange, program, iters, tol,
+                    overlap, init_values)
+    if out is None:
+        return None
+    rows, iters_run, wire = out
+    dense = collect_master_values(layout, rows)
+    return _with(dense, iters_run if return_iters else None,
+                 wire if return_wire else None)
+
+
+def _with(value, iters_run, wire):
+    extra = tuple(x for x in (iters_run, wire) if x is not None)
+    return (value, *extra) if extra else value
+
+
+def shard_map_pagerank(layout: PartitionLayout, mesh, iters: int = 30,
+                       axis: str = "parts", exchange: str = "dense"):
+    return shard_map_gas(pagerank_program(layout.num_vertices), layout,
+                         mesh, iters=iters, axis=axis, exchange=exchange)
+
+
+def shard_map_cc(layout: PartitionLayout, mesh, iters: int = 30,
+                 axis: str = "parts", exchange: str = "dense"):
+    out = shard_map_gas(CC_PROGRAM, layout, mesh, iters=iters, axis=axis,
+                        exchange=exchange)
+    return None if out is None else out.astype(np.int64)
+
+
+def shard_map_gas_many(programs, layout: PartitionLayout, mesh,
+                       iters: int = 30, axis: str = "parts",
+                       exchange: str = "dense", *, tol: float | None = None,
+                       overlap: bool = False, init_values=None,
+                       return_iters: bool = False,
+                       return_wire: bool = False):
+    """``shard_map_gas`` for a fused bundle: one dense (V,) array per
+    program, in bundle order (rank 0), with one ``*_multi`` exchange call
+    a phase for all N programs."""
+    fused = fuse_programs(programs)
+    out = _on_ranks(layout, mesh, axis, exchange, fused, iters, tol,
+                    overlap, init_values)
+    if out is None:
+        return None
+    rows, iters_run, wire = out
+    dense = [collect_master_values(layout, rows[:, i])
+             for i in range(len(fused.programs))]
+    return _with(dense, iters_run if return_iters else None,
+                 wire if return_wire else None)
 
 
 # ---------------------------------------------------------------- oracles

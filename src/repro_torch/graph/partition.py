@@ -70,6 +70,10 @@ class PartitionLayout:
                        "ragged_quantized": ("halo_send", "halo_recv",
                                             "frontier")}
 
+    def __getstate__(self):
+        """Pickles without ``cache`` (device tensors of this process)."""
+        return {**self.__dict__, "cache": {}}
+
     def device_arrays(self, exchange: str | None = None) -> dict:
         """The numpy tables one exchange needs (leading k axis); None
         gives every exchange's tables."""

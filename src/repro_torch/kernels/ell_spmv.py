@@ -73,17 +73,19 @@ def choose_width(indeg: np.ndarray) -> int:
 
 
 def row_split_ell(dst_slot, src_col, weights, num_slots: int, pad_col: int,
-                  device) -> RowSplitELL:
+                  device, width: int | None = None) -> RowSplitELL:
     """Row-split ELL of the edge list (dst_slot[e] ← weights[e]·x[src_col
     [e]]).  Built on the host once per layout; lanes of one destination
-    keep their edge order."""
+    keep their edge order.  ``width`` fixes W (a rank's share of a
+    layout takes the whole layout's, so every slot sums its lanes in the
+    same rows); None chooses it from these edges."""
     dst_slot = np.asarray(dst_slot, np.int64)
     src_col = np.asarray(src_col, np.int64)
     weights = np.asarray(weights, np.float32)
     order = np.argsort(dst_slot, kind="stable")
     ds, sc, w = dst_slot[order], src_col[order], weights[order]
     indeg = np.bincount(ds, minlength=num_slots)
-    W = choose_width(indeg)
+    W = choose_width(indeg) if width is None else int(width)
     rows_per = -(-indeg // W)
     row_start = np.cumsum(rows_per) - rows_per
     slot_start = np.cumsum(indeg) - indeg

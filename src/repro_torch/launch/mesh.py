@@ -1,0 +1,9 @@
+"""Meshes of ranks (port of ``repro.launch.mesh``'s graph half).
+
+The mesh type, the transport choice and the rank spawner live in
+``dist.mesh``; the launchers and users take the two constructors from
+here, as in the reference.
+"""
+from ..dist.mesh import make_graph_mesh, make_stream_mesh
+
+__all__ = ["make_graph_mesh", "make_stream_mesh"]

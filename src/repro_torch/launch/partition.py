@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.partition --scale 13 --k 16 --algo clugp-opt
     python -m repro_torch.launch.partition --device cpu --pagerank
+    python -m repro_torch.launch.partition --backend sharded --nodes 4
 
 partitions a synthetic web crawl and prints RF / balance / runtime, then
 (``--pagerank``) runs PageRank on the result through the session's GAS
@@ -13,10 +14,12 @@ to ``jit``, the port's ``torch`` backend (the CLUGP pipeline on
 cpu``.  Its game is the one the reference's ``jit`` plays off a TPU: the
 Gauss–Seidel scan on G, which falls back to the Jacobi CSR game above the
 pair-key limit.  ``--backend np`` is the host oracle, run only when
-named; ``sharded`` is refused (ROADMAP, Queue 1 item 7).  ``--nodes`` is
-the stream split of ``--algo clugp-parallel`` on the np backend (its host
-combine).  ``--unroll`` is accepted only so the reference's command lines
-run, and changes nothing.  ``--device`` (default ``cuda``) is the port's
+named; ``--backend sharded`` spawns ``--nodes`` ranks, one stream slice
+each, on ``--device`` (several ranks on one card share it over gloo;
+the line names the transport).  ``--nodes`` is also the stream split of
+``--algo clugp-parallel`` on the np backend (its host combine).
+``--unroll`` is accepted only so the reference's command lines run, and
+changes nothing.  ``--device`` (default ``cuda``) is the port's
 own flag.
 """
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 
 ALGOS = ["clugp", "clugp-opt", "clugp-parallel", "hashing", "dbh", "greedy",
          "hdrf", "mint"]
-_BACKENDS = {"np": "np", "jit": "torch"}
+_BACKENDS = {"np": "np", "jit": "torch", "sharded": "sharded"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,9 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="jit",
                     choices=["np", "jit", "sharded"],
                     help="partitioner for the clugp algos: jit = the torch "
-                         "backend on --device, np = the host oracle")
+                         "backend on --device, np = the host oracle, "
+                         "sharded = --nodes ranks on --device")
     ap.add_argument("--nodes", type=int, default=4,
-                    help="clugp-parallel node count (np host combine)")
+                    help="sharded rank count; clugp-parallel node count "
+                         "(np host combine)")
     ap.add_argument("--restream", type=int, default=0,
                     help="extra prioritized-restream passes")
     ap.add_argument("--unroll", type=int, default=1,
@@ -77,8 +82,8 @@ def session_for(args, g):
         cfg = dataclasses.replace(cfg, restream=args.restream, kernel="scan")
         backend = _BACKENDS[args.backend]
         # the reference's clugp-parallel alias: the np host combine
-        nodes = args.nodes if backend == "np" and algo == "clugp-parallel" \
-            else 1
+        nodes = args.nodes if backend == "sharded" or (
+            backend == "np" and algo == "clugp-parallel") else 1
         sess = GraphSession(SessionConfig(clugp=cfg, backend=backend,
                                           nodes=nodes,
                                           exchange=args.exchange),
@@ -100,10 +105,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.nodes < 1:
         sys.exit(f"error: --nodes must be >= 1, got {args.nodes}")
-    if args.backend == "sharded":
-        sys.exit("error: --backend sharded is not ported yet (ROADMAP, "
-                 "Queue 1 item 7: the sharded partitioner and multi-GPU "
-                 "engine)")
     from ..core import web_graph
     from ..core.graphgen import social_graph
 
@@ -118,6 +119,11 @@ def main(argv=None) -> int:
     print(f"{label}: rf={sess.stats['rf']:.3f} "
           f"balance={sess.stats['balance']:.3f} "
           f"time={dt:.2f}s ({1e6*dt/g.num_edges:.2f} µs/edge)")
+    if "mesh" in sess.stats:
+        m = sess.stats["mesh"]
+        print(f"sharded: {m['ranks']} ranks on {m['device']} over "
+              f"{m['transport']}, clusters per node "
+              f"{[n['clusters'] for n in sess.stats['per_node']]}")
 
     if args.pagerank:
         from ..graph.engine import reference_pagerank

@@ -23,8 +23,11 @@
   atomic, shape-blind checkpoints; a server killed and resumed from the
   same directory has the identical config and assignment.
 
-One process, one device: the launcher (``repro_torch.launch.serve_graph``)
-calls ``step`` in a loop.  The server runs where its session runs.  On
+The launcher (``repro_torch.launch.serve_graph``) calls ``step`` in a
+loop.  The server runs where its session runs; with ``mesh`` (a graph
+mesh of k ranks) each fused query step runs one partition a rank
+(``GraphSession.run_many(mesh=)``; from a single process every step
+spawns the ranks anew).  On
 the card the float sums of pagerank use float atomics, so its replies
 repeat within f32 rounding, not bit for bit (the integer programs are
 exact).
@@ -39,7 +42,8 @@ from typing import Any
 import numpy as np
 
 from .core.stages import incremental_assign, restream_assign
-from .session import GraphSession, _check_one_device, resolve_program
+from .graph.engine import check_graph_mesh
+from .session import GraphSession, resolve_program
 
 QUERY_KINDS = ("score", "label", "neighbors", "owner")
 # per-kind default program: "label" reads the min-combine label programs
@@ -59,8 +63,10 @@ class GraphServer:
     """A resident ``GraphSession`` behind a microbatched request queue.
 
     ``session`` must already hold a partition (``partition(...)`` or
-    ``with_partition(...)``).  ``mesh`` must be None: the port runs on one
-    device.  ``ft`` (a ``dist.ft.ServiceFT``) enables
+    ``with_partition(...)``).  ``mesh`` (axis size == k) makes every fused
+    query step run one partition a rank; ``mesh=None`` runs the stacked
+    engine on the session's device — the same replies (bit for bit on
+    the CPU).  ``ft`` (a ``dist.ft.ServiceFT``) enables
     ``checkpoint``/``resume`` and the microbatch straggler watch.
 
     ``swap_log`` records every layout swap: its event (``window`` or
@@ -75,8 +81,9 @@ class GraphServer:
                  window: int = 4096, rf_watermark: float = 1.05,
                  restream_passes: int = 2, iters: int | None = None,
                  tol: float | None = None, mesh=None, ft=None):
-        _check_one_device(mesh)
         session._require_partition()
+        if mesh is not None:
+            check_graph_mesh(mesh, session.k)
         self.sess = session
         self.max_batch = int(max_batch)
         self.window = int(window)
@@ -87,6 +94,7 @@ class GraphServer:
         # and turns the value caches into warm-start state: after a swap
         # the previous fixed point seeds the rerun
         self.tol = tol
+        self.mesh = mesh
         self.ft = ft
         self._queue: queue.Queue = queue.Queue()
         self._replies: dict[int, Reply] = {}
@@ -175,7 +183,7 @@ class GraphServer:
             ex = cell[2]
             if self.tol is None:
                 outs = self.sess.run_many(progs, iters=self.iters,
-                                          exchange=ex)
+                                          exchange=ex, mesh=self.mesh)
             else:
                 # always explicit init_values: a program with no cached
                 # fixed point ships an empty vector, which the engine maps
@@ -183,8 +191,8 @@ class GraphServer:
                 seeds = [self._warm.get((p.name, ex), np.zeros(0))
                          for p in progs]
                 outs, iters_run = self.sess.run_many(
-                    progs, iters=self.iters, exchange=ex, tol=self.tol,
-                    init_values=seeds, return_iters=True)
+                    progs, iters=self.iters, exchange=ex, mesh=self.mesh,
+                    tol=self.tol, init_values=seeds, return_iters=True)
                 self.last_iters_run[cell] = int(iters_run)
             for prog, out in zip(progs, outs):
                 self._values[(prog.name, ex)] = out

@@ -18,15 +18,22 @@ config.
 The session runs on the card unless ``device=`` names another device;
 with no card and no ``device`` it raises.  ``backend="torch"`` is the
 counterpart of the reference's ``"jit"`` backend, ``"np"`` its host
-oracle (``nodes > 1``: the §III-C host combine); ``run_sweep``
+oracle (``nodes > 1``: the §III-C host combine) and ``"sharded"`` its
+sharded backend (``nodes`` ranks, one stream slice each); ``run_sweep``
 partitions at several k; ``with_partition``
 adopts an external edge → partition assignment instead, and
 ``snapshot``/``from_snapshot`` carry graph and partition across a
 restart (``repro_torch.serve``).  ``run`` takes any of ``PROGRAMS`` (the
 ``repro_torch.graph.engine`` library) or a ``GASProgram``, over any of
-the five ``EXCHANGES``, on one device (the reference's ``mesh`` is not
-ported); ``overlap=True`` runs the overlapped body on the ragged ones.
+the five ``EXCHANGES``: stacked on the session's device, or with
+``mesh=`` (a ``launch.mesh.make_graph_mesh(k)``) one partition a rank —
+ranks spawned here from a single process, or SPMD inside a process
+group of k ranks, where rank 0 gets the values and the others None;
+``overlap=True`` runs the overlapped body on the ragged ones.
 ``comm_bytes`` is the modelled wire bytes of an iteration.
+
+    from repro_torch.launch.mesh import make_graph_mesh
+    pr = sess.run("pagerank", mesh=make_graph_mesh(64))  # 64 ranks
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from .core.partitioner import (BACKENDS, partition, partition_sweep,
 from .core.pipeline import CLUGPConfig, CLUGPResult
 from .dist.halo import EXCHANGE_NAMES, lossy_payload
 from .graph.engine import (GASProgram, PROGRAM_NAMES, fuse_programs,
-                           get_program, simulate_gas, simulate_gas_many)
+                           get_program, shard_map_gas, shard_map_gas_many,
+                           simulate_gas, simulate_gas_many)
 from .graph.partition import PartitionLayout, build_layout
 
 EXCHANGES = EXCHANGE_NAMES
@@ -57,13 +65,6 @@ def resolve_program(program, num_vertices: int) -> GASProgram:
     return get_program(program, num_vertices)
 
 
-def _check_one_device(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("mesh= is not ported yet (ROADMAP, Queue 1: the "
-                         "sharded partitioner and the multi-GPU engine); "
-                         "run on one device with mesh=None")
-
-
 def _as_int64(out):
     return out.astype(np.int64) if np.issubdtype(out.dtype, np.integer) \
         else out
@@ -74,8 +75,8 @@ class SessionConfig:
     """Everything a reproducible partition → layout → GAS run needs;
     round-trips through ``to_json``/``from_json``."""
     clugp: CLUGPConfig
-    backend: str = "torch"     # partitioner strategy: torch | np
-    nodes: int = 1             # §III-C stream split (np only)
+    backend: str = "torch"     # partitioner strategy: torch | np | sharded
+    nodes: int = 1             # §III-C stream split (np, sharded)
     exchange: str = "halo"     # mirror wire format for run()
     iters: int = 30            # default GAS iterations
     pad_multiple: int = 8      # layout table padding
@@ -89,10 +90,10 @@ class SessionConfig:
                              f"expected one of {EXCHANGES}")
         if self.nodes < 1:
             raise ValueError(f"nodes must be >= 1, got {self.nodes}")
-        if self.nodes > 1 and self.backend != "np":
-            raise ValueError("nodes > 1 is the np backend's host combine; "
-                             "the sharded partitioner is not ported yet "
-                             "(ROADMAP, Queue 1 item 7)")
+        if self.nodes > 1 and self.backend == "torch":
+            raise ValueError("nodes > 1 is the np backend's host combine "
+                             "or the sharded backend's ranks; the torch "
+                             "backend runs on one device")
         if not isinstance(self.clugp, CLUGPConfig):
             raise TypeError("SessionConfig.clugp must be a CLUGPConfig")
 
@@ -300,44 +301,55 @@ class GraphSession:
                                fused=True)
 
     def run(self, program="pagerank", *, iters: int | None = None,
-            exchange: str | None = None, mesh=None, tol: float | None = None,
-            overlap: bool = False, init_values=None,
-            return_iters: bool = False):
+            exchange: str | None = None, mesh=None, axis: str = "parts",
+            tol: float | None = None, overlap: bool = False,
+            init_values=None, return_iters: bool = False):
         """Run a GAS program (name or ``GASProgram``) on the layout and
         return its dense (V,) master values, int64 for the integer
-        programs.  ``tol`` makes ``iters`` a cap: the loop ends once the
-        master residual max-norm drops to ``tol`` (``return_iters=True``
-        also returns the iterations run); ``init_values`` warm-starts from
-        a dense (V_old,) vector; ``overlap`` runs the overlapped body
-        (ragged exchanges only)."""
-        _check_one_device(mesh)
+        programs.  ``mesh=None`` runs the stacked engine on the session's
+        device; a graph mesh of k ranks runs one partition a rank
+        (``graph.engine.shard_map_gas``), with the same values (bit for
+        bit on the CPU).  ``tol`` makes ``iters`` a cap: the loop ends
+        once the master residual max-norm drops to ``tol``
+        (``return_iters=True`` also returns the iterations run);
+        ``init_values`` warm-starts from a dense (V_old,) vector;
+        ``overlap`` runs the overlapped body (ragged exchanges only)."""
         lay = self.partition_layout
         prog = resolve_program(program, self._num_vertices)
         iters = self.cfg.iters if iters is None else iters
-        out = simulate_gas(prog, lay, iters=iters,
-                           exchange=exchange or self.cfg.exchange, tol=tol,
-                           overlap=overlap, init_values=init_values,
-                           return_iters=True, device=self.device)
+        kw = dict(iters=iters, exchange=exchange or self.cfg.exchange,
+                  tol=tol, overlap=overlap, init_values=init_values,
+                  return_iters=True)
+        out = (simulate_gas(prog, lay, device=self.device, **kw)
+               if mesh is None else shard_map_gas(prog, lay, mesh,
+                                                  axis=axis, **kw))
+        if out is None:          # a rank other than 0 of a bound mesh
+            return None
         out, iters_run = _as_int64(out[0]), out[1]
         return (out, iters_run) if return_iters else out
 
     def run_many(self, programs, *, iters: int | None = None,
                  exchange: str | None = None, mesh=None,
-                 tol: float | None = None, overlap: bool = False,
-                 init_values=None, return_iters: bool = False):
+                 axis: str = "parts", tol: float | None = None,
+                 overlap: bool = False, init_values=None,
+                 return_iters: bool = False):
         """Run N programs of one (combine, dtype) cell as one fused GAS
         loop: one exchange per phase carries every program's lanes
         (``repro_torch.graph.engine.FusedGAS``).  Returns one dense (V,)
-        array per program, in input order; ``tol``, ``init_values`` (one
-        dense vector or None per program), ``overlap`` and
-        ``return_iters`` as in ``run``."""
-        _check_one_device(mesh)
+        array per program, in input order; ``mesh``, ``tol``,
+        ``init_values`` (one dense vector or None per program),
+        ``overlap`` and ``return_iters`` as in ``run``."""
         lay = self.partition_layout
         progs = [resolve_program(p, self._num_vertices) for p in programs]
         iters = self.cfg.iters if iters is None else iters
-        outs, iters_run = simulate_gas_many(
-            progs, lay, iters=iters, exchange=exchange or self.cfg.exchange,
-            tol=tol, overlap=overlap, init_values=init_values,
-            return_iters=True, device=self.device)
+        kw = dict(iters=iters, exchange=exchange or self.cfg.exchange,
+                  tol=tol, overlap=overlap, init_values=init_values,
+                  return_iters=True)
+        out = (simulate_gas_many(progs, lay, device=self.device, **kw)
+               if mesh is None else shard_map_gas_many(progs, lay, mesh,
+                                                       axis=axis, **kw))
+        if out is None:          # a rank other than 0 of a bound mesh
+            return None
+        outs, iters_run = out
         outs = [_as_int64(o) for o in outs]
         return (outs, iters_run) if return_iters else outs

@@ -1360,3 +1360,35 @@ def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
         for got, want in zip(*seen):
             torch.testing.assert_close(
                 got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_two_cpu_ranks(dev):
+    """The sharded partitioner and the per-rank engine with 2 ranks on
+    one card (gloo, staged through the host) against 2 ranks on the CPU:
+    the partition (game on, the rank-folded draws) and cc bit for bit,
+    pagerank within rtol 1e-5 (the card's K3 and ``index_add_`` sums are
+    float atomics)."""
+    from repro_torch.core import CLUGPConfig, web_graph
+    from repro_torch.core.partitioner import partition
+    from repro_torch.graph import engine as E
+    from repro_torch.graph.partition import build_layout
+    from repro_torch.launch.mesh import make_graph_mesh
+    g = web_graph(scale=12, edge_factor=8, seed=1)
+    cfg = CLUGPConfig.optimized(8, restream=1)
+    runs = [partition(g.src, g.dst, g.num_vertices, cfg, backend="sharded",
+                      nodes=2, device=d) for d in (None, "cpu")]
+    assert [r.stats["mesh"]["transport"] for r in runs] == ["gloo", "gloo"]
+    np.testing.assert_array_equal(runs[0].assign, runs[1].assign)
+    assert runs[0].stats["game_rounds"] == runs[1].stats["game_rounds"]
+    # a 2-partition layout of the same stream, one partition a rank
+    lay = build_layout(g.src, g.dst, runs[0].assign % 2, g.num_vertices, 2)
+    meshes = [make_graph_mesh(2), make_graph_mesh(2, device="cpu")]
+    for ex in ("halo", "ragged"):
+        card, cpu = (E.shard_map_gas_many(
+            [E.pagerank_program(g.num_vertices), E.ppr_program(
+                g.num_vertices)], lay, m, 30, exchange=ex) for m in meshes)
+        for a, b in zip(card, cpu):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9)
+        card, cpu = (E.shard_map_cc(lay, m, 30, exchange=ex) for m in meshes)
+        np.testing.assert_array_equal(card, cpu)

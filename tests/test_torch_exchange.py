@@ -138,7 +138,8 @@ def test_quantize_rows_matches_reference(shape):
 def test_error_feedback_compression_matches_reference():
     """Three steps of ``compress_with_error_feedback`` on a tree (dict,
     list, tuple leaves) carry the residual as the reference does; the
-    stateless compressor and ``zero_residual`` too."""
+    stateless compressor, ``zero_residual`` and ``compressed_psum`` with
+    one participant too."""
     rng = np.random.default_rng(0)
 
     def tree():
@@ -173,8 +174,11 @@ def test_error_feedback_compression_matches_reference():
     for a, b in zip(leaves(pcomp.make_grad_compressor()(as_t(g))),
                     leaves(jcomp.make_grad_compressor()(as_j(g)))):
         _eq(a, b)
-    with pytest.raises(ValueError, match="ROADMAP, Queue 1"):
-        pcomp.compressed_psum(torch.zeros(3), "parts")
+    # with no mesh (one participant) compressed_psum is the stateless
+    # quantize-dequantize; over ranks it is held in test_torch_dist_partition
+    x = rng.standard_normal(33).astype(np.float32)
+    _eq(pcomp.compressed_psum(torch.from_numpy(x), None),
+        jcomp._quantize_dequantize(jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("h", [1, 3, 7, 8, 9, 20, 61, 64])

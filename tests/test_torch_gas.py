@@ -25,6 +25,7 @@ from repro.core import CLUGPConfig as JConfig  # noqa: E402
 from repro_torch.convert import config_from_reference  # noqa: E402
 from repro_torch.core import web_graph  # noqa: E402
 from repro_torch.graph.engine import _residual  # noqa: E402
+from repro_torch.launch.mesh import make_graph_mesh  # noqa: E402
 from repro_torch.session import GraphSession  # noqa: E402
 
 from conftest import random_graph_and_assign  # noqa: E402
@@ -447,8 +448,8 @@ def test_identity_and_lossy_rule_match_reference(combine, dtype):
                                   "carrier_pigeon"))
 def test_unported_exchanges_refuse(case, name):
     """An unknown wire format refuses in the registry and the drivers; the
-    port's five refuse the per-device halves (a mesh ``axis``, not ported)
-    and the ragged ones a call without the layout their schedule needs."""
+    port's five give their per-rank halves for a mesh ``axis``, and the
+    ragged ones refuse a call without the layout their schedule needs."""
     if name == "carrier_pigeon":
         with pytest.raises(ValueError, match="unknown exchange"):
             phalo.get_exchange(name)
@@ -456,8 +457,8 @@ def test_unported_exchanges_refuse(case, name):
             P.simulate_gas(P.get_program("cc", case["n"]), case["pl"], 2,
                            exchange=name, device="cpu")
         return
-    with pytest.raises(ValueError, match="ROADMAP, Queue 1: the sharded"):
-        phalo.get_exchange(name, case["pl"], axis="parts")
+    mesh = make_graph_mesh(case["pl"].k, device="cpu")
+    assert phalo.get_exchange(name, case["pl"], axis=mesh).axis is mesh
     if name in phalo.RAGGED_EXCHANGES:
         with pytest.raises(ValueError, match="needs layout="):
             phalo.get_exchange(name)
@@ -553,11 +554,11 @@ def test_session_tol_warm_start_and_run_many_like_jax(sessions):
 
 def test_session_refuses_mesh_overlap_and_unknown_programs(sessions):
     _, ps = sessions
-    with pytest.raises(ValueError, match="multi-GPU engine"):
+    with pytest.raises(ValueError, match="graph mesh"):
         ps.run("pagerank", mesh=object())
     with pytest.raises(ValueError, match="ragged"):
         ps.run("pagerank", overlap=True)
-    with pytest.raises(ValueError, match="multi-GPU engine"):
+    with pytest.raises(ValueError, match="graph mesh"):
         ps.run_many(F32_BUNDLE, mesh=object())
     with pytest.raises(ValueError, match="ragged"):
         ps.run_many(F32_BUNDLE, overlap=True)

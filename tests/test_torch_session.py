@@ -3,6 +3,7 @@ PageRank — held against the JAX session, plus the layout and engine on
 JAX-built layouts, the converters, the device default and the import
 isolation of ``repro_torch``."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -134,11 +135,19 @@ def test_config_from_reference_maps_and_refuses():
         assert (got.backend, got.nodes, got.clugp.kernel) == \
             (backend, nodes, "scan")
         assert SessionConfig.from_json(got.to_json()) == got
-    for bad in (JSessionConfig(clugp=JConfig(k=4), backend="jit", nodes=2),
-                JSessionConfig(clugp=JConfig(k=4), backend="sharded",
-                               nodes=2)):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            config_from_reference(bad.to_json())
+    # the reference's jit ignores nodes; its sharded backend maps to the
+    # port's, ranks and all
+    for ref, backend, nodes in (
+            (JSessionConfig(clugp=JConfig(k=4), backend="jit", nodes=2),
+             "torch", 1),
+            (JSessionConfig(clugp=JConfig(k=4), backend="sharded", nodes=2),
+             "sharded", 2)):
+        got = config_from_reference(ref.to_json())
+        assert (got.backend, got.nodes) == (backend, nodes)
+    bad = json.loads(JSessionConfig(clugp=JConfig(k=4)).to_json())
+    bad["backend"] = "mpi"
+    with pytest.raises(ValueError, match="backend"):
+        config_from_reference(json.dumps(bad))
 
 
 def test_session_needs_a_card_unless_told_otherwise(monkeypatch):
