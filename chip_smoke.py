@@ -155,6 +155,38 @@ Phases (any failure raises and exits non-zero):
    2e-5; timed with CUDA events beside its bound (tensor-core operations)
    and ``scaled_dot_product_attention`` as a yardstick the port never
    calls, with K4's share of the prefill.
+8a. ``[lm-mesh]``, the LM half of the mesh: qwen2-7b served tensor- and
+   sequence-parallel over ``make_test_mesh(2, 4)``, 8 ranks sharing this
+   card over gloo (the kernels built before the spawn; every rank sets
+   the parent's TF32 flags).  Phase 6 keeps its witness on the host: its
+   prefill logits, prompt, greedy tokens and logits after the prompt, the
+   checksums of the blocks each model rank keeps of its tree, and the
+   same weights' exact f32 twin's prefill logits and logits after the
+   prompt.  On the ranks: f32 at full width on 2 layers, the prefill's
+   logits and 4 decode steps' within 1e-4 of the largest |logit| of the
+   one card's on the same weights; then bf16 at full width and depth,
+   each rank replaying every draw of ``init_params`` (seed 0) and keeping
+   its blocks (``place_params``; the blocks' checksums equal the
+   witness's), a warm-up and the timed prefill of 4 × 2,048 (2
+   rows a data rank; K4 exactly 28 times a rank at (2, 7/1, 2048, 128)):
+   logits within 2e-2 of the largest of phase 6's, and within 1.5× of the
+   one card's distance to the f32 twin, as are the logits after the
+   prompt; ``generate`` (the 16-token prompt, 16 greedy tokens, cut from
+   phase 6's 32 for time; no K4; how many tokens equal phase 6's is
+   logged, not gated: random weights make near-ties): each rank's block
+   of its cache is (28, 2, 8, 4, 128), positions 8·m .. 8·m + 7 on model
+   rank m, every one written.  Logged: prefill ms and tokens/s, decode ms/token-step,
+   peak memory and, by call site, every rank's collective seconds,
+   bytes and calls; K4 at the rank's shape against its plain version and
+   SDPA, alone on the card.
+8a'. ``[pp]``: qwen2-7b's 28 layers as 4 ``pipeline_apply`` stages of 7
+   on 4 ranks sharing the card (a "stage" mesh), 4 microbatches of (1,
+   2,048, 3,584) hidden states in 7 ticks; each layer drawn from its own
+   seed, so the parent's ``reference_apply`` on one rank runs the same
+   model: f32 with 1 layer a stage within 1e-4 of the largest |h|, bf16
+   at full depth within 2e-2 (both bit-equal so far), timed beside
+   ``reference_apply`` alone; K4 exactly 7 times a stage a microbatch, 7
+   ring hops; the bubble (S − 1)/(M + S − 1).
 8b. ``[moe]``, with the qwen2 phases' memory freed: llama4-scout (16
    experts top-1 + a shared expert, GQA 40/8) at published width and 12
    of its 48 layers (the only cut), bf16, seeded.  The parameter count
@@ -273,8 +305,10 @@ Phases (any failure raises and exits non-zero):
    ``[mla]`` prefill's launches, and so are K4 on the encoder–decoder
    path, ``flash_attention_encdec`` (non-causal at D 64; the prefill's
    and the decode's launches), and at head dim 160,
-   ``flash_attention_d160`` (the ``[vlm]`` prefill's launches)),
-   then the device JSON line last.
+   ``flash_attention_d160`` (the ``[vlm]`` prefill's launches); K4's
+   row also counts the ``[lm-mesh]`` ranks' timed prefill and the ``[pp]``
+   stages' timed forward, with the rank shape's record), then the device
+   JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -452,15 +486,20 @@ def event_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps, kernel):
+def device_ms(torch, fn, reps, kernel=None):
     """Mean device time of one launch of the kernels whose name holds
-    ``kernel``, over ``reps`` calls of ``fn`` traced by torch.profiler.  A
-    kernel shorter than its wrapper's host-side launch cost is timed
-    alone here; CUDA events around back-to-back calls would read the
-    host's launch rate instead.  The card's profiler loses a record now
-    and then (one of 50 K2 launches in one session), so a session that
-    saw fewer launches than calls is run again, twice at most, and a
-    third short one fails the run."""
+    ``kernel`` over ``reps`` calls of ``fn`` traced by torch.profiler; with
+    ``kernel`` None, the device time of one call, every device activity
+    of the call summed (the activities' names and counts a call are
+    logged).  A kernel shorter than its wrapper's host-side launch cost is
+    timed alone here; CUDA events around back-to-back calls would read
+    the host's launch rate instead.  The card's profiler loses a record
+    now and then (one of 50 K2 launches in one session), so a session that
+    saw fewer launches than calls (with ``kernel`` None: an activity whose
+    count is not a whole multiple of the calls) is run again, twice at
+    most, and a third short one fails the run."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
@@ -479,15 +518,24 @@ def device_ms(torch, fn, reps, kernel):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if len(us) >= reps:
+        seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and (kernel is None or kernel in e.name)]
+        counts = Counter(e.name for e in seen)
+        whole = (len(seen) >= reps if kernel else
+                 bool(counts) and all(c % reps == 0
+                                      for c in counts.values()))
+        if whole:
             break
-        log(f"[profiler] session {attempt} saw {len(us)} launches of "
-            f"{kernel} in {reps} calls; records lost")
-    check(len(us) >= reps, f"the profiler saw {len(us)} launches of "
-          f"{kernel} in {reps} calls in each of 3 sessions")
-    return sum(us) / len(us) / 1e3
+        log(f"[profiler] session {attempt} saw {len(seen)} launches of "
+            f"{kernel or dict(counts)} in {reps} calls; records lost")
+    check(whole, f"the profiler saw {len(seen)} launches of "
+          f"{kernel or dict(counts)} in {reps} calls in each of 3 sessions")
+    us = sum(e.time_range.elapsed_us() for e in seen)
+    if kernel:
+        return us / len(seen) / 1e3
+    log(f"[profiler] a call's device activities: "
+        f"{ {n[:80]: c // reps for n, c in counts.items()} }")
+    return us / reps / 1e3
 
 
 def game_gs_in_partition(torch, run) -> dict:
@@ -2316,7 +2364,8 @@ def ssm_f32_check(torch, ops, dev, cfg, rng, tag, hold) -> None:
             want = lm._self_attention(*args, **kw)
             ck, cv = (torch.zeros(B, S, cfg.n_kv_heads, cfg.hd, device=dev)
                       for _ in range(2))
-            got = [lm._attn_decode(p, h[:, t:t + 1], ck, cv, cfg, t)
+            tp = lm.tensor_parallel(cfg)
+            got = [lm._attn_decode(p, h[:, t:t + 1], ck, cv, cfg, tp, t)
                    for t in range(S)]
         gap = float((torch.cat(got, 1) - want).abs().max()
                     / want.abs().max())
@@ -3447,6 +3496,549 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
     log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the LM half of the mesh as ranks on one card: qwen2-7b served tensor- and
+# sequence-parallel over make_test_mesh(2, 4), then pipeline stages
+
+MESH_DATA, MESH_MODEL = 2, 4         # make_test_mesh(2, 4): 8 ranks
+MESH_F32_STEPS = 4                   # decode steps of the f32 check
+MESH_TOKENS = 16                     # greedy tokens ([serve]'s 32, cut)
+# the mesh's bf16 distance to the f32 twin over the one card's (the ratio
+# read 1.030 on the prefill logits and 0.975 after the prompt in this
+# phase on an H100 80GB HBM3 at 700 W; the limit leaves a fifth of slack)
+MESH_NOISE = 1.2
+PP_STAGES, PP_MICRO = 4, 4           # pipeline stages, microbatches
+CHECKSUM_CHUNK = 1 << 24
+
+
+def checksum(torch, x) -> int:
+    """An exact checksum of a tensor's bits, sensitive to their order:
+    Σ_i bits_i · (i mod 65521 + 1) in int64 (wrapping), by chunks."""
+    flat = x.contiguous().view(-1)
+    bits = flat.view(torch.int16 if flat.element_size() == 2
+                     else torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for at in range(0, bits.numel(), CHECKSUM_CHUNK):
+        part = bits[at:at + CHECKSUM_CHUNK].to(torch.int64)
+        w = torch.arange(at, at + part.numel(), device=x.device) % 65521 + 1
+        total += (part * w).sum()
+    return int(total)
+
+
+def mesh_checksums(torch, params) -> dict:
+    """The checksum of every leaf's block on each model rank of
+    make_test_mesh(MESH_DATA, MESH_MODEL) (the blocks ``place_params``
+    keeps; the data axis holds copies), from the one-card tree."""
+    import dataclasses
+    from repro_torch.dist.sharding import block
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.shardings import (map_with_path, param_specs,
+                                             sanitize_specs)
+    spec = make_test_mesh(MESH_DATA, MESH_MODEL, device="cpu")
+    ranks = [dataclasses.replace(spec, rank=r) for r in range(MESH_MODEL)]
+    specs = sanitize_specs(param_specs(params, zero=False, multi_pod=False),
+                           params, spec.shape)
+    leaves = {}
+    map_with_path(lambda path, x: leaves.__setitem__(path, x), params)
+    flat = {}
+    map_with_path(lambda path, s: flat.__setitem__(path, s), specs)
+    return {path: [checksum(torch, block(x, flat[path], r)) for r in ranks]
+            for path, x in leaves.items()}
+
+
+def f32_twin(torch, cfg, params, tokens, prompt) -> dict:
+    """The bf16 tree's exact f32 copy: its prefill logits on ``tokens`` and
+    its logits after ``prompt`` by the decode loop, on the host, and how
+    far the bf16 run's are from them (of the largest |logit|)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.train import make_prefill_step
+    from repro_torch.train.optimizer import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
+    twin = dict(twin_logits=make_prefill_step(cfg, dtype=torch.float32)(
+        p32, {"tokens": tokens}).cpu(), twin_prompt_logits=generate(
+            p32, cfg, prompt, 1, dtype=torch.float32).prompt_logits.cpu())
+    del p32
+    torch.cuda.empty_cache()
+    return twin
+
+
+def mesh_probe(smax: int) -> list:
+    """One cache position in each model rank's block of ``smax`` rows: the
+    first rank's first row, the last rank's last, others between."""
+    rows = smax // MESH_MODEL
+    return [m * rows + (rows - 1) * m // (MESH_MODEL - 1)
+            for m in range(MESH_MODEL)]
+
+
+def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
+    """``[lm-mesh]`` on one rank of make_test_mesh(2, 4) (SPMD): the f32
+    check at full width on 2 layers (prefill logits and MESH_F32_STEPS
+    decode steps, gathered whole), then qwen2-7b at full width and depth
+    in bf16 from the card generator's seed-0 draws (every draw of the
+    one-card tree replayed, this rank's blocks kept): the checksums of its
+    blocks, a warm-up and a timed prefill (K4 counted), a warm-up of the
+    decode step (``make_decode_fn``) at the ``mesh_probe`` positions of a
+    cache of the serving run's rows, which reports this rank's block of
+    that cache and the positions written in it, then ``generate``.  Rank
+    0 returns the
+    gathered values; every rank's report comes through
+    ``gather_objects``."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import (SINGLE_POD_RULES, active_spec,
+                                           shard, unshard, use_rules)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train import (make_decode_fn, make_prefill_step,
+                                   place_params)
+    from repro_torch.train.shardings import map_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"started": float(coll.pmax(torch.tensor(
+        [time.time()], dtype=torch.float64), mesh))}
+    report = {"coords": mesh.coords}
+    with use_rules(SINGLE_POD_RULES, mesh):
+        # f32, 2 layers at full width: the mesh against the one card
+        p32 = lm.init_params(f32_cfg, torch.Generator(device=dev)
+                             .manual_seed(1), place=place_params(mesh))
+        toks = f32_tokens.to(dev)
+        out["f32_logits"] = make_prefill_step(f32_cfg, dtype=torch.float32)(
+            p32, {"tokens": toks})
+        B = toks.shape[0]
+        spec = active_spec((B,), "batch")
+        cache = lm.init_cache(f32_cfg, B, MESH_F32_STEPS,
+                              dtype=torch.float32, device=dev)
+        step = make_decode_fn(f32_cfg, dtype=torch.float32,
+                              max_len=MESH_F32_STEPS)
+        tp = lm.tensor_parallel(f32_cfg)
+        mine = shard(toks, "batch", None)
+        steps = []
+        for t in range(MESH_F32_STEPS):
+            logits, cache = step(p32, cache, mine[:, t:t + 1], t)
+            (logits,) = lm.L.gather_cols([logits], tp.axis(tp.vocab),
+                                         site="check")
+            steps.append(unshard(logits, spec + (None, None), mesh))
+        out["f32_steps"] = torch.cat(steps, 1)
+        del p32, cache, logits, steps
+        torch.cuda.empty_cache()
+
+        # bf16 at full width and depth
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), dtype=torch.bfloat16,
+                                place=place_params(mesh))
+        torch.cuda.synchronize(dev)
+        report["init_s"] = time.perf_counter() - t
+        report["init_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        sums = {}
+        map_with_path(lambda path, x: sums.__setitem__(
+            path, checksum(torch, x)), params)
+        report["checksums"] = sums
+        report["weight_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in lm.tree_leaves(params))
+        toks = tokens.to(dev)
+        prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+        prefill_step(params, {"tokens": toks})            # warm-up
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll.reset_counts()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        logits = prefill_step(params, {"tokens": toks})
+        torch.cuda.synchronize(dev)
+        report["prefill_s"] = time.perf_counter() - t
+        report["prefill_launches"] = ops.launch_counts()
+        report["prefill_collectives"] = coll.counts()
+        report["prefill_peak_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+        out["logits"] = logits
+
+        # the decode step's warm-up: one step at each ``mesh_probe``
+        # position of the serving run's cache, each written by its owner
+        prompt = prompt.to(dev)
+        smax = prompt.shape[1] + new_tokens
+        cache = lm.init_cache(cfg, prompt.shape[0], smax,
+                              dtype=torch.bfloat16, device=dev)
+        step = make_decode_fn(cfg, dtype=torch.bfloat16, max_len=smax)
+        mine = shard(prompt, "batch", None)
+        for i, at in enumerate(mesh_probe(smax)):
+            step(params, cache, mine[:, i:i + 1], at)
+        k = cache["dense"]["k"]
+        report["cache_shape"] = tuple(k.shape)
+        written = (k.abs().amax(dim=(0, 1, 3, 4)) > 0).nonzero()[:, 0]
+        report["written"] = (written + mesh.coords["model"] * k.shape[2]) \
+            .tolist()
+        del cache, k
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll.reset_counts()
+        ops.reset_launch_counts()
+        served = generate(params, cfg, prompt, new_tokens,
+                          dtype=torch.bfloat16)
+        report["decode_s"] = served.seconds
+        report["decode_launches"] = ops.launch_counts()
+        report["decode_collectives"] = coll.counts()
+        report["decode_peak_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+        out["served"] = served
+    out["reports"] = coll.gather_objects(report, mesh)
+    return out
+
+
+def k4_rank_times(torch, ops, F, q, k, v) -> dict:
+    """K4 and ``scaled_dot_product_attention`` on (q, k, v), causal, each
+    timed two ways: CUDA events around 20 back-to-back calls (which read
+    the host's launch rate where a call is shorter than its launch) and
+    the profiler's device time of a call; with the card's SM clock, its
+    maximum, temperature and power draw as nvidia-smi reads them."""
+    def k4():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    return dict(k4_events=event_ms(torch, k4, 20),
+                k4_device=device_ms(torch, k4, 20, "flash_bf16_kernel"),
+                sdpa_events=event_ms(torch, sdpa, 20),
+                sdpa_device=device_ms(torch, sdpa, 20),
+                card=smi("clocks.sm,clocks.max.sm,temperature.gpu,"
+                         "power.draw"))
+
+
+def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
+    """``[lm-mesh]``: qwen2-7b served tensor- and sequence-parallel over
+    make_test_mesh(2, 4), 8 ranks sharing this card over gloo."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import make_decode_fn, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    rng = np.random.default_rng(3)
+    f32_tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        SERVE_B, SERVE_PROMPT)))
+    # the one card's f32 answer on the same weights (its seed-1 draws)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    toks = f32_tokens.to(dev)
+    want_logits = make_prefill_step(small, dtype=torch.float32)(
+        p32, {"tokens": toks})
+    cache = init_cache(small, SERVE_B, MESH_F32_STEPS, dtype=torch.float32,
+                       device=dev)
+    step = make_decode_fn(small, dtype=torch.float32)
+    want_steps = []
+    for t in range(MESH_F32_STEPS):
+        logits, cache = step(p32, cache, toks[:, t:t + 1], t)
+        want_steps.append(logits)
+    want_steps = torch.cat(want_steps, 1)
+    del p32, cache, logits
+    torch.cuda.empty_cache()
+
+    # K4 at the rank's shape, alone on the card, before the ranks start
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, Hq, Hkv = PREFILL_B // MESH_DATA, cfg.n_heads // MESH_MODEL, \
+        cfg.n_kv_heads // MESH_MODEL
+    q = torch.randn(B, Hq, PREFILL_S, cfg.hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, PREFILL_S, cfg.hd, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    err, _err_r, _ms, plain, _lib, _got = k4_yardstick(torch, ops, F, q, k,
+                                                       v, True)
+    before = k4_rank_times(torch, ops, F, q, k, v)
+    log(f"[K4] the rank's shape before the ranks start: {before}")
+
+    note = ("ranks share this one card over gloo (staged through host "
+            "memory): these times measure that transport, not an "
+            "interconnect")
+    t, wall = time.perf_counter(), time.time()
+    out = run_on_ranks(lm_mesh_job, make_test_mesh(MESH_DATA, MESH_MODEL),
+                       cfg, small, witness["tokens"], f32_tokens,
+                       witness["prompt"], MESH_TOKENS, timeout=600)
+    s_spawn = time.perf_counter() - t
+    reports = out["reports"]
+    log(f"[lm-mesh] {len(reports)} ranks of make_test_mesh({MESH_DATA}, "
+        f"{MESH_MODEL}) on this card over gloo in one spawn: {s_spawn:.1f} "
+        f"s, of which {out['started'] - wall:.1f} s until every rank ran")
+
+    def rel(got, want):
+        return float((got.float().cpu() - want.float().cpu()).abs().max()
+                     / want.float().abs().max())
+
+    e_pre = rel(out["f32_logits"], want_logits)
+    e_dec = rel(out["f32_steps"], want_steps)
+    check(e_pre <= 1e-4 and e_dec <= 1e-4, f"[lm-mesh] f32: the mesh's "
+          f"logits are {e_pre:.3e} (prefill) and {e_dec:.3e} (decode) of "
+          "the largest from the one card's")
+    log(f"[lm-mesh] f32, {CHECK_LAYERS} layers at full width, B={SERVE_B}: "
+        f"prefill logits {e_pre:.3e} and {MESH_F32_STEPS} decode steps' "
+        f"logits {e_dec:.3e} of the largest |logit| from the one card's on "
+        "the same weights (tolerance 1e-4)")
+
+    # the blocks are the one-card tree's
+    for r in reports:
+        m = r["coords"]["model"]
+        bad = [p for p, c in r["checksums"].items()
+               if c != witness["checksums"][p][m]]
+        check(not bad, f"[lm-mesh] rank {r['coords']}: blocks differ from "
+              f"the one-card tree at {bad[:3]}")
+    log(f"[lm-mesh] every rank's {len(reports[0]['checksums'])} blocks "
+        "equal the one-card tree's ([serve]'s seed-0 draws) by checksum; "
+        f"per rank {reports[0]['weight_bytes'] / 1e9:.3f} GB of weights, "
+        f"built in {max(r['init_s'] for r in reports):.1f} s (peak "
+        f"{max(r['init_peak_gib'] for r in reports):.2f} GiB)")
+
+    # K4 once a layer a rank, at the rank's shape; no kernel in decode
+    for r in reports:
+        got = {k: v for k, v in r["prefill_launches"].items() if v}
+        check(got == {"flash_attention": cfg.n_layers}, f"[lm-mesh] rank "
+              f"{r['coords']} prefill launched {got}, not K4 "
+              f"{cfg.n_layers} times")
+        check(not any(r["decode_launches"].values()), f"[lm-mesh] rank "
+              f"{r['coords']} decode launched {r['decode_launches']}")
+    launches = sum(r["prefill_launches"]["flash_attention"] for r in reports)
+    logits, served = out["logits"], out["served"]
+    check(logits.shape == (PREFILL_B, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "[lm-mesh] prefill logits")
+    check(served.finite and served.tokens.shape == (SERVE_B, MESH_TOKENS)
+          and int(served.tokens.max()) < cfg.vocab, "[lm-mesh] decode output")
+    # the first step (the prefill) against [serve]'s within 2e-2; the mesh's
+    # and the one card's bf16 runs against the same weights' f32 twin: the
+    # mesh no farther than MESH_NOISE times the one card (two bf16 runs
+    # differ by up to twice that error, so the logits after the prompt are
+    # held to the twin, and their distance to [serve]'s is logged)
+    e_pre = rel(logits, witness["logits"])
+    e_first = rel(served.prompt_logits, witness["prompt_logits"])
+    noise = (rel(witness["logits"], witness["twin_logits"]),
+             rel(witness["prompt_logits"], witness["twin_prompt_logits"]))
+    mesh = (rel(logits, witness["twin_logits"]),
+            rel(served.prompt_logits, witness["twin_prompt_logits"]))
+    check(e_pre <= 2e-2, f"[lm-mesh] bf16: prefill logits {e_pre:.3e} of "
+          "the largest from [serve]'s")
+    check(all(m <= MESH_NOISE * n for m, n in zip(mesh, noise)),
+          f"[lm-mesh] bf16 against the f32 twin: the mesh {mesh}, the one "
+          f"card {noise}")
+    log(f"[lm-mesh] bf16 against the same weights' f32 twin (of the largest "
+        f"|logit|): prefill logits the one card {noise[0]:.3e}, the mesh "
+        f"{mesh[0]:.3e}; logits after the prompt the one card "
+        f"{noise[1]:.3e}, the mesh {mesh[1]:.3e} (held within "
+        f"{MESH_NOISE}x the one card's); mesh to [serve]'s after the prompt "
+        f"{e_first:.3e} (logged)")
+    agree = int((served.tokens.cpu()
+                 == witness["served_tokens"][:, :MESH_TOKENS]).sum())
+    t_pre = max(r["prefill_s"] for r in reports)
+    log(f"[lm-mesh] bf16 {cfg.name}, {cfg.n_layers} layers at full width: "
+        f"prefill {PREFILL_B} x {PREFILL_S} ({PREFILL_B // MESH_DATA} rows a "
+        f"data rank) {t_pre * 1e3:.1f} ms = "
+        f"{PREFILL_B * PREFILL_S / t_pre:.1f} tokens/s (the slowest rank); "
+        f"logits {e_pre:.3e} of the largest |logit| from [serve]'s one-card "
+        f"prefill (tolerance 2e-2); "
+        f"K4 {cfg.n_layers} launches a rank at ({PREFILL_B // MESH_DATA}, "
+        f"{cfg.n_heads // MESH_MODEL}/{cfg.n_kv_heads // MESH_MODEL}, "
+        f"{PREFILL_S}, {cfg.hd}), {launches} in all; {note}")
+    ms_step = max(r["decode_s"] for r in reports) * 1e3 / served.steps
+    log(f"[lm-mesh] decode B={SERVE_B}, prompt {SERVE_PROMPT} + "
+        f"{MESH_TOKENS} greedy tokens (cut from [serve]'s {SERVE_TOKENS} "
+        f"for time): {ms_step:.3f} ms/token-step (the "
+        f"slowest rank); {agree} of {served.tokens.numel()} greedy tokens "
+        f"equal [serve]'s (near-ties of random weights, not gated); first "
+        f"tokens {served.tokens[0][:16].tolist()}")
+    smax = SERVE_PROMPT + MESH_TOKENS
+    rows = smax // MESH_MODEL
+    for r in reports:
+        m = r["coords"]["model"]
+        check(r["cache_shape"] == (cfg.n_layers, SERVE_B // MESH_DATA, rows,
+                                   cfg.n_kv_heads, cfg.hd),
+              f"[lm-mesh] rank {r['coords']} cache {r['cache_shape']}")
+        want = [p for p in mesh_probe(smax) if p // rows == m]
+        check(len(want) == 1 and r["written"] == want, f"[lm-mesh] rank "
+              f"{r['coords']} wrote positions {r['written']}, owns {want} "
+              f"of {mesh_probe(smax)}")
+    log(f"[lm-mesh] each rank's cache block (layers, B/2, Smax/4, Hkv, Dh) "
+        f"= {reports[0]['cache_shape']}: positions {rows}·m .. {rows}·m + "
+        f"{rows - 1} of {smax} on model rank m; decode steps at positions "
+        f"{mesh_probe(smax)} wrote each into its owner's block alone")
+    for r in reports:
+        sites = {phase: {site: (round(c["seconds"], 4), c["bytes"],
+                                c["calls"])
+                         for site, c in r[f"{phase}_collectives"].items()}
+                 for phase in ("prefill", "decode")}
+        log(f"[lm-mesh] rank {r['coords']}: prefill {r['prefill_s']:.3f} s, "
+            f"decode {r['decode_s']:.3f} s, peak {r['prefill_peak_gib']:.2f} "
+            f"/ {r['decode_peak_gib']:.2f} GiB; collectives (seconds, "
+            f"bytes, calls) by site {json.dumps(sites)}")
+
+    # K4 at the rank's shape, alone on the card, against SDPA, after the
+    # ranks have exited
+    after = k4_rank_times(torch, ops, F, q, k, v)
+    log(f"[K4] the rank's shape after the ranks exited: {after}")
+    pairs = PREFILL_S * (PREFILL_S + 1) // 2
+    flops = 4 * cfg.hd * pairs * B * Hq
+    bms, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), flops,
+                       BF16_OPS_PER_S)
+    ms, lib = before["k4_device"], before["sdpa_device"]
+    k4_row["launches"] += launches
+    k4_row["mesh_shape"] = dict(shape=[B, Hq, Hkv, PREFILL_S, cfg.hd],
+                                launches=launches, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=bms, bound_by=by,
+                                library_ms=lib)
+    log(f"[K4] the rank's shape q {tuple(q.shape)} k/v {tuple(k.shape)}: "
+        f"max |d| {err:.3e}; device time {ms:.4f} ms/launch = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of it; plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention device time {lib:.4f} ms (before "
+        f"the spawn; CUDA events around back-to-back calls read K4 "
+        f"{before['k4_events']:.4f} / {after['k4_events']:.4f} ms and SDPA "
+        f"{before['sdpa_events']:.4f} / {after['sdpa_events']:.4f} ms "
+        f"before / after the ranks, device time K4 "
+        f"{after['k4_device']:.4f} ms and SDPA {after['sdpa_device']:.4f} "
+        f"ms after)")
+    log(f"[lm-mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def pp_layers(torch, cfg, dev, first, count, dtype):
+    """Layers first..first + count − 1 of the pipeline's model, layer i
+    drawn from its own card generator (seed 100 + i), so a stage's rank
+    and the one-rank reference draw the same."""
+    from repro_torch.models.lm import init_layer
+    return [init_layer(cfg, "dense", torch.Generator(device=dev)
+                       .manual_seed(100 + i), dtype)
+            for i in range(first, first + count)]
+
+
+def pp_inputs(torch, cfg, dev, dtype):
+    """M microbatches of (1, PREFILL_S, d_model) hidden states."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return torch.randn(PP_MICRO, 1, PREFILL_S, cfg.d_model, generator=gen,
+                       device=dev, dtype=dtype)
+
+
+def pp_job(mesh, cfg, f32_layers):
+    """``[pp]`` on one stage rank: ``pipeline_apply`` of the f32 check
+    (``f32_layers`` a stage) and of the bf16 model at full depth (28 / S
+    layers a stage), a warm-up and a timed run, K4 counted."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.pipeline_parallel import pipeline_apply
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import run_layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, S, s = mesh.device, mesh.size, mesh.rank
+
+    def fn(x, layers):
+        return run_layers(x, layers, cfg)
+
+    def stages(count, dtype):
+        return [pp_layers(torch, cfg, dev, s * count, count, dtype)
+                if r == s else None for r in range(S)]
+
+    out = {"f32": pipeline_apply(mesh, "stage", stages(f32_layers,
+                                                       torch.float32),
+                                 pp_inputs(torch, cfg, dev, torch.float32),
+                                 fn)}
+    torch.cuda.empty_cache()
+    per = cfg.n_layers // S
+    params = stages(per, torch.bfloat16)
+    xs = pp_inputs(torch, cfg, dev, torch.bfloat16)
+    pipeline_apply(mesh, "stage", params, xs, fn)             # warm-up
+    torch.cuda.synchronize(dev)
+    coll.reset_counts()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out["bf16"] = pipeline_apply(mesh, "stage", params, xs, fn)
+    torch.cuda.synchronize(dev)
+    report = {"stage": s, "seconds": time.perf_counter() - t,
+              "launches": ops.launch_counts(), "collectives": coll.counts(),
+              "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    out["reports"] = coll.gather_objects(report, mesh)
+    return out
+
+
+def pp_phase(torch, ops, dev, k4_row) -> None:
+    """``[pp]``: qwen2-7b's layers as PP_STAGES pipeline stages on ranks
+    sharing this card, against ``reference_apply`` on one rank."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import make_mesh, run_on_ranks
+    from repro_torch.dist.pipeline_parallel import reference_apply
+    from repro_torch.models.lm import run_layers
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    f32_layers = 1
+    t = time.perf_counter()
+    out = run_on_ranks(pp_job, make_mesh({"stage": PP_STAGES}), cfg,
+                       f32_layers, timeout=600)
+    s_spawn = time.perf_counter() - t
+    reports = out["reports"]
+    per = cfg.n_layers // PP_STAGES
+
+    def fn(x, layers):
+        return run_layers(x, layers, cfg)
+
+    small = dataclasses.replace(cfg, n_layers=PP_STAGES * f32_layers)
+    want = reference_apply(
+        [pp_layers(torch, small, dev, i * f32_layers, f32_layers,
+                   torch.float32) for i in range(PP_STAGES)],
+        pp_inputs(torch, cfg, dev, torch.float32), fn)
+    e32 = float((out["f32"] - want).abs().max() / want.abs().max())
+    check(e32 <= 1e-4, f"[pp] f32: {e32:.3e} of the largest |h| from "
+          "reference_apply")
+    log(f"[pp] f32, {PP_STAGES} stages of {f32_layers} layer at full width, "
+        f"{PP_MICRO} microbatches of (1, {PREFILL_S}, {cfg.d_model}): "
+        f"{e32:.3e} of the largest |h| from reference_apply on one rank "
+        f"(tolerance 1e-4; {'bit-equal' if e32 == 0 else 'not bit-equal'})")
+    del want
+    stages = [pp_layers(torch, cfg, dev, i * per, per, torch.bfloat16)
+              for i in range(PP_STAGES)]
+    xs = pp_inputs(torch, cfg, dev, torch.bfloat16)
+    reference_apply(stages, xs, fn)                         # warm-up
+    ms_ref = host_ms(torch, lambda: reference_apply(stages, xs, fn))
+    want = reference_apply(stages, xs, fn)
+    e16 = float((out["bf16"].float() - want.float()).abs().max()
+                / want.float().abs().max())
+    check(e16 <= 2e-2, f"[pp] bf16: {e16:.3e} of the largest |h|")
+    del stages, want
+    torch.cuda.empty_cache()
+    for r in reports:
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == {"flash_attention": per * PP_MICRO}, f"[pp] stage "
+              f"{r['stage']} launched {got}, not K4 {per} times a "
+              "microbatch")
+    ticks = PP_MICRO + PP_STAGES - 1
+    ms = max(r["seconds"] for r in reports) * 1e3
+    hop = reports[0]["collectives"]["pipeline.hop"]
+    check(hop["calls"] == ticks, f"[pp] {hop['calls']} ring hops, not "
+          f"{ticks}")
+    launches = sum(r["launches"]["flash_attention"] for r in reports)
+    k4_row["launches"] += launches
+    log(f"[pp] bf16 {cfg.name}: {PP_STAGES} stages of {per} layers, "
+        f"{PP_MICRO} microbatches of (1, {PREFILL_S}) in {ticks} ticks "
+        f"(bubble (S-1)/(M+S-1) = {(PP_STAGES - 1) / ticks:.1%}): "
+        f"{ms:.1f} ms a pipelined forward (the slowest stage; one rank's "
+        f"reference_apply alone on the card {ms_ref:.1f} ms); {e16:.3e} of "
+        f"the largest |h| from reference_apply (tolerance 2e-2; "
+        f"{'bit-equal' if e16 == 0 else 'not bit-equal'}); K4 {per} a stage "
+        f"a microbatch, {launches} in all; spawn and runs {s_spawn:.1f} s; "
+        f"ranks share this card over gloo (the transport, not an "
+        f"interconnect)")
+    for r in reports:
+        log(f"[pp] stage {r['stage']}: {r['seconds'] * 1e3:.1f} ms, peak "
+            f"{r['peak_gib']:.2f} GiB; collectives (seconds, bytes, calls) "
+            + json.dumps({k: (round(c["seconds"], 4), c["bytes"], c["calls"])
+                          for k, c in r["collectives"].items()}))
+    log(f"[pp] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4020,6 +4612,13 @@ def main() -> int:
           and int(served.tokens.max()) < cfg.vocab, "decode output")
     ms_step = served.seconds * 1e3 / served.steps
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    # [lm-mesh]'s witness: this one-card run, its blocks' checksums and
+    # the same weights' f32 twin (the one card's own bf16 error)
+    witness = dict(tokens=tokens.cpu(), logits=logits.float().cpu(),
+                   prompt=prompt.cpu(), served_tokens=served.tokens.cpu(),
+                   prompt_logits=served.prompt_logits.float().cpu(),
+                   checksums=mesh_checksums(torch, params))
+    witness.update(f32_twin(torch, cfg, params, tokens, prompt))
     log(f"[serve] B={SERVE_B}, prompt {SERVE_PROMPT} + {SERVE_TOKENS} tokens: "
         f"{served.steps} steps in {served.seconds:.3f} s = {ms_step:.3f} "
         f"ms/token-step (floor: {step_bytes / 1e9:.3f} GB of weights per "
@@ -4108,6 +4707,12 @@ def main() -> int:
     log(f"[K4] f32 q {tuple(q.shape)} k/v {tuple(k.shape)} causal: max |d| "
         f"{float((got - want).abs().max()):.3e}; {ms32:.4f} ms/launch")
     del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 8a
+    lm_mesh_phase(torch, ops, dev, witness, rows[-1])
+    del witness
+    pp_phase(torch, ops, dev, rows[-1])
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 8b

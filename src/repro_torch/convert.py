@@ -89,7 +89,7 @@ def layout_from_reference(obj) -> PartitionLayout:
     return PartitionLayout(**fields)
 
 
-def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
+def lm_params_from_reference(tree, cfg: ModelConfig, mp: int = 1) -> dict:
     """The reference's LM parameter tree as numpy arrays (``{"embed",
     "lm_head", "ln_f"}`` and one ``g_<group>`` per layer group of ``cfg``
     — ``g_dense``; ``g_moe``, after ``g_dense`` when ``first_k_dense >
@@ -97,10 +97,11 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
     ``g_enc`` and ``g_dec``, the latter with ``ln3`` and the
     cross-attention's ``xattn`` — each with its leaves stacked on a
     leading layer axis; weights (d_in, d_out) as in
-    ``repro.models.layers``) → the port's parameters: CPU tensors in the
-    tree's dtypes, each group split into one dict per layer.  Raises for
-    a family the port does not know and for a tree that does not fit
-    ``cfg``."""
+    ``repro.models.layers``; q heads padded to a multiple of ``mp``, as
+    the reference's ``init_params(cfg, key, mp)`` pads them) → the port's
+    parameters: CPU tensors in the tree's dtypes, each group split into
+    one dict per layer.  Raises for a family the port does not know and
+    for a tree that does not fit ``cfg`` at ``mp``."""
     require_ported(cfg)
     groups = layer_groups(cfg)
     keys = {"embed", "lm_head", "ln_f"} | {f"g_{g}" for g, _ in groups}
@@ -130,7 +131,7 @@ def lm_params_from_reference(tree, cfg: ModelConfig) -> dict:
         out[f"g_{g}"] = [walk(tree[f"g_{g}"], lambda a, i=i: a[i])
                          for i in range(count)]
     total = sum(t.numel() for t in tree_leaves(out))
-    if total != param_count(cfg):
+    if total != param_count(cfg, mp):
         raise ValueError(f"tree does not fit {cfg.name}: {total} vs "
-                         f"{param_count(cfg)} parameters")
+                         f"{param_count(cfg, mp)} parameters")
     return out

@@ -8,12 +8,14 @@ the axis-wide reductions the shared stage and engine bodies call
 wire primitives of the mirror exchanges (``all_to_all`` over equal lanes
 and ``ring_hop`` to rank ± d) and the gathers to rank 0.
 
-``axis`` is a bound ``dist.mesh.Mesh`` (its process group, rank, size,
-device and transport).  On the ``gloo`` transport a CUDA tensor is
+``axis`` is a bound one-axis ``dist.mesh.Mesh`` (its process group, its
+members' global ranks, this rank's index on it, size, device and
+transport): a whole mesh of one axis, the whole of a multi-axis mesh
+over the default group, or ``as_axis(mesh, name)``'s view of one line.  On the ``gloo`` transport a CUDA tensor is
 staged to the host before the call and back after it; ``nccl`` takes
 device tensors as they are.  Float sums are made deterministic: the
-ranks' values are gathered and added in rank order, so every rank gets
-the same bits.  int32/int64 sums and extrema are exact in any order and
+ranks' values are gathered and added in rank order (16-bit floats in
+f32, rounded once), so every rank gets the same bits.  int32/int64 sums and extrema are exact in any order and
 go through ``all_reduce``.
 
 Each call counts, by its call site, the bytes it hands to other ranks
@@ -49,6 +51,13 @@ def init_group(backend: str, store_path: str, rank: int, size: int,
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=size,
                             timeout=timedelta(seconds=timeout_s))
+
+
+def new_group(ranks: list, timeout_s: float):
+    """A process group of the global ``ranks`` (a mesh axis's line).
+    Collective over the default group: every rank calls it for every
+    group, in the same order, whether it is a member or not."""
+    return dist.new_group(ranks, timeout=timedelta(seconds=timeout_s))
 
 
 def destroy_group() -> None:
@@ -104,6 +113,12 @@ class _Timed:
             torch.cuda.synchronize(self.axis.device)
 
 
+def _global(axis, i: int) -> int:
+    """The global rank of member ``i`` of ``axis``'s group (point-to-point
+    peers and roots are named by global rank)."""
+    return i if axis.ranks is None else axis.ranks[i]
+
+
 def _host(axis, x):
     """The tensor the transport takes: gloo stages CUDA tensors to the
     host."""
@@ -120,7 +135,7 @@ def psum(x, axis=None, *, site: str = "psum"):
     and int64 tensors go through ``all_reduce`` (exact in any order);
     every other dtype (floats, and int16, which neither transport
     reduces) is gathered and added in rank order, deterministic on every
-    rank."""
+    rank; bf16 and f16 are added in f32 and rounded once."""
     if axis is None:
         return x
     if x.dtype in (torch.int32, torch.int64):
@@ -129,10 +144,11 @@ def psum(x, axis=None, *, site: str = "psum"):
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
         return out.to(x.device).reshape(x.shape)
     parts = all_gather(x, axis, site=site)
-    out = parts[0]
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    out = parts[0].float() if wide else parts[0]
     for p in parts[1:]:      # in rank order: the same bits on every rank
         out = out + p
-    return out
+    return out.to(x.dtype) if wide else out
 
 
 def _extremum(x, axis, op, site):
@@ -194,8 +210,10 @@ def ring_hop(x, axis, d: int, *, site: str):
     with _Timed(axis, site, raw.numel()):
         h = _host(axis, raw)
         out = torch.empty_like(h)
-        ops = [dist.P2POp(dist.isend, h, (r + d) % n, axis.group),
-               dist.P2POp(dist.irecv, out, (r - d) % n, axis.group)]
+        ops = [dist.P2POp(dist.isend, h, _global(axis, (r + d) % n),
+                          axis.group),
+               dist.P2POp(dist.irecv, out, _global(axis, (r - d) % n),
+                          axis.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out.to(x.device).view(x.dtype).reshape(x.shape)
@@ -221,7 +239,7 @@ def gather_to_root(x, axis, *, site: str):
         h = _host(axis, raw)
         parts = [torch.empty_like(h) for _ in range(axis.size)] \
             if root else None
-        dist.gather(h, parts, dst=0, group=axis.group)
+        dist.gather(h, parts, dst=_global(axis, 0), group=axis.group)
     if not root:
         return None
     return torch.cat(parts).to(x.device).view(x.dtype) \
@@ -232,5 +250,5 @@ def gather_objects(obj, axis) -> list | None:
     """Every rank's picklable ``obj`` on rank 0, in rank order; None on
     the others."""
     out = [None] * axis.size if axis.rank == 0 else None
-    dist.gather_object(obj, out, dst=0, group=axis.group)
+    dist.gather_object(obj, out, dst=_global(axis, 0), group=axis.group)
     return out

@@ -1,5 +1,7 @@
 """GQA attention (optional QKV bias, RoPE) and MLA (DeepSeek's latent KV):
-port of ``repro.models.attention``.
+port of ``repro.models.attention``.  The GQA projection is
+``models.lm.gqa_project``, which prefill and decode share (it reads the
+mesh plan).
 
 Prefill attention goes through K4 (``kernels.flash_attention``): on CUDA
 tensors the hand-written kernel reads k/v at their Hkv heads (GQA folded,
@@ -10,8 +12,15 @@ block form and einsum oracle, kept for the tests.  MLA's decode runs in
 the latent space (``models.lm``'s absorbed form over
 ``dist.decode.sp_decode_attention_latent``).
 
-Head padding: the reference pads Q heads up to a multiple of the
-model-axis size; one card has no model axis, so Hq is never padded here.
+Head padding: as in the reference, Q heads are padded up to a multiple of
+``pad_heads_to`` (the model axis's size, ``mp``) so head-sharded products
+divide the mesh; the padded heads are drawn like the others (their
+weights are not zero), and a Q head h reads KV head h // ceil(Hp / Hkv),
+the reference's ``expand_kv`` map.  ``kv_index`` says which KV heads the
+Q heads a rank attends read, as a slice when they form K4's map (q head
+h of a launch reads KV head h // (Hq / Hkv)) and else as a list (K4 then
+runs at group 1 on the picked heads): without padding the two maps are
+one.
 """
 from __future__ import annotations
 
@@ -21,36 +30,46 @@ import torch
 
 from ..kernels.flash_attention import (NEG_INF, flash_attention,
                                        flash_attention_plain)
-from .layers import Params, apply_rope, linear, linear_init
+from .layers import Params, apply_rope, linear, linear_init, round_up
 
 
 def gqa_init(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-             qkv_bias: bool = False, dtype=torch.float32) -> Params:
+             qkv_bias: bool = False, dtype=torch.float32,
+             pad_heads_to: int = 1) -> Params:
+    hp = round_up(n_heads, pad_heads_to)
     return {
-        "q": linear_init(gen, d_model, n_heads * head_dim, qkv_bias, dtype),
+        "q": linear_init(gen, d_model, hp * head_dim, qkv_bias, dtype),
         "k": linear_init(gen, d_model, n_kv * head_dim, qkv_bias, dtype),
         "v": linear_init(gen, d_model, n_kv * head_dim, qkv_bias, dtype),
-        "o": linear_init(gen, n_heads * head_dim, d_model, False, dtype),
+        "o": linear_init(gen, hp * head_dim, d_model, False, dtype),
     }
 
 
-def gqa_project(p: Params, x, *, n_heads, n_kv, head_dim, positions,
-                rope_theta=10000.0):
-    """x (B, S, d_model) → q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh), RoPE
-    applied to q and k."""
-    B, S, _ = x.shape
-    q = linear(p["q"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(p["k"], x).reshape(B, S, n_kv, head_dim)
-    v = linear(p["v"], x).reshape(B, S, n_kv, head_dim)
-    return (apply_rope(q, positions, rope_theta),
-            apply_rope(k, positions, rope_theta), v)
+def expand_kv(k, n_q_heads_padded: int):
+    """(B, S, Hkv, Dh) → (B, S, Hp, Dh) by repeating groups: Q head h
+    reads KV head h // ceil(Hp / Hkv) (the reference's map; K4's when Hkv
+    divides Hp)."""
+    reps = -(-n_q_heads_padded // k.shape[2])
+    return k.repeat_interleave(reps, dim=2)[:, :, :n_q_heads_padded]
 
 
-def expand_kv(k, n_q_heads: int):
-    """(B, S, Hkv, Dh) → (B, S, Hq, Dh), Q head h reading KV head
-    h // (Hq / Hkv) — K4's mapping when no heads are padded."""
-    reps = -(-n_q_heads // k.shape[2])
-    return k.repeat_interleave(reps, dim=2)[:, :, :n_q_heads]
+def kv_index(h0: int, hl: int, hp: int, n_kv: int, kv0: int = 0,
+             held: int | None = None):
+    """The held KV heads (global heads kv0, ..., kv0 + held − 1; all from
+    kv0 when ``held`` is None) that the Q heads
+    [h0, h0 + hl) of a model with Hp heads read under ``expand_kv``'s map:
+    ``slice(a, b)`` when they form K4's map over b − a held heads (Q head i
+    reads held head a + i // (hl / (b − a))), else a list with one held
+    head a Q head.  Raises when a Q head reads a head not held."""
+    reps = -(-hp // n_kv)
+    need = [h // reps - kv0 for h in range(h0, h0 + hl)]
+    if need[0] < 0 or need[-1] >= (n_kv - kv0 if held is None else held):
+        raise ValueError(f"q heads [{h0}, {h0 + hl}) read KV heads "
+                         f"{need} past the held ones from {kv0}")
+    a, n = need[0], need[-1] + 1 - need[0]
+    if hl % n == 0 and need == [a + i // (hl // n) for i in range(hl)]:
+        return slice(a, a + n)
+    return need
 
 
 def chunked_attention(q, k, v, *, causal: bool, block_kv: int = 1024,

@@ -6,6 +6,16 @@ is an ``*_init`` / apply pair.  ``*_init`` draws from an explicit
 numbers; tests carry the reference's weights across with
 ``repro_torch.convert.lm_params_from_reference``).  Weights are
 (d_in, d_out), applied as ``x @ w``.
+
+The tensor-parallel halves (``models.lm`` runs them under an active
+``dist.sharding.use_rules`` context): a column-parallel product is
+``linear_cols`` on this rank's columns of w (and of the whole bias); ``gather_cols`` joins the ranks'
+columns of one or more products in one call; ``linear_rows`` is the row-parallel product (this rank's rows
+of w against its slice of the features, the partial products summed
+over the axis in rank order, then the bias once); ``embed`` with an
+axis is the vocab-parallel lookup; ``ffn`` with an axis runs gate and up
+column-parallel and down row-parallel.  Every axis argument is a bound
+one-axis ``dist.mesh.Mesh``, or None on one device (the plain layer).
 """
 from __future__ import annotations
 
@@ -14,6 +24,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import collectives as coll
 
 Params = dict[str, Any]
 
@@ -40,6 +52,46 @@ def linear(p: Params, x):
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def linear_cols(p: Params, x, axis):
+    """Column-parallel ``linear``: w holds this rank's columns of the
+    whole (split over ``axis``); the bias is whole (``param_specs`` keeps
+    1-D leaves whole) and the rank adds its columns of it.  ``linear``
+    when ``axis`` is None."""
+    n = p["w"].shape[1]
+    if axis is None or "b" not in p or p["b"].shape[0] == n:
+        return linear(p, x)
+    return linear({"w": p["w"],
+                   "b": p["b"][axis.rank * n:(axis.rank + 1) * n]}, x)
+
+
+def linear_rows(p: Params, x, axis, *, site: str):
+    """Row-parallel ``linear``: x holds this rank's slice of the features
+    and w its rows; the partial products are summed over ``axis`` in rank
+    order (``collectives.psum``), then the bias (replicated) is added
+    once.  ``linear`` when ``axis`` is None."""
+    if axis is None:
+        return linear(p, x)
+    y = coll.psum(x @ p["w"].to(x.dtype), axis, site=site)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def gather_cols(ys: list, axis, *, site: str) -> list:
+    """Column-parallel products (each this rank's columns of its whole)
+    → the whole products, each the ranks' columns joined in rank order,
+    in one all-gather; ``ys`` as they are when ``axis`` is None."""
+    if axis is None:
+        return list(ys)
+    g = coll.all_gather(torch.cat(ys, -1), axis, site=site)
+    out, at = [], 0
+    for y in ys:
+        w = y.shape[-1]
+        out.append(torch.cat(list(g[..., at:at + w].unbind(0)), -1))
+        at += w
+    return out
 
 
 def rmsnorm_init(d: int, device=None) -> Params:
@@ -70,10 +122,23 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32) -> Params:
     return {"table": _normal(gen, (vocab, d), dtype, 0.02)}
 
 
-def embed(p: Params, tokens, dtype=torch.bfloat16):
+def embed(p: Params, tokens, dtype=torch.bfloat16, axis=None):
     """The reference casts the table, then gathers; gathering first and
-    casting the rows is the same function without a copy of the table."""
-    return p["table"][tokens].to(dtype)
+    casting the rows is the same function without a copy of the table.
+    With ``axis`` the table holds this rank's rows [r·n, (r + 1)·n) of
+    the vocabulary: the tokens this rank owns are looked up, the others
+    get zeros, and the rows are summed over the axis (one owner a token,
+    so the sum is exact)."""
+    table = p["table"]
+    if axis is None:
+        return table[tokens].to(dtype)
+    n = table.shape[0]
+    local = tokens - axis.rank * n
+    own = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    rows = torch.where(own[..., None], rows, torch.zeros((), dtype=dtype,
+                                                         device=rows.device))
+    return coll.psum(rows, axis, site="embed")
 
 
 # --------------------------------------------------------------------- RoPE
@@ -96,9 +161,11 @@ def swiglu(gate, up):
     return F.silu(gate) * up
 
 
-def gelu_ffn_apply(p: Params, x):
+def gelu_ffn_apply(p: Params, x, axis=None):
     # jax.nn.gelu defaults to the tanh approximation
-    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+    return linear_rows(p["down"], F.gelu(linear_cols(p["up"], x, axis),
+                                         approximate="tanh"), axis,
+                       site="ffn.down")
 
 
 def ffn_init(gen, d_model: int, d_ff: int, gated: bool = True,
@@ -111,8 +178,12 @@ def ffn_init(gen, d_model: int, d_ff: int, gated: bool = True,
             "down": linear_init(gen, d_ff, d_model, dtype=dtype)}
 
 
-def ffn(p: Params, x):
+def ffn(p: Params, x, axis=None):
+    """The gated (SwiGLU) or GELU FFN; with ``axis``, this rank's columns
+    of gate and up and rows of down, summed over the axis."""
     if "gate" in p:
-        return linear(p["down"], swiglu(linear(p["gate"], x),
-                                        linear(p["up"], x)))
-    return gelu_ffn_apply(p, x)
+        return linear_rows(p["down"],
+                           swiglu(linear_cols(p["gate"], x, axis),
+                                  linear_cols(p["up"], x, axis)), axis,
+                           site="ffn.down")
+    return gelu_ffn_apply(p, x, axis)

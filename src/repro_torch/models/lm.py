@@ -47,9 +47,10 @@ Parameters are the reference's tree with each stacked layer group
 and ``g_dec``, the latter with a second GQA projection set ``xattn``; a
 leading layer axis walked by ``lax.scan``) as a list of per-layer dicts
 walked by a Python loop; the cache is keyed by group as the reference's
-is.  The reference's lowering knobs (head padding ``mp``, ``block_kv``,
-``unroll``) and its ``shard`` constraints have no counterpart on one
-card, and neither has the reference's ``remat`` switch: when a gradient
+is.  ``mp`` pads the q heads to a multiple of it, as the reference's does
+(``attention`` module docstring); the reference's other lowering knobs
+(``block_kv``, ``unroll``) have no counterpart, and neither has its
+``remat`` switch: when a gradient
 is being taken, each layer always runs under ``torch.utils.checkpoint``
 (non-reentrant), as the reference's ``_scan_group`` wraps its body in
 ``jax.checkpoint`` by default, so only the layers' inputs are kept and
@@ -57,9 +58,57 @@ each layer is run again in the backward (K4 twice a layer: its
 ``FlashAttention`` forward, then the recompute).  Training's
 loss (``lm_loss``, ``forward_train``) is the reference's chunked
 cross-entropy, each chunk's logits recomputed in the backward.
+
+Under a mesh (an active ``dist.sharding.use_rules(rules, mesh)`` on a
+bound mesh with a "model" axis; the dense GQA families, qwen2 and the
+like, and the VLM) each rank holds its blocks of the parameters
+(``train.shardings.param_specs``: columns of q, k, v, gate and up, rows
+of o and down, rows of the embedding table, columns of ``lm_head``, each
+split over "model" where it divides) and runs on its batch rows; the
+step builders (``train.step``) and the launcher (``launch.serve``) split
+the batch over "data" and gather what comes back.  PyTorch has no GSPMD,
+so at each of the reference's ``shard`` points the collective its
+compiler would insert is made here, through ``dist.collectives`` and
+named by call site (``TensorParallel`` holds the decisions):
+
+- ``repro/models/lm.py:319``, after the embedding: the table's rows are split over
+  the vocabulary; each rank looks up the tokens it owns, zeros the rest
+  and the rows are summed over "model" (``embed``).
+- ``:182``, q on "heads": the rank's heads are its columns of q and
+  of its bias (where the heads do not divide the axis but q's columns
+  do, the columns are gathered over "model", ``attn.qkv``).
+- ``:187-188``, k and v: where KV heads divide the axis
+  (``kv_heads_sharded``) they are the rank's own heads; else they are
+  replicated, and where ``param_specs`` still split their columns (Hkv ·
+  Dh divides the axis) the columns are gathered over "model" before RoPE
+  (``attn.qkv``, the GQA all-gather of ``:183-185``; q's and k/v's
+  gathers are one call).  The q heads a
+  rank attends read KV heads by ``expand_kv``'s map
+  (``attention.kv_index``).
+- ``:191`` then ``:214``: o and down are row-parallel; the partial
+  products are summed over "model" in rank order (``attn.o``,
+  ``ffn.down``) and a replicated bias is added once, after the sum.
+- ``:351``, logits on "vocab": ``prefill`` returns its last
+  position's logits gathered over "model" (``logits``), (B, 1, Vp) of
+  the rank's batch rows; ``decode_step`` returns the rank's columns, and
+  ``launch.serve.generate`` takes the greedy argmax across the axis.
+- Decode (``:385``): the projections run as in prefill, then q, k
+  and v are gathered over "model" in one call (``decode.qkv``) to every
+  head, since ``cache_specs`` keeps heads whole and splits the sequence;
+  the owner of position ``index`` writes the k/v row into its block,
+  every rank attends its block for every head and the partials are
+  merged (``dist.decode``, ``decode.merge``); each rank keeps its own
+  heads' rows for the row-parallel o.
+
+bf16 partial sums are added in rank order in f32 and rounded once, where
+the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  MoE,
+MLA, SSD, the hybrid and the encoder–decoder raise under a mesh (expert
+parallelism and MLA's tensor-parallel path are not ported), and so do
+context-parallel rules (``CP_SERVE_RULES``) and training.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -67,6 +116,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.partitioner import resolve_device
 from ..dist import decode as DEC
+from ..dist.mesh import as_axis
+from ..dist.sharding import active_rules, active_spec, entry_axes
 from ..kernels.flash_attention import flash_attention
 from . import attention as A
 from . import layers as L
@@ -136,14 +187,21 @@ def _norm(cfg, p, x):
     return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
 
 
-def _attn_init(cfg: ModelConfig, gen, dtype) -> Params:
+def _require_unpadded_mla(cfg: ModelConfig, mp: int) -> None:
+    if cfg.mla is not None and mp != 1:
+        raise ValueError(f"{cfg.name}: MLA with padded heads (mp={mp}) is "
+                         "part of MLA's tensor-parallel path, not ported")
+
+
+def _attn_init(cfg: ModelConfig, gen, dtype, mp: int) -> Params:
     if cfg.mla is not None:
+        _require_unpadded_mla(cfg, mp)
         m = cfg.mla
         return A.mla_init(gen, cfg.d_model, cfg.n_heads, q_lora=m.q_lora,
                           kv_lora=m.kv_lora, nope_dim=m.nope_dim,
                           rope_dim=m.rope_dim, v_dim=m.v_dim, dtype=dtype)
     return A.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                      cfg.qkv_bias, dtype)
+                      cfg.qkv_bias, dtype, pad_heads_to=mp)
 
 
 def _ffn_init(cfg: ModelConfig, kind: str, gen, dtype) -> Params:
@@ -159,7 +217,10 @@ def _ssd_init(cfg: ModelConfig, gen, dtype) -> Params:
     return SSM.ssd_init(gen, cfg.d_model, **_ssd_dims(cfg), dtype=dtype)
 
 
-def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
+def init_layer(cfg: ModelConfig, group: str, gen, dtype=torch.float32,
+               mp: int = 1) -> Params:
+    """One layer of ``group`` with random weights from ``gen`` (the draws
+    ``init_params`` makes for each layer of the group, in its order)."""
     d, dev = cfg.d_model, gen.device
     if group == "ssd":
         return {"ln1": _norm_init(cfg, d, dev),
@@ -167,7 +228,7 @@ def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
     if group == "hyb":
         sub = []
         for i in range(cfg.attn_period):
-            mix = ({"attn": _attn_init(cfg, gen, dtype)}
+            mix = ({"attn": _attn_init(cfg, gen, dtype, mp)}
                    if i == cfg.attn_index else
                    {"ssd": _ssd_init(cfg, gen, dtype)})
             sub.append({"ln1": _norm_init(cfg, d, dev),
@@ -178,29 +239,39 @@ def _init_one_layer(cfg: ModelConfig, group: str, gen, dtype) -> Params:
     if group == "dec":
         return {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
                 "ln3": _norm_init(cfg, d, dev),
-                "attn": _attn_init(cfg, gen, dtype),
-                "xattn": _attn_init(cfg, gen, dtype),
+                "attn": _attn_init(cfg, gen, dtype, mp),
+                "xattn": _attn_init(cfg, gen, dtype, mp),
                 "ffn": _ffn_init(cfg, "ffn", gen, dtype)}
     return {"ln1": _norm_init(cfg, d, dev), "ln2": _norm_init(cfg, d, dev),
-            "attn": _attn_init(cfg, gen, dtype),
+            "attn": _attn_init(cfg, gen, dtype, mp),
             "ffn": _ffn_init(cfg, _kind(group), gen, dtype)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                dtype=torch.float32) -> Params:
-    """Random weights on ``gen``'s device.  Matrices take ``dtype`` (the
-    reference serves with weights in the compute type, ``abstract_params
-    (dtype=...)``); norm scales and biases stay f32."""
+                dtype=torch.float32, mp: int = 1, place=None) -> Params:
+    """Random weights on ``gen``'s device, q heads padded to a multiple of
+    ``mp``.  Matrices take ``dtype`` (the reference serves with weights in
+    the compute type, ``abstract_params(dtype=...)``); norm scales and
+    biases stay f32.  ``place(path, part)``, when given, maps each part
+    right after it is drawn (the embedding, the head, the final norm, one
+    layer; its path in the reference's key notation, ``['g_dense'][3]``)
+    and its result is kept: ``train.shardings.place_params`` keeps a
+    rank's blocks, so a rank replays every draw of the whole tree with one
+    part whole at a time."""
     require_ported(cfg)
+    keep = place or (lambda _path, part: part)
     d = cfg.d_model
     p: Params = {
-        "embed": L.embedding_init(gen, cfg.padded_vocab, d, dtype),
-        "lm_head": L.linear_init(gen, d, cfg.padded_vocab, dtype=dtype),
-        "ln_f": _norm_init(cfg, d, gen.device),
+        "embed": keep("['embed']",
+                      L.embedding_init(gen, cfg.padded_vocab, d, dtype)),
+        "lm_head": keep("['lm_head']", L.linear_init(
+            gen, d, cfg.padded_vocab, dtype=dtype)),
+        "ln_f": keep("['ln_f']", _norm_init(cfg, d, gen.device)),
     }
     for group, count in layer_groups(cfg):
-        p[f"g_{group}"] = [_init_one_layer(cfg, group, gen, dtype)
-                           for _ in range(count)]
+        p[f"g_{group}"] = [keep(f"['g_{group}'][{i}]",
+                                init_layer(cfg, group, gen, dtype, mp))
+                           for i in range(count)]
     return p
 
 
@@ -213,8 +284,8 @@ def _ffn_param_count(cfg: ModelConfig, kind: str) -> int:
     return (3 if _gated(cfg) else 2) * d * cfg.d_ff
 
 
-def _attn_param_count(cfg: ModelConfig) -> int:
-    d, H = cfg.d_model, cfg.n_heads
+def _attn_param_count(cfg: ModelConfig, mp: int) -> int:
+    d, H = cfg.d_model, L.round_up(cfg.n_heads, mp)
     if cfg.mla is not None:
         m = cfg.mla
         return (d * m.q_lora + m.q_lora * H * (m.nope_dim + m.rope_dim)
@@ -231,7 +302,7 @@ def _norm_param_count(cfg: ModelConfig) -> int:
     return cfg.d_model if cfg.norm == "rmsnorm" else 2 * cfg.d_model
 
 
-def _layer_param_count(cfg: ModelConfig, group: str) -> int:
+def _layer_param_count(cfg: ModelConfig, group: str, mp: int) -> int:
     norm = _norm_param_count(cfg)
     ssd = (SSM.ssd_param_count(cfg.d_model, **_ssd_dims(cfg))
            if cfg.ssm is not None else 0)
@@ -239,21 +310,23 @@ def _layer_param_count(cfg: ModelConfig, group: str) -> int:
         return norm + ssd
     if group == "hyb":
         return sum(2 * norm + _ffn_param_count(cfg, _sub_kind(cfg, i))
-                   + (_attn_param_count(cfg) if i == cfg.attn_index else ssd)
+                   + (_attn_param_count(cfg, mp) if i == cfg.attn_index
+                      else ssd)
                    for i in range(cfg.attn_period))
     if group == "dec":              # a third norm, the cross-attention
-        return 3 * norm + 2 * _attn_param_count(cfg) + _ffn_param_count(
+        return 3 * norm + 2 * _attn_param_count(cfg, mp) + _ffn_param_count(
             cfg, "ffn")
-    return 2 * norm + _attn_param_count(cfg) + _ffn_param_count(
+    return 2 * norm + _attn_param_count(cfg, mp) + _ffn_param_count(
         cfg, _kind(group))
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """Number of parameters of ``init_params(cfg, ...)``, from the config
-    alone."""
+def param_count(cfg: ModelConfig, mp: int = 1) -> int:
+    """Number of parameters of ``init_params(cfg, ..., mp=mp)``, from the
+    config alone."""
     require_ported(cfg)
+    _require_unpadded_mla(cfg, mp)
     return 2 * cfg.padded_vocab * cfg.d_model + _norm_param_count(cfg) + sum(
-        count * _layer_param_count(cfg, group)
+        count * _layer_param_count(cfg, group, mp)
         for group, count in layer_groups(cfg))
 
 
@@ -266,27 +339,150 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+# ------------------------------------------------------ tensor parallel
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """This rank's share of a model: the decisions at the reference's
+    ``shard`` points (module docstring), made once from the config, the
+    active rules and the mesh.  ``model`` is the bound "model" axis (None:
+    one device, every weight whole, every field below the plain
+    layer's)."""
+    hp: int                      # q heads, padded to a multiple of mp
+    n_kv: int
+    hd: int
+    model: Any = None
+    heads: tuple = (0, 0)        # (first, count): the q heads attended here
+    q_gather: bool = False       # q's columns split, its heads not
+    kv: tuple = (0, 0)           # (first, count): the KV heads held here
+    kv_gather: bool = False      # k/v columns split, their heads not
+    rows: bool = False           # q columns / o rows split (row-parallel o)
+    ffn: bool = False            # gate/up columns and down rows split
+    vocab: bool = False          # table rows and lm_head columns split
+
+    @property
+    def kv_cols(self) -> bool:
+        """k/v columns split over the model axis."""
+        return self.kv_gather or self.kv[1] < self.n_kv
+
+    def axis(self, split: bool):
+        """The axis a split part is summed or gathered over."""
+        return self.model if split else None
+
+    def o_input(self, out):
+        """An attention output (…, heads · Dh) cut to the rows of o this
+        rank holds: where it has every head and o's rows are split, this
+        rank's block of them (the heads this rank attends, when split,
+        are that block already)."""
+        if self.rows and out.shape[-1] == self.hp * self.hd:
+            n = out.shape[-1] // self.model.size
+            return out[..., self.model.rank * n:(self.model.rank + 1) * n]
+        return out
+
+
+def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
+    """The plan of ``cfg`` (q heads padded to a multiple of ``mp``) under
+    the active ``use_rules`` context; the whole model outside one.  Weights
+    are split over "model" where ``train.shardings.param_specs`` splits
+    them and the dim divides; q and k/v activations follow the rules'
+    "heads" and ``kv_heads(_sharded)`` tags, as the reference's ``shard``
+    points resolve them.  Raises for what does not run under a mesh."""
+    _require_unpadded_mla(cfg, mp)
+    hp, n_kv, hd = L.round_up(cfg.n_heads, mp), cfg.n_kv_heads, cfg.hd
+    whole = TensorParallel(hp, n_kv, hd, heads=(0, hp), kv=(0, n_kv))
+    ctx = active_rules()
+    if ctx is None:
+        return whole
+    rules, mesh = ctx
+    if cfg.family not in ("dense", "vlm") or cfg.moe or cfg.mla:
+        raise ValueError(f"{cfg.name}: under a mesh only the dense GQA "
+                         "families run (expert parallelism, MLA's tensor-"
+                         "parallel path and the SSD, hybrid and encoder–"
+                         "decoder families are not ported)")
+    if rules.get("seq") is not None:
+        raise ValueError("context-parallel rules (the sequence on a mesh "
+                         "axis) are not ported")
+    n = mesh.shape.get("model", 1)
+    if n == 1:
+        return whole
+    if not mesh.bound:
+        raise ValueError("a model runs on a bound mesh (inside a rank)")
+    model = as_axis(mesh, "model")
+    heads_on = active_spec((1, 1, hp, hd), "batch", "seq", "heads", None)[2]
+    kv_tag = "kv_heads_sharded" if n_kv % mp == 0 else "kv_heads"
+    kv_on = active_spec((1, 1, n_kv, hd), "batch", None, kv_tag, None)[2]
+    if {heads_on, kv_on} - {None, "model"}:
+        raise ValueError(f"heads on {heads_on!r} and KV heads on {kv_on!r}: "
+                         "only the model axis is ported")
+    r = model.rank
+    heads = (r * hp // n, hp // n) if heads_on else (0, hp)
+    kv = (r * n_kv // n, n_kv // n) if kv_on else (0, n_kv)
+    reps = -(-hp // n_kv)           # expand_kv's map
+    if kv_on and not (kv[0] <= heads[0] // reps
+                      and (sum(heads) - 1) // reps < sum(kv)):
+        kv, kv_on = (0, n_kv), None   # the heads read KV heads held elsewhere
+    rows = hp * hd % n == 0
+    return TensorParallel(hp, n_kv, hd, model, heads,
+                          q_gather=rows and not heads_on, kv=kv,
+                          kv_gather=n_kv * hd % n == 0 and not kv_on,
+                          rows=rows, ffn=cfg.d_ff % n == 0,
+                          vocab=cfg.padded_vocab % n == 0)
+
+
 # ---------------------------------------------------------------- blocks
 
-def _self_attention(p, x, cfg: ModelConfig, positions, causal: bool = True):
+def _attend(q, k, v, tp: TensorParallel, causal: bool):
+    """q (B, S, the attended heads, Dh), k/v (B, Skv, the held KV heads,
+    Dh) on K4, each q head reading its KV head by ``expand_kv``'s map →
+    (B, S, heads · Dh)."""
+    h0, hl = tp.heads
+    idx = A.kv_index(h0, hl, tp.hp, tp.n_kv, *tp.kv)
+    out = flash_attention(q.transpose(1, 2), k[:, :, idx].transpose(1, 2),
+                          v[:, :, idx].transpose(1, 2),
+                          causal=causal).transpose(1, 2)
+    return out.reshape(*out.shape[:2], -1)
+
+
+def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
+                *, every_head: bool = False):
+    """x (B, S, d_model) → q, k, v (B, S, heads, Dh), RoPE applied to q
+    and k: this rank's columns of q, k and v (each with its columns of the
+    bias), then one all-gather over the model axis of those that must come
+    back whole — in prefill q where its heads are not split (``q_gather``)
+    and k/v where their columns are split and their heads not
+    (``kv_gather``): q at the heads this rank attends, k/v at the KV heads
+    it holds; with ``every_head`` (decode, whose cache keeps heads whole)
+    every split one, so q, k and v come back at every head."""
+    B, S, _ = x.shape
+    split = {"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols}
+    y = {n: L.linear_cols(p[n], x, tp.axis(s)) for n, s in split.items()}
+    whole = ({"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols} if every_head
+             else {"q": tp.q_gather, "k": tp.kv_gather, "v": tp.kv_gather})
+    names = [n for n, w in whole.items() if w]
+    if names:
+        y.update(zip(names, L.gather_cols(
+            [y[n] for n in names], tp.model,
+            site="decode.qkv" if every_head else "attn.qkv")))
+    q, k, v = (y[n].reshape(B, S, -1, tp.hd) for n in ("q", "k", "v"))
+    return (L.apply_rope(q, positions, rope_theta),
+            L.apply_rope(k, positions, rope_theta), v)
+
+
+def _self_attention(p, x, cfg: ModelConfig, tp: TensorParallel, positions,
+                    causal: bool = True):
     if cfg.mla is not None:
         m = cfg.mla
         return A.mla_attention(p, x, n_heads=cfg.n_heads, q_lora=m.q_lora,
                                kv_lora=m.kv_lora, nope_dim=m.nope_dim,
                                rope_dim=m.rope_dim, v_dim=m.v_dim,
                                positions=positions, causal=causal)
-    B, S, _ = x.shape
-    q, k, v = A.gqa_project(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                            head_dim=cfg.hd, positions=positions,
-                            rope_theta=cfg.rope_theta)
-    # K4 takes (B, H, S, D); the transposed views are read in place and the
-    # output keeps q's layout, so it is (B, S, H, D) again below
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal).transpose(1, 2)
-    return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
+    q, k, v = gqa_project(p, x, tp, positions, cfg.rope_theta)
+    out = _attend(q, k, v, tp, causal)
+    return L.linear_rows(p["o"], tp.o_input(out), tp.axis(tp.rows),
+                         site="attn.o")
 
 
-def _cross_attention(p, x, memory, cfg: ModelConfig):
+def _cross_attention(p, x, memory, cfg: ModelConfig, tp: TensorParallel):
     """A decoder layer's attention over the encoder's output: q from x
     (B, S, D) with no RoPE, k and v from ``memory`` (B, Sm, D) at the KV
     heads, non-causal on K4 (Sq = S, Skv = Sm; the group folded in the
@@ -296,35 +492,34 @@ def _cross_attention(p, x, memory, cfg: ModelConfig):
     B, S, _ = x.shape
     mem = memory.to(x.dtype)
     Sm = mem.shape[1]
-    q = L.linear(p["q"], x).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = L.linear(p["q"], x).reshape(B, S, tp.hp, cfg.hd)
     k = L.linear(p["k"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
     v = L.linear(p["v"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=False).transpose(1, 2)
-    return L.linear(p["o"], out.reshape(B, S, cfg.n_heads * cfg.hd))
+    return L.linear(p["o"], _attend(q, k, v, tp, causal=False))
 
 
-def _ffn_apply(p, x, cfg: ModelConfig, kind: str):
+def _ffn_apply(p, x, cfg: ModelConfig, tp: TensorParallel, kind: str):
     if kind == "moe":
         mo = cfg.moe
         return M.moe_apply(p, x, n_experts=mo.n_experts, top_k=mo.top_k,
                            capacity_factor=mo.capacity_factor,
                            router_softmax_after_topk=mo.softmax_after_topk)
-    return L.ffn(p, x)
+    return L.ffn(p, x, tp.axis(tp.ffn))
 
 
-def _block(x, lp, cfg: ModelConfig, positions, kind: str,
-           causal: bool = True):
-    x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
+def _block(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
+           kind: str, causal: bool = True):
+    x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg, tp,
                             positions, causal)
-    return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, kind)
+    return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, tp, kind)
 
 
 def _ssd_apply(p, x, cfg: ModelConfig):
     return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk)
 
 
-def _layer(x, lp, cfg: ModelConfig, positions, group: str, memory=None):
+def _layer(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
+           group: str, memory=None):
     """One layer of ``group``: a dense or MoE block, an SSD layer (no FFN),
     a hybrid period (each sublayer attention or SSD, then its FFN), an
     encoder layer (non-causal self-attention, then the FFN) or a decoder
@@ -333,34 +528,36 @@ def _layer(x, lp, cfg: ModelConfig, positions, group: str, memory=None):
     if group == "ssd":
         return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg)
     if group == "enc":
-        return _block(x, lp, cfg, positions, "ffn", causal=False)
+        return _block(x, lp, cfg, tp, positions, "ffn", causal=False)
     if group == "dec":
         x = x + _self_attention(lp["attn"], _norm(cfg, lp["ln1"], x), cfg,
-                                positions)
+                                tp, positions)
         x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
-                                 memory, cfg)
+                                 memory, cfg, tp)
         return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
     if group != "hyb":
-        return _block(x, lp, cfg, positions, _kind(group))
+        return _block(x, lp, cfg, tp, positions, _kind(group))
     for i, sub in enumerate(lp["sub"]):
         h = _norm(cfg, sub["ln1"], x)
-        x = x + (_self_attention(sub["attn"], h, cfg, positions)
+        x = x + (_self_attention(sub["attn"], h, cfg, tp, positions)
                  if i == cfg.attn_index else _ssd_apply(sub["ssd"], h, cfg))
-        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg,
+        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg, tp,
                            _sub_kind(cfg, i))
     return x
 
 
 # ---------------------------------------------------------------- forward
 
-def embed_inputs(params, batch, cfg: ModelConfig, dtype):
+def embed_inputs(params, batch, cfg: ModelConfig, dtype,
+                 tp: TensorParallel):
     """Returns (x, memory) (the reference also returns the batch's labels,
     which only training reads): the stub frontends hand over precomputed
     embeddings.  encdec: x embeds ``tokens`` and the memory is
     ``src_embeds`` (B, Sm, D) in ``dtype`` (the encoder's input); vlm:
     ``prefix_embeds`` (B, P, D), where the batch has them, go ahead of the
-    token embeddings."""
-    x = L.embed(params["embed"], batch["tokens"], dtype)
+    token embeddings.  Under a mesh (``tp``) the lookup is
+    vocab-parallel."""
+    x = L.embed(params["embed"], batch["tokens"], dtype, tp.axis(tp.vocab))
     memory = None
     if cfg.family == "encdec":
         memory = batch["src_embeds"].to(dtype)
@@ -375,45 +572,55 @@ def _needs_grad(*trees) -> bool:
         if isinstance(t, torch.Tensor))
 
 
-def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, memory=None):
+def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, tp, memory=None):
     """One layer; when a gradient is being taken, inside a non-reentrant
     checkpoint (only its inputs are saved; it runs again in the
     backward)."""
     if _needs_grad(x, lp, memory):
-        return checkpoint(_layer, x, lp, cfg, pos, group, memory,
+        if tp.model is not None:
+            raise ValueError("training under a mesh is not ported")
+        return checkpoint(_layer, x, lp, cfg, tp, pos, group, memory,
                           use_reentrant=False)
-    return _layer(x, lp, cfg, pos, group, memory)
+    return _layer(x, lp, cfg, tp, pos, group, memory)
 
 
-def encode(params, src_embeds, cfg: ModelConfig,
-           dtype=torch.bfloat16) -> torch.Tensor:
+def run_layers(x, layers, cfg: ModelConfig, group: str = "dense",
+               mp: int = 1, memory=None):
+    """x (B, S, D) through ``layers`` (a list of layers of ``group``, in
+    order; positions 0..S−1) — a pipeline stage's part of the model
+    (``dist.pipeline_parallel``)."""
+    tp = tensor_parallel(cfg, mp)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in layers:
+        x = _run_layer(x, lp, cfg, pos, group, tp, memory)
+    return x
+
+
+def encode(params, src_embeds, cfg: ModelConfig, dtype=torch.bfloat16,
+           mp: int = 1) -> torch.Tensor:
     """encdec: ``src_embeds`` (B, Sm, D) through the encoder layers (RoPE
     positions 0..Sm-1, non-causal attention; no final norm, as in the
     reference) → the decoder's memory (B, Sm, D) in ``dtype``; decode
     takes it as ``memory``."""
-    x = src_embeds.to(dtype)
-    pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    for lp in params["g_enc"]:
-        x = _run_layer(x, lp, cfg, pos, "enc")
-    return x
+    return run_layers(src_embeds.to(dtype), params["g_enc"], cfg, "enc", mp)
 
 
-def forward(params, batch, cfg: ModelConfig,
-            dtype=torch.bfloat16) -> torch.Tensor:
+def forward(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
+            mp: int = 1) -> torch.Tensor:
     """batch {"tokens": (B, S) integer; encdec: "src_embeds" (B, Sm, D);
     vlm: "prefix_embeds" (B, P, D), optional} → final hidden states (B, S,
     D), S counting a vlm's prefix positions.  Each layer is checkpointed
-    when a gradient is being taken (``_run_layer``)."""
+    when a gradient is being taken (``_run_layer``).  Under a mesh
+    ``params`` are the rank's blocks, the batch its rows, and the hidden
+    states the same on every rank of the model axis."""
     require_ported(cfg)
-    x, memory = embed_inputs(params, batch, cfg, dtype)
+    tp = tensor_parallel(cfg, mp)
+    x, memory = embed_inputs(params, batch, cfg, dtype, tp)
     if cfg.family == "encdec":
-        memory = encode(params, memory, cfg, dtype)
-    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        memory = encode(params, memory, cfg, dtype, mp)
     for group, _count in layer_groups(cfg):
-        if group == "enc":
-            continue
-        for lp in params[f"g_{group}"]:
-            x = _run_layer(x, lp, cfg, pos, group, memory)
+        if group != "enc":
+            x = run_layers(x, params[f"g_{group}"], cfg, group, mp, memory)
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -464,17 +671,20 @@ def forward_train(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
 
 # ---------------------------------------------------------------- serving
 
-def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, index: int):
-    """x (B, 1, D); ck/cv (B, Smax, Hkv, Dh), written in place at index."""
+def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, tp: TensorParallel,
+                 index: int, max_len: int | None = None):
+    """x (B, 1, D); ck/cv (B, Sl, Hkv, Dh), this rank's block of the
+    cache (the whole on one device), written in place at index by its
+    owner.  Every head attends (q, k and v gathered over the model axis),
+    then o is row-parallel."""
     B = x.shape[0]
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
-    q, k, v = A.gqa_project(lp, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                            head_dim=cfg.hd, positions=pos,
-                            rope_theta=cfg.rope_theta)
-    ck = DEC.sp_cache_update(ck, k, index)
-    cv = DEC.sp_cache_update(cv, v, index)
-    out = DEC.sp_decode_attention(q, ck, cv, index)
-    return L.linear(lp["o"], out.reshape(B, 1, cfg.n_heads * cfg.hd))
+    q, k, v = gqa_project(lp, x, tp, pos, cfg.rope_theta, every_head=True)
+    ck = DEC.sp_cache_update(ck, k, index, max_len=max_len)
+    cv = DEC.sp_cache_update(cv, v, index, max_len=max_len)
+    out = DEC.sp_decode_attention(q, ck, cv, index, max_len=max_len)
+    return L.linear_rows(lp["o"], tp.o_input(out.reshape(B, 1, -1)),
+                         tp.axis(tp.rows), site="attn.o")
 
 
 def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
@@ -508,7 +718,8 @@ def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
 
 
 def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
-                  index: int, memory=None):
+                  index: int, tp: TensorParallel, max_len: int | None,
+                  memory=None):
     """One layer of ``group`` at one token; ``c`` is the group's cache and
     ``i`` the layer's row in it.  A hybrid period's SSD sublayers take the
     rows of its state in order; a decoder layer attends ``memory`` on K4
@@ -518,9 +729,9 @@ def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
                                        c["state"][i], **_ssd_dims(cfg))[0]
     if group == "dec":
         x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), c["k"][i],
-                             c["v"][i], cfg, index)
+                             c["v"][i], cfg, tp, index, max_len)
         x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
-                                 memory, cfg)
+                                 memory, cfg, tp)
         return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
     if group != "hyb":
         h = _norm(cfg, lp["ln1"], x)
@@ -529,17 +740,17 @@ def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
                                 cfg, index)
         else:
             x = x + _attn_decode(lp["attn"], h, c["k"][i], c["v"][i], cfg,
-                                 index)
-        return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg,
+                                 tp, index, max_len)
+        return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, tp,
                               _kind(group))
     states = iter(c["state"][i])
     for j, sub in enumerate(lp["sub"]):
         h = _norm(cfg, sub["ln1"], x)
         x = x + (_attn_decode(sub["attn"], h, c["k"][i], c["v"][i], cfg,
-                              index) if j == cfg.attn_index else
+                              tp, index, max_len) if j == cfg.attn_index else
                  SSM.ssd_decode_step(sub["ssd"], h, next(states),
                                      **_ssd_dims(cfg))[0])
-        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg,
+        x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg, tp,
                            _sub_kind(cfg, j))
     return x
 
@@ -555,14 +766,25 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     state of its other sublayers, (periods, period − 1, B, H, N, dh) in
     f32; encdec ``{"dec": {"k", "v"}}`` (the encoder keeps no cache).  On
     ``device``: ``cuda`` unless the caller names another; raises without a
-    card."""
+    card.  Under a mesh each tensor is this rank's block: its batch rows
+    ("batch") and, for KV and latent caches, its rows of the sequence
+    ("sp_seq"), where the rules put them and the dims divide, as
+    ``train.shardings.cache_specs`` places them."""
     require_ported(cfg)
     device = resolve_device(device)
+    ctx = active_rules()
+
+    def local(n, tag):              # this rank's share of a dim of n
+        for a in entry_axes(active_spec((n,), tag)[0]):
+            n //= ctx[1].shape[a]
+        return n
+
+    B, S = local(batch_size, "batch"), local(max_len, "sp_seq")
     cache = {}
     for group, count in layer_groups(cfg):
         if group == "enc":
             continue
-        rows = (count, batch_size, max_len)
+        rows = (count, B, S)
         if cfg.mla is not None:
             shapes = {"lat": (*rows, cfg.mla.kv_lora),
                       "rope": (*rows, cfg.mla.rope_dim)}
@@ -576,39 +798,49 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
         if group in ("ssd", "hyb"):
             s = cfg.ssm
             per = () if group == "ssd" else (cfg.attn_period - 1,)
-            state = (count, *per, batch_size,
-                     s.expand * cfg.d_model // s.head_dim, s.d_state,
-                     s.head_dim)
+            state = (count, *per, B, s.expand * cfg.d_model // s.head_dim,
+                     s.d_state, s.head_dim)
             cache[group]["state"] = torch.zeros(
                 state, dtype=torch.float32, device=device)
     return cache
 
 
 def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
-                dtype=torch.bfloat16, memory=None):
+                dtype=torch.bfloat16, memory=None, mp: int = 1,
+                max_len: int | None = None):
     """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
     position being written; unlike the reference, the cache's tensors (KV
     rows and SSM states) are written in place and the same dict is
     returned.  encdec needs ``memory`` (B, Sm, D), the encoder's output
     (``encode``); a vlm's decode embeds tokens only, as the reference's
-    does."""
+    does.  Under a mesh ``params``, ``cache`` and ``tokens`` are the
+    rank's (``max_len`` the whole cache's rows: a block's rows do not say
+    whether the rules split them), and the logits are the rank's columns
+    of the vocabulary (B, 1, V / model) where ``lm_head``'s are split."""
     require_ported(cfg)
     if cfg.family == "encdec" and memory is None:
         raise ValueError(f"{cfg.name}: an encdec decode step needs memory")
-    x = L.embed(params["embed"], tokens, dtype)
+    tp = tensor_parallel(cfg, mp)
+    x = L.embed(params["embed"], tokens, dtype, tp.axis(tp.vocab))
     for group, _count in layer_groups(cfg):
         if group == "enc":
             continue
         for i, lp in enumerate(params[f"g_{group}"]):
-            x = _decode_layer(x, lp, cache[group], i, cfg, group, index,
-                              memory)
+            x = _decode_layer(x, lp, cache[group], i, cfg, group, index, tp,
+                              max_len, memory)
     x = _norm(cfg, params["ln_f"], x)
     return L.linear(params["lm_head"], x), cache
 
 
-def prefill(params, batch, cfg: ModelConfig, dtype=torch.bfloat16):
+def prefill(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
+            mp: int = 1):
     """Forward pass returning (last-position logits (B, 1, V), final
     hidden (B, S, D)), as the reference's code does (its module docstring
-    speaks of emitted caches; the code emits none)."""
-    x = forward(params, batch, cfg, dtype)
-    return L.linear(params["lm_head"], x[:, -1:]), x
+    speaks of emitted caches; the code emits none).  Under a mesh the
+    logits are gathered over the model axis (every column), of the rank's
+    batch rows."""
+    tp = tensor_parallel(cfg, mp)
+    x = forward(params, batch, cfg, dtype, mp)
+    (logits,) = L.gather_cols([L.linear(params["lm_head"], x[:, -1:])],
+                              tp.axis(tp.vocab), site="logits")
+    return logits, x

@@ -1,7 +1,9 @@
-"""Training and serving step builders and the optimizers of the port
-(counterpart of ``repro.train``; the reference's sharding specs have no
-counterpart on one card)."""
+"""Training and serving step builders, the optimizers and the sharding
+specs of the port (counterpart of ``repro.train``)."""
 from .optimizer import (Optimizer, adafactor, adamw,  # noqa: F401
                         cosine_schedule, get_optimizer)
+from .shardings import (batch_specs, cache_specs,  # noqa: F401
+                        gather_tree, local_tree, param_specs, place_params,
+                        sanitize_specs)
 from .step import (make_decode_fn, make_prefill_step,  # noqa: F401
                    make_train_step)

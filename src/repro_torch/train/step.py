@@ -7,12 +7,21 @@ serving steps, for every family ``models.lm`` runs (dense and MoE, with
 GQA or MLA attention; SSM and hybrid; the encoder–decoder, whose decode
 step takes the encoder's output as ``memory``; the VLM, whose prefill
 batch may carry ``prefix_embeds``).  PyTorch runs eagerly, so there is
-nothing to jit; the reference's ``mp``, ``block_kv`` and ``unroll`` are
-lowering knobs with no counterpart on one card."""
+nothing to jit; ``mp`` pads the q heads as the reference's does (the
+serving steps; training under a mesh is not ported), and its
+``block_kv`` and ``unroll`` are lowering knobs with no counterpart.
+
+The serving steps run under an active ``dist.sharding.use_rules`` context
+too (the dense GQA families; ``models.lm``'s module docstring): the
+parameters are the rank's blocks (``train.shardings.place_params``), the
+batch is whole on every rank and split here over its rows ("batch", as
+``batch_specs`` places it), and the prefill's logits are gathered back
+whole on every rank."""
 from __future__ import annotations
 
 import torch
 
+from ..dist.sharding import active_rules, active_spec, shard, unshard
 from ..models import decode_step as _decode_step
 from ..models import forward_train, tree_leaves
 from ..models import prefill as _prefill
@@ -93,26 +102,49 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
+def batch_rows(batch: dict) -> tuple[dict, tuple]:
+    """A whole batch → (this rank's rows of each tensor, the spec of the
+    batch dim) under the active rules ("batch"); as it is outside any."""
+    spec = active_spec(tuple(batch["tokens"].shape[:1]), "batch")
+    return {k: shard(v, "batch", *([None] * (v.dim() - 1)))
+            for k, v in batch.items()}, spec
+
+
+def gather_rows(x, spec: tuple, *, site: str = "batch.gather"):
+    """The inverse of ``batch_rows`` for one output: the whole batch's
+    rows on every rank."""
+    if spec[0] is None:
+        return x
+    return unshard(x, spec + (None,) * (x.dim() - 1), active_rules()[1],
+                   site=site)
+
+
+def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
+                      mp: int = 1):
     """Returns prefill_step(params, batch) → last-position logits
     (B, 1, V).  ``batch`` passes through whole: "tokens", and an
     encdec's "src_embeds" or a vlm's "prefix_embeds".  Its attention is
     K4, once an attention layer (none in an SSM model, once a period in a
     hybrid one, three times an encoder–decoder layer pair: encoder,
-    decoder and cross-attention)."""
+    decoder and cross-attention).  Under a mesh each rank runs its rows
+    of the batch and the logits come back whole."""
     def prefill_step(params, batch):
-        logits, _hidden = _prefill(params, batch, cfg, dtype=dtype)
-        return logits
+        rows, spec = batch_rows(batch)
+        logits, _hidden = _prefill(params, rows, cfg, dtype=dtype, mp=mp)
+        return gather_rows(logits, spec)
 
     return prefill_step
 
 
-def make_decode_fn(cfg: ModelConfig, *, dtype=torch.bfloat16):
+def make_decode_fn(cfg: ModelConfig, *, dtype=torch.bfloat16, mp: int = 1,
+                   max_len: int | None = None):
     """Returns serve_step(params, cache, tokens, index, memory=None) →
     (logits, cache); the cache (KV rows, SSM states) is written in place;
-    an encdec step attends ``memory``, the encoder's output."""
+    an encdec step attends ``memory``, the encoder's output.  Under a mesh
+    the cache and tokens are the rank's (``models.lm.decode_step``) and
+    ``max_len`` is the whole cache's rows."""
     def serve_step(params, cache, tokens, index, memory=None):
         return _decode_step(params, cache, tokens, index, cfg, dtype=dtype,
-                            memory=memory)
+                            memory=memory, mp=mp, max_len=max_len)
 
     return serve_step

@@ -1392,3 +1392,71 @@ def test_two_ranks_on_one_card_match_two_cpu_ranks(dev):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9)
         card, cpu = (E.shard_map_cc(lay, m, 30, exchange=ex) for m in meshes)
         np.testing.assert_array_equal(card, cpu)
+
+
+def _lm_mesh_job(mesh, d):
+    """Sequence-parallel decode, one tensor-parallel qwen2-7b layer at full
+    width and ``pipeline_apply`` on 4 ranks sharing the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist import decode as DEC
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.pipeline_parallel import pipeline_apply
+    from repro_torch.dist.sharding import SINGLE_POD_RULES, shard, use_rules
+    from repro_torch.models.lm import init_layer, run_layers
+    from repro_torch.train import place_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    t = {k: v.to(dev) for k, v in d.items()}
+    cfg = dataclasses.replace(get_config("qwen2_7b"), n_layers=1)
+    out = {}
+    with use_rules(SINGLE_POD_RULES, mesh):
+        kb, vb = (shard(t[n], "batch", "sp_seq", None, None)
+                  for n in ("k", "v"))
+        out["sp"] = DEC.sp_decode_attention(t["q"], kb, vb, 37,
+                                            max_len=t["k"].shape[1]).cpu()
+        layer = place_params(mesh)("['g_dense'][0]", init_layer(
+            cfg, "dense", torch.Generator(device=dev).manual_seed(5)))
+        out["layer"] = run_layers(t["x"], [layer], cfg).cpu()
+    stage = make_mesh({"stage": mesh.size})
+    ws = [t["w"][r] if r == stage.rank else None for r in range(stage.size)]
+    out["pipeline"] = pipeline_apply(stage, "stage", ws, t["xs"],
+                                     lambda x, w: torch.tanh(x @ w)).cpu()
+    return out
+
+
+@pytest.mark.cuda
+def test_lm_mesh_on_four_card_ranks_matches_one_card(dev):
+    """On make_test_mesh(1, 4) over gloo, ranks sharing the card, f32:
+    ``sp_decode_attention`` over a cache split by sequence, one
+    tensor-parallel qwen2-7b layer at full width (2 × 64 tokens), each
+    within 1e-4 of the largest magnitude of the one-card port; and
+    ``pipeline_apply`` against ``reference_apply`` within 2e-5."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist import decode as DEC
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.dist.pipeline_parallel import reference_apply
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import init_layer, run_layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen2_7b"), n_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def f(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    d = dict(q=f(4, 1, 8, 64), k=f(4, 64, 2, 64), v=f(4, 64, 2, 64),
+             x=f(2, 64, cfg.d_model), w=f(4, 16, 16) / 4, xs=f(6, 4, 16))
+    got = run_on_ranks(_lm_mesh_job, make_test_mesh(1, 4),
+                       {k: v.cpu() for k, v in d.items()}, timeout=600)
+
+    def close(a, b, rel):
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    close(got["sp"], DEC.sp_decode_attention(d["q"], d["k"], d["v"],
+                                             37).cpu(), 1e-4)
+    layer = init_layer(cfg, "dense", torch.Generator(device=dev)
+                       .manual_seed(5))
+    close(got["layer"], run_layers(d["x"], [layer], cfg).cpu(), 1e-4)
+    want = reference_apply(list(d["w"]), d["xs"],
+                           lambda x, w: torch.tanh(x @ w)).cpu()
+    torch.testing.assert_close(got["pipeline"], want, rtol=2e-5, atol=2e-5)

@@ -109,7 +109,8 @@ def test_enc_block_matches_reference(S):
         want = JLM._make_block(jcfg, "enc", 1, 1024)(
             jnp.asarray(x), _layer_slice(tree, "enc", i))
         got = lm._layer(_t(x), params["g_enc"][i], tcfg,
-                        torch.arange(S)[None], "enc")
+                        lm.tensor_parallel(tcfg), torch.arange(S)[None],
+                        "enc")
         _assert_rel_close(got.numpy(), want)
 
 
@@ -127,7 +128,8 @@ def test_dec_block_matches_reference(S, Sm):
         want = JLM._make_block(jcfg, "dec", 1, 1024, memory=jnp.asarray(mem))(
             jnp.asarray(x), _layer_slice(tree, "dec", i))
         got = lm._layer(_t(x), params["g_dec"][i], tcfg,
-                        torch.arange(S)[None], "dec", _t(mem))
+                        lm.tensor_parallel(tcfg), torch.arange(S)[None],
+                        "dec", _t(mem))
         _assert_rel_close(got.numpy(), want)
 
 

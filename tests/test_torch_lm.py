@@ -110,6 +110,8 @@ def test_layer_matches_reference(name):
 
 
 def test_gqa_project_with_bias_matches_reference():
+    """The projection prefill and decode run (``lm.gqa_project``, one
+    device: every weight whole) against the reference's."""
     rng = np.random.default_rng(8)
     d, hq, hkv, hd = 64, 6, 2, 16
     p = {}
@@ -120,12 +122,14 @@ def test_gqa_project_with_bias_matches_reference():
     pos = np.arange(3, 10, dtype=np.int32)[None].repeat(2, 0)
     kw = dict(n_heads=hq, n_kv=hkv, head_dim=hd, rope_theta=1e6)
     want = JA.gqa_project(p, x, pad_heads_to=1, positions=pos, **kw)
-    got = A.gqa_project({n: {k: _t(a) for k, a in v.items()}
-                         for n, v in p.items()}, _t(x), positions=_t(pos),
-                        **kw)
-    for w, g in zip(want, got):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
-                                   atol=1e-6)
+    whole = lm.TensorParallel(hq, hkv, hd, heads=(0, hq), kv=(0, hkv))
+    tp = {n: {k: _t(a) for k, a in v.items()} for n, v in p.items()}
+    for every_head in (False, True):
+        got = lm.gqa_project(tp, _t(x), whole, _t(pos), 1e6,
+                             every_head=every_head)
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=1e-6)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -225,7 +225,8 @@ def test_jamba_sublayers_match_reference_on_its_inputs():
             th = lm._norm(tcfg, tsub["ln1"], _t(x))
             if i == cfg.attn_index:
                 want = JLM._self_attention(sub["attn"], h, cfg, 1, pos)
-                got = lm._self_attention(tsub["attn"], th, tcfg, tpos)
+                got = lm._self_attention(tsub["attn"], th, tcfg,
+                                         lm.tensor_parallel(tcfg), tpos)
             else:
                 want = JM.ssd_apply(sub["ssd"], h, **dims, chunk=s.chunk)
                 got = M.ssd_apply(tsub["ssd"], th, **dims, chunk=s.chunk)
@@ -236,7 +237,8 @@ def test_jamba_sublayers_match_reference_on_its_inputs():
             want = JLM._ffn_apply(sub["ffn"], JLM._norm(
                 cfg, sub["ln2"], jnp.asarray(x)), cfg, kind)
             got = lm._ffn_apply(tsub["ffn"], lm._norm(tcfg, tsub["ln2"],
-                                                      _t(x)), tcfg, kind)
+                                                      _t(x)), tcfg,
+                                lm.tensor_parallel(tcfg), kind)
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        rtol=1e-4, atol=1e-4)
             x = x + np.asarray(want)
