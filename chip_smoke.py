@@ -201,6 +201,22 @@ Phases (any failure raises and exits non-zero):
    within 2e-3, ``moe_apply`` against ``moe_reference`` on layer 0's real
    input within 2e-4; K4 at the group-5 prefill shape against its plain
    version within 2e-2, timed beside its bound and SDPA.
+   ``[moe-mesh]`` then serves llama4-scout at published width over
+   make_test_mesh(2, 4) (8 ranks on this card over gloo) with its 16
+   experts 4 a model rank (expert parallelism), cut to 4 of 48 layers
+   (each data rank holds a whole copy of its model block; 12 layers would
+   need ≈ 114 GB).  f32 at 1 layer: prefill logits and 4 decode steps
+   within 1e-4 of the largest |logit| of the one card's on the same
+   weights, the routing's kept pairs equal.  bf16: every rank's blocks
+   equal the one-card tree's by checksum (the ranks draw in turns);
+   prefill 4 × 2,048 with the counts zeroed before and read after (K4
+   exactly once a layer a rank, no graph kernel), logits within 2e-2 of
+   the one card's, each layer's kept pairs within 2e-3 of its routed
+   pairs of the one card's; ``generate`` (16-token prompts, 16 greedy
+   tokens), every logit finite, the tokens equal to the one card's
+   counted; per rank the
+   collectives by site (``moe.combine`` among them); K4 at the rank's
+   (2, 10/2, 2048, 128) by the profiler's device time beside SDPA.
 8c. ``[mla]``, with ``[moe]``'s weights freed: deepseek-v3 (MLA, 128
    heads; 256 experts top-8 + a shared expert after 3 dense layers) at
    published width and 5 of its 61 layers (3 dense + 2 MoE, 26.6 B
@@ -296,6 +312,26 @@ Phases (any failure raises and exits non-zero):
    backward.  Last, ``ft.run`` at the reduced config killed at step 5 by
    ``fail_at_step`` and resumed: the uninterrupted run's losses within
    rtol 1e-4.
+8h. ``[train-mesh]``, with ``[train]``'s weights freed: stablelm-1.6b at
+   full width and depth trained ZeRO-3 over make_test_mesh(2, 4)
+   (``place_params(mesh, zero=True)``: each weight's TP dim on "model",
+   its other dim on "data"), 8 ranks on this card over gloo.  f32 at 2
+   layers: the mesh's loss within rtol 1e-5 of the one card's
+   ``make_train_step`` loss on the same weights and batch, every
+   gradient leaf gathered by ``gather_tree`` within 1e-4 of its largest
+   magnitude.  bf16 at full depth: every rank's blocks equal ``[train]``'s
+   seed-0 tree cut on both axes by checksum; 3 AdamW steps under
+   ``[train]``'s schedule, the counts zeroed before each and read after
+   (K4 exactly 48 times a rank a step, no graph kernel); every loss
+   finite and within 1e-3 of ``[train]``'s at its step, five leaves
+   (``TRAIN_WITNESS``) after the last step within 0.05 of ``[train]``'s
+   update after the same step, every gradient leaf gathered at step 0
+   finite and non-zero;
+   s/step and tokens/s beside ``train_flops``' ceiling, every rank's
+   collectives by site (the gloo sums apart from the ZeRO gathers and
+   reduce-scatters).  K4 at the rank's (4, 8/8, 2048, 64): forward with
+   LSE and backward against the plain version and autograd (2e-2), by
+   the profiler's device time beside the bounds and SDPA.
 9. The ``kernels`` JSON line (ten rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
@@ -307,8 +343,10 @@ Phases (any failure raises and exits non-zero):
    and the decode's launches), and at head dim 160,
    ``flash_attention_d160`` (the ``[vlm]`` prefill's launches); K4's
    row also counts the ``[lm-mesh]`` ranks' timed prefill and the ``[pp]``
-   stages' timed forward, with the rank shape's record), then the device
-   JSON line last.
+   stages' timed forward, with the rank shape's record, the
+   ``[moe-mesh]`` ranks' timed prefill and the ``[train-mesh]`` ranks'
+   steps, with their rank shapes' records), then the device JSON line
+   last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -316,6 +354,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -486,56 +525,117 @@ def event_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps, kernel=None):
+# device_ms: untimed calls at a profiler session's start, and the length
+# of the marker kernels (≈ 50.5 µs at 1,980 MHz) around the timed calls
+PROFILER_WARM_CALLS = 2
+PROFILER_MARK_CYCLES = 100_000
+
+
+@functools.lru_cache(maxsize=1)
+def sm_max_hz() -> float:
+    """The card's top SM clock as nvidia-smi reads it."""
+    return float(smi("clocks.max.sm").split()[0]) * 1e6
+
+
+def sessions_ms(sessions, reps, kernel=None, min_sessions=2):
+    """What ``device_ms`` reads from its traced sessions — (ms, the kinds'
+    counts a call) — or None while they do not suffice.  ``sessions``:
+    per session of ``reps`` calls the (name, µs) of every device record it
+    kept.  The card's profiler loses records (one of 50 K2 launches; late
+    in the script 3–6 of 10 of each of SDPA's kinds, or every record of a
+    session), so only a whole session is read: one that saw every kind
+    that any session saw (with ``kernel``, the kinds whose name holds it)
+    a whole, positive multiple of ``reps`` times, its count a call.  It
+    gives the mean duration of a launch with ``kernel``, else the summed
+    duration of a call.  With ``kernel`` None at least ``min_sessions``
+    sessions are traced first, so a kind lost from every record of a
+    session shows in another."""
+    from collections import Counter
+    kept = [[(n, us) for n, us in seen if kernel is None or kernel in n]
+            for seen in sessions]
+    kinds = {n for seen in kept for n, _us in seen}
+    if not kinds or (kernel is None and len(sessions) < min_sessions):
+        return None
+    for seen in kept:
+        c = Counter(n for n, _us in seen)
+        if all(c[n] > 0 and c[n] % reps == 0 for n in kinds):
+            us = sum(u for _n, u in seen)
+            per_call = {n: c[n] // reps for n in kinds}
+            return (us / len(seen) if kernel else us / reps) / 1e3, per_call
+    return None
+
+
+def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
     """Mean device time of one launch of the kernels whose name holds
     ``kernel`` over ``reps`` calls of ``fn`` traced by torch.profiler; with
     ``kernel`` None, the device time of one call, every device activity
     of the call summed (the activities' names and counts a call are
     logged).  A kernel shorter than its wrapper's host-side launch cost is
     timed alone here; CUDA events around back-to-back calls would read
-    the host's launch rate instead.  The card's profiler loses a record
-    now and then (one of 50 K2 launches in one session), so a session that
-    saw fewer launches than calls (with ``kernel`` None: an activity whose
-    count is not a whole multiple of the calls) is run again, twice at
-    most, and a third short one fails the run."""
+    the host's launch rate instead.  One untraced call first, then
+    sessions until ``sessions_ms`` reads a whole one; ``max_sessions``
+    without one fail the run.  The profiler loses a session's first
+    records (the first call's one or two launches of a kind, in every
+    session alike), so a session traces ``PROFILER_WARM_CALLS`` calls,
+    then a marker kernel (``torch.cuda._sleep``), the ``reps`` calls and a
+    second marker, and keeps the records between the two.  Now and then
+    every duration of a session reads half its length (K4 and SDPA at
+    0.020 ms against 0.040 in one session, 0.0288 against 0.060 in
+    another); a marker spins ``PROFILER_MARK_CYCLES`` cycles, so it lasts
+    at least that many at the top SM clock.  A session that lost a
+    marker's record, or whose marker reads shorter than 0.9 of that, keeps
+    none."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    sessions = []
+    for attempt in range(1, max_sessions + 1):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA],
-                    schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                     active=1, repeat=1)
-                    ) as prof:
-                fn()                     # the warm-up step, not counted
-                torch.cuda.synchronize()
-                prof.step()
-                for _ in range(reps):
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILER_WARM_CALLS):
                     fn()
                 torch.cuda.synchronize()
-                prof.step()
-        seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and (kernel is None or kernel in e.name)]
-        counts = Counter(e.name for e in seen)
-        whole = (len(seen) >= reps if kernel else
-                 bool(counts) and all(c % reps == 0
-                                      for c in counts.values()))
-        if whole:
+                torch.cuda._sleep(PROFILER_MARK_CYCLES)
+                for _ in range(reps):
+                    fn()
+                torch.cuda._sleep(PROFILER_MARK_CYCLES)
+                torch.cuda.synchronize()
+        records = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        marks = sorted((e.time_range.start, e.time_range.end)
+                       for e in records if "spin_kernel" in e.name)
+        floor_us = 0.9 * PROFILER_MARK_CYCLES / sm_max_hz() * 1e6
+        short = [round(b - a, 2) for a, b in marks if b - a < floor_us]
+        sessions.append([] if len(marks) != 2 or short else [
+            (e.name, e.time_range.elapsed_us()) for e in records
+            if "spin_kernel" not in e.name
+            and e.time_range.start >= marks[0][1]
+            and e.time_range.end <= marks[1][0]])
+        read = sessions_ms(sessions, reps, kernel)
+        if read is not None:
             break
-        log(f"[profiler] session {attempt} saw {len(seen)} launches of "
-            f"{kernel or dict(counts)} in {reps} calls; records lost")
-    check(whole, f"the profiler saw {len(seen)} launches of "
-          f"{kernel or dict(counts)} in {reps} calls in each of 3 sessions")
-    us = sum(e.time_range.elapsed_us() for e in seen)
+        seen = Counter(n for n, _us in sessions[-1]
+                       if kernel is None or kernel in n)
+        log(f"[profiler] session {attempt}, {kernel or 'every kind'} in "
+            f"{reps} calls between the markers"
+            f"{'' if len(marks) == 2 else f' ({len(marks)} marker records)'}"
+            f"{f' (markers read {short} µs, < {floor_us:.1f})' * bool(short)}"
+            f": { {n[:60]: c for n, c in seen.items()} }")
+    check(read is not None, f"the profiler saw {kernel or 'every kind'} "
+          f"whole in none of {len(sessions)} sessions of {reps} calls")
+    ms, per_call = read
+    spread = ""
     if kernel:
-        return us / len(seen) / 1e3
-    log(f"[profiler] a call's device activities: "
-        f"{ {n[:80]: c // reps for n, c in counts.items()} }")
-    return us / reps / 1e3
+        us = [u for seen in sessions for n, u in seen if n in per_call]
+        spread = f", a launch {min(us):.1f}–{max(us):.1f} µs"
+    log(f"[profiler] {kernel or 'a call'}: {ms:.4f} ms after "
+        f"{len(sessions)} sessions{spread}; launches a call "
+        f"{ {n[:80]: c for n, c in per_call.items()} }")
+    return ms
 
 
 def game_gs_in_partition(torch, run) -> dict:
@@ -2849,6 +2949,13 @@ def named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
+def leaf_at(tree, keys):
+    """The leaf of ``tree`` at ``keys`` (dict keys and list indices)."""
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
 def k4_train_shape_f32(torch, ops, q, k, v, do) -> dict:
     """K4's f32 path at a training shape, causal, on the values of the
     bf16 check: the forward's log-sum-exp against the plain version's
@@ -2885,20 +2992,15 @@ def k4_train_shape_f32(torch, ops, q, k, v, do) -> dict:
     return out
 
 
-def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
+def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
     """K4 at a training shape, bf16, causal, as the model passes it
-    (transposed views of (B, S, H, D)): the forward against the plain
-    version's output (2e-2, K4's bf16 tolerance) and log-sum-exp (1e-3
-    absolute: f32 arithmetic on both sides), ``flash_attention_backward``
-    from them against autograd of the plain version (dq, dk, dv within
-    2e-2, K4's bf16 tolerance).  The same in f32 on the same values
-    (``k4_train_shape_f32``: every late row and KV block held, not only
-    the large entries of the first rows).  Timed with CUDA events beside
-    their bounds (forward 4·D a unmasked pair, backward 10·D, forward +
-    backward 12·D, at the bf16 peak; each input read once, each output
-    written once), the plain version's
-    forward + backward and ``scaled_dot_product_attention``'s forward and
-    forward + backward (a yardstick the port never calls)."""
+    (transposed views of seeded (B, S, H, D)): the forward against the
+    plain version's output (2e-2, K4's bf16 tolerance) and log-sum-exp
+    (1e-3 absolute: f32 arithmetic on both sides),
+    ``flash_attention_backward`` from them against autograd of the plain
+    version (dq, dk, dv within 2e-2, K4's bf16 tolerance).  Returns
+    (q, k, v, do), K4's (o, lse), each max |d| by name and the plain
+    version's forward + backward as a function."""
     from repro_torch.kernels import flash_attention as K4
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2913,8 +3015,8 @@ def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
     torch.testing.assert_close(o.float(), want_o.float(), rtol=2e-2,
                                atol=2e-2)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
-    o_err = float((o.float() - want_o.float()).abs().max())
-    lse_err = float((lse - want_lse).abs().max())
+    err = {"o": float((o.float() - want_o.float()).abs().max()),
+           "lse": float((lse - want_lse).abs().max())}
     del want_o, want_lse
     got = ops.flash_attention_backward(q, k, v, o, lse, do, True)
 
@@ -2922,13 +3024,30 @@ def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         return torch.autograd.grad(ops.flash_attention_plain(
             *leaves, causal=True), leaves, do)
-    grad_err = {}
     for name, g, w in zip("qkv", got, plain_grads()):
         torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
                                    atol=2e-2)
-        grad_err[f"d{name}"] = float((g.float() - w.float()).abs().max())
+        err[f"d{name}"] = float((g.float() - w.float()).abs().max())
     del got
     torch.cuda.empty_cache()
+    return (q, k, v, do), (o, lse), err, plain_grads
+
+
+def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
+    """K4 at a training shape (``k4_train_check``), then the same in f32 on
+    the same values (``k4_train_shape_f32``: every late row and KV block
+    held, not only the large entries of the first rows).  Timed with CUDA
+    events beside their bounds (forward 4·D a unmasked pair, backward
+    10·D, forward + backward 12·D, at the bf16 peak; each input read
+    once, each output written once), the plain version's forward +
+    backward and ``scaled_dot_product_attention``'s forward and forward +
+    backward (a yardstick the port never calls)."""
+    from repro_torch.kernels import flash_attention as K4
+
+    (q, k, v, do), (o, lse), err, plain_grads = k4_train_check(
+        torch, ops, dev, B, H, Hkv, S, D, seed)
+    o_err, lse_err = err.pop("o"), err.pop("lse")
+    grad_err = err
     f32_err = k4_train_shape_f32(torch, ops, q, k, v, do)
 
     def sdpa_grads():
@@ -3050,6 +3169,9 @@ def train_phase(torch, ops, dev) -> dict:
     dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
     want_k4 = {"flash_attention": 2 * cfg.n_layers}
     losses, ms, k4_launches = [], [], 0
+    # [train-mesh]'s witness: TRAIN_WITNESS's leaves before step 0 and
+    # after its last step, on the host
+    witness = {"init": [leaf_at(params, k).cpu() for k in TRAIN_WITNESS]}
     for i in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in batch_at(dcfg, i).items()}
@@ -3063,6 +3185,9 @@ def train_phase(torch, ops, dev) -> dict:
         ms.append((time.perf_counter() - t) * 1e3)
         launches = ops.launch_counts()
         losses.append(loss.item())
+        if i == TRAIN_MESH_STEPS - 1:
+            witness["after"] = [leaf_at(params, k).cpu()
+                                for k in TRAIN_WITNESS]
         log(f"[train] step {i}: loss {losses[-1]:.4f}, {ms[-1]:.1f} ms, "
             f"launches {json.dumps(launches)}")
         check(launches == want_k4, f"train step {i} launched {launches}, "
@@ -3202,7 +3327,7 @@ def train_phase(torch, ops, dev) -> dict:
         f"{max(abs(a / b - 1) for a, b in zip(tail, full[FT_FAIL:])):.2e})")
     log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": k4_launches, "shapes": records, "losses": losses,
-            "ms": ms, "peak_gib": peak}
+            "ms": ms, "peak_gib": peak, "witness": witness}
 
 
 # ------------------------------------------------------------- [dist]
@@ -3525,18 +3650,21 @@ def checksum(torch, x) -> int:
     return int(total)
 
 
-def mesh_checksums(torch, params) -> dict:
+def mesh_checksums(torch, params, zero: bool = False) -> dict:
     """The checksum of every leaf's block on each model rank of
     make_test_mesh(MESH_DATA, MESH_MODEL) (the blocks ``place_params``
-    keeps; the data axis holds copies), from the one-card tree."""
+    keeps; the data axis holds copies), from the one-card tree; with
+    ``zero`` (ZeRO-3: the blocks differ on the data axis too) on every
+    rank of the mesh, by global rank."""
     import dataclasses
     from repro_torch.dist.sharding import block
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train.shardings import (map_with_path, param_specs,
                                              sanitize_specs)
     spec = make_test_mesh(MESH_DATA, MESH_MODEL, device="cpu")
-    ranks = [dataclasses.replace(spec, rank=r) for r in range(MESH_MODEL)]
-    specs = sanitize_specs(param_specs(params, zero=False, multi_pod=False),
+    ranks = [dataclasses.replace(spec, rank=r)
+             for r in range(spec.size if zero else MESH_MODEL)]
+    specs = sanitize_specs(param_specs(params, zero=zero, multi_pod=False),
                            params, spec.shape)
     leaves = {}
     map_with_path(lambda path, x: leaves.__setitem__(path, x), params)
@@ -4037,6 +4165,761 @@ def pp_phase(torch, ops, dev, k4_row) -> None:
             + json.dumps({k: (round(c["seconds"], 4), c["bytes"], c["calls"])
                           for k, c in r["collectives"].items()}))
     log(f"[pp] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# training over the mesh: stablelm-1.6b ZeRO-3 on make_test_mesh(2, 4); and
+# llama4-scout served over it with its experts on "model"
+
+TRAIN_MESH_STEPS = 3                 # bf16 steps of the mesh at full depth
+# the mesh's bf16 loss at each step within this of [train]'s, relative
+# (every run on an H100 80GB HBM3 at 700 W: 2.77e-05, 9.00e-06, 3.33e-05)
+TRAIN_MESH_LOSS_RTOL = 1e-3
+# leaves of [train]'s tree held after the mesh's last step: a matrix cut
+# on both axes in the first layer, the last layer's row-parallel down
+# product, a norm scale whole on both axes (summed by grad.data), the
+# final norm's bias and the vocab-parallel head; each within this share of
+# [train]'s update at the same step, ‖mesh − one‖ / ‖one − init‖ (read
+# 1.00e-02, 6.17e-03, 4.21e-03, 4.10e-03, 5.86e-03 on an H100 80GB HBM3 at
+# 700 W; a data-axis sum left out moves a leaf it feeds to 0.3–0.6 on the
+# CPU at the reduced size, while the losses stay within 1e-4)
+TRAIN_WITNESS = (("g_dense", 0, "attn", "q", "w"),
+                 ("g_dense", -1, "ffn", "down", "w"),
+                 ("g_dense", 0, "ln1", "scale"), ("ln_f", "bias"),
+                 ("lm_head", "w"))
+TRAIN_MESH_UPDATE_TOL = 0.05
+# llama4-scout on the mesh: each data rank holds a whole copy of its model
+# block, so 12 layers would need ≈ 114 GB over the 8 ranks; 4 need ≈ 43.5
+# GB.  The f32 check at 1 layer (≈ 34 GB over the ranks)
+MOE_MESH_LAYERS, MOE_MESH_F32_LAYERS = 4, 1
+MOE_MESH_PROMPT, MOE_MESH_TOKENS = 16, 16
+# the bf16 mesh's kept pairs in each MoE layer may differ from the one
+# card's by this share of the layer's routed pairs: its rank-order sums
+# round attention's output otherwise, so near-ties route to other experts
+# (four runs on an H100 80GB HBM3 at 700 W read the same pairs: 1, 2, 10
+# and 5 of 8,192 apart in layers 0–3, the largest 1.22e-3); the f32
+# check's routing must equal the one card's
+MOE_MESH_DROP_SLACK = 2e-3
+
+
+def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
+    """``[train-mesh]`` on one rank of make_test_mesh(2, 4) (SPMD), under
+    ``SINGLE_POD_RULES`` with ZeRO-3 placement: the f32 gradient check at
+    2 layers of full width (seed-1 draws; the loss and every gradient leaf,
+    gathered whole by ``gather_tree``, saved by rank 0 to ``grads_path``
+    for the parent), then stablelm at full width and depth in bf16 from
+    the card generator's seed-0 draws (this rank's blocks kept): their
+    checksums, ``steps`` AdamW steps under ``[train]``'s cosine schedule on
+    ``batch_at``'s stream, each with the counts zeroed before and read
+    after (K4, the collectives by site), every gradient leaf gathered at
+    step 0 and tested on rank 0 (finite, non-zero), the ``TRAIN_WITNESS``
+    leaves gathered after the last step and saved by rank 0 to
+    ``out_dir``.  Every rank's report comes through ``gather_objects``."""
+    import torch
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import SINGLE_POD_RULES, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.profile import TRAIN_B, TRAIN_LR, TRAIN_S, TRAIN_STEPS
+    from repro_torch.train import (adamw, cosine_schedule, gather_tree,
+                                   make_grad_fn, make_train_step,
+                                   place_params, placed_specs)
+    from repro_torch.train.optimizer import Optimizer, tree_unflatten
+    from repro_torch.train.shardings import map_with_path
+    from repro_torch.train.step import mesh_axes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"started": float(coll.pmax(torch.tensor(
+        [time.time()], dtype=torch.float64), mesh))}
+    report = {"coords": mesh.coords, "rank": mesh.rank}
+    with use_rules(SINGLE_POD_RULES, mesh):
+        # f32, 2 layers at full width: the mesh against the one card
+        place = place_params(mesh, zero=True)
+        p32 = lm.init_params(small, torch.Generator(device=dev)
+                             .manual_seed(1), place=place)
+        specs = placed_specs(place)
+        batch = {k: v.to(dev) for k, v in grad_batch.items()}
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        loss, grads = make_grad_fn(small, dtype=torch.float32,
+                                   specs=specs)(p32, batch)
+        report["f32_launches"] = ops.launch_counts()
+        whole = gather_tree(tree_unflatten(p32, grads), specs, mesh,
+                            site="check.gather")
+        if mesh.rank == 0:          # the others hold a tree of Nones
+            torch.save({"loss": float(loss), "grads": [
+                g.cpu() for g in lm.tree_leaves(whole)]},
+                f"{out_dir}/grads.pt")
+        report["f32_s"] = time.perf_counter() - t
+        del p32, grads, whole, batch
+        torch.cuda.empty_cache()
+
+        # bf16 at full width and depth, ZeRO-3
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        place = place_params(mesh, zero=True)
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), place=place)
+        specs = placed_specs(place)
+        torch.cuda.synchronize(dev)
+        report["init_s"] = time.perf_counter() - t
+        report["init_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        sums = {}
+        map_with_path(lambda path, x: sums.__setitem__(
+            path, checksum(torch, x)), params)
+        report["checksums"] = sums
+        report["master_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in lm.tree_leaves(params))
+        base = adamw(schedule=cosine_schedule(
+            TRAIN_LR, warmup=TRAIN_STEPS // 10, total=TRAIN_STEPS))
+        flags = []
+
+        def update(grads, state, p, step, axes=None):
+            if step == 0:       # every leaf gathered whole, tested on rank 0
+                t = time.perf_counter()
+                whole = gather_tree(grads, specs, mesh, site="check.gather")
+                if mesh.rank == 0:
+                    names, leaves = zip(*named_leaves(whole))
+                    f = torch.stack([torch.stack([torch.isfinite(g).all(),
+                                                  (g != 0).any()])
+                                     for g in leaves]).cpu()
+                    flags.extend(zip(names, f.tolist()))
+                del whole
+                report["gather_s"] = time.perf_counter() - t
+            return base.update(grads, state, p, step, axes=axes)
+        opt = Optimizer("adamw", base.init, update)
+        _mesh, axes = mesh_axes(specs)
+        state = opt.init(params, axes=axes)
+        step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16,
+                                  specs=specs)
+        dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+        report["steps"] = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in batch_at(dcfg, i).items()}
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            coll.reset_counts()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            params, state, loss = step_fn(params, state, batch, i)
+            torch.cuda.synchronize(dev)
+            report["steps"].append(dict(
+                s=time.perf_counter() - t, loss=loss.item(),
+                launches=ops.launch_counts(), collectives=coll.counts(),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+        whole = gather_tree([leaf_at(params, k) for k in TRAIN_WITNESS],
+                            [leaf_at(specs, k) for k in TRAIN_WITNESS],
+                            mesh, site="check.gather")
+        if mesh.rank == 0:
+            torch.save([w.cpu() for w in whole], f"{out_dir}/witness.pt")
+        del params, state, loss, batch, whole
+    out["flags"] = flags
+    out["reports"] = coll.gather_objects(report, mesh)
+    return out
+
+
+def k4_mesh_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed,
+                        reps=10) -> dict:
+    """K4 at a mesh rank's training shape (``k4_train_check``), timed by
+    the profiler's device time (at this size CUDA events around
+    back-to-back calls read the host's launch cost): the forward kernel,
+    the backward's device activities, and ``scaled_dot_product_attention``'s
+    forward + backward, beside the bounds (forward 4·D a unmasked pair,
+    backward 10·D, both 12·D, at the bf16 peak; each input read once,
+    each output written once)."""
+    from repro_torch.kernels import flash_attention as K4
+
+    (q, k, v, do), (o, lse), err, plain_grads = k4_train_check(
+        torch, ops, dev, B, H, Hkv, S, D, seed)
+    o_err = err.pop("o")
+    err.pop("lse")
+    grad_err = err
+
+    def sdpa_grads():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=H != Hkv)
+        return torch.autograd.grad(out, leaves, do)
+    fwd = device_ms(torch, lambda: K4._kernel(q, k, v, True, None,
+                                              with_lse=True), reps,
+                    "flash_bf16_kernel")
+    bwd = device_ms(torch, lambda: ops.flash_attention_backward(
+        q, k, v, o, lse, do, True), reps)
+    lib = device_ms(torch, sdpa_grads, reps)
+    plain = event_ms(torch, plain_grads, 2, warmup=1)
+    pairs = B * H * (S * (S + 1) // 2)
+    qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
+    grads = 2 * (q.numel() + k.numel() + v.numel())
+    fwd_b = bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S)
+    bwd_b = bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
+                     10 * D * pairs, BF16_OPS_PER_S)
+    both_b = bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
+                      BF16_OPS_PER_S)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return dict(q_shape=[B, H, S, D], kv_shape=[B, Hkv, S, D], causal=True,
+                fwd_ms=fwd, fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
+                bwd_ms=bwd, bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
+                fwd_bwd_ms=fwd + bwd, fwd_bwd_bound_ms=both_b[0],
+                plain_fwd_bwd_ms=plain, sdpa_fwd_bwd_ms=lib,
+                o_max_abs_err=o_err, **grad_err,
+                timed_by="profiler device time")
+
+
+def train_mesh_phase(torch, ops, dev, train, k4_row) -> None:
+    """``[train-mesh]``, after ``[train]`` with its weights freed:
+    stablelm-1.6b at full width and depth trained over make_test_mesh(2,
+    4), 8 ranks sharing this card over gloo, ZeRO-3 (``place_params(mesh,
+    zero=True)``), f32 masters, bf16 compute, AdamW, ``[train]``'s batch
+    (8 × 2,048, 4 rows a data rank)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.profile import TRAIN_ARCH, TRAIN_B, TRAIN_S
+    from repro_torch.train import make_grad_fn
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    # the blocks' witness: [train]'s seed-0 tree cut as each rank cuts it
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    sums = mesh_checksums(torch, params, zero=True)
+    del params
+    torch.cuda.empty_cache()
+    # the one card's f32 answer on the same weights and batch, on the host
+    grad_batch = {k: torch.from_numpy(v) for k, v in batch_at(DataConfig(
+        cfg.vocab, GRAD_CHECK_S, GRAD_CHECK_B, seed=1), 0).items()}
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    loss, grads = make_grad_fn(small, dtype=torch.float32)(
+        p32, {k: v.to(dev) for k, v in grad_batch.items()})
+    want_loss, want = float(loss), [g.cpu() for g in grads]
+    del p32, loss, grads
+    torch.cuda.empty_cache()
+
+    # K4 at the rank's training shape, alone on the card
+    B, H, Hkv = TRAIN_B // MESH_DATA, cfg.n_heads // MESH_MODEL, \
+        cfg.n_kv_heads // MESH_MODEL
+    rec = k4_mesh_train_shape(torch, ops, F, dev, B, H, Hkv, TRAIN_S,
+                              cfg.hd, 31)
+
+    tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    try:
+        t, wall = time.perf_counter(), time.time()
+        out = run_on_ranks(train_mesh_job, make_test_mesh(MESH_DATA,
+                                                          MESH_MODEL),
+                           cfg, small, grad_batch, TRAIN_MESH_STEPS, tmp,
+                           timeout=900)
+        s_spawn = time.perf_counter() - t
+        got = torch.load(f"{tmp}/grads.pt")
+        witness = torch.load(f"{tmp}/witness.pt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reports = out["reports"]
+    log(f"[train-mesh] {len(reports)} ranks of make_test_mesh({MESH_DATA}, "
+        f"{MESH_MODEL}) on this card over gloo in one spawn: {s_spawn:.1f} "
+        f"s, of which {out['started'] - wall:.1f} s until every rank ran")
+
+    # f32 at 2 layers: the loss and every gathered gradient leaf
+    check(abs(got["loss"] / want_loss - 1) <= 1e-5, f"[train-mesh] f32 "
+          f"loss {got['loss']!r} against the one card's {want_loss!r}")
+    check(len(got["grads"]) == len(want), "[train-mesh] gradient leaves")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got["grads"], want)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(a.shape == b.shape and err <= 1e-4 * scale, f"[train-mesh] "
+              f"gradient leaf {i} {tuple(b.shape)}: max |d| {err:.3e} "
+              f"above 1e-4 × {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    for r in reports:
+        check(r["f32_launches"] == {"flash_attention": 2 * CHECK_LAYERS},
+              f"[train-mesh] rank {r['coords']} f32 step launched "
+              f"{r['f32_launches']}")
+    log(f"[train-mesh] f32, {CHECK_LAYERS} layers at full width, "
+        f"{GRAD_CHECK_B} × {GRAD_CHECK_S} tokens (1 row a data rank): loss "
+        f"{got['loss']:.7f} against the one card's {want_loss:.7f} (rel "
+        f"{abs(got['loss'] / want_loss - 1):.2e}, rtol 1e-5); every one of "
+        f"the {len(want)} gradient leaves, gathered whole by gather_tree, "
+        f"within {worst:.3e} of its largest magnitude of the one card's "
+        f"(1e-4)")
+    del got, want
+
+    # the blocks are the one-card tree's
+    for r in reports:
+        bad = [p for p, c in r["checksums"].items()
+               if c != sums[p][r["rank"]]]
+        check(not bad, f"[train-mesh] rank {r['coords']}: blocks differ "
+              f"from the one-card tree at {bad[:3]}")
+    log(f"[train-mesh] every rank's {len(reports[0]['checksums'])} ZeRO-3 "
+        f"blocks equal [train]'s seed-0 tree cut on both axes, by checksum; "
+        f"per rank {reports[0]['master_bytes'] / 1e9:.3f} GB of f32 masters, "
+        f"built in {max(r['init_s'] for r in reports):.1f} s (peak "
+        f"{max(r['init_peak_gib'] for r in reports):.2f} GiB)")
+
+    # bf16 at full depth: everything logged first, then the gates
+    losses = [s["loss"] for s in reports[0]["steps"]]
+    one = train["losses"][:TRAIN_MESH_STEPS]
+    t_step = float(np.mean([max(r["steps"][i]["s"] for r in reports)
+                            for i in range(1, TRAIN_MESH_STEPS)]))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    ceiling = flops / BF16_OPS_PER_S
+    peak = max(s["peak_gib"] for r in reports for s in r["steps"])
+    rel = [abs(a / b - 1) for a, b in zip(losses, one)]
+    note = ("ranks share this one card over gloo (staged through host "
+            "memory): these times measure that transport, not an "
+            "interconnect")
+    log(f"[train-mesh] bf16 {cfg.name} at full width and depth ({cfg.n_layers}"
+        f" layers), ZeRO-3 over (data {MESH_DATA}, model {MESH_MODEL}), "
+        f"AdamW under [train]'s cosine schedule, {TRAIN_MESH_STEPS} steps of "
+        f"{TRAIN_B} × {TRAIN_S} tokens ({TRAIN_B // MESH_DATA} rows a data "
+        f"rank): losses {[round(x, 6) for x in losses]} against [train]'s "
+        f"{[round(x, 6) for x in one]} at the same steps (rel "
+        f"{', '.join(f'{x:.2e}' for x in rel)}; tolerance "
+        f"{TRAIN_MESH_LOSS_RTOL}); steps "
+        f"1–{TRAIN_MESH_STEPS - 1}: {t_step:.3f} s/step (the slowest rank) "
+        f"= {tokens / t_step:.1f} tokens/s (ceiling {ceiling * 1e3:.3f} ms "
+        f"= {tokens / ceiling:.1f} tokens/s; {ceiling / t_step:.2%} of it; "
+        f"[train] on one card "
+        f"{np.mean(train['ms'][TRAIN_TIMED_FROM:]):.1f} ms/step); peak "
+        f"{peak:.2f} GiB a rank; the f32 check {max(r['f32_s'] for r in reports):.1f} s, "
+        f"step 0's gather of every gradient leaf "
+        f"{max(r['gather_s'] for r in reports):.1f} s; K4 at ({B}, {H}/{Hkv}, "
+        f"{TRAIN_S}, {cfg.hd}); {note}")
+    for r in reports:
+        for i, s in enumerate(r["steps"]):
+            sites = {site: (round(c["seconds"], 4), c["bytes"], c["calls"])
+                     for site, c in s["collectives"].items()}
+            log(f"[train-mesh] rank {r['coords']} step {i}: {s['s']:.3f} s, "
+                f"loss {s['loss']:.6f}, launches {json.dumps(s['launches'])},"
+                f" peak {s['peak_gib']:.2f} GiB; collectives (seconds, bytes,"
+                f" calls) by site {json.dumps(sites)}")
+    for r in reports:
+        check([s["loss"] for s in r["steps"]] == losses, f"[train-mesh] "
+              f"rank {r['coords']} losses differ from rank 0's")
+        for i, s in enumerate(r["steps"]):
+            got = {k: v for k, v in s["launches"].items() if v}
+            check(got == {"flash_attention": 2 * cfg.n_layers},
+                  f"[train-mesh] rank {r['coords']} step {i} launched "
+                  f"{got}, not K4 {2 * cfg.n_layers} times")
+    # [train]'s own losses rise at step 2 under the schedule's warmup (its
+    # last-below-first holds over its 10 steps), so the mesh's are held to
+    # [train]'s at each step, and its parameters after the last step to
+    # [train]'s after the same step
+    ups = []
+    for keys, init, one_p, got_p in zip(TRAIN_WITNESS,
+                                        train["witness"]["init"],
+                                        train["witness"]["after"], witness):
+        check(got_p.shape == one_p.shape, f"[train-mesh] {keys}: shape "
+              f"{tuple(got_p.shape)}, not {tuple(one_p.shape)}")
+        ups.append(float((got_p - one_p).norm() / (one_p - init).norm()))
+    log(f"[train-mesh] after step {TRAIN_MESH_STEPS - 1}, "
+        f"‖mesh − [train]‖ / ‖[train] − init‖ of "
+        + ", ".join(f"{'/'.join(map(str, k))} {u:.4e}"
+                    for k, u in zip(TRAIN_WITNESS, ups))
+        + f" (tolerance {TRAIN_MESH_UPDATE_TOL})")
+    check(all(np.isfinite(losses)) and max(rel) <= TRAIN_MESH_LOSS_RTOL,
+          f"[train-mesh] losses {losses} against [train]'s {one}: not "
+          f"finite or beyond {TRAIN_MESH_LOSS_RTOL}")
+    check(all(u <= TRAIN_MESH_UPDATE_TOL for u in ups), f"[train-mesh] "
+          f"parameters after step {TRAIN_MESH_STEPS - 1}: {ups} of "
+          f"[train]'s update, beyond {TRAIN_MESH_UPDATE_TOL}")
+    bad = [n for n, (finite, nonzero) in out["flags"]
+           if not (finite and nonzero)]
+    check(len(out["flags"]) == len(reports[0]["checksums"]) and not bad,
+          f"[train-mesh] step 0: {len(out['flags'])} gradient leaves, not "
+          f"finite or all zero: {bad[:5]}")
+    log(f"[train-mesh] every one of the {len(out['flags'])} gradient leaves "
+        f"gathered whole at step 0 finite and non-zero; K4 "
+        f"{2 * cfg.n_layers} launches a rank a step")
+    launches = sum(sum(s["launches"].get("flash_attention", 0)
+                       for s in r["steps"]) for r in reports)
+    k4_row["launches"] += launches
+    k4_row["train_mesh_shape"] = dict(rec, launches=launches)
+    log(f"[K4] the training rank's shape q {tuple(rec['q_shape'])} k/v "
+        f"{tuple(rec['kv_shape'])} causal, bf16, profiler device time: "
+        f"forward with LSE {rec['fwd_ms']:.4f} ms (bound "
+        f"{rec['fwd_bound_ms']:.4f}, {rec['fwd_bound_by']}, "
+        f"{rec['fwd_bound_ms'] / rec['fwd_ms']:.1%}; o max |d| "
+        f"{rec['o_max_abs_err']:.3e}); backward (tensor code) "
+        f"{rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
+        f"{rec['bwd_bound_ms'] / rec['bwd_ms']:.1%}; dq/dk/dv max |d| "
+        f"{rec['dq']:.3e}/{rec['dk']:.3e}/{rec['dv']:.3e}); forward + "
+        f"backward {rec['fwd_bwd_ms']:.4f} ms against the bound "
+        f"{rec['fwd_bwd_bound_ms']:.4f} ({rec['fwd_bwd_bound_ms'] / rec['fwd_bwd_ms']:.1%}); "
+        f"plain forward + backward {rec['plain_fwd_bwd_ms']:.3f} ms; "
+        f"scaled_dot_product_attention forward + backward "
+        f"{rec['sdpa_fwd_bwd_ms']:.4f} ms; {launches} launches on the "
+        f"ranks' path")
+    log(f"[train-mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def in_turns(torch, mesh, draw):
+    """``draw()`` on one rank at a time, each emptying its cache after:
+    ``init_params(place=)`` draws every part whole before a rank keeps its
+    blocks, and eight ranks drawing llama4-scout's 8 GB f32 expert banks
+    at once would not fit on the card."""
+    from repro_torch.dist import collectives as coll
+    out = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out = draw()
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.empty_cache()
+        coll.pmax(torch.zeros(1), mesh, site="init.turn")
+    return out
+
+
+def moe_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt,
+                 new_tokens):
+    """``[moe-mesh]`` on one rank of make_test_mesh(2, 4): llama4-scout's
+    experts split over "model".  The f32 check (prefill logits and
+    MESH_F32_STEPS decode steps, gathered whole), then bf16 from the card
+    generator's seed-0 draws: the checksums of this rank's blocks, a
+    warm-up and a timed prefill (K4 counted; the routing of its rows
+    recorded), then ``generate``.  Rank 0 returns the gathered values;
+    every rank's report comes through ``gather_objects``."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import (SINGLE_POD_RULES, active_spec,
+                                           shard, unshard, use_rules)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    from repro_torch.train import (make_decode_fn, make_prefill_step,
+                                   place_params)
+    from repro_torch.train.shardings import map_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"started": float(coll.pmax(torch.tensor(
+        [time.time()], dtype=torch.float64), mesh))}
+    report = {"coords": mesh.coords}
+    mo = cfg.moe
+    with use_rules(SINGLE_POD_RULES, mesh):
+        report["experts_split"] = lm.tensor_parallel(cfg).experts
+        p32 = in_turns(torch, mesh, lambda: lm.init_params(
+            f32_cfg, torch.Generator(device=dev).manual_seed(1),
+            place=place_params(mesh)))
+        toks = f32_tokens.to(dev)
+        routing = []
+        with spy((M, "moe_apply", routing_recorder(
+                torch, M, mo, M.expert_capacity(
+                    toks.shape[1], mo.top_k, mo.n_experts,
+                    mo.capacity_factor), routing))):
+            out["f32_logits"] = make_prefill_step(
+                f32_cfg, dtype=torch.float32)(p32, {"tokens": toks})
+        report["f32_routing"] = [(k, n) for k, n, _load in routing]
+        B = toks.shape[0]
+        spec = active_spec((B,), "batch")
+        cache = lm.init_cache(f32_cfg, B, MESH_F32_STEPS,
+                              dtype=torch.float32, device=dev)
+        step = make_decode_fn(f32_cfg, dtype=torch.float32,
+                              max_len=MESH_F32_STEPS)
+        tp = lm.tensor_parallel(f32_cfg)
+        mine = shard(toks, "batch", None)
+        steps = []
+        for t in range(MESH_F32_STEPS):
+            logits, cache = step(p32, cache, mine[:, t:t + 1], t)
+            (logits,) = lm.L.gather_cols([logits], tp.axis(tp.vocab),
+                                         site="check")
+            steps.append(unshard(logits, spec + (None, None), mesh))
+        out["f32_steps"] = torch.cat(steps, 1)
+        del p32, cache, logits, steps
+        torch.cuda.empty_cache()
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        params = in_turns(torch, mesh, lambda: lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            dtype=torch.bfloat16, place=place_params(mesh)))
+        torch.cuda.synchronize(dev)
+        report["init_s"] = time.perf_counter() - t
+        report["init_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        sums = {}
+        map_with_path(lambda path, x: sums.__setitem__(
+            path, checksum(torch, x)), params)
+        report["checksums"] = sums
+        report["weight_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in lm.tree_leaves(params))
+        toks = tokens.to(dev)
+        capacity = M.expert_capacity(toks.shape[1], mo.top_k, mo.n_experts,
+                                     mo.capacity_factor)
+        prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+        prefill_step(params, {"tokens": toks})            # warm-up
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll.reset_counts()
+        ops.reset_launch_counts()
+        routing = []
+        with spy((M, "moe_apply", routing_recorder(torch, M, mo, capacity,
+                                                  routing))):
+            t = time.perf_counter()
+            logits = prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize(dev)
+            report["prefill_s"] = time.perf_counter() - t
+        report["prefill_launches"] = ops.launch_counts()
+        report["prefill_collectives"] = coll.counts()
+        report["prefill_peak_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+        report["routing"] = [(k, n) for k, n, _load in routing]
+        out["logits"] = logits
+
+        prompt = prompt.to(dev)
+        generate(params, cfg, prompt[:, :2], 2, dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll.reset_counts()
+        ops.reset_launch_counts()
+        served = generate(params, cfg, prompt, new_tokens,
+                          dtype=torch.bfloat16)
+        report["decode_s"] = served.seconds
+        report["decode_launches"] = ops.launch_counts()
+        report["decode_collectives"] = coll.counts()
+        report["decode_peak_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+        out["served"] = served
+    out["reports"] = coll.gather_objects(report, mesh)
+    return out
+
+
+def moe_mesh_phase(torch, ops, dev, k4_row) -> None:
+    """``[moe-mesh]``, after ``[moe]`` with its weights freed:
+    llama4-scout at published width, MOE_MESH_LAYERS of its 48 layers,
+    served over make_test_mesh(2, 4) with its 16 experts 4 a model rank
+    (expert parallelism), 8 ranks sharing this card over gloo."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import moe as M
+    from repro_torch.train import make_decode_fn, make_prefill_step
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_MESH_LAYERS)
+    small = dataclasses.replace(full, n_layers=MOE_MESH_F32_LAYERS)
+    mo = cfg.moe
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (PREFILL_B, PREFILL_S)))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (SERVE_B, MOE_MESH_PROMPT)))
+    f32_tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                               (SERVE_B, SERVE_PROMPT)))
+
+    # the one card's f32 answer (seed-1 draws, 1 layer)
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    toks = f32_tokens.to(dev)
+    routing = []
+    with spy((M, "moe_apply", routing_recorder(torch, M, mo, M.expert_capacity(
+            SERVE_PROMPT, mo.top_k, mo.n_experts, mo.capacity_factor),
+            routing))):
+        want_logits = make_prefill_step(small, dtype=torch.float32)(
+            p32, {"tokens": toks}).cpu()
+    one_f32_routing = [(k, n) for k, n, _load in routing]
+    cache = init_cache(small, SERVE_B, MESH_F32_STEPS, dtype=torch.float32,
+                       device=dev)
+    step = make_decode_fn(small, dtype=torch.float32)
+    want_steps = []
+    for t in range(MESH_F32_STEPS):
+        logits, cache = step(p32, cache, toks[:, t:t + 1], t)
+        want_steps.append(logits.cpu())
+    want_steps = torch.cat(want_steps, 1)
+    del p32, cache, logits
+    torch.cuda.empty_cache()
+
+    # the one card's bf16 witness on the same weights (seed 0, the first
+    # MOE_MESH_LAYERS layers of [moe]'s draws)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    sums = mesh_checksums(torch, params)
+    capacity = M.expert_capacity(PREFILL_S, mo.top_k, mo.n_experts,
+                                 mo.capacity_factor)
+    routing = []
+    with spy((M, "moe_apply", routing_recorder(torch, M, mo, capacity,
+                                              routing))):
+        one_logits = make_prefill_step(cfg, dtype=torch.bfloat16)(
+            params, {"tokens": tokens.to(dev)}).float().cpu()
+    one_routing = [(k, n) for k, n, _load in routing]
+    one_served = generate(params, cfg, prompt.to(dev), MOE_MESH_TOKENS,
+                          dtype=torch.bfloat16)
+    del params, routing
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K4 at the rank's shape, alone on the card, before the ranks start
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, Hq, Hkv = PREFILL_B // MESH_DATA, cfg.n_heads // MESH_MODEL, \
+        cfg.n_kv_heads // MESH_MODEL
+    q = torch.randn(B, Hq, PREFILL_S, cfg.hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, PREFILL_S, cfg.hd, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    err, _err_r, _ms, plain, _lib, _got = k4_yardstick(torch, ops, F, q, k,
+                                                       v, True)
+    times = k4_rank_times(torch, ops, F, q, k, v)
+
+    t, wall = time.perf_counter(), time.time()
+    out = run_on_ranks(moe_mesh_job, make_test_mesh(MESH_DATA, MESH_MODEL),
+                       cfg, small, tokens, f32_tokens, prompt,
+                       MOE_MESH_TOKENS, timeout=600)
+    s_spawn = time.perf_counter() - t
+    reports = out["reports"]
+    log(f"[moe-mesh] {len(reports)} ranks of make_test_mesh({MESH_DATA}, "
+        f"{MESH_MODEL}) on this card over gloo in one spawn: {s_spawn:.1f} "
+        f"s, of which {out['started'] - wall:.1f} s until every rank ran; "
+        f"{cfg.name} cut to {MOE_MESH_LAYERS} of {full.n_layers} layers "
+        f"(each data rank holds a whole copy of its model block: 12 layers "
+        f"would need ≈ 114 GB over the ranks)")
+
+    def rel(got, want):
+        return float((got.float().cpu() - want.float().cpu()).abs().max()
+                     / want.float().abs().max())
+
+    check(all(r["experts_split"] for r in reports), "[moe-mesh] the expert "
+          "banks are not split over the model axis")
+
+    def routed(key):            # each data rank routes its rows
+        rows = [r[key] for r in reports if r["coords"]["model"] == 0]
+        return [(sum(x[i][0] for x in rows), sum(x[i][1] for x in rows))
+                for i in range(len(rows[0]))]
+    f32_routing = routed("f32_routing")
+    check(f32_routing == one_f32_routing, f"[moe-mesh] f32: kept/routed "
+          f"pairs {f32_routing} on the mesh, {one_f32_routing} on the one "
+          "card")
+    e_pre = rel(out["f32_logits"], want_logits)
+    e_dec = rel(out["f32_steps"], want_steps)
+    check(e_pre <= 1e-4 and e_dec <= 1e-4, f"[moe-mesh] f32: the mesh's "
+          f"logits are {e_pre:.3e} (prefill) and {e_dec:.3e} (decode) of "
+          "the largest from the one card's")
+    log(f"[moe-mesh] f32, {MOE_MESH_F32_LAYERS} layer at published width, "
+        f"{mo.n_experts // MESH_MODEL} experts a model rank, B={SERVE_B}: "
+        f"prefill logits {e_pre:.3e} and {MESH_F32_STEPS} decode steps' "
+        f"logits {e_dec:.3e} of the largest |logit| from the one card's on "
+        f"the same weights (tolerance 1e-4); kept/routed pairs "
+        f"{f32_routing}, the one card's exactly")
+    for r in reports:
+        m = r["coords"]["model"]
+        bad = [p for p, c in r["checksums"].items() if c != sums[p][m]]
+        check(not bad, f"[moe-mesh] rank {r['coords']}: blocks differ from "
+              f"the one-card tree at {bad[:3]}")
+    log(f"[moe-mesh] every rank's {len(reports[0]['checksums'])} blocks "
+        f"equal the one-card tree's by checksum; per rank "
+        f"{reports[0]['weight_bytes'] / 1e9:.3f} GB of bf16 weights, built "
+        f"in {max(r['init_s'] for r in reports):.1f} s, one rank at a time "
+        f"(peak {max(r['init_peak_gib'] for r in reports):.2f} GiB)")
+
+    for r in reports:
+        got = {k: v for k, v in r["prefill_launches"].items() if v}
+        check(got == {"flash_attention": MOE_MESH_LAYERS}, f"[moe-mesh] "
+              f"rank {r['coords']} prefill launched {got}, not K4 "
+              f"{MOE_MESH_LAYERS} times")
+        check(not any(r["decode_launches"].values()), f"[moe-mesh] rank "
+              f"{r['coords']} decode launched {r['decode_launches']}")
+    logits, served = out["logits"], out["served"]
+    check(logits.shape == (PREFILL_B, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "[moe-mesh] prefill "
+          "logits")
+    e_bf16 = rel(logits, one_logits)
+    check(e_bf16 <= 2e-2, f"[moe-mesh] bf16 prefill logits {e_bf16:.3e} of "
+          "the largest from the one card's")
+    mesh_routing = routed("routing")
+    for r in reports:
+        m0 = next(x for x in reports if x["coords"]["model"] == 0
+                  and x["coords"]["data"] == r["coords"]["data"])
+        check(r["routing"] == m0["routing"], f"[moe-mesh] rank "
+              f"{r['coords']} routed its rows unlike its model line")
+
+    def share(rt):
+        return [1 - k / n for k, n in rt]
+
+    def total(rt):
+        return 1 - sum(k for k, _ in rt) / sum(n for _, n in rt)
+    log(f"[moe-mesh] bf16 routing at capacity {capacity} slots an expert a "
+        f"group of {PREFILL_S}: kept/routed pairs by layer on the mesh "
+        f"{mesh_routing}, on the one card {one_routing}; dropped shares "
+        f"{[round(x, 6) for x in share(mesh_routing)]} against "
+        f"{[round(x, 6) for x in share(one_routing)]} (each layer's kept "
+        f"pairs held within {MOE_MESH_DROP_SLACK} of its routed pairs); "
+        f"over the {MOE_MESH_LAYERS} layers {total(mesh_routing):.6f} "
+        f"against {total(one_routing):.6f}")
+    check([n for _, n in mesh_routing] == [n for _, n in one_routing]
+          and all(abs(a - b) <= MOE_MESH_DROP_SLACK * n for (a, n), (b, _n)
+                  in zip(mesh_routing, one_routing)), f"[moe-mesh] bf16 "
+          f"kept/routed pairs by layer {mesh_routing} against the one "
+          f"card's {one_routing}: a layer beyond {MOE_MESH_DROP_SLACK} of "
+          f"its routed pairs")
+    check(served.finite and served.tokens.shape == (SERVE_B, MOE_MESH_TOKENS)
+          and int(served.tokens.max()) < cfg.vocab, "[moe-mesh] decode "
+          "output")
+    agree = int((served.tokens.cpu() == one_served.tokens.cpu()).sum())
+    t_pre = max(r["prefill_s"] for r in reports)
+    ms_step = max(r["decode_s"] for r in reports) * 1e3 / served.steps
+    launches = sum(r["prefill_launches"]["flash_attention"] for r in reports)
+    note = ("ranks share this one card over gloo (staged through host "
+            "memory): these times measure that transport, not an "
+            "interconnect")
+    log(f"[moe-mesh] bf16 {cfg.name}, {MOE_MESH_LAYERS} layers at published "
+        f"width: prefill {PREFILL_B} x {PREFILL_S} ({PREFILL_B // MESH_DATA}"
+        f" rows a data rank) {t_pre * 1e3:.1f} ms = "
+        f"{PREFILL_B * PREFILL_S / t_pre:.1f} tokens/s (the slowest rank); "
+        f"logits {e_bf16:.3e} of the largest |logit| from the one card's "
+        f"prefill on the same weights (tolerance 2e-2); K4 "
+        f"{MOE_MESH_LAYERS} launches a rank at ({B}, {Hq}/{Hkv}, "
+        f"{PREFILL_S}, {cfg.hd}), {launches} in all; decode B={SERVE_B}, "
+        f"prompt {MOE_MESH_PROMPT} + {MOE_MESH_TOKENS} greedy tokens: "
+        f"{ms_step:.3f} ms/token-step (the slowest rank), every logit "
+        f"finite; {agree} of {served.tokens.numel()} greedy tokens equal "
+        f"the one card's (not gated); {note}")
+    for r in reports:
+        sites = {phase: {site: (round(c["seconds"], 4), c["bytes"],
+                                c["calls"])
+                         for site, c in r[f"{phase}_collectives"].items()}
+                 for phase in ("prefill", "decode")}
+        log(f"[moe-mesh] rank {r['coords']}: prefill {r['prefill_s']:.3f} "
+            f"s, decode {r['decode_s']:.3f} s, peak "
+            f"{r['prefill_peak_gib']:.2f} / {r['decode_peak_gib']:.2f} GiB; "
+            f"collectives (seconds, bytes, calls) by site "
+            f"{json.dumps(sites)}")
+
+    pairs = PREFILL_S * (PREFILL_S + 1) // 2
+    flops = 4 * cfg.hd * pairs * B * Hq
+    bms, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), flops,
+                       BF16_OPS_PER_S)
+    ms, lib = times["k4_device"], times["sdpa_device"]
+    k4_row["launches"] += launches
+    k4_row["moe_mesh_shape"] = dict(shape=[B, Hq, Hkv, PREFILL_S, cfg.hd],
+                                    launches=launches, max_abs_err=err,
+                                    ms=ms, plain_ms=plain, bound_ms=bms,
+                                    bound_by=by, library_ms=lib,
+                                    timed_by="profiler device time")
+    log(f"[K4] the MoE rank's shape q {tuple(q.shape)} k/v {tuple(k.shape)}"
+        f": max |d| {err:.3e}; device time {ms:.4f} ms/launch = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of it; plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention device time {lib:.4f} ms; {times}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"[moe-mesh] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4717,6 +5600,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8b
     moe_phase(torch, ops, dev, rows[-1])
+    moe_mesh_phase(torch, ops, dev, rows[-1])
 
     # ---------------------------------------------------------- phase 8c
     rows.append(mla_phase(torch, ops, dev))
@@ -4736,6 +5620,9 @@ def main() -> int:
     k4_row = next(r for r in rows if r["name"] == "flash_attention")
     k4_row["launches"] += train["launches"]
     k4_row["train_shapes"] = train["shapes"]
+
+    # ---------------------------------------------------------- phase 8h
+    train_mesh_phase(torch, ops, dev, train, k4_row)
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,6 +18,20 @@ ranks' values are gathered and added in rank order (16-bit floats in
 f32, rounded once), so every rank gets the same bits.  int32/int64 sums and extrema are exact in any order and
 go through ``all_reduce``.
 
+``reduce_scatter`` is the rank-order sum's 1/n slice: an ``all_to_all``
+of 1/n slices, then each rank adds its slice's n parts in rank order
+(the same adds, so the same bits, as that slice of ``psum``).  The
+autograd forms (``psum_grad``, ``copy_grad``, ``all_gather_grad``,
+``reduce_scatter_grad``, ``slice_grad``) carry a gradient through the
+tensor-parallel and ZeRO points of ``models``: each backward is chosen
+by what the ranks do with the output downstream.  Where every rank uses
+it alike (the replicated residual stream, the loss), a sum's backward is
+the identity and a gather's the rank's own slice; where the ranks use
+different parts of it (their q heads, the KV heads they read, their
+columns of a product fed by a replicated input, their batch rows), a
+gather's backward is a reduce-scatter and an identity's a sum.  A
+backward call counts at its forward's site with ``.grad`` appended.
+
 Each call counts, by its call site, the bytes it hands to other ranks
 (``all_to_all``: the lanes addressed to the other ranks — the self block
 stays home; ``ring_hop``: the whole payload; ``all_gather`` and a
@@ -175,6 +189,29 @@ def axis_index(axis) -> int:
     return 0 if axis is None else axis.rank
 
 
+def over_axes(values: list, axes: list, op, *, site: str) -> list:
+    """``op`` (``psum`` or ``pmax``) of each of ``values`` over its bound
+    axes (``axes[i]``, applied in order; none: the value as it is), in one
+    call an axis for the values that share their axes: those travel
+    flattened and joined, and come back in their own shapes."""
+    groups: dict = {}
+    for i, ax in enumerate(axes):
+        if ax:
+            groups.setdefault(tuple(a.axis for a in ax), (ax, []))[1] \
+                .append(i)
+    out = list(values)
+    for ax, idx in groups.values():
+        flat = torch.cat([values[i].reshape(-1) for i in idx])
+        for a in ax:
+            flat = op(flat, a, site=site)
+        at = 0
+        for i in idx:
+            n = values[i].numel()
+            out[i] = flat[at:at + n].reshape(values[i].shape)
+            at += n
+    return out
+
+
 # --------------------------------------------------------------- wires
 
 def _as_bytes(x):
@@ -252,3 +289,154 @@ def gather_objects(obj, axis) -> list | None:
     out = [None] * axis.size if axis.rank == 0 else None
     dist.gather_object(obj, out, dst=_global(axis, 0), group=axis.group)
     return out
+
+
+def reduce_scatter(x, axis, dim: int = 0, *, site: str):
+    """This rank's 1/n slice along ``dim`` of the sum of every rank's
+    ``x`` over ``axis``: an ``all_to_all`` of the n slices, then the n
+    parts of this rank's slice added in rank order (16-bit floats in f32,
+    rounded once) — the same adds, so the same bits on every rank, as
+    that slice of ``psum``.  ``x`` itself when ``axis`` is None."""
+    if axis is None:
+        return x
+    n = axis.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    m = x.shape[dim] // n
+    lanes = x.movedim(dim, 0).reshape(n, m, *x.shape[:dim],
+                                      *x.shape[dim + 1:])
+    parts = all_to_all(lanes, axis, site=site)
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    out = parts[0].float() if wide else parts[0]
+    for p in parts[1:]:      # in rank order: the same bits on every rank
+        out = out + p
+    out = out.to(x.dtype) if wide else out
+    return out.movedim(0, dim)
+
+
+def _cat_parts(parts, dim: int):
+    """(n, ...) every rank's block → the blocks joined along ``dim`` in
+    rank order."""
+    return torch.cat(list(parts.unbind(0)), dim)
+
+
+def _own_slice(x, axis, dim: int):
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * n, n)
+
+
+class _PsumGrad(torch.autograd.Function):
+    """Forward ``psum``; backward the identity: every rank uses the sum
+    alike and takes the gradient of its own part."""
+
+    @staticmethod
+    def forward(ctx, x, axis, site):
+        return psum(x, axis, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyGrad(torch.autograd.Function):
+    """Forward the identity; backward ``psum``: the ranks use different
+    parts of a replicated value, each gradient is a partial one."""
+
+    @staticmethod
+    def forward(ctx, x, axis, site):
+        ctx.axis, ctx.site = axis, site
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axis, site=ctx.site + ".grad"), None, None
+
+
+class _AllGatherGrad(torch.autograd.Function):
+    """Forward every rank's block joined along ``dim``; backward a
+    reduce-scatter along it (the ranks use different parts), or this
+    rank's own slice (``alike``: every rank uses the whole the same
+    way)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, site, alike):
+        ctx.axis, ctx.dim, ctx.site, ctx.alike = axis, dim, site, alike
+        return _cat_parts(all_gather(x, axis, site=site), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.alike:
+            g = _own_slice(g, ctx.axis, ctx.dim)
+        else:
+            g = reduce_scatter(g.contiguous(), ctx.axis, ctx.dim,
+                               site=ctx.site + ".grad")
+        return g, None, None, None, None
+
+
+class _ReduceScatterGrad(torch.autograd.Function):
+    """Forward ``reduce_scatter``; backward the blocks' gradients gathered
+    (each rank's part of the sum feeds every rank's slice)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, site):
+        ctx.axis, ctx.dim, ctx.site = axis, dim, site
+        return reduce_scatter(x, axis, dim, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = all_gather(g.contiguous(), ctx.axis, site=ctx.site + ".grad")
+        return _cat_parts(parts, ctx.dim), None, None, None
+
+
+class _SliceGrad(torch.autograd.Function):
+    """Forward this rank's 1/n slice of a replicated tensor along ``dim``;
+    backward every rank's slice gradient gathered, so the whole
+    gradient is on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, site):
+        ctx.axis, ctx.dim, ctx.site = axis, dim, site
+        return _own_slice(x, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = all_gather(g.contiguous(), ctx.axis, site=ctx.site + ".grad")
+        return _cat_parts(parts, ctx.dim), None, None, None
+
+
+def psum_grad(x, axis=None, *, site: str = "psum"):
+    """``psum`` whose backward is the identity (every rank uses the sum
+    alike); ``x`` when ``axis`` is None."""
+    return x if axis is None else _PsumGrad.apply(x, axis, site)
+
+
+def copy_grad(x, axis=None, *, site: str):
+    """``x``, whose gradient is summed over ``axis`` (the ranks use
+    different parts of it downstream); ``x`` when ``axis`` is None."""
+    return x if axis is None else _CopyGrad.apply(x, axis, site)
+
+
+def all_gather_grad(x, axis=None, dim: int = 0, *, site: str,
+                    alike: bool = False):
+    """Every rank's ``x`` joined along ``dim`` in rank order; the backward
+    reduce-scatters, or keeps this rank's slice when every rank uses the
+    whole ``alike``.  ``x`` when ``axis`` is None."""
+    if axis is None:
+        return x
+    return _AllGatherGrad.apply(x, axis, dim % x.dim(), site, alike)
+
+
+def reduce_scatter_grad(x, axis=None, dim: int = 0, *, site: str):
+    """``reduce_scatter`` with its backward (an all-gather)."""
+    if axis is None:
+        return x
+    return _ReduceScatterGrad.apply(x, axis, dim % x.dim(), site)
+
+
+def slice_grad(x, axis=None, dim: int = 0, *, site: str):
+    """This rank's 1/n slice of a tensor whole on every rank, its gradient
+    gathered back whole; ``x`` when ``axis`` is None."""
+    if axis is None:
+        return x
+    return _SliceGrad.apply(x, axis, dim % x.dim(), site)

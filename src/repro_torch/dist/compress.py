@@ -14,11 +14,16 @@ A tree is a tensor or a dict, list or tuple of trees.  Every scale is
 division by a Python scalar becomes a multiply by its reciprocal, which
 moves the last bit of a scale and with it every code.
 ``compressed_psum(x, axis)`` is the int8-quantized sum over a mesh.
+On a mesh, where each gradient leaf is a rank's block, the compressor
+takes the leaves' axes (``train.shardings.leaf_axes``) and each leaf's
+scale is the max over the whole leaf (a ``pmax`` over its axes, the
+leaves cut alike in one call), so the codes are one device's.
 """
 from __future__ import annotations
 
 import torch
 
+from ..tree import tree_leaves, tree_unflatten
 from . import collectives as coll
 
 _QMAX = 127.0
@@ -40,15 +45,24 @@ def _div(amax, qmax: float):
     return amax / torch.full((), qmax, dtype=amax.dtype, device=amax.device)
 
 
-def _scale_of(x):
-    amax = torch.max(torch.abs(x))
+def _scale_of(x, amax=None):
+    amax = torch.max(torch.abs(x)) if amax is None else amax
     return torch.where(amax > 0, _div(amax, _QMAX), 1.0)
 
 
-def _quantize_dequantize(x):
-    scale = _scale_of(x)
+def _quantize_dequantize(x, amax=None):
+    scale = _scale_of(x, amax)
     q = torch.clamp(torch.round(x / scale), -_QMAX, _QMAX)
     return q * scale
+
+
+def _whole_amax(leaves: list, axes: list) -> list:
+    """Each block's max |x| taken over its whole leaf: a ``pmax`` over the
+    axes that cut it, one call for the leaves cut by the same axes."""
+    return coll.over_axes(
+        [torch.max(torch.abs(x)) for x in leaves],
+        [sorted((a for dim in ax for a in dim), key=lambda a: a.axis)
+         for ax in axes], coll.pmax, site="compress.scale")
 
 
 def quantize_rows(x, qmax: float = _QMAX):
@@ -85,9 +99,15 @@ def compress_with_error_feedback(grads, residual):
 
 def make_grad_compressor():
     """Stateless per-leaf int8 quantize-dequantize, grads → grads (no
-    residual carried across steps)."""
-    def compress(grads):
-        return _tree_map(_quantize_dequantize, grads)
+    residual carried across steps).  On a mesh ``compress(grads, axes=)``
+    takes the blocks' axes and scales each by its whole leaf's max."""
+    def compress(grads, axes=None):
+        if axes is None:
+            return _tree_map(_quantize_dequantize, grads)
+        leaves = tree_leaves(grads)
+        amax = _whole_amax(leaves, tree_leaves(axes))
+        return tree_unflatten(grads, [_quantize_dequantize(x, m)
+                                      for x, m in zip(leaves, amax)])
     return compress
 
 

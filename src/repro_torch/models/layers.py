@@ -16,6 +16,15 @@ over the axis in rank order, then the bias once); ``embed`` with an
 axis is the vocab-parallel lookup; ``ffn`` with an axis runs gate and up
 column-parallel and down row-parallel.  Every axis argument is a bound
 one-axis ``dist.mesh.Mesh``, or None on one device (the plain layer).
+
+Each of these points carries a gradient (``dist.collectives``' autograd
+forms): a row-parallel sum and the vocab-parallel lookup's sum pass the
+gradient through as it is (every rank uses the sum alike); the input of
+a column-parallel product is summed over the axis in the backward
+(``copy_grad``: each rank's columns give a partial gradient); the whole
+bias a rank slices gets its gradient gathered over the axis; a gather of
+the ranks' columns reduce-scatters its gradient, or keeps the rank's
+slice where every rank uses the whole alike.
 """
 from __future__ import annotations
 
@@ -57,35 +66,42 @@ def linear(p: Params, x):
 def linear_cols(p: Params, x, axis):
     """Column-parallel ``linear``: w holds this rank's columns of the
     whole (split over ``axis``); the bias is whole (``param_specs`` keeps
-    1-D leaves whole) and the rank adds its columns of it.  ``linear``
-    when ``axis`` is None."""
+    1-D leaves whole) and the rank adds its columns of it, whose gradient
+    is gathered back whole over the axis.  ``x`` is taken as it is: the
+    caller sums its gradient over the axis (``copy_grad``) once for every
+    product it feeds.  ``linear`` when ``axis`` is None."""
     n = p["w"].shape[1]
     if axis is None or "b" not in p or p["b"].shape[0] == n:
         return linear(p, x)
     return linear({"w": p["w"],
-                   "b": p["b"][axis.rank * n:(axis.rank + 1) * n]}, x)
+                   "b": coll.slice_grad(p["b"], axis, site="bias")}, x)
 
 
 def linear_rows(p: Params, x, axis, *, site: str):
     """Row-parallel ``linear``: x holds this rank's slice of the features
     and w its rows; the partial products are summed over ``axis`` in rank
-    order (``collectives.psum``), then the bias (replicated) is added
-    once.  ``linear`` when ``axis`` is None."""
+    order (``collectives.psum``; the gradient passes through as it is),
+    then the bias (replicated) is added once.  ``linear`` when ``axis``
+    is None."""
     if axis is None:
         return linear(p, x)
-    y = coll.psum(x @ p["w"].to(x.dtype), axis, site=site)
+    y = coll.psum_grad(x @ p["w"].to(x.dtype), axis, site=site)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
 
 
-def gather_cols(ys: list, axis, *, site: str) -> list:
+def gather_cols(ys: list, axis, *, site: str, alike: bool = False) -> list:
     """Column-parallel products (each this rank's columns of its whole)
     → the whole products, each the ranks' columns joined in rank order,
-    in one all-gather; ``ys`` as they are when ``axis`` is None."""
+    in one all-gather; ``ys`` as they are when ``axis`` is None.  The
+    gradient is reduce-scattered back to the columns (the ranks use
+    different parts of the whole), or cut to them where every rank uses
+    the whole ``alike``."""
     if axis is None:
         return list(ys)
-    g = coll.all_gather(torch.cat(ys, -1), axis, site=site)
+    g = coll.all_gather_grad(torch.cat(ys, -1)[None], axis, 0, site=site,
+                             alike=alike)
     out, at = [], 0
     for y in ys:
         w = y.shape[-1]
@@ -138,7 +154,7 @@ def embed(p: Params, tokens, dtype=torch.bfloat16, axis=None):
     rows = table[local.clamp(0, n - 1)].to(dtype)
     rows = torch.where(own[..., None], rows, torch.zeros((), dtype=dtype,
                                                          device=rows.device))
-    return coll.psum(rows, axis, site="embed")
+    return coll.psum_grad(rows, axis, site="embed")
 
 
 # --------------------------------------------------------------------- RoPE
@@ -163,6 +179,7 @@ def swiglu(gate, up):
 
 def gelu_ffn_apply(p: Params, x, axis=None):
     # jax.nn.gelu defaults to the tanh approximation
+    x = coll.copy_grad(x, axis, site="ffn.in")
     return linear_rows(p["down"], F.gelu(linear_cols(p["up"], x, axis),
                                          approximate="tanh"), axis,
                        site="ffn.down")
@@ -180,8 +197,10 @@ def ffn_init(gen, d_model: int, d_ff: int, gated: bool = True,
 
 def ffn(p: Params, x, axis=None):
     """The gated (SwiGLU) or GELU FFN; with ``axis``, this rank's columns
-    of gate and up and rows of down, summed over the axis."""
+    of gate and up and rows of down, summed over the axis (and the
+    gradient of ``x`` summed over it in the backward)."""
     if "gate" in p:
+        x = coll.copy_grad(x, axis, site="ffn.in")
         return linear_rows(p["down"],
                            swiglu(linear_cols(p["gate"], x, axis),
                                   linear_cols(p["up"], x, axis)), axis,

@@ -25,8 +25,9 @@ Entry points:
                                         is named)
   decode_step(params, cache, ..., memory) — one token; writes the cache in
                                         place; encdec attends ``memory``
-  lm_loss(params, x, labels, cfg, chunk) — chunked cross-entropy
-  forward_train(params, batch, cfg, dtype, loss_chunk) — the training loss
+  lm_loss(params, x, labels, cfg, chunk, mp, rows) — chunked cross-entropy
+  forward_train(params, batch, cfg, dtype, loss_chunk, mp, gather, rows)
+                                      — the training loss
 
 Prefill attention runs through K4 (``kernels.flash_attention``; MLA in
 its decompressed form at (192, 128) head dims; jamba's one attention
@@ -61,7 +62,8 @@ cross-entropy, each chunk's logits recomputed in the backward.
 
 Under a mesh (an active ``dist.sharding.use_rules(rules, mesh)`` on a
 bound mesh with a "model" axis; the dense GQA families, qwen2 and the
-like, and the VLM) each rank holds its blocks of the parameters
+like, the VLM, and llama4-scout's MoE family for serving) each rank
+holds its blocks of the parameters
 (``train.shardings.param_specs``: columns of q, k, v, gate and up, rows
 of o and down, rows of the embedding table, columns of ``lm_head``, each
 split over "model" where it divides) and runs on its batch rows; the
@@ -92,6 +94,18 @@ named by call site (``TensorParallel`` holds the decisions):
   position's logits gathered over "model" (``logits``), (B, 1, Vp) of
   the rank's batch rows; ``decode_step`` returns the rank's columns, and
   ``launch.serve.generate`` takes the greedy argmax across the axis.
+  ``lm_loss`` is vocab-parallel there: the row max is a ``pmax`` over
+  "model" (detached), the sum of exponentials and the gold logit (from
+  the rank that owns the label's column) are summed over it, and the
+  loss's numerator and label count are summed over the axes the batch
+  rows are split on (``rows``) before the division.
+- ``repro/models/moe.py:96-116``, experts on "model": model rank r owns
+  experts [r·E/n, (r + 1)·E/n) (``param_specs`` splits the banks); the
+  router is replicated, so every rank builds the same dispatch tables,
+  reads its experts' slots from its own (whole) activations, and adds
+  its experts' gated outputs into the f32 combine buffer, which is
+  summed over "model" in rank order (``moe.combine``).  The reference's
+  data → experts all-to-all is that local read (ROADMAP, Queue 3).
 - Decode (``:385``): the projections run as in prefill, then q, k
   and v are gathered over "model" in one call (``decode.qkv``) to every
   head, since ``cache_specs`` keeps heads whole and splits the sequence;
@@ -100,11 +114,23 @@ named by call site (``TensorParallel`` holds the decisions):
   merged (``dist.decode``, ``decode.merge``); each rank keeps its own
   heads' rows for the row-parallel o.
 
+Training under a mesh (the dense GQA families) takes the gradient
+through every one of these points (``layers``' module docstring gives
+each backward).  With ZeRO-3 placement (``train.shardings.place_params(
+mesh, zero=True)``) each weight's block is also cut over "data": the
+blocks are cast to the compute dtype first (``train.step``), then
+gathered over "data" inside each layer's checkpoint (``gather_blocks``,
+the plan ``train.shardings.gather_plan`` gives), so the gathered layer
+lives only while it runs and is gathered again in the recompute; the
+gradient comes back reduce-scattered over "data" in rank order.  The
+table and ``lm_head`` are gathered once a step, outside the loss's
+chunk checkpoints.
+
 bf16 partial sums are added in rank order in f32 and rounded once, where
-the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  MoE,
-MLA, SSD, the hybrid and the encoder–decoder raise under a mesh (expert
-parallelism and MLA's tensor-parallel path are not ported), and so do
-context-parallel rules (``CP_SERVE_RULES``) and training.
+the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  MLA,
+SSD, the hybrid and the encoder–decoder raise under a mesh (MLA's
+tensor-parallel path is not ported), MoE raises there when a gradient
+is taken, and so do context-parallel rules (``CP_SERVE_RULES``).
 """
 from __future__ import annotations
 
@@ -115,10 +141,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.partitioner import resolve_device
+from ..dist import collectives as coll
 from ..dist import decode as DEC
 from ..dist.mesh import as_axis
 from ..dist.sharding import active_rules, active_spec, entry_axes
 from ..kernels.flash_attention import flash_attention
+from ..tree import tree_leaves
 from . import attention as A
 from . import layers as L
 from . import mamba as SSM
@@ -330,15 +358,6 @@ def param_count(cfg: ModelConfig, mp: int = 1) -> int:
         for group, count in layer_groups(cfg))
 
 
-def tree_leaves(tree) -> list:
-    """The tensors of a parameter tree (nested dicts and lists)."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
 # ------------------------------------------------------ tensor parallel
 
 @dataclass(frozen=True)
@@ -359,6 +378,8 @@ class TensorParallel:
     rows: bool = False           # q columns / o rows split (row-parallel o)
     ffn: bool = False            # gate/up columns and down rows split
     vocab: bool = False          # table rows and lm_head columns split
+    experts: bool = False        # the expert banks split (by expert)
+    shared: bool = False         # the shared expert's columns/rows split
 
     @property
     def kv_cols(self) -> bool:
@@ -386,7 +407,8 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
     are split over "model" where ``train.shardings.param_specs`` splits
     them and the dim divides; q and k/v activations follow the rules'
     "heads" and ``kv_heads(_sharded)`` tags, as the reference's ``shard``
-    points resolve them.  Raises for what does not run under a mesh."""
+    points resolve them.  Raises for what does not run under a mesh (a
+    gradient through MoE there raises in ``_ffn_apply``)."""
     _require_unpadded_mla(cfg, mp)
     hp, n_kv, hd = L.round_up(cfg.n_heads, mp), cfg.n_kv_heads, cfg.hd
     whole = TensorParallel(hp, n_kv, hd, heads=(0, hp), kv=(0, n_kv))
@@ -394,11 +416,11 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
     if ctx is None:
         return whole
     rules, mesh = ctx
-    if cfg.family not in ("dense", "vlm") or cfg.moe or cfg.mla:
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla:
         raise ValueError(f"{cfg.name}: under a mesh only the dense GQA "
-                         "families run (expert parallelism, MLA's tensor-"
-                         "parallel path and the SSD, hybrid and encoder–"
-                         "decoder families are not ported)")
+                         "families and GQA MoE run (MLA's tensor-parallel "
+                         "path and the SSD, hybrid and encoder–decoder "
+                         "families are not ported)")
     if rules.get("seq") is not None:
         raise ValueError("context-parallel rules (the sequence on a mesh "
                          "axis) are not ported")
@@ -422,11 +444,15 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
                       and (sum(heads) - 1) // reps < sum(kv)):
         kv, kv_on = (0, n_kv), None   # the heads read KV heads held elsewhere
     rows = hp * hd % n == 0
+    mo = cfg.moe
     return TensorParallel(hp, n_kv, hd, model, heads,
                           q_gather=rows and not heads_on, kv=kv,
                           kv_gather=n_kv * hd % n == 0 and not kv_on,
                           rows=rows, ffn=cfg.d_ff % n == 0,
-                          vocab=cfg.padded_vocab % n == 0)
+                          vocab=cfg.padded_vocab % n == 0,
+                          experts=mo is not None and mo.n_experts % n == 0,
+                          shared=mo is not None
+                          and mo.n_shared * mo.d_expert % n == 0)
 
 
 # ---------------------------------------------------------------- blocks
@@ -452,17 +478,34 @@ def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
     and k/v where their columns are split and their heads not
     (``kv_gather``): q at the heads this rank attends, k/v at the KV heads
     it holds; with ``every_head`` (decode, whose cache keeps heads whole)
-    every split one, so q, k and v come back at every head."""
+    every split one, so q, k and v come back at every head.
+
+    Gradients: where o is row-parallel (``tp.rows``) each rank's
+    attention carries the gradient of its own heads only, so what the
+    ranks share — ``x`` and any k/v projection left whole — has its
+    gradient summed over "model" (``copy_grad``) and the gathers
+    reduce-scatter theirs; otherwise every rank runs the whole attention
+    alike and a gather keeps the rank's slice of its gradient."""
     B, S, _ = x.shape
+    part = tp.axis(tp.rows)
+    x = coll.copy_grad(x, part, site="attn.in")
     split = {"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols}
-    y = {n: L.linear_cols(p[n], x, tp.axis(s)) for n, s in split.items()}
+
+    def shared(n):                  # a projection every rank holds whole
+        if split[n] or part is None:
+            return p[n]
+        return {k: coll.copy_grad(t, part, site="attn.kv")
+                for k, t in p[n].items()}
+    y = {n: L.linear_cols(shared(n), x, tp.axis(s))
+         for n, s in split.items()}
     whole = ({"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols} if every_head
              else {"q": tp.q_gather, "k": tp.kv_gather, "v": tp.kv_gather})
     names = [n for n, w in whole.items() if w]
     if names:
         y.update(zip(names, L.gather_cols(
             [y[n] for n in names], tp.model,
-            site="decode.qkv" if every_head else "attn.qkv")))
+            site="decode.qkv" if every_head else "attn.qkv",
+            alike=part is None)))
     q, k, v = (y[n].reshape(B, S, -1, tp.hd) for n in ("q", "k", "v"))
     return (L.apply_rope(q, positions, rope_theta),
             L.apply_rope(k, positions, rope_theta), v)
@@ -500,10 +543,15 @@ def _cross_attention(p, x, memory, cfg: ModelConfig, tp: TensorParallel):
 
 def _ffn_apply(p, x, cfg: ModelConfig, tp: TensorParallel, kind: str):
     if kind == "moe":
+        if active_rules() is not None and _needs_grad(x, p):
+            raise ValueError(f"{cfg.name}: a gradient through MoE under a "
+                             "mesh is not ported (serving only)")
         mo = cfg.moe
         return M.moe_apply(p, x, n_experts=mo.n_experts, top_k=mo.top_k,
                            capacity_factor=mo.capacity_factor,
-                           router_softmax_after_topk=mo.softmax_after_topk)
+                           router_softmax_after_topk=mo.softmax_after_topk,
+                           axis=tp.axis(tp.experts),
+                           shared_axis=tp.axis(tp.shared))
     return L.ffn(p, x, tp.axis(tp.ffn))
 
 
@@ -518,13 +566,32 @@ def _ssd_apply(p, x, cfg: ModelConfig):
     return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk)
 
 
+def gather_blocks(tree, plan):
+    """ZeRO-3: each leaf of ``tree`` (this rank's block) gathered along the
+    (dim, axis) pairs of its ``plan`` entry (``train.shardings.
+    gather_plan``), in one all-gather a pair; the gradient comes back
+    reduce-scattered in rank order.  ``tree`` as it is when ``plan`` is
+    None."""
+    if plan is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_blocks(v, plan[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_blocks(v, q) for v, q in zip(tree, plan)]
+    for d, axis in plan:
+        tree = coll.all_gather_grad(tree, axis, d, site="zero.gather")
+    return tree
+
+
 def _layer(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
-           group: str, memory=None):
+           group: str, memory=None, plan=None):
     """One layer of ``group``: a dense or MoE block, an SSD layer (no FFN),
     a hybrid period (each sublayer attention or SSD, then its FFN), an
     encoder layer (non-causal self-attention, then the FFN) or a decoder
     layer (causal self-attention, cross-attention over ``memory``, then
-    the FFN after a third norm)."""
+    the FFN after a third norm).  With a ZeRO ``plan`` the layer's blocks
+    are gathered first, here, inside the layer's checkpoint."""
+    lp = gather_blocks(lp, plan)
     if group == "ssd":
         return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg)
     if group == "enc":
@@ -572,27 +639,27 @@ def _needs_grad(*trees) -> bool:
         if isinstance(t, torch.Tensor))
 
 
-def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, tp, memory=None):
+def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, tp, memory=None,
+               plan=None):
     """One layer; when a gradient is being taken, inside a non-reentrant
-    checkpoint (only its inputs are saved; it runs again in the
-    backward)."""
+    checkpoint (only its inputs — the blocks as this rank holds them —
+    are saved; it runs again in the backward, its ZeRO gathers too)."""
     if _needs_grad(x, lp, memory):
-        if tp.model is not None:
-            raise ValueError("training under a mesh is not ported")
-        return checkpoint(_layer, x, lp, cfg, tp, pos, group, memory,
+        return checkpoint(_layer, x, lp, cfg, tp, pos, group, memory, plan,
                           use_reentrant=False)
-    return _layer(x, lp, cfg, tp, pos, group, memory)
+    return _layer(x, lp, cfg, tp, pos, group, memory, plan)
 
 
 def run_layers(x, layers, cfg: ModelConfig, group: str = "dense",
-               mp: int = 1, memory=None):
+               mp: int = 1, memory=None, plan=None):
     """x (B, S, D) through ``layers`` (a list of layers of ``group``, in
     order; positions 0..S−1) — a pipeline stage's part of the model
-    (``dist.pipeline_parallel``)."""
+    (``dist.pipeline_parallel``).  ``plan``: the layers' ZeRO gather
+    plans (``gather_blocks``)."""
     tp = tensor_parallel(cfg, mp)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    for lp in layers:
-        x = _run_layer(x, lp, cfg, pos, group, tp, memory)
+    for lp, lplan in zip(layers, plan or [None] * len(layers)):
+        x = _run_layer(x, lp, cfg, pos, group, tp, memory, lplan)
     return x
 
 
@@ -606,22 +673,28 @@ def encode(params, src_embeds, cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 def forward(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
-            mp: int = 1) -> torch.Tensor:
+            mp: int = 1, gather=None) -> torch.Tensor:
     """batch {"tokens": (B, S) integer; encdec: "src_embeds" (B, Sm, D);
     vlm: "prefix_embeds" (B, P, D), optional} → final hidden states (B, S,
     D), S counting a vlm's prefix positions.  Each layer is checkpointed
     when a gradient is being taken (``_run_layer``).  Under a mesh
     ``params`` are the rank's blocks, the batch its rows, and the hidden
-    states the same on every rank of the model axis."""
+    states the same on every rank of the model axis; ``gather`` is the
+    ZeRO gather plan of ``params`` (``train.shardings.gather_plan``): the
+    table is gathered once here, each layer inside its checkpoint."""
     require_ported(cfg)
     tp = tensor_parallel(cfg, mp)
-    x, memory = embed_inputs(params, batch, cfg, dtype, tp)
+    plan = gather or {}
+    x, memory = embed_inputs(
+        {"embed": gather_blocks(params["embed"], plan.get("embed"))}, batch,
+        cfg, dtype, tp)
     if cfg.family == "encdec":
         memory = encode(params, memory, cfg, dtype, mp)
     for group, _count in layer_groups(cfg):
         if group != "enc":
-            x = run_layers(x, params[f"g_{group}"], cfg, group, mp, memory)
-    return _norm(cfg, params["ln_f"], x)
+            x = run_layers(x, params[f"g_{group}"], cfg, group, mp, memory,
+                           plan.get(f"g_{group}"))
+    return _norm(cfg, gather_blocks(params["ln_f"], plan.get("ln_f")), x)
 
 
 def _ce_chunk(w, xb, lb):
@@ -635,13 +708,42 @@ def _ce_chunk(w, xb, lb):
             mask.sum(dtype=torch.float32))
 
 
-def lm_loss(params, x, labels, cfg: ModelConfig, chunk: int = 512):
+def _ce_chunk_vocab(w, xb, lb, model):
+    """``_ce_chunk`` where w holds this rank's columns of the vocabulary
+    (``model``'s rank r: columns [r·n, (r + 1)·n)): the row max is a
+    ``pmax`` over the axis (detached; any shift gives the same function),
+    the sum of exponentials and the gold logit (the owner's, zeros
+    elsewhere) are summed over it; both sums pass their gradient through
+    as it is (every rank uses them alike)."""
+    logits = (xb @ w.to(xb.dtype)).to(torch.float32)
+    top = coll.pmax(logits.detach().amax(-1), model, site="loss.max")
+    sumexp = coll.psum_grad((logits - top[..., None]).exp().sum(-1), model,
+                            site="loss.sumexp")
+    lse = top + torch.log(sumexp)
+    n = w.shape[1]
+    local = lb.long() - model.rank * n
+    own = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = coll.psum_grad(torch.where(own, gold, 0.0), model,
+                          site="loss.gold")
+    mask = lb >= 0
+    return (torch.where(mask, lse - gold, 0.0).sum(),
+            mask.sum(dtype=torch.float32))
+
+
+def lm_loss(params, x, labels, cfg: ModelConfig, chunk: int = 512,
+            mp: int = 1, rows: tuple = ()):
     """Chunked CE (the reference's ``lm_loss``): x (B, S, D) and labels
     (B, S), label −1 masked; S padded to whole chunks of ``chunk`` rows
     (pad labels −1); the mean over the unmasked labels, ``tot / max(cnt,
     1)``.  No (B, S, V) tensor is alive at once: each chunk's logits are
     reduced to a sum at once and, when a gradient is being taken,
-    recomputed in the backward (a non-reentrant checkpoint a chunk)."""
+    recomputed in the backward (a non-reentrant checkpoint a chunk).
+    Under a mesh whose "model" axis splits ``lm_head``'s columns the
+    chunks are vocab-parallel (``_ce_chunk_vocab``; x's gradient summed
+    over the axis once, outside the chunks); ``rows``: the bound axes the
+    batch rows are split over, across which tot and cnt are summed before
+    the division, so every rank returns the whole batch's loss."""
     B, S, _ = x.shape
     nch = -(-S // chunk)
     pad = nch * chunk - S
@@ -650,23 +752,41 @@ def lm_loss(params, x, labels, cfg: ModelConfig, chunk: int = 512):
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
     w = params["lm_head"]["w"]
     grad = _needs_grad(x, w)
+    tp = tensor_parallel(cfg, mp)
+    model = tp.axis(tp.vocab)
+    fn, extra = _ce_chunk, ()
+    if model is not None:
+        x = coll.copy_grad(x, model, site="loss.in")
+        fn, extra = _ce_chunk_vocab, (model,)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(nch):
         xb, lb = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:
                                                           (c + 1) * chunk]
-        t, n = (checkpoint(_ce_chunk, w, xb, lb, use_reentrant=False)
-                if grad else _ce_chunk(w, xb, lb))
+        t, n = (checkpoint(fn, w, xb, lb, *extra, use_reentrant=False)
+                if grad else fn(w, xb, lb, *extra))
         tot, cnt = tot + t, cnt + n
+    if rows:
+        both = torch.stack([tot, cnt])
+        for axis in rows:
+            both = coll.psum_grad(both, axis, site="loss.rows")
+        tot, cnt = both[0], both[1]
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def forward_train(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
-                  loss_chunk: int = 512):
+                  loss_chunk: int = 512, mp: int = 1, gather=None,
+                  rows: tuple = ()):
     """The training loss of ``batch`` (its "labels" (B, S), −1 masked):
-    ``forward``, then ``lm_loss``."""
-    x = forward(params, batch, cfg, dtype)
-    return lm_loss(params, x, batch["labels"], cfg, loss_chunk)
+    ``forward``, then ``lm_loss``.  Under a mesh: ``gather`` is the ZeRO
+    gather plan of ``params`` (``lm_head`` is gathered once, before the
+    loss's chunks) and ``rows`` the axes the batch's rows are split
+    over."""
+    plan = gather or {}
+    x = forward(params, batch, cfg, dtype, mp, gather)
+    head = gather_blocks(params["lm_head"], plan.get("lm_head"))
+    return lm_loss({"lm_head": head}, x, batch["labels"], cfg, loss_chunk,
+                   mp, rows)
 
 
 # ---------------------------------------------------------------- serving

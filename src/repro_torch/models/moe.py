@@ -24,8 +24,18 @@ Where the reference and PyTorch differ:
 - The combine is a float ``index_add_``.  With top-1 or top-2 a token sums
   at most two terms onto zero, which is exact in any order; with top-k > 2
   the card's atomics may move the last bit.
-- The reference's ``shard`` constraints (experts on the model axis) have
-  no counterpart on one card; the dispatch runs without its all-to-all.
+- Expert parallelism (``moe_apply``'s ``axis``): the reference's
+  ``shard`` constraints put the experts on the model axis, and GSPMD
+  moves each group's slots to their experts' devices with an all-to-all.
+  The port's activations are whole on every model rank and the router is
+  replicated, so every rank builds the same dispatch tables and reads
+  its own experts' slots from its own ``x``: the all-to-all becomes a
+  local read.  Each rank adds its experts' gated f32 outputs into the
+  (B, T + 1, D) buffer, and the buffers are summed over the axis in rank
+  order (``moe.combine``) before the cast.  With top-1 or top-2 a
+  token's terms (one or two, each on its expert's rank) are added onto
+  zeros in expert order, as the one-device ``index_add_`` adds them, so
+  the combine is the one device's bit for bit in f32 on the CPU.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist import collectives as coll
 from .layers import Params, _normal, ffn, ffn_init, linear, linear_init
 
 
@@ -107,11 +118,15 @@ def dispatch_tables(top_idx, gates, *, n_experts: int, capacity: int):
 def moe_apply(p: Params, x, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               router_softmax_after_topk: bool = False,
-              router_bias=None):
+              router_bias=None, axis=None, shared_axis=None):
     """x (B, S, D) → (B, S, D).  Each batch row is a dispatch group of
     S tokens with ``expert_capacity(S, ...)`` slots per expert; tokens
     over capacity get no routed term (GShard semantics); the shared
-    expert (if any) is always on."""
+    expert (if any) is always on.  With ``axis`` (a bound one-axis mesh)
+    the banks in ``p`` are this rank's experts, [r·E/n, (r + 1)·E/n) on
+    rank r, and the combine is summed over the axis (module docstring);
+    with ``shared_axis`` the shared expert runs column/row-parallel over
+    it (``layers.ffn``)."""
     B, S, D = x.shape
     T = S
     capacity = expert_capacity(T, top_k, n_experts, capacity_factor)
@@ -120,27 +135,40 @@ def moe_apply(p: Params, x, *, n_experts: int, top_k: int,
                            router_bias=router_bias)
     tok, gat = dispatch_tables(top_idx, gates, n_experts=n_experts,
                                capacity=capacity)
-    # dispatch gather, expert-major: (B, T+1, D)[g, tok] → (E, B·C, D)
-    xg = torch.cat([x, x.new_zeros(B, 1, D)], 1)
-    tok_e = tok.reshape(B, n_experts, capacity).transpose(0, 1)   # (E, B, C)
-    rows = torch.arange(B, device=x.device)[None, :, None]
-    ex_in = xg[rows, tok_e].reshape(n_experts, B * capacity, D)
-
     w = p["experts"]
+    held = w["gate"].shape[0]
+    first = 0
+    if axis is not None:
+        if held * axis.size != n_experts:
+            raise ValueError(f"{held} experts a rank over {axis.size} ranks "
+                             f"is not {n_experts}")
+        first = axis.rank * held
+    # dispatch gather, expert-major: (B, T+1, D)[g, tok] → (E, B·C, D), the
+    # experts held here only
+    xg = torch.cat([x, x.new_zeros(B, 1, D)], 1)
+    tok_e = tok.reshape(B, n_experts, capacity).transpose(0, 1)[
+        first:first + held]                                     # (E, B, C)
+    gat_e = gat.reshape(B, n_experts, capacity).transpose(0, 1)[
+        first:first + held]
+    rows = torch.arange(B, device=x.device)[None, :, None]
+    ex_in = xg[rows, tok_e].reshape(held, B * capacity, D)
+
     h = F.silu(torch.bmm(ex_in, w["gate"].to(x.dtype))) \
         * torch.bmm(ex_in, w["up"].to(x.dtype))
     ex_out = torch.bmm(h, w["down"].to(x.dtype))          # (E, B·C, D)
 
     # combine: each slot's gated f32 output added onto its token's row of
-    # (B, T+1, D); empty slots add zeros onto the sentinel row T
-    weighted = ex_out.to(torch.float32).reshape(n_experts, B, capacity, D) \
-        * gat.reshape(B, n_experts, capacity).transpose(0, 1)[..., None]
+    # (B, T+1, D); empty slots add zeros onto the sentinel row T; the
+    # ranks' buffers summed in rank order
+    weighted = ex_out.to(torch.float32).reshape(held, B, capacity, D) \
+        * gat_e[..., None]
     dest = (tok_e + rows * (T + 1)).reshape(-1)
     y = torch.zeros(B * (T + 1), D, dtype=torch.float32, device=x.device)
     y.index_add_(0, dest, weighted.reshape(-1, D))
+    y = coll.psum(y, axis, site="moe.combine")
     out = y.reshape(B, T + 1, D)[:, :T].to(x.dtype)
     if "shared" in p:
-        out = out + ffn(p["shared"], x)
+        out = out + ffn(p["shared"], x, shared_axis)
     return out
 
 

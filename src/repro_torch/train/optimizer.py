@@ -18,6 +18,15 @@ leading layer axis, so Adafactor's update clip takes the RMS of the
 update over the whole group; here each layer's leaf is its own (the
 clip of the Adafactor paper, per matrix).  With one layer a group, and
 for AdamW (elementwise) always, the two are the same function.
+
+On a mesh each leaf is a rank's block.  ``init`` and ``update`` then take
+``axes`` (``train.shardings.leaf_axes``: per leaf, per dim, the bound
+axes that cut it): AdamW is elementwise and ignores them; Adafactor
+decides whether a leaf is factored by its whole shape, and sums every
+term of its means (g²'s row and column means, the row factor's mean,
+the update's RMS) over the axes that cut the dims it averages, in rank
+order, before dividing by the whole count — so every rank takes its
+block of the one update.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from typing import Callable
 
 import torch
 
-from ..models.lm import tree_leaves
+from ..dist import collectives as coll
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 
@@ -75,25 +85,6 @@ def _leaves_up_to(struct, tree) -> list:
     return [tree]
 
 
-def _unflatten(struct, it):
-    if isinstance(struct, dict):
-        return {k: _unflatten(v, it) for k, v in struct.items()}
-    if isinstance(struct, list):
-        return [_unflatten(v, it) for v in struct]
-    return next(it)
-
-
-def tree_unflatten(struct, leaves):
-    """``struct``'s structure (dicts and lists) holding ``leaves``, in
-    ``models.tree_leaves``'s order."""
-    return _unflatten(struct, iter(leaves))
-
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor of a tree of dicts and lists."""
-    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
-
-
 def _map_leaves(fn, grads, *rest):
     """``fn(g, *r)`` per leaf of ``grads``, where the ``rest`` trees are
     flattened up to grads' structure; ``fn`` returns a tuple, and each of
@@ -109,18 +100,41 @@ def _device(tree):
     return tree_leaves(tree)[0].device
 
 
+def _whole_shape(x, axes) -> tuple:
+    """The whole leaf's shape from its block ``x`` and the axes that cut
+    each dim (``axes`` None: ``x`` is whole)."""
+    if axes is None:
+        return tuple(x.shape)
+    return tuple(d * math.prod(a.size for a in ax)
+                 for d, ax in zip(x.shape, axes))
+
+
+def _mean(x, dims: tuple, axes):
+    """The mean of the whole leaf over ``dims`` from its block ``x``: the
+    block's sum summed over the axes that cut those dims (in rank order),
+    over the whole count; ``x.mean(dims)`` where no axis cuts them."""
+    cut = [] if axes is None else [a for d in dims for a in axes[d]]
+    if not cut:
+        return x.mean() if len(dims) == x.dim() else x.mean(dims)
+    total = x.sum(dims)
+    for a in cut:
+        total = coll.psum(total, a, site="opt.mean")
+    whole = _whole_shape(x, axes)
+    return _div(total, math.prod(whole[d] for d in dims))
+
+
 def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
           schedule=None):
     """AdamW with bias corrections; weight decay on every leaf, as in the
     reference."""
     sched = schedule or (lambda s: lr)
 
-    def init(params):
+    def init(params, axes=None):
         def z(p):
             return torch.zeros(p.shape, dtype=F32, device=p.device)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         step = _as_step(step, _device(params))
         stepf = step + 1.0
         lr_t = sched(step)
@@ -148,47 +162,54 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_rms=1.0,
     and column means of g², any other leaf the full g²."""
     sched = schedule or (lambda s: lr)
 
-    def factored(p):
-        return p.dim() >= 2 and p.shape[-1] >= min_factor_dim \
-            and p.shape[-2] >= min_factor_dim
+    def factored(shape):
+        return len(shape) >= 2 and shape[-1] >= min_factor_dim \
+            and shape[-2] >= min_factor_dim
 
-    def init(params):
-        def z(p):
+    def init(params, axes=None):
+        def z(p, ax=None):
             def zeros(shape):
                 return torch.zeros(shape, dtype=F32, device=p.device)
-            if factored(p):
+            if factored(_whole_shape(p, ax)):
                 return {"vr": zeros(p.shape[:-1]),
                         "vc": zeros(p.shape[:-2] + p.shape[-1:])}
             return {"v": zeros(p.shape)}
-        return {"f": tree_map(z, params)}
+        if axes is None:
+            return {"f": tree_map(z, params)}
+        return {"f": tree_unflatten(params, [
+            z(p, ax) for p, ax in zip(tree_leaves(params),
+                                      tree_leaves(axes))])}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         step = _as_step(step, _device(params))
         stepf = step + 1.0
         lr_t = sched(step)
         beta = 1.0 - stepf ** (-decay)
 
-        def upd(g, f, p):
+        def upd(g, f, p, ax):
             g = g.to(F32)
             g2 = g * g + eps
             if "vr" in f:
-                vr = beta * f["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * f["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * f["vr"] + (1 - beta) * _mean(g2, (-1,), ax)
+                vc = beta * f["vc"] + (1 - beta) * _mean(g2, (-2,), ax)
+                row = _mean(vr, (-1,), None if ax is None else ax[:-1])
                 denom = vr[..., None] * vc[..., None, :] \
-                    / torch.clamp(vr.mean(-1)[..., None, None], min=eps)
+                    / torch.clamp(row[..., None, None], min=eps)
                 u = g * torch.rsqrt(denom + eps)
                 f2 = {"vr": vr, "vc": vc}
             else:
                 v = beta * f["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(v + eps)
                 f2 = {"v": v}
-            rms = torch.sqrt(torch.mean(u * u) + eps)
+            rms = torch.sqrt(_mean(u * u, tuple(range(u.dim())), ax) + eps)
             u = u / torch.clamp(rms / clip_rms, min=1.0)
             if weight_decay:
                 u = u + weight_decay * p.to(F32)
             return (p.to(F32) - lr_t * u).to(p.dtype), f2
 
-        p2, f2 = _map_leaves(upd, grads, state["f"], params)
+        axes_tree = axes if axes is not None else tree_map(
+            lambda _g: None, grads)
+        p2, f2 = _map_leaves(upd, grads, state["f"], params, axes_tree)
         return p2, {"f": f2}
 
     return Optimizer("adafactor", init, update)

@@ -14,14 +14,19 @@ The reference stacks a layer group's leaves on a leading layer dim (its
 specs are the reference's without that entry.
 
 ``zero=True`` also shards each weight's non-TP dim over the data axis
-(FSDP / ZeRO-3; gathering before use is not ported).
+(FSDP / ZeRO-3: ``models.lm`` gathers each block over "data" right
+before its layer uses it, and the gradient comes back reduce-scattered).
 ``sanitize_specs`` drops any axis that does not divide its dim — the
 fallback is replication, never a failure.  ``local_tree`` is the
 placement the reference's ``named_shardings`` makes: each leaf of a
 whole tree cut to this rank's block under its sanitized spec;
-``place_params`` makes that cut part by part while ``init_params`` draws;
+``place_params`` makes that cut part by part while ``init_params`` draws
+and keeps the sanitized specs it cut by (``placed_specs``);
 ``gather_tree`` is its inverse, the whole tree on rank 0 (the tests, a
-checkpoint).
+checkpoint).  ``leaf_axes`` turns a spec tree into the bound axes that
+cut each dim of each leaf, and ``gather_plan`` keeps of them the ones a
+block is gathered over before use (every axis but "model", whose cuts
+the model code runs tensor-parallel).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from dataclasses import replace
 import torch
 
 from ..dist import collectives as coll
+from ..dist.mesh import as_axis
 from ..dist.sharding import block, entry_axes
 
 _KEY_RE = re.compile(r"\['([^']+)'\]|\[(\d+)\]")
@@ -184,18 +190,61 @@ def local_tree(tree, specs_tree, mesh):
     return _map2(lambda x, s: block(x, s, mesh).clone(), tree, specs)
 
 
-def place_params(mesh):
+def place_params(mesh, zero: bool = False):
     """``models.init_params``'s ``place`` on the bound ``mesh``: each part
     as it is drawn (the embedding, the head, the final norm, one layer;
     whole, at its path in the tree) cut to this rank's blocks under its
-    ``param_specs`` (tensor-parallel only: ZeRO's gather before use and
-    the multi-pod axes are not ported), so one part is whole at a time."""
+    ``param_specs`` (tensor-parallel, and with ``zero`` each weight's
+    other dim over "data" too; the multi-pod axes are not ported),
+    sanitized, so one part is whole at a time.  The sanitized specs of
+    every part it cut are kept on it (``placed_specs``)."""
+    cut: dict = {}
+
     def place(path, sub):
-        specs = map_with_path(
-            lambda pstr, leaf: _param_spec(pstr, leaf, False, False),
-            sub, path)
-        return local_tree(sub, specs, mesh)
+        specs = sanitize_specs(map_with_path(
+            lambda pstr, leaf: _param_spec(pstr, leaf, zero, False),
+            sub, path), sub, mesh.shape)
+        cut[path] = specs
+        return _map2(lambda x, s: block(x, s, mesh).clone(), sub, specs)
+    place.specs = cut
     return place
+
+
+def placed_specs(place) -> dict:
+    """The sanitized spec tree of the tree ``place`` (a ``place_params``)
+    cut, in the parameters' structure (top-level keys, and a list of
+    per-layer specs for each layer group)."""
+    tree: dict = {}
+    for path, specs in place.specs.items():
+        key, *index = _path_tokens(path)
+        if index:
+            group = tree.setdefault(key, [])
+            i = int(index[0])
+            group.extend([None] * (i + 1 - len(group)))
+            group[i] = specs
+        else:
+            tree[key] = specs
+    return tree
+
+
+def leaf_axes(specs_tree, mesh):
+    """Per leaf of a sanitized spec tree, one tuple a dim of the bound
+    one-axis meshes (``as_axis``) that cut it, innermost last; () where
+    the dim is whole (an axis of one rank cuts nothing)."""
+    def axes(spec):
+        return tuple(tuple(as_axis(mesh, a) for a in entry_axes(e)
+                           if mesh.shape[a] > 1) for e in spec)
+    return _map2(lambda s, _: axes(s), specs_tree, specs_tree)
+
+
+def gather_plan(axes_tree):
+    """Per leaf of a ``leaf_axes`` tree, the (dim, axis) pairs its block is
+    gathered over before use, in the order ``dist.sharding.unshard``
+    takes them: every cut but the "model" axis's."""
+    def plan(axes):
+        return tuple((d, a) for d, dim_axes in enumerate(axes)
+                     for a in reversed(dim_axes) if a.axis != "model")
+    return _map2(lambda a, _: plan(a), axes_tree, axes_tree)
 
 
 def gather_tree(tree, specs_tree, mesh, *, site: str = "gather_tree"):

@@ -3,7 +3,9 @@ rule tables and spec functions (``dist.sharding``, ``train.shardings``),
 the meshes, the placement of a parameter tree, sequence-parallel decode
 (``dist.decode``) and ``pipeline_apply`` on 4 gloo ranks, and qwen2
 reduced served tensor- and sequence-parallel on ``make_test_mesh(2, 4)``
-(8 gloo ranks).
+(8 gloo ranks), with llama4-scout reduced beside it, its experts split
+over "model" (expert parallelism) or left whole where they do not
+divide the axis.
 
 The reference's own mesh paths do not run here (its multidevice LM tests
 fail in this environment), so the ranks are held against its
@@ -56,6 +58,12 @@ PROMPT, NEW, PREFILL = 6, 6, 12
 # KV heads dividing the axis; q heads padded (4 heads at mp 8)
 MODELS = (("gathered_kv", 2, 4), ("divisible_kv", 4, 4),
           ("padded_heads", 2, 8))
+# llama4-scout reduced (8 experts top-1 and a shared expert) at mp 4:
+# (name, experts, capacity factor): every token kept (E / k), the
+# default capacity (tokens dropped), 6 experts (whole on every rank)
+MOE_MODELS = (("moe_no_drop", 8, 8.0), ("moe_default", 8, None),
+              ("moe_whole", 6, None))
+MOE_MP = 4
 
 
 def _t(a):
@@ -368,17 +376,30 @@ def test_pipeline_reference_apply_matches_reference():
 
 
 def test_the_mesh_refuses_what_is_not_ported():
-    """Under a mesh with a model axis: MoE, MLA, SSD, hybrid and encdec
-    raise, as do context-parallel rules; a spec mesh is no rank's."""
+    """Under a mesh with a model axis: MLA, SSD, hybrid and encdec raise,
+    as do context-parallel rules and a gradient through an MoE layer;
+    MoE serving and the dense families run (a spec mesh is no rank's, so
+    they ask for a bound one)."""
     spec = make_test_mesh(2, 4, device="cpu")
     with S.use_rules(S.SINGLE_POD_RULES, spec):
-        for arch in ("llama4_scout_17b_a16e", "deepseek_v3_671b",
-                     "mamba2_130m", "jamba_1_5_large_398b",
-                     "seamless_m4t_large_v2"):
+        for arch in ("deepseek_v3_671b", "mamba2_130m",
+                     "jamba_1_5_large_398b", "seamless_m4t_large_v2"):
             with pytest.raises(ValueError, match="not ported"):
                 lm.tensor_parallel(configs.get_config(arch).reduced())
-        with pytest.raises(ValueError, match="bound mesh"):
-            lm.tensor_parallel(configs.get_config("qwen2_7b").reduced())
+        for arch in ("qwen2_7b", "llama4_scout_17b_a16e"):
+            with pytest.raises(ValueError, match="bound mesh"):
+                lm.tensor_parallel(configs.get_config(arch).reduced())
+    cfg = configs.get_config("llama4_scout_17b_a16e").reduced()
+    ffn = lm.init_params(cfg, torch.Generator().manual_seed(0))[
+        "g_moe"][0]["ffn"]
+    x = torch.zeros(1, 4, cfg.d_model, requires_grad=True)
+    tp = lm.tensor_parallel(cfg)
+    with S.use_rules(S.SINGLE_POD_RULES, spec):
+        with pytest.raises(ValueError, match="MoE under a mesh is not "
+                           "ported"):
+            lm._ffn_apply(ffn, x, cfg, tp, "moe")
+        with torch.no_grad():
+            assert lm._ffn_apply(ffn, x, cfg, tp, "moe").shape == x.shape
     with S.use_rules(S.CP_SERVE_RULES, spec):
         with pytest.raises(ValueError, match="context-parallel"):
             lm.tensor_parallel(configs.get_config("qwen2_7b").reduced())
@@ -572,6 +593,17 @@ def _model_cfg(n_kv):
                                n_kv_heads=n_kv)
 
 
+def _moe_cfg(get_config, n_experts, capacity):
+    """llama4-scout reduced from ``get_config`` (the port's or the
+    reference's) with ``n_experts`` experts and, if given, the capacity
+    factor."""
+    cfg = get_config("llama4_scout_17b_a16e").reduced()
+    moe = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    if capacity is not None:
+        moe = dataclasses.replace(moe, capacity_factor=capacity)
+    return dataclasses.replace(cfg, moe=moe)
+
+
 def _plant_biases(tree, seed):
     rng = np.random.default_rng(seed)
 
@@ -584,13 +616,52 @@ def _plant_biases(tree, seed):
     return walk(tree)
 
 
+def _moe_job(mesh, cfg, params, local, out, name, x):
+    """An MoE model's extra cases: its first layer's routed experts on the
+    ranks (no shared expert) against one device's, bit for bit, and a
+    gradient through the model (the rank's blocks, ``local``) under the
+    mesh."""
+    from repro_torch.models import moe as M
+    tp = lm.tensor_parallel(cfg, MOE_MP)
+    out[name, "experts_split"] = tp.experts
+    whole = {k: v for k, v in params["g_moe"][0]["ffn"].items()
+             if k != "shared"}
+    mine = dict(whole)
+    if tp.experts:
+        mine["experts"] = {k: S.block(v, ("model", None, None), mesh)
+                           for k, v in whole["experts"].items()}
+    mo = cfg.moe
+    kw = dict(n_experts=mo.n_experts, top_k=mo.top_k,
+              capacity_factor=mo.capacity_factor)
+    coll.reset_counts()
+    got = M.moe_apply(mine, x, axis=tp.axis(tp.experts), **kw)
+    out[name, "combine_calls"] = coll.counts().get(
+        "moe.combine", {"calls": 0})["calls"]
+    out[name, "routed_equal"] = coll.gather_objects(
+        bool(torch.equal(got, M.moe_apply(whole, x, **kw))), mesh)
+    live = _requiring_grad(local)
+    try:
+        lm.forward_train(live, {"tokens": x.new_zeros(2, 4).long(),
+                                "labels": x.new_zeros(2, 4).long()}, cfg,
+                         dtype=torch.float32, mp=MOE_MP)
+        out[name, "grad_refused"] = None
+    except ValueError as e:
+        out[name, "grad_refused"] = str(e)
+
+
+def _requiring_grad(params):
+    """A copy of ``params`` whose leaves take a gradient."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+
+
 def _model_job(mesh, cases):
     """For each model: the placement round trip, the prefill step's
     logits and the hidden states, ``generate``, and the decode loop's
-    logits of every step on the reference's tokens, each gathered whole."""
+    logits of every step on the reference's tokens, each gathered whole;
+    an MoE model's extra cases (``_moe_job``)."""
     out = {}
-    for name, params, mp, toks, prompt, ref_tokens in cases:
-        cfg = _model_cfg(2 if name != "divisible_kv" else 4)
+    for name, cfg, params, mp, toks, prompt, ref_tokens, x in cases:
         specs = TS.param_specs(params, zero=False, multi_pod=False)
         with S.use_rules(S.SINGLE_POD_RULES, mesh):
             local = TS.local_tree(params, specs, mesh)
@@ -621,7 +692,10 @@ def _model_job(mesh, cases):
                                              site="test")
                 steps.append(S.unshard(logits, spec + (None,), mesh))
             out[name, "steps"] = torch.cat(steps, 1)
-            out[name, "cache_shape"] = tuple(cache["dense"]["k"].shape)
+            out[name, "cache_shape"] = tuple(cache[lm.layer_groups(cfg)[0][0]]
+                                             ["k"].shape)
+            if cfg.moe is not None:
+                _moe_job(mesh, cfg, params, local, out, name, x)
     return out
 
 
@@ -652,9 +726,9 @@ def _reference_serve(jcfg, tree, prompt, mp):
 
 @pytest.fixture(scope="module")
 def served():
-    """The three models converted from the reference's ``init_params(cfg,
-    key, mp)`` (biases planted), its prefill and launcher outputs, and
-    the 8 ranks' results in one spawn."""
+    """The models converted from the reference's ``init_params(cfg, key,
+    mp)`` (biases planted), its prefill and launcher outputs, and the 8
+    ranks' results in one spawn."""
     import jax
     import jax.numpy as jnp
     from repro import configs as jconfigs
@@ -662,12 +736,16 @@ def served():
     from repro.train import make_prefill_step as jmake_prefill_step
     cases, refs = [], {}
     rng = np.random.default_rng(5)
-    for i, (name, n_kv, mp) in enumerate(MODELS):
-        jcfg = dataclasses.replace(jconfigs.get_config("qwen2_7b").reduced(),
-                                   n_kv_heads=n_kv)
+    models = [(name, mp, dataclasses.replace(
+        jconfigs.get_config("qwen2_7b").reduced(), n_kv_heads=n_kv),
+        _model_cfg(n_kv)) for name, n_kv, mp in MODELS]
+    models += [(name, MOE_MP, _moe_cfg(jconfigs.get_config, e, c),
+                _moe_cfg(configs.get_config, e, c))
+               for name, e, c in MOE_MODELS]
+    for i, (name, mp, jcfg, cfg) in enumerate(models):
         tree = _plant_biases(jax.tree_util.tree_map(
             np.asarray, JLM.init_params(jcfg, jax.random.key(i), mp)), i)
-        params = lm_params_from_reference(tree, _model_cfg(n_kv), mp)
+        params = lm_params_from_reference(tree, cfg, mp)
         toks = rng.integers(0, jcfg.vocab, (4, PREFILL)).astype(np.int32)
         prompt = toks[:, :PROMPT]
         jtree = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -679,8 +757,10 @@ def served():
         refs[name] = dict(params=params, logits=ref_logits,
                           hidden=np.asarray(ref_x), tokens=ref_tokens,
                           steps=ref_steps)
-        cases.append((name, params, mp, _t(toks).long(), _t(prompt).long(),
-                      _t(ref_tokens).long()))
+        x = _t(rng.standard_normal((4, PREFILL, cfg.d_model)).astype(
+            np.float32))
+        cases.append((name, cfg, params, mp, _t(toks).long(),
+                      _t(prompt).long(), _t(ref_tokens).long(), x))
     ranks = run_on_ranks(_model_job, make_test_mesh(2, 4, device="cpu"),
                          cases, timeout=TIMEOUT)
     return refs, ranks
@@ -735,3 +815,53 @@ def test_mesh_generate_matches_the_reference_launcher(served, name):
     _close(g.prompt_logits.numpy(), refs[name]["steps"][:, PROMPT - 1])
     _close(ranks[name, "steps"].numpy(), refs[name]["steps"])
     assert ranks[name, "cache_shape"][1:3] == (2, (PROMPT + NEW) // 4)
+
+
+# ------------------------------------------- llama4-scout, experts on model
+
+MOE_NAMES = [m[0] for m in MOE_MODELS]
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_moe_mesh_prefill_matches_reference(served, name):
+    """The prefill step's logits and the hidden states against the
+    reference's ``prefill(..., mp=4)`` on one device, within 1e-5 of the
+    largest magnitude (the row-parallel sums of o, the shared expert's
+    down and the combine reorder f32 adds)."""
+    refs, ranks = served
+    _close(ranks[name, "logits"].numpy(), refs[name]["logits"])
+    _close(ranks[name, "hidden"].numpy(), refs[name]["hidden"])
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_moe_mesh_generate_matches_the_reference_launcher(served, name):
+    """Greedy tokens equal the reference launcher's; every decode step's
+    logits on its tokens within 1e-5 of the largest."""
+    refs, ranks = served
+    g = ranks[name, "generate"]
+    np.testing.assert_array_equal(g.tokens.numpy(), refs[name]["tokens"])
+    assert g.finite and g.steps == PROMPT + NEW
+    _close(g.prompt_logits.numpy(), refs[name]["steps"][:, PROMPT - 1])
+    _close(ranks[name, "steps"].numpy(), refs[name]["steps"])
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_moe_combine_on_ranks_is_one_devices_bit_for_bit(served, name):
+    """A layer's routed experts on the ranks (each its two experts, the
+    combine summed over "model" in rank order) against ``moe_apply`` on
+    one device, f32, top-1: equal bit for bit on every rank, at a
+    capacity that drops nothing and at the default one; with 6 experts
+    the banks stay whole and nothing is summed."""
+    _refs, ranks = served
+    split = name != "moe_whole"
+    assert ranks[name, "experts_split"] is split
+    assert ranks[name, "combine_calls"] == (1 if split else 0)
+    assert ranks[name, "routed_equal"] == [True] * 8
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_moe_gradient_under_the_mesh_is_refused(served, name):
+    """Training MoE over the mesh is not ported: a gradient through the
+    model raises at its first MoE layer, on every rank alike."""
+    _refs, ranks = served
+    assert "not ported" in ranks[name, "grad_refused"]

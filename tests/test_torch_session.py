@@ -213,3 +213,44 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               cwd=script.parent)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["kernel", "whole", "lost_kind",
+                                  "one_session"])
+def test_device_time_reads_only_whole_sessions(case):
+    """chip_smoke's reading of the profiler's sessions when records are
+    lost: only a session that saw every kind any session saw a whole
+    number of times a call is read — a kernel's mean launch, or a call's
+    summed time with the kinds' counts a call; a session that lost a
+    kind whole, or a lone session of a call's kinds, gives no reading."""
+    read = _chip_smoke().sessions_ms
+    fwd, bwd, fill = "sdpa_fprop", "sdpa_bprop", "Memset"
+    if case == "kernel":
+        lossy = [("flash_bf16_kernel", 10.0)] * 3 + [(fill, 1.0)]
+        assert read([lossy], 4, "flash_bf16_kernel") is None
+        assert read([lossy, [("flash_bf16_kernel", 20.0)] * 5], 4,
+                    "flash_bf16_kernel") is None
+        ms, per_call = read([lossy, [("flash_bf16_kernel", 20.0)] * 4], 4,
+                            "flash_bf16_kernel")
+        assert per_call == {"flash_bf16_kernel": 1}
+        assert ms == pytest.approx(20.0 / 1e3)
+    elif case == "whole":
+        call = [(fill, 1.0), (fill, 1.0), (fwd, 10.0), (bwd, 30.0)]
+        lossy = [(fill, 3.0), (fwd, 20.0), (bwd, 30.0)]
+        ms, per_call = read([lossy, call * 2], 2)
+        assert per_call == {fill: 2, fwd: 1, bwd: 1}
+        assert ms == pytest.approx(42.0 / 1e3)
+    elif case == "lost_kind":      # the memsets whole, every kernel lost
+        assert read([[(fill, 1.0)] * 4, [(fill, 1.0)] * 3 + [(fwd, 9.0)]],
+                    2) is None
+    else:
+        assert read([[(fill, 1.0), (fwd, 10.0)] * 2], 2) is None
