@@ -36,8 +36,17 @@ Phases (any failure raises and exits non-zero):
    rank handed to the wire against ``comm_bytes``.  Every rank reports
    its launches: a partition rank K1 once a clustering pass, T twice, the
    CSR K2 when the game is on; a GAS rank K3 once an iteration of each
-   program that gathers on it; nothing else.  Last, the sharded
-   partitioner on one rank over NCCL.
+   program that gathers on it; nothing else.  In the same spawn the graph
+   dry-run (``[dryrun]``, ``repro_torch.launch.dryrun.graph_cells``):
+   every program on every wire, the fused quantized bundle and the three
+   overlapped ragged cells, one iteration each through
+   ``GraphSession.dryrun_step``; every cell's counted wire bytes equal
+   ``comm_bytes`` (dense: (k−1)/k of it), ``check_graph_ordering`` finds
+   nothing (the reference's CI gate), the overlap cells equal their
+   phase-ordered cells in bytes and ring hops, and the session's stacked
+   early exit (pagerank on ragged, tol 1e-6) stops under its cap of 60,
+   its values within rtol 1e-5 of the fixed run (float atomics on the
+   card).  Last, the sharded partitioner on one rank over NCCL.
 3. The GAS program library on the same scale-20 layout (``[gas]``): all
    eight programs through ``sess.run`` on the halo and the dense
    exchange (f32 programs 30 iterations, min programs 40, degree 1, cc to
@@ -171,10 +180,10 @@ Phases (any failure raises and exits non-zero):
    rows a data rank; K4 exactly 28 times a rank at (2, 7/1, 2048, 128)):
    logits within 2e-2 of the largest of phase 6's, and within 1.5× of the
    one card's distance to the f32 twin, as are the logits after the
-   prompt; ``generate`` (the 16-token prompt, 16 greedy tokens, cut from
+   prompt; ``generate`` (the 16-token prompt, 4 greedy tokens, cut from
    phase 6's 32 for time; no K4; how many tokens equal phase 6's is
    logged, not gated: random weights make near-ties): each rank's block
-   of its cache is (28, 2, 8, 4, 128), positions 8·m .. 8·m + 7 on model
+   of its cache is (28, 2, 5, 4, 128), positions 5·m .. 5·m + 4 on model
    rank m, every one written.  Logged: prefill ms and tokens/s, decode ms/token-step,
    peak memory and, by call site, every rank's collective seconds,
    bytes and calls; K4 at the rank's shape against its plain version and
@@ -320,8 +329,9 @@ Phases (any failure raises and exits non-zero):
    ``make_train_step`` loss on the same weights and batch, every
    gradient leaf gathered by ``gather_tree`` within 1e-4 of its largest
    magnitude.  bf16 at full depth: every rank's blocks equal ``[train]``'s
-   seed-0 tree cut on both axes by checksum; 3 AdamW steps under
-   ``[train]``'s schedule, the counts zeroed before each and read after
+   seed-0 tree cut on both axes by checksum; 2 AdamW steps under
+   ``[train]``'s schedule (3 until the graph dry-run joined, cut for
+   time), the counts zeroed before each and read after
    (K4 exactly 48 times a rank a step, no graph kernel); every loss
    finite and within 1e-3 of ``[train]``'s at its step, five leaves
    (``TRAIN_WITNESS``) after the last step within 0.05 of ``[train]``'s
@@ -3340,14 +3350,18 @@ DIST_ITERS = 30
 DIST_WIRES = ("dense", "halo", "quantized", "ragged", "ragged_quantized")
 DIST_LOSSY = ("quantized", "ragged_quantized")
 DIST_LOSSY_BOUND = 5e-4          # [exchange]'s bound on a lossy pagerank
+DRYRUN_ITERS = 1                 # iterations of a [dryrun] cell
 
 
-def dist_gas_job(mesh, lay):
+def dist_gas_job(mesh, sess):
     """``[dist]``'s per-rank runs in one spawn of k ranks (SPMD on the
-    bound mesh; rank 0 returns the values and every rank's report)."""
+    bound mesh, on the session's layout; rank 0 returns the values, every
+    rank's report and the dry-run's records)."""
     import torch
     from repro_torch.dist import collectives as coll
     from repro_torch.graph import engine as eng
+    from repro_torch.launch.dryrun import graph_cells
+    lay = sess.partition_layout
     V = lay.num_vertices
     pr = eng.pagerank_program(V)
     out = {"started": float(coll.pmax(torch.tensor(
@@ -3366,6 +3380,9 @@ def dist_gas_job(mesh, lay):
     out["overlap"] = eng.shard_map_gas(pr, lay, mesh, DIST_ITERS,
                                        exchange="ragged", overlap=True,
                                        return_wire=True)
+    t = time.perf_counter()
+    out["dryrun"] = graph_cells(mesh, sess, SCALE, DRYRUN_ITERS)
+    out["dryrun_s"] = time.perf_counter() - t
     return out
 
 
@@ -3415,6 +3432,72 @@ def dist_check_k3(reports, per_iter, iters, tag):
         want = {"ell_spmv": per_iter * iters} if per_iter else {}
         check(got == want, f"[dist] {tag}: rank {r} launched {got}, not "
               f"{want}")
+
+
+def dryrun_phase(sess, recs, seconds) -> int:
+    """``[dryrun]``: the graph dry-run's records from ``[dist]``'s spawn
+    (every byte cell one iteration on the k = 8 ranks), held to the byte
+    model and the reference's gate, then the session's stacked early exit
+    on this card.  Returns the K3 launches of the phase (the ranks' cells
+    and the early exit)."""
+    from repro_torch.graph.engine import PROGRAM_NAMES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    lay = sess.partition_layout
+    k = lay.k
+    t = time.perf_counter()
+    check(len(recs) == len(PROGRAM_NAMES) * len(dr.GRAPH_EXCHANGES)
+          + 1 + len(dr.OVERLAP_CELLS), f"[dryrun] {len(recs)} records")
+    for r in recs:
+        model = r["comm_bytes_model"]
+        want = model * (k - 1) // k if r["exchange"] == "dense" else model
+        tag = (f"[dryrun] {r['program']} on {r['exchange']}"
+               + (" overlapped" if r["overlap"] else ""))
+        check(r["collective_bytes_wire"] == want, f"{tag}: counted "
+              f"{r['collective_bytes_wire']} bytes an iteration, model "
+              f"{model}")
+        # K3 gathers each f32 program once an iteration on every rank
+        f32 = [p for p in r.get("fused_programs", [r["program"]])
+               if p in GAS_F32_BUNDLE]
+        dist_check_k3([{"launches": w} for w in r["launches"]], len(f32),
+                      DRYRUN_ITERS, tag)
+    ops.reset_launch_counts()
+    early = dr.early_exit_cell(sess, SCALE, DRYRUN_ITERS)
+    launches = {n: c for n, c in ops.launch_counts().items() if c}
+    # K3 once an iteration of the tol run and of the fixed rerun
+    check(launches == {"ell_spmv": 2 * early["iters_run"]},
+          f"[dryrun] the early exit launched {launches}")
+    msgs = dr.check_graph_ordering(recs + [early])
+    check(not msgs, "[dryrun] the gate: " + "; ".join(msgs))
+    for line in dr.ratio_lines(recs):
+        log(f"[dryrun] {line}")
+    by = {(r["program"], r["exchange"]): r for r in recs
+          if not r["fused"] and not r["overlap"]}
+    for r in recs:
+        if r["overlap"]:
+            ref = by[r["program"], r["exchange"]]
+            log(f"[dryrun] {r['program']} on {r['exchange']} overlapped: "
+                f"{r['collective_bytes_wire']} bytes and "
+                f"{r['collective_permute_count']} ring hops an iteration "
+                f"(phase-ordered {ref['collective_bytes_wire']}, "
+                f"{ref['collective_permute_count']})")
+    held = (f"within rtol {early['early_exit_rtol']:g}: "
+            f"{early['early_exit_close']}" if "early_exit_rtol" in early
+            else "the gate holds it bit for bit")
+    log(f"[dryrun] early exit: pagerank on ragged, tol {dr.EARLY_EXIT_TOL:g}, "
+        f"stopped at {early['iters_run']} of {dr.EARLY_EXIT_CAP} on the "
+        f"stacked engine; against the fixed run at {early['iters_run']} "
+        f"iterations {held} (bit for bit: {early['early_exit_bitmatch']}); "
+        f"{early['compile_s']:.2f} s")
+    scalars = sum(r["collective_bytes_scalars"] for r in recs)
+    k3 = sum(w.get("ell_spmv", 0) for r in recs for w in r["launches"])
+    log(f"[dryrun] {len(recs)} cells on {k} ranks in {seconds:.1f} s, every "
+        f"one at its byte model (dense at (k-1)/k), no gate message; the "
+        f"global scalars (gas.aux) {scalars} bytes over the cells beside "
+        f"the model; K3 {k3} launches on the ranks, "
+        f"{launches['ell_spmv']} in the early exit; checks "
+        f"{time.perf_counter() - t:.1f} s")
+    return k3 + launches["ell_spmv"]
 
 
 def dist_phase(g, main_res, main_seconds, pr_ref):
@@ -3530,7 +3613,7 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
     sess.partition(g.src, g.dst, V).layout()
     lay = sess.partition_layout
     t, wall = time.perf_counter(), time.time()
-    runs = run_on_ranks(dist_gas_job, make_graph_mesh(DIST_GAS_K), lay,
+    runs = run_on_ranks(dist_gas_job, make_graph_mesh(DIST_GAS_K), sess,
                         timeout=600)
     s_ranks = time.perf_counter() - t
     s_start = runs["started"] - wall
@@ -3607,6 +3690,11 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
         f"the spawn and every run {s_ranks:.1f} s ({s_start:.1f} s until "
         f"every rank ran), the stacked checks "
         f"{time.perf_counter() - t:.1f} s; {note}")
+    keys = [(ex, n) for ex in DIST_WIRES for n in ("pagerank", "cc")]
+    k3 = {"ranks": sum(w["launches"].get("ell_spmv", 0)
+                       for key in keys + ["bundle", "tol", "overlap"]
+                       for w in runs[key][-1])}
+    k3["dryrun"] = dryrun_phase(sess, runs["dryrun"], runs["dryrun_s"])
     del sess, lay, runs
 
     one, s_one = nccl_run.result()
@@ -3619,6 +3707,7 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
         f"{one.stats['rf']:.4f}, {s_one:.2f} s (several cards over NCCL: "
         f"not run, one card here)")
     log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    return k3
 
 
 # ---------------------------------------------------------------------------
@@ -3627,7 +3716,10 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
 
 MESH_DATA, MESH_MODEL = 2, 4         # make_test_mesh(2, 4): 8 ranks
 MESH_F32_STEPS = 4                   # decode steps of the f32 check
-MESH_TOKENS = 16                     # greedy tokens ([serve]'s 32, cut)
+# greedy tokens after the 16-token prompt ([serve]'s 32; 16 until the
+# graph dry-run joined [dist], cut for the script's time; Smax = 20 keeps
+# 5 cache rows a model rank)
+MESH_TOKENS = 4
 # the mesh's bf16 distance to the f32 twin over the one card's (the ratio
 # read 1.030 on the prefill logits and 0.975 after the prompt in this
 # phase on an H100 80GB HBM3 at 700 W; the limit leaves a fifth of slack)
@@ -4171,7 +4263,10 @@ def pp_phase(torch, ops, dev, k4_row) -> None:
 # training over the mesh: stablelm-1.6b ZeRO-3 on make_test_mesh(2, 4); and
 # llama4-scout served over it with its experts on "model"
 
-TRAIN_MESH_STEPS = 3                 # bf16 steps of the mesh at full depth
+# bf16 steps of the mesh at full depth (3 before the graph dry-run joined
+# [dist]: cut for the script's time; step 0 makes the gradient checks,
+# step 1 is timed)
+TRAIN_MESH_STEPS = 2
 # the mesh's bf16 loss at each step within this of [train]'s, relative
 # (every run on an H100 80GB HBM3 at 700 W: 2.77e-05, 9.00e-06, 3.33e-05)
 TRAIN_MESH_LOSS_RTOL = 1e-3
@@ -4180,9 +4275,10 @@ TRAIN_MESH_LOSS_RTOL = 1e-3
 # product, a norm scale whole on both axes (summed by grad.data), the
 # final norm's bias and the vocab-parallel head; each within this share of
 # [train]'s update at the same step, ‖mesh − one‖ / ‖one − init‖ (read
-# 1.00e-02, 6.17e-03, 4.21e-03, 4.10e-03, 5.86e-03 on an H100 80GB HBM3 at
-# 700 W; a data-axis sum left out moves a leaf it feeds to 0.3–0.6 on the
-# CPU at the reduced size, while the losses stay within 1e-4)
+# after step 2 of 3: 1.00e-02, 6.17e-03, 4.21e-03, 4.10e-03, 5.86e-03 on
+# an H100 80GB HBM3 at 700 W; a data-axis sum left out moves a leaf it
+# feeds to 0.3–0.6 on the CPU at the reduced size, while the losses stay
+# within 1e-4)
 TRAIN_WITNESS = (("g_dense", 0, "attn", "q", "w"),
                  ("g_dense", -1, "ffn", "down", "w"),
                  ("g_dense", 0, "ln1", "scale"), ("ln_f", "bias"),
@@ -5030,7 +5126,7 @@ def main() -> int:
     main_assign = sess.assign.copy()      # the sweep's k = K entry's witness
 
     # ---------------------------------------------------------- phase 2b
-    dist_phase(g, sess.result, t1 - t0, ref)
+    dist_k3 = dist_phase(g, sess.result, t1 - t0, ref)
 
     # ---------------------------------------------------------- phase 3
     gas = gas_phase(torch, ops, sess, g)
@@ -5279,7 +5375,9 @@ def main() -> int:
                      launches=launches["ell_spmv"], max_abs_err=k3_err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=lib, limited_by="bytes", launch_ms=launch_ms,
-                     gas_launches=gas["k3"], exchange_launches=exch["k3"]))
+                     gas_launches=gas["k3"], exchange_launches=exch["k3"],
+                     dist_launches=dist_k3["ranks"],
+                     dryrun_launches=dist_k3["dryrun"]))
     log(f"[K3] R={R} W={W} N={N}: max |d| {k3_err:.3e}; {ms:.4f} ms/launch "
         f"on the device ({launch_ms:.4f} ms a call back to back), "
         f"torch.sparse.mm {lib:.4f} ms")

@@ -6,7 +6,9 @@ the axis-wide reductions the shared stage and engine bodies call
 (``psum``, ``pmax``, ``pmin``, ``axis_index``; each the identity when
 ``axis`` is None, so one body serves one device and a mesh), the two
 wire primitives of the mirror exchanges (``all_to_all`` over equal lanes
-and ``ring_hop`` to rank ± d) and the gathers to rank 0.
+and ``ring_hop`` to rank ± d) and the gathers to rank 0.  The lint's
+RAW-COLLECTIVE rule (``python -m repro_torch.analysis``) holds that no
+other module of the port calls ``torch.distributed``.
 
 ``axis`` is a bound one-axis ``dist.mesh.Mesh`` (its process group, its
 members' global ranks, this rank's index on it, size, device and
@@ -36,9 +38,10 @@ Each call counts, by its call site, the bytes it hands to other ranks
 (``all_to_all``: the lanes addressed to the other ranks — the self block
 stays home; ``ring_hop``: the whole payload; ``all_gather`` and a
 gathered sum: the payload once for each other rank; an ``all_reduce``:
-its payload) and its wall
-seconds; ``counts()`` reads them, ``reset_counts()`` zeroes them.  The
-counts live in the process, one set a rank.
+its payload), its wall seconds and its calls, by primitive too (the
+graph dry-run reads a ring's hops as ``ring_hop`` calls);
+``counts()`` reads them, ``reset_counts()`` zeroes them.  The counts
+live in the process, one set a rank.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ import torch.distributed as dist
 _bytes: Counter = Counter()
 _seconds: Counter = Counter()
 _calls: Counter = Counter()
+_ops: Counter = Counter()
 
 
 # ------------------------------------------------------------ the group
@@ -96,12 +100,17 @@ def reset_counts() -> None:
     _bytes.clear()
     _seconds.clear()
     _calls.clear()
+    _ops.clear()
 
 
 def counts() -> dict:
-    """``{site: {"bytes", "seconds", "calls"}}`` since the last reset."""
+    """``{site: {"bytes", "seconds", "calls", "ops"}}`` since the last
+    reset; ``ops`` splits the calls by primitive (``{"ring_hop": n}``)."""
     return {s: {"bytes": int(_bytes[s]), "seconds": float(_seconds[s]),
-                "calls": int(_calls[s])} for s in _calls}
+                "calls": int(_calls[s]),
+                "ops": {op: int(n) for (site, op), n in _ops.items()
+                        if site == s}}
+            for s in _calls}
 
 
 class _Timed:
@@ -109,8 +118,8 @@ class _Timed:
     synchronized on both sides on an NCCL mesh, whose calls return
     before the device is done)."""
 
-    def __init__(self, axis, site: str, nbytes: int):
-        self.axis, self.site, self.nbytes = axis, site, nbytes
+    def __init__(self, axis, site: str, nbytes: int, op: str):
+        self.axis, self.site, self.nbytes, self.op = axis, site, nbytes, op
 
     def __enter__(self):
         self._sync()
@@ -121,6 +130,7 @@ class _Timed:
         _seconds[self.site] += time.perf_counter() - self.t
         _bytes[self.site] += self.nbytes
         _calls[self.site] += 1
+        _ops[self.site, self.op] += 1
 
     def _sync(self):
         if self.axis.transport == "nccl":
@@ -153,7 +163,7 @@ def psum(x, axis=None, *, site: str = "psum"):
     if axis is None:
         return x
     if x.dtype in (torch.int32, torch.int64):
-        with _Timed(axis, site, x.numel() * x.element_size()):
+        with _Timed(axis, site, x.numel() * x.element_size(), "all_reduce"):
             out = _host(axis, x.reshape(-1)).clone()
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
         return out.to(x.device).reshape(x.shape)
@@ -168,7 +178,7 @@ def psum(x, axis=None, *, site: str = "psum"):
 def _extremum(x, axis, op, site):
     if axis is None:
         return x
-    with _Timed(axis, site, x.numel() * x.element_size()):
+    with _Timed(axis, site, x.numel() * x.element_size(), "all_reduce"):
         out = _host(axis, x.reshape(-1)).clone()
         dist.all_reduce(out, op=op, group=axis.group)
     return out.to(x.device).reshape(x.shape)
@@ -229,7 +239,7 @@ def all_to_all(x, axis, *, site: str):
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} != axis "
                          f"size {n}")
     raw = _as_bytes(x)
-    with _Timed(axis, site, raw.shape[1] * (n - 1)):
+    with _Timed(axis, site, raw.shape[1] * (n - 1), "all_to_all"):
         h = _host(axis, raw)
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=axis.group)
@@ -244,7 +254,7 @@ def ring_hop(x, axis, d: int, *, site: str):
     if d % n == 0:
         return x.clone()
     raw = _as_bytes(x[None])
-    with _Timed(axis, site, raw.numel()):
+    with _Timed(axis, site, raw.numel(), "ring_hop"):
         h = _host(axis, raw)
         out = torch.empty_like(h)
         ops = [dist.P2POp(dist.isend, h, _global(axis, (r + d) % n),
@@ -259,7 +269,7 @@ def ring_hop(x, axis, d: int, *, site: str):
 def all_gather(x, axis, *, site: str):
     """(n, *x.shape): every rank's ``x`` in rank order."""
     raw = _as_bytes(x[None])
-    with _Timed(axis, site, raw.numel() * (axis.size - 1)):
+    with _Timed(axis, site, raw.numel() * (axis.size - 1), "all_gather"):
         h = _host(axis, raw)
         parts = [torch.empty_like(h) for _ in range(axis.size)]
         dist.all_gather(parts, h, group=axis.group)
@@ -272,7 +282,7 @@ def gather_to_root(x, axis, *, site: str):
     the others."""
     raw = _as_bytes(x[None])
     root = axis.rank == 0
-    with _Timed(axis, site, 0 if root else raw.numel()):
+    with _Timed(axis, site, 0 if root else raw.numel(), "gather"):
         h = _host(axis, raw)
         parts = [torch.empty_like(h) for _ in range(axis.size)] \
             if root else None

@@ -1005,6 +1005,38 @@ def shard_map_gas_many(programs, layout: PartitionLayout, mesh,
                  wire if return_wire else None)
 
 
+def gas_step_for_dryrun(program, layout: PartitionLayout, mesh,
+                        axis: str = "parts", iters: int = 1,
+                        exchange: str = "dense", overlap: bool = False):
+    """The graph dry-run's cell (``launch/dryrun.py --graph``): ``iters``
+    iterations of ``program`` on a k-rank ``mesh``, one partition a rank,
+    and every rank's report of the loop.  The port lowers nothing, so
+    where the reference returns a step to compile and parses its HLO,
+    this runs the step and returns what each rank handed to the wire.
+
+    ``program`` is a ``GASProgram``, or a program sequence / ``FusedGAS``
+    run as the fused multi-program iteration (one exchange a phase for
+    the bundle).  ``overlap`` runs the interleaved interior/frontier body
+    (ragged exchanges only).  Returns, on rank 0, (the values: one dense
+    (V,) array, or one a program; every rank's report: its
+    ``dist.collectives.counts()`` of the loop, reset just before it, its
+    kernel launches and its wall seconds); None on the other ranks of a
+    bound mesh."""
+    kw = dict(iters=iters, axis=axis, exchange=exchange, overlap=overlap,
+              return_wire=True)
+    if isinstance(program, GASProgram):
+        return shard_map_gas(program, layout, mesh, **kw)
+    return shard_map_gas_many(program, layout, mesh, **kw)
+
+
+def pagerank_step_for_dryrun(layout: PartitionLayout, mesh,
+                             axis: str = "parts", iters: int = 1,
+                             exchange: str = "dense"):
+    return gas_step_for_dryrun(pagerank_program(layout.num_vertices),
+                               layout, mesh, axis=axis, iters=iters,
+                               exchange=exchange)
+
+
 # ---------------------------------------------------------------- oracles
 #
 # Dense single-machine numpy oracles computing what the reference's

@@ -30,7 +30,9 @@ the five ``EXCHANGES``: stacked on the session's device, or with
 ranks spawned here from a single process, or SPMD inside a process
 group of k ranks, where rank 0 gets the values and the others None;
 ``overlap=True`` runs the overlapped body on the ragged ones.
-``comm_bytes`` is the modelled wire bytes of an iteration.
+``comm_bytes`` is the modelled wire bytes of an iteration;
+``dryrun_step`` runs a program's step on the mesh and returns what each
+rank handed to the wire (``launch.dryrun --graph``).
 
     from repro_torch.launch.mesh import make_graph_mesh
     pr = sess.run("pagerank", mesh=make_graph_mesh(64))  # 64 ranks
@@ -50,8 +52,9 @@ from .core.partitioner import (BACKENDS, partition, partition_sweep,
 from .core.pipeline import CLUGPConfig, CLUGPResult
 from .dist.halo import EXCHANGE_NAMES, lossy_payload
 from .graph.engine import (GASProgram, PROGRAM_NAMES, fuse_programs,
-                           get_program, shard_map_gas, shard_map_gas_many,
-                           simulate_gas, simulate_gas_many)
+                           gas_step_for_dryrun, get_program, shard_map_gas,
+                           shard_map_gas_many, simulate_gas,
+                           simulate_gas_many)
 from .graph.partition import PartitionLayout, build_layout
 
 EXCHANGES = EXCHANGE_NAMES
@@ -353,3 +356,25 @@ class GraphSession:
         outs, iters_run = out
         outs = [_as_int64(o) for o in outs]
         return (outs, iters_run) if return_iters else outs
+
+    def dryrun_step(self, program="pagerank", *, mesh, iters: int = 1,
+                    exchange: str | None = None, axis: str = "parts",
+                    overlap: bool = False):
+        """One dry-run cell (``launch.dryrun --graph``): ``iters``
+        iterations of ``program`` (a name or ``GASProgram``; a sequence of
+        them runs the fused multi-program step) one partition a rank of
+        ``mesh``, with ``overlap`` the interleaved ragged body.  Returns,
+        on rank 0, (the values, every rank's report of the loop: its
+        collective counts by call site, launches and wall seconds;
+        ``graph.engine.gas_step_for_dryrun``); None on the other ranks of
+        a bound mesh.  The reference returns a step to compile; the port
+        compiles nothing, so it runs the step and counts."""
+        lay = self.partition_layout
+        if isinstance(program, (list, tuple)):
+            prog = [resolve_program(p, self._num_vertices)
+                    for p in program]
+        else:
+            prog = resolve_program(program, self._num_vertices)
+        return gas_step_for_dryrun(prog, lay, mesh, axis=axis, iters=iters,
+                                   exchange=exchange or self.cfg.exchange,
+                                   overlap=overlap)

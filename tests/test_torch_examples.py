@@ -1,0 +1,106 @@
+"""The examples' twins (``examples/*_torch.py``) run on the CPU, and the
+comm table each prints equals the reference session's ``comm_bytes()``
+on the same graph and partition, byte for byte.
+
+Each twin runs in this process (``runpy``, ``--device cpu``) with
+``GraphSession.comm_bytes`` watched: every table it returned is held
+against ``repro.session.GraphSession(...).with_partition(...)
+.comm_bytes()`` on that session's edges and assignment, and against the
+numbers the twin printed.
+"""
+import re
+import runpy
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.session import GraphSession  # noqa: E402
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def _run(monkeypatch, capsys, name, *argv):
+    """Run a twin; returns (its output lines, [(session, table)] of every
+    ``comm_bytes()`` it called)."""
+    tables = []
+    plain = GraphSession.comm_bytes
+
+    def watched(self, *a, **kw):
+        out = plain(self, *a, **kw)
+        if not a and not kw:
+            tables.append((self, out))
+        return out
+    monkeypatch.setattr(GraphSession, "comm_bytes", watched)
+    path = EXAMPLES / f"{name}_torch.py"
+    monkeypatch.setattr(sys, "argv", [str(path), "--device", "cpu", *argv])
+    runpy.run_path(str(path), run_name="__main__")
+    return capsys.readouterr().out.splitlines(), tables
+
+
+def _reference_table(sess):
+    """The reference session's comm table on ``sess``'s graph and
+    partition."""
+    from repro.core import CLUGPConfig
+    from repro.session import GraphSession as JSession
+    src, dst = sess.edges
+    ref = JSession(CLUGPConfig(k=sess.k)).with_partition(
+        src, dst, sess.num_vertices, np.asarray(sess.assign))
+    return ref, ref.comm_bytes()
+
+
+def _ints(line):
+    return [int(x) for x in re.findall(r"(?<![\d.])\d+(?![\d.])", line)]
+
+
+def test_quickstart_twin(monkeypatch, capsys):
+    lines, tables = _run(monkeypatch, capsys, "quickstart")
+    assert len(tables) == 1
+    sess, table = tables[0]
+    _, want = _reference_table(sess)
+    assert table == want
+    line = [x for x in lines if x.startswith("mirror-sync comm/iter")][0]
+    printed = dict((k, int(v)) for k, v in re.findall(r"(\w+)=(\d+)", line))
+    assert printed == {k: want[k] for k in ("quantized", "halo",
+                                            "dense_gather", "ideal",
+                                            "allreduce")}
+    # the GAS runs went through 8 ranks and agree with the oracles
+    assert any(x.startswith("pagerank (8 ranks on cpu)") for x in lines)
+    err = float(re.search(r"= ([\d.e+-]+)", [
+        x for x in lines if x.startswith("pagerank")][0]).group(1))
+    assert err < 1e-6
+    assert "label match vs oracle = 100.0%" in "\n".join(lines)
+
+
+def test_partition_compare_twin(monkeypatch, capsys):
+    ks = (4, 16)
+    lines, tables = _run(monkeypatch, capsys, "partition_compare",
+                         "--scale", "10", "--ks", *map(str, ks))
+    rows = [x for x in lines if re.match(r"(clugp|clugp-opt|hashing|dbh|"
+                                         r"greedy|hdrf|mint) ", x)]
+    assert len(rows) == len(tables) == 7 * len(ks)
+    for row, (sess, table) in zip(rows, tables):
+        _, want = _reference_table(sess)
+        assert table == want, row
+        assert _ints(row)[-3:] == [want["dense_gather"], want["halo"],
+                                   want["ideal"]], row
+        assert _ints(row)[0] == sess.k
+
+
+def test_distributed_pagerank_twin(monkeypatch, capsys):
+    lines, tables = _run(monkeypatch, capsys, "distributed_pagerank")
+    rows = [x for x in lines if x.startswith(("clugp ", "hashing "))]
+    assert len(rows) == len(tables) == 2
+    for row, (sess, table) in zip(rows, tables):
+        ref, want = _reference_table(sess)
+        assert table == want, row
+        assert _ints(row) == [ref.partition_layout.mirrors_total,
+                              want["ideal"], want["quantized"],
+                              want["halo"], want["dense_gather"]], row
+    text = "\n".join(lines)
+    assert "label match=100.0%" in text
+    it = int(re.search(r"\((\d+) of 60 capped iters\)", text).group(1))
+    assert it < 60
