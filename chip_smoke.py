@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. Print the card's name and power limit; build the seven CUDA kernels
+1. Print the card's name and power limit; build the eight CUDA kernels
    (one ``nvcc`` per source, in parallel, into ``build/repro_torch/``).
 2. The graph path at full size: ``web_graph(scale=20)`` (1,048,576
    vertices, ~6.4 M edges) → ``GraphSession`` CLUGP partition at k = 64
@@ -307,18 +307,23 @@ Phases (any failure raises and exits non-zero):
    (``make_train_step``), AdamW under the launcher's cosine schedule (lr
    3e-3, warmup 1), 10 steps of ``batch_at`` (8 × 2,048 tokens).  Per step
    the loss and ms/step with the counts zeroed before and read after: K4
-   exactly 48 times (24 forward, 24 remat recompute), no other kernel;
+   exactly 48 times (24 forward, 24 remat recompute) and its backward
+   kernel (``flash_attention_bwd``) 24 times, no other kernel;
    tokens/s over steps 2–9 beside the ceiling (``train_flops``), peak
    memory.  Checks: losses finite, the last below the first; at step 0
    every gradient leaf finite and non-zero (a K4 with no gradient would
    leave the q/k/v projections at zero).  Then 2 layers at full width in
-   f32: every gradient leaf through K4 and its backward against autograd
-   through the plain version (1e-4 of each leaf's largest magnitude), and
+   f32: every gradient leaf through K4 and its backward (the f32 tensor
+   code) against autograd through the plain version (1e-4 of each leaf's
+   largest magnitude), and
    the AdamW step on the card against the CPU's (1e-5).  K4's forward
    (with the rows' log-sum-exp) and backward at (8, 32, 2048, 64) and
    (4, 28, 2048, 128) over (4, 4, 2048, 128) against the plain version and
-   its autograd (2e-2), timed beside their bounds and SDPA's forward +
-   backward.  Last, ``ft.run`` at the reduced config killed at step 5 by
+   its autograd (2e-2), the backward kernel also against its rounding twin
+   (5e-3 of each gradient's largest magnitude), the backward timed by the
+   profiler's device time beside its bound, the tensor code it replaced
+   and SDPA's backward, K4's forward + backward beside SDPA's; the
+   backward kernel's share of a step.  Last, ``ft.run`` at the reduced config killed at step 5 by
    ``fail_at_step`` and resumed: the uninterrupted run's losses within
    rtol 1e-4.
 8h. ``[train-mesh]``, with ``[train]``'s weights freed: stablelm-1.6b at
@@ -332,7 +337,8 @@ Phases (any failure raises and exits non-zero):
    seed-0 tree cut on both axes by checksum; 2 AdamW steps under
    ``[train]``'s schedule (3 until the graph dry-run joined, cut for
    time), the counts zeroed before each and read after
-   (K4 exactly 48 times a rank a step, no graph kernel); every loss
+   (K4 exactly 48 times a rank a step and its backward kernel 24, no
+   graph kernel); every loss
    finite and within 1e-3 of ``[train]``'s at its step, five leaves
    (``TRAIN_WITNESS``) after the last step within 0.05 of ``[train]``'s
    update after the same step, every gradient leaf gathered at step 0
@@ -340,9 +346,10 @@ Phases (any failure raises and exits non-zero):
    s/step and tokens/s beside ``train_flops``' ceiling, every rank's
    collectives by site (the gloo sums apart from the ZeRO gathers and
    reduce-scatters).  K4 at the rank's (4, 8/8, 2048, 64): forward with
-   LSE and backward against the plain version and autograd (2e-2), by
-   the profiler's device time beside the bounds and SDPA.
-9. The ``kernels`` JSON line (ten rows; G's from ``[scan]``; K3's row
+   LSE and the backward kernel against the plain version and autograd
+   (2e-2) and its rounding twin (5e-3), by the profiler's device time
+   beside the bounds, the tensor code and SDPA.
+9. The ``kernels`` JSON line (eleven rows; G's from ``[scan]``; K3's row
    also carries the
    ``[gas]`` and ``[exchange]`` phases' launches, T's the seeded walk of
    ``[graph-serve]``, K4's the ``[moe]`` and ``[ssm]`` prefills' and the
@@ -355,8 +362,10 @@ Phases (any failure raises and exits non-zero):
    row also counts the ``[lm-mesh]`` ranks' timed prefill and the ``[pp]``
    stages' timed forward, with the rank shape's record, the
    ``[moe-mesh]`` ranks' timed prefill and the ``[train-mesh]`` ranks'
-   steps, with their rank shapes' records), then the device JSON line
-   last.
+   steps, with their rank shapes' records; K4's backward kernel is the
+   row ``flash_attention_bwd``, timed at ``[train]``'s shape, with the
+   ``[train]`` and ``[train-mesh]`` steps' launches), then the device
+   JSON line last.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -3006,11 +3015,17 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
     """K4 at a training shape, bf16, causal, as the model passes it
     (transposed views of seeded (B, S, H, D)): the forward against the
     plain version's output (2e-2, K4's bf16 tolerance) and log-sum-exp
-    (1e-3 absolute: f32 arithmetic on both sides),
-    ``flash_attention_backward`` from them against autograd of the plain
-    version (dq, dk, dv within 2e-2, K4's bf16 tolerance).  Returns
-    (q, k, v, do), K4's (o, lse), each max |d| by name and the plain
-    version's forward + backward as a function."""
+    (1e-3 absolute: f32 arithmetic on both sides); the backward kernel
+    (``flash_attention_backward``, one launch) from them against its
+    rounding twin (``flash_attention_backward_plain`` with
+    ``round_dtype=torch.bfloat16`` on f32 copies of the same inputs): dq,
+    dk, dv within 5e-3 of each one's largest magnitude (the two sum in
+    another order, and the kernel rounds its results to bf16, at most
+    2⁻⁹ of a value), and against autograd of the plain version (2e-2,
+    K4's bf16 tolerance).  Returns (q, k, v, do), K4's (o, lse), each max
+    |d| by name (``twin``: each gradient's max |d| over its largest
+    magnitude, and the max |d| of all three) and the plain version's
+    forward + backward as a function."""
     from repro_torch.kernels import flash_attention as K4
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3028,7 +3043,25 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
     err = {"o": float((o.float() - want_o.float()).abs().max()),
            "lse": float((lse - want_lse).abs().max())}
     del want_o, want_lse
+    ops.reset_launch_counts()
     got = ops.flash_attention_backward(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == {"flash_attention_bwd": 1}, f"K4's "
+          f"backward at {tuple(q.shape)} launched {ops.launch_counts()}")
+    f32 = [t.float() for t in (q, k, v, o, lse, do)]
+    twin = {"max_abs": 0.0}
+    for name, g, w in zip("qkv", got, ops.flash_attention_backward_plain(
+            *f32, True, round_dtype=torch.bfloat16)):
+        scale = float(w.abs().max())
+        d = float((g.float() - w).abs().max())
+        check(d <= 5e-3 * scale, f"K4's backward kernel d{name} at "
+              f"{tuple(q.shape)}: max |d| {d:.3e} from its rounding twin, "
+              f"above 5e-3 × {scale:.3e}")
+        twin[f"d{name}"] = d / scale
+        twin["max_abs"] = max(twin["max_abs"], d)
+    err["twin"] = twin
+    del f32
+    torch.cuda.empty_cache()
 
     def plain_grads():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -3043,64 +3076,112 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
     return (q, k, v, do), (o, lse), err, plain_grads
 
 
+def k4_bwd_yardsticks(torch, ops, F, q, k, v, o, lse, do, causal=True):
+    """Beside K4's backward kernel: the tensor code that was its backward
+    (``flash_attention_backward_plain``, CUDA events) and
+    ``scaled_dot_product_attention``'s backward alone (``autograd.grad``
+    through a kept forward, profiler device time) and forward + backward
+    (CUDA events), yardsticks the port never calls."""
+    H, Hkv = q.shape[1], k.shape[1]
+    tensor_code = event_ms(torch, lambda: ops.flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal), 2, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=H != Hkv)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    del out, leaves
+
+    def sdpa_grads():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=H != Hkv)
+        return torch.autograd.grad(out, leaves, do)
+    lib = event_ms(torch, sdpa_grads, 10)
+    torch.cuda.empty_cache()
+    return tensor_code, lib_bwd, lib
+
+
+def k4_bounds(q, k, v, o, lse, do, pairs):
+    """K4's bounds at bf16 (forward 4·D a unmasked pair, backward 10·D,
+    forward + backward 12·D, at the bf16 peak; each input read once, each
+    output written once): ((ms, by) of each)."""
+    D = q.shape[-1]
+    qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
+    grads = 2 * (q.numel() + k.numel() + v.numel())
+    return (bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S),
+            bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
+                     10 * D * pairs, BF16_OPS_PER_S),
+            bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
+                     BF16_OPS_PER_S))
+
+
+def k4_bwd_log(tag, rec):
+    """One line of K4's backward at a training shape."""
+    log(f"{tag} K4 backward kernel q {tuple(rec['q_shape'])} k/v "
+        f"{tuple(rec['kv_shape'])} causal, bf16, profiler device time: "
+        f"{rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
+        f"{rec['bwd_bound_by']}, {rec['bwd_bound_ms'] / rec['bwd_ms']:.1%});"
+        f" dq/dk/dv within {rec['twin']['dq']:.3e}/{rec['twin']['dk']:.3e}/"
+        f"{rec['twin']['dv']:.3e} of their largest magnitudes of the "
+        f"rounding twin (5e-3), max |d| {rec['dq']:.3e}/{rec['dk']:.3e}/"
+        f"{rec['dv']:.3e} against autograd of the plain version (2e-2); "
+        f"the tensor code {rec['tensor_code_bwd_ms']:.3f} ms "
+        f"({rec['tensor_code_bwd_ms'] / rec['bwd_ms']:.1f}× the kernel); "
+        f"plain forward + backward {rec['plain_fwd_bwd_ms']:.3f} ms; "
+        f"scaled_dot_product_attention backward "
+        f"{rec['sdpa_bwd_ms']:.4f} ms; K4 forward + backward "
+        f"{rec['fwd_bwd_ms']:.4f} ms (bound {rec['fwd_bwd_bound_ms']:.4f}, "
+        f"{rec['fwd_bwd_bound_ms'] / rec['fwd_bwd_ms']:.1%}) against "
+        f"scaled_dot_product_attention forward + backward "
+        f"{rec['sdpa_fwd_bwd_ms']:.4f} ms "
+        f"({rec['fwd_bwd_ms'] / rec['sdpa_fwd_bwd_ms']:.2f}×)")
+
+
 def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
     """K4 at a training shape (``k4_train_check``), then the same in f32 on
     the same values (``k4_train_shape_f32``: every late row and KV block
-    held, not only the large entries of the first rows).  Timed with CUDA
-    events beside their bounds (forward 4·D a unmasked pair, backward
-    10·D, forward + backward 12·D, at the bf16 peak; each input read
-    once, each output written once), the plain version's forward +
-    backward and ``scaled_dot_product_attention``'s forward and forward +
-    backward (a yardstick the port never calls)."""
+    held, not only the large entries of the first rows).  Timed beside
+    their bounds (``k4_bounds``): the forward with CUDA events, the
+    backward kernel by the profiler's device time, the plain version's
+    forward + backward, and ``k4_bwd_yardsticks``."""
     from repro_torch.kernels import flash_attention as K4
 
     (q, k, v, do), (o, lse), err, plain_grads = k4_train_check(
         torch, ops, dev, B, H, Hkv, S, D, seed)
-    o_err, lse_err = err.pop("o"), err.pop("lse")
+    o_err, lse_err, twin = err.pop("o"), err.pop("lse"), err.pop("twin")
     grad_err = err
     f32_err = k4_train_shape_f32(torch, ops, q, k, v, do)
 
-    def sdpa_grads():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=H != Hkv)
-        return torch.autograd.grad(out, leaves, do)
     fwd = event_ms(torch, lambda: K4._kernel(q, k, v, True, None,
                                              with_lse=True), reps)
-    bwd = event_ms(torch, lambda: ops.flash_attention_backward(
-        q, k, v, o, lse, do, True), 5, warmup=1)
+    bwd = device_ms(torch, lambda: ops.flash_attention_backward(
+        q, k, v, o, lse, do, True), reps)
     plain = event_ms(torch, plain_grads, 2, warmup=1)
     lib_fwd = event_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=H != Hkv), reps)
-    lib = event_ms(torch, sdpa_grads, reps)
-    pairs = B * H * (S * (S + 1) // 2)
-    qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
-    fwd_b = bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S)
-    grads = 2 * (q.numel() + k.numel() + v.numel())
-    bwd_b = bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
-                     10 * D * pairs, BF16_OPS_PER_S)
-    both_b = bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
-                      BF16_OPS_PER_S)
+    tensor_code, lib_bwd, lib = k4_bwd_yardsticks(torch, ops, F, q, k, v, o,
+                                                  lse, do)
+    fwd_b, bwd_b, both_b = k4_bounds(q, k, v, o, lse, do,
+                                     B * H * (S * (S + 1) // 2))
     rec = dict(q_shape=list(q.shape), kv_shape=list(k.shape), causal=True,
                fwd_ms=fwd, fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
                bwd_ms=bwd, bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
+               fwd_bwd_ms=fwd + bwd, tensor_code_bwd_ms=tensor_code,
                plain_fwd_bwd_ms=plain, sdpa_fwd_ms=lib_fwd,
-               sdpa_fwd_bwd_ms=lib, fwd_bwd_bound_ms=both_b[0],
-               o_max_abs_err=o_err, lse_max_abs_err=lse_err, **grad_err,
-               f32_rel_err=f32_err)
+               sdpa_bwd_ms=lib_bwd, sdpa_fwd_bwd_ms=lib,
+               fwd_bwd_bound_ms=both_b[0], o_max_abs_err=o_err,
+               lse_max_abs_err=lse_err, **grad_err, twin=twin,
+               f32_rel_err=f32_err, bwd_timed_by="profiler device time")
     log(f"[train] K4 q {tuple(q.shape)} k/v {tuple(k.shape)} causal, bf16: "
         f"forward with LSE {fwd:.4f} ms (bound {fwd_b[0]:.4f}, {fwd_b[1]}, "
         f"{fwd_b[0] / fwd:.1%}; o max |d| {o_err:.3e}, lse {lse_err:.3e}); "
-        f"backward (tensor code) {bwd:.4f} ms (bound {bwd_b[0]:.4f}, "
-        f"{bwd_b[1]}, {bwd_b[0] / bwd:.1%}; dq/dk/dv max |d| "
-        + "/".join(f"{e:.3e}" for e in grad_err.values()) + " against "
-        f"autograd of the plain version; in f32 lse max |d| "
-        f"{f32_err['lse']:.3e} (1e-4), dq/dk/dv within "
+        f"in f32 lse max |d| {f32_err['lse']:.3e} (1e-4), dq/dk/dv within "
         + "/".join(f"{f32_err[n]:.3e}" for n in ("dq", "dk", "dv"))
-        + " of their largest magnitudes (1e-4)); forward + backward "
-        f"{fwd + bwd:.4f} ms against the bound {both_b[0]:.4f}; plain "
-        f"forward + backward {plain:.3f} ms; scaled_dot_product_attention "
-        f"forward {lib_fwd:.4f} ms, forward + backward {lib:.4f} ms")
+        + " of their largest magnitudes (1e-4; the f32 backward is the "
+        f"tensor code); scaled_dot_product_attention forward {lib_fwd:.4f} "
+        f"ms")
+    k4_bwd_log("[train]", rec)
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return rec
@@ -3115,7 +3196,8 @@ def train_phase(torch, ops, dev) -> dict:
     steps of ``batch_at`` (8 × 2,048 tokens, seed 0).  The parameter count
     against ``param_count`` and 1,367,543,808; per step the loss and
     ms/step (synchronized), with the counts zeroed before and read after:
-    K4 exactly 48 times (24 forward, 24 remat recompute), no other kernel;
+    K4 exactly 48 times (24 forward, 24 remat recompute) and its backward
+    kernel 24 times, no other kernel;
     over steps 2–9 tokens/s, peak memory and the share of the ceiling
     (``train_flops`` at 989 TFLOP/s).  Checks: every loss finite, the last
     below the first; at step 0 every gradient leaf finite and non-zero.
@@ -3124,12 +3206,15 @@ def train_phase(torch, ops, dev) -> dict:
     version under autograd (1e-4 of each leaf's largest magnitude), and
     that step's AdamW update on the card against the same on the CPU
     (1e-5).  K4's forward and backward at (8, 32, 2048, 64) and qwen2-7b's
-    (4, 28, 2048, 128) over (4, 4, 2048, 128) (``k4_train_shape``).
+    (4, 28, 2048, 128) over (4, 4, 2048, 128) (``k4_train_shape``), and
+    the backward kernel's share of a step (24 launches at the first
+    shape's device time over ms/step).
     Last, checkpoint-restart at the reduced config through ``ft.run``: a
     run killed at step 5 by ``fail_at_step`` and resumed from its step-4
     checkpoint gives the uninterrupted run's losses within rtol 1e-4 (the
-    embedding's gradient sums with float atomics).  Returns K4's launches
-    in the 10 steps and its training-shape records."""
+    embedding's gradient sums with float atomics).  Returns K4's and its
+    backward kernel's launches in the 10 steps and the training-shape
+    records."""
     import dataclasses
     import tempfile
 
@@ -3177,8 +3262,9 @@ def train_phase(torch, ops, dev) -> dict:
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16)
     dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
-    want_k4 = {"flash_attention": 2 * cfg.n_layers}
-    losses, ms, k4_launches = [], [], 0
+    want_k4 = {"flash_attention": 2 * cfg.n_layers,
+               "flash_attention_bwd": cfg.n_layers}
+    losses, ms, k4_launches, bwd_launches = [], [], 0, 0
     # [train-mesh]'s witness: TRAIN_WITNESS's leaves before step 0 and
     # after its last step, on the host
     witness = {"init": [leaf_at(params, k).cpu() for k in TRAIN_WITNESS]}
@@ -3201,8 +3287,9 @@ def train_phase(torch, ops, dev) -> dict:
         log(f"[train] step {i}: loss {losses[-1]:.4f}, {ms[-1]:.1f} ms, "
             f"launches {json.dumps(launches)}")
         check(launches == want_k4, f"train step {i} launched {launches}, "
-              f"not K4 twice a layer {want_k4}")
+              f"not K4 twice a layer and its backward once {want_k4}")
         k4_launches += launches["flash_attention"]
+        bwd_launches += launches["flash_attention_bwd"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     bad = [name for name, (finite, nonzero) in step0
            if not (finite and nonzero)]
@@ -3225,7 +3312,8 @@ def train_phase(torch, ops, dev) -> dict:
         f"{ceiling / t_step:.1%} of the ceiling); peak device memory "
         f"{peak:.2f} GiB; every one of the {len(step0)} gradient leaves "
         f"finite and non-zero at step 0; K4 {want_k4['flash_attention']} "
-        f"launches a step")
+        f"launches a step, its backward kernel "
+        f"{want_k4['flash_attention_bwd']}")
     del params, opt_state, step_fn, loss, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3296,6 +3384,13 @@ def train_phase(torch, ops, dev) -> dict:
                               cfg.n_kv_heads, TRAIN_S, cfg.hd, 21),
                k4_train_shape(torch, ops, F, dev, PREFILL_B, 28, 4,
                               PREFILL_S, 128, 22)]
+    bwd_step = want_k4["flash_attention_bwd"] * records[0]["bwd_ms"]
+    log(f"[train] {t_step * 1e3:.3f} ms/step; the backward kernel "
+        f"{want_k4['flash_attention_bwd']} launches × "
+        f"{records[0]['bwd_ms']:.4f} ms = {bwd_step:.3f} ms = "
+        f"{bwd_step / (t_step * 1e3):.1%} of a step; K4's forward "
+        f"{want_k4['flash_attention']} × {records[0]['fwd_ms']:.4f} ms = "
+        f"{want_k4['flash_attention'] * records[0]['fwd_ms'] / (t_step * 1e3):.1%}")
 
     # checkpoint-restart at the reduced config
     red = cfg.reduced()
@@ -3336,8 +3431,9 @@ def train_phase(torch, ops, dev) -> dict:
         f"(rtol 1e-4; max rel "
         f"{max(abs(a / b - 1) for a, b in zip(tail, full[FT_FAIL:])):.2e})")
     log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": k4_launches, "shapes": records, "losses": losses,
-            "ms": ms, "peak_gib": peak, "witness": witness}
+    return {"launches": k4_launches, "bwd_launches": bwd_launches,
+            "shapes": records, "losses": losses, "ms": ms, "peak_gib": peak,
+            "witness": witness, "bwd_step_share": bwd_step / (t_step * 1e3)}
 
 
 # ------------------------------------------------------------- [dist]
@@ -4422,51 +4518,41 @@ def k4_mesh_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed,
                         reps=10) -> dict:
     """K4 at a mesh rank's training shape (``k4_train_check``), timed by
     the profiler's device time (at this size CUDA events around
-    back-to-back calls read the host's launch cost): the forward kernel,
-    the backward's device activities, and ``scaled_dot_product_attention``'s
-    forward + backward, beside the bounds (forward 4·D a unmasked pair,
-    backward 10·D, both 12·D, at the bf16 peak; each input read once,
-    each output written once)."""
+    back-to-back calls read the host's launch cost): the forward kernel
+    and the backward kernel's three launches, beside the bounds
+    (``k4_bounds``), the plain version's forward + backward and
+    ``k4_bwd_yardsticks``."""
     from repro_torch.kernels import flash_attention as K4
 
     (q, k, v, do), (o, lse), err, plain_grads = k4_train_check(
         torch, ops, dev, B, H, Hkv, S, D, seed)
-    o_err = err.pop("o")
+    o_err, twin = err.pop("o"), err.pop("twin")
     err.pop("lse")
     grad_err = err
 
-    def sdpa_grads():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=H != Hkv)
-        return torch.autograd.grad(out, leaves, do)
     fwd = device_ms(torch, lambda: K4._kernel(q, k, v, True, None,
                                               with_lse=True), reps,
                     "flash_bf16_kernel")
     bwd = device_ms(torch, lambda: ops.flash_attention_backward(
         q, k, v, o, lse, do, True), reps)
-    lib = device_ms(torch, sdpa_grads, reps)
     plain = event_ms(torch, plain_grads, 2, warmup=1)
-    pairs = B * H * (S * (S + 1) // 2)
-    qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
-    grads = 2 * (q.numel() + k.numel() + v.numel())
-    fwd_b = bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S)
-    bwd_b = bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
-                     10 * D * pairs, BF16_OPS_PER_S)
-    both_b = bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
-                      BF16_OPS_PER_S)
+    tensor_code, lib_bwd, lib = k4_bwd_yardsticks(torch, ops, F, q, k, v, o,
+                                                  lse, do)
+    fwd_b, bwd_b, both_b = k4_bounds(q, k, v, o, lse, do,
+                                     B * H * (S * (S + 1) // 2))
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return dict(q_shape=[B, H, S, D], kv_shape=[B, Hkv, S, D], causal=True,
                 fwd_ms=fwd, fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
                 bwd_ms=bwd, bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
                 fwd_bwd_ms=fwd + bwd, fwd_bwd_bound_ms=both_b[0],
-                plain_fwd_bwd_ms=plain, sdpa_fwd_bwd_ms=lib,
-                o_max_abs_err=o_err, **grad_err,
+                tensor_code_bwd_ms=tensor_code, plain_fwd_bwd_ms=plain,
+                sdpa_bwd_ms=lib_bwd, sdpa_fwd_bwd_ms=lib,
+                o_max_abs_err=o_err, **grad_err, twin=twin,
                 timed_by="profiler device time")
 
 
-def train_mesh_phase(torch, ops, dev, train, k4_row) -> None:
+def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     """``[train-mesh]``, after ``[train]`` with its weights freed:
     stablelm-1.6b at full width and depth trained over make_test_mesh(2,
     4), 8 ranks sharing this card over gloo, ZeRO-3 (``place_params(mesh,
@@ -4607,9 +4693,11 @@ def train_mesh_phase(torch, ops, dev, train, k4_row) -> None:
               f"rank {r['coords']} losses differ from rank 0's")
         for i, s in enumerate(r["steps"]):
             got = {k: v for k, v in s["launches"].items() if v}
-            check(got == {"flash_attention": 2 * cfg.n_layers},
+            check(got == {"flash_attention": 2 * cfg.n_layers,
+                          "flash_attention_bwd": cfg.n_layers},
                   f"[train-mesh] rank {r['coords']} step {i} launched "
-                  f"{got}, not K4 {2 * cfg.n_layers} times")
+                  f"{got}, not K4 {2 * cfg.n_layers} times and its backward "
+                  f"{cfg.n_layers}")
     # [train]'s own losses rise at step 2 under the schedule's warmup (its
     # last-below-first holds over its 10 steps), so the mesh's are held to
     # [train]'s at each step, and its parameters after the last step to
@@ -4639,26 +4727,24 @@ def train_mesh_phase(torch, ops, dev, train, k4_row) -> None:
           f"finite or all zero: {bad[:5]}")
     log(f"[train-mesh] every one of the {len(out['flags'])} gradient leaves "
         f"gathered whole at step 0 finite and non-zero; K4 "
-        f"{2 * cfg.n_layers} launches a rank a step")
+        f"{2 * cfg.n_layers} launches a rank a step, its backward kernel "
+        f"{cfg.n_layers}")
     launches = sum(sum(s["launches"].get("flash_attention", 0)
                        for s in r["steps"]) for r in reports)
+    bwd_launches = sum(sum(s["launches"].get("flash_attention_bwd", 0)
+                           for s in r["steps"]) for r in reports)
     k4_row["launches"] += launches
     k4_row["train_mesh_shape"] = dict(rec, launches=launches)
+    bwd_row["launches"] += bwd_launches
+    bwd_row["train_mesh_shape"] = dict(rec, launches=bwd_launches)
     log(f"[K4] the training rank's shape q {tuple(rec['q_shape'])} k/v "
         f"{tuple(rec['kv_shape'])} causal, bf16, profiler device time: "
         f"forward with LSE {rec['fwd_ms']:.4f} ms (bound "
         f"{rec['fwd_bound_ms']:.4f}, {rec['fwd_bound_by']}, "
         f"{rec['fwd_bound_ms'] / rec['fwd_ms']:.1%}; o max |d| "
-        f"{rec['o_max_abs_err']:.3e}); backward (tensor code) "
-        f"{rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
-        f"{rec['bwd_bound_ms'] / rec['bwd_ms']:.1%}; dq/dk/dv max |d| "
-        f"{rec['dq']:.3e}/{rec['dk']:.3e}/{rec['dv']:.3e}); forward + "
-        f"backward {rec['fwd_bwd_ms']:.4f} ms against the bound "
-        f"{rec['fwd_bwd_bound_ms']:.4f} ({rec['fwd_bwd_bound_ms'] / rec['fwd_bwd_ms']:.1%}); "
-        f"plain forward + backward {rec['plain_fwd_bwd_ms']:.3f} ms; "
-        f"scaled_dot_product_attention forward + backward "
-        f"{rec['sdpa_fwd_bwd_ms']:.4f} ms; {launches} launches on the "
-        f"ranks' path")
+        f"{rec['o_max_abs_err']:.3e}); {launches} launches on the ranks' "
+        f"path, the backward kernel's {bwd_launches}")
+    k4_bwd_log("[K4] the training rank's shape:", rec)
     log(f"[train-mesh] phase {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -5718,9 +5804,28 @@ def main() -> int:
     k4_row = next(r for r in rows if r["name"] == "flash_attention")
     k4_row["launches"] += train["launches"]
     k4_row["train_shapes"] = train["shapes"]
+    # K4's backward at [train]'s shape: its launches are [train]'s and
+    # [train-mesh]'s; the plain version is the tensor code it replaced, the
+    # library call scaled_dot_product_attention's backward
+    rec = train["shapes"][0]
+    rows.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="no TPU kernel: src/repro/kernels/flash_attention.py:70 has "
+                 "no backward; the reference takes autodiff of "
+                 "chunked_attention, src/repro/models/attention.py:62",
+        launches=train["bwd_launches"], max_abs_err=rec["twin"]["max_abs"],
+        ms=rec["bwd_ms"], plain_ms=rec["tensor_code_bwd_ms"],
+        bound_ms=rec["bwd_bound_ms"], bound_by=rec["bwd_bound_by"],
+        library_ms=rec["sdpa_bwd_ms"], train_shapes=[
+            {k: r[k] for k in ("q_shape", "kv_shape", "bwd_ms",
+                               "bwd_bound_ms", "tensor_code_bwd_ms",
+                               "sdpa_bwd_ms", "fwd_bwd_ms", "sdpa_fwd_bwd_ms",
+                               "twin")} for r in train["shapes"]],
+        train_step_share=train["bwd_step_share"]))
 
     # ---------------------------------------------------------- phase 8h
-    train_mesh_phase(torch, ops, dev, train, k4_row)
+    train_mesh_phase(torch, ops, dev, train, k4_row, rows[-1])
 
     # ---------------------------------------------------------- phase 9
     print(json.dumps({"kernels": rows}), flush=True)

@@ -61,8 +61,9 @@
 // contiguous), each kernel's epilogue also writes the row's log-sum-exp of
 // the scaled scores, m + log(l) in natural units, from the final running
 // max and sum (the bf16 kernel's m is in log2 units: (m + log2 l)·ln 2).
-// The backward (tensor code in kernels/flash_attention.py; the TPU kernel
-// has no backward) recomputes p = exp(s·scale − lse) from it.  The serving
+// The backward (flash_attention_bwd.cu in bf16, tensor code in
+// kernels/flash_attention.py in f32; the TPU kernel has no backward)
+// recomputes p = exp(s·scale − lse) from it.  The serving
 // path passes a null pointer and runs the instantiation without the
 // write (the LSE template flag), the kernel as it was; the main loop is the
 // same in both.
@@ -89,23 +90,10 @@
 // (Q·K^T on m64n64k16, 32 scores a thread; p is rounded against the
 // running max of a 64-row tile).  Q (40 KB) and two stages of K and V
 // (20 KB each) fill 120 KB.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <type_traits>
-
 #include "common.cuh"
+#include "hopper.cuh"  // mbarrier, TMA, wgmma and tensor-map helpers
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-struct Layout {
-  int sb, sh, ss;  // element strides of batch, head, sequence
-};
 
 // ------------------------------------------------------------------- bf16
 
@@ -116,11 +104,6 @@ constexpr int BQ = 128;       // q rows per CTA: two warpgroups of 64
 constexpr int THREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 constexpr int STAGES = 2;     // the K/V ring
-
-// panel width (elements): tiles are stored as panels of 64 head-dim
-// columns (128-byte swizzle), or of 32 (64-byte swizzle) when the row is
-// no whole number of 64-column panels (32, 160)
-constexpr int panel_width(int d) { return d % 64 == 0 ? 64 : 32; }
 
 template <int DQK, int DV>
 struct Tiles {
@@ -141,270 +124,6 @@ struct Tiles {
   // one CTA an SM: at (192, 128) Q 48 KB + 2 x (48 + 32) KB = 208 KB
   static_assert(SMEM <= 227 * 1024, "above a block's shared memory");
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed; a
-// phase that never completes (a load that never lands) traps after about
-// ten seconds instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long start = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > 20000000000ll) __trap();
-  } while (!done);
-}
-
-// one TMA box (PW x rows x 1 x 1) of a 4-d map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from touching registers that an asynchronous wgmma
-// still reads or writes: every use of r is ordered after this point
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-// D (64 x 128, f32) += A (64 x 16) * B (16 x 128), both bf16 in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int scale_d) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
-  else
-    wgmma_ss_n128(d, da, db, scale_d);
-}
-
-// D (64 x 32, f32) += A (64 x 16, bf16 in registers) * B (16 x 32, bf16 in
-// shared memory, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, bf16 in
-// shared memory, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16 in
-// shared memory, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-// O (64 x D) += P (64 x 16) * V (16 x D); db describes V's first panel.
-// At D = 160 (five 32-column panels of ROWS KV rows, 64 bytes a row) the
-// first four panels are one N = 128 product and the fifth, whose address
-// is four panels on (in the descriptor's 16-byte units), one N = 32
-// product into accumulator columns 128-159.
-template <int D, int ROWS>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 32) {
-    wgmma_rs_n32(d, a, db);
-  } else if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else if constexpr (D == 160) {
-    wgmma_rs_n128(d, a, db);
-    wgmma_rs_n32(d + 64, a, db + ((4u * ROWS * 64u) >> 4));
-  } else {
-    wgmma_rs_n128(d, a, db);
-  }
-}
 
 template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -733,65 +452,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
 // --------------------------------------------------------------- launches
-
-constexpr int TENSOR_MAP_ERROR = 10000;  // + the CUresult; see common.cuh
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no
-// -lcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (B, S, H, D) bf16 activation with element strides l as a 4-d map of
-// dims (D, S, H, B) and boxes of (PW, ROWS, 1, 1), swizzled as the kernel's
-// descriptors read it; rows past S load as zeros.  The rows may be a
-// slice of wider ones (MLA's v is kv_b's output past its nope columns):
-// only the strides say where the next row starts.
-template <int D, int ROWS>
-int encode(CUtensorMap* map, const void* ptr, int B, int H, int S,
-           Layout l) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return TENSOR_MAP_ERROR;
-  constexpr int PW = panel_width(D);
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {2ull * (cuuint64_t)l.ss, 2ull * (cuuint64_t)l.sh,
-                           2ull * (cuuint64_t)l.sb};
-  // a dimension of extent 1 is never stepped; give it a stride TMA takes
-  for (int i = 0; i < 3; ++i)
-    if (dims[i + 1] == 1) strides[i] = i ? strides[i - 1] * dims[i] : 2 * D;
-  cuuint32_t box[4] = {(cuuint32_t)PW, (cuuint32_t)ROWS, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
-}
 
 // one instantiation of the bf16 kernel: with the log-sum-exp output or
 // without it (the serving path's, the kernel as it was before training)
@@ -869,9 +530,6 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
                                        Skv, causal, scale, lq, lk, lv, lo,
                                        stream);
 }
-
-template <int N>
-using Dim = std::integral_constant<int, N>;
 
 // the (DQK, DV) pairs K4 is built for: GQA's 32, 64, 128, 160 and MLA's
 // (192, 128); f(Dim<DQK>, Dim<DV>) launches one of them

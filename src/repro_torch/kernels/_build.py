@@ -30,7 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cluster_scatter", "game_bestresponse", "game_bestresponse_csr",
-           "game_gs", "ell_spmv", "transform_scan", "flash_attention")
+           "game_gs", "ell_spmv", "transform_scan", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,10 +23,12 @@ Gradients: when a gradient is being taken through q, k or v,
 ``flash_attention`` runs as a ``torch.autograd.Function``.  Its forward is
 K4 on CUDA tensors (the kernel then also writes the rows' log-sum-exp,
 f32 (B, Hq, Sq)) and the plain version on CPU tensors; its backward is
-``flash_attention_backward``, tensor code by KV blocks (the TPU kernel
-has no backward: the reference differentiates ``chunked_attention``).
-The serving path, which takes no gradient, launches the kernel with no
-log-sum-exp buffer.
+``flash_attention_backward`` (the TPU kernel has no backward: the
+reference differentiates ``chunked_attention``): on bf16 CUDA tensors
+the Hopper kernel ``csrc/flash_attention_bwd.cu`` ((D, Dv) in
+``BWD_HEAD_DIMS``), on f32 CUDA tensors and on CPU tensors the plain
+version, tensor code by KV blocks.  The serving path, which takes no
+gradient, launches the forward kernel with no log-sum-exp buffer.
 """
 from __future__ import annotations
 
@@ -39,9 +41,12 @@ from . import _build
 NEG_INF = -1e30
 # (D of q and k, Dv of v and o) pairs the kernel is built for
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (160, 160), (192, 128))
+# the pairs the bf16 backward kernel is built for; (160, 160) and (192,
+# 128) are ROADMAP's open item "K4's backward at head dims 160 and 192"
+BWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
 
 
-# KV rows a step of ``flash_attention_backward`` takes at once
+# KV rows a step of ``flash_attention_backward_plain`` takes at once
 BACKWARD_BLOCK_KV = 512
 
 
@@ -99,8 +104,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out
 
 
-def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
-                             sm_scale: float | None = None):
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
+                                   sm_scale: float | None = None,
+                                   round_dtype=None):
     """The gradient of ``flash_attention`` with respect to (q, k, v), given
     its output ``o``, the rows' log-sum-exp ``lse`` (B, Hq, Sq) and the
     output's gradient ``do``; tensor code by KV blocks of
@@ -111,8 +117,11 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
     heads.  Under ``causal`` the q rows that lie wholly before a block
     (they see none of it) are skipped.  This is the gradient the reference
     gets by autodiff of ``chunked_attention``; the forward rounds p to
-    bf16 before P·V on the kernel's bf16 path, the backward recomputes it
-    in f32.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    bf16 before P·V on the kernel's bf16 path, and with ``round_dtype=None``
+    the backward recomputes it in f32.  ``round_dtype=torch.bfloat16``
+    rounds P before dV = Pᵀ·dO and dS before dQ and dK, as the bf16
+    backward kernel does (dS is formed from the unrounded P).  Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = Hq // Hkv
@@ -145,13 +154,33 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
             s.view(B, Hkv, g, n, end - start).masked_fill_(
                 kpos[None, :] > qpos[q0:, None], NEG_INF)
         p = s.sub_(rows(lse[..., None])).exp_()
-        dv[:, :, start:end] = p.transpose(-1, -2) @ dos
+        pr = p if round_dtype is None else p.to(round_dtype).to(f32)
+        dv[:, :, start:end] = pr.transpose(-1, -2) @ dos
         ds = (dos @ vb.transpose(-1, -2)).sub_(rows(delta[..., None])).mul_(p)
-        del p, s
+        del p, pr, s
+        if round_dtype is not None:
+            ds = ds.to(round_dtype).to(f32)
         dq[:, :, :, q0:] += (ds @ kb).view(B, Hkv, g, n, D)
         dk[:, :, start:end] = ds.transpose(-1, -2) @ qs
     return ((dq * scale).reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
+                             sm_scale: float | None = None):
+    """The gradient of ``flash_attention`` with respect to (q, k, v) (see
+    ``flash_attention_backward_plain``), by the dtype and device of q:
+    CPU tensors take the plain version; bf16 CUDA tensors launch the
+    Hopper kernel ``csrc/flash_attention_bwd.cu`` (P and dS rounded to
+    bf16 before their products, as ``round_dtype=torch.bfloat16`` rounds
+    them), or raise when it does not take their head dims or layout; f32
+    CUDA tensors take the plain version on the card (no f32 backward
+    kernel yet: ROADMAP's open item "K4's f32 backward kernel"), as the
+    f32 gradient checks of training expect its exact f32 arithmetic."""
+    if q.device.type == "cpu" or q.dtype == torch.float32:
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal,
+                                              sm_scale)
+    return _backward_kernel(q, k, v, o, lse, do, causal, sm_scale)
 
 
 def _check(q, k, v):
@@ -170,17 +199,32 @@ def _check(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError("flash_attention: q, k, v must share f32 or bf16")
-    align = 16 // q.element_size()       # 16-byte rows and TMA strides
     for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("flash_attention: inputs must lie on one CUDA "
-                             "device (CPU inputs take the plain version)")
-        if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError("flash_attention: the head dim must be "
-                             "contiguous and rows 16-byte aligned")
-        if max((n - 1) * s for n, s in zip(t.shape, t.stride())) > _INT_MAX:
-            raise ValueError("flash_attention: offsets exceed int32")
+        _check_layout(t, q.device)
+
+
+def _check_layout(t, device):
+    """A kernel operand: on ``device`` (CUDA), the head dim contiguous,
+    rows and TMA strides 16-byte aligned, offsets within int32."""
+    align = 16 // t.element_size()       # 16-byte rows and TMA strides
+    if not t.is_cuda or t.device != device:
+        raise ValueError("flash_attention: inputs must lie on one CUDA "
+                         "device (CPU inputs take the plain version)")
+    if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        raise ValueError("flash_attention: the head dim must be "
+                         "contiguous and rows 16-byte aligned")
+    if max((n - 1) * s for n, s in zip(t.shape, t.stride())) > _INT_MAX:
+        raise ValueError("flash_attention: offsets exceed int32")
+
+
+def _like(t, d):
+    """An empty (B, H, S, d) tensor in ``t``'s dtype, device and order of
+    dims: a transposed view of (B, S, H, d) when ``t`` is one."""
+    B, H, S = t.shape[:3]
+    if t.stride(1) < t.stride(2):        # heads inside rows: (B, S, H, D)
+        return t.new_empty((B, S, H, d)).transpose(1, 2)
+    return t.new_empty((B, H, S, d))
 
 
 def _kernel(q, k, v, causal: bool, sm_scale, with_lse: bool):
@@ -189,10 +233,7 @@ def _kernel(q, k, v, causal: bool, sm_scale, with_lse: bool):
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    if q.stride(1) < q.stride(2):        # heads inside rows: (B, S, H, D)
-        o = q.new_empty((B, Sq, Hq, Dv)).transpose(1, 2)
-    else:
-        o = q.new_empty((B, Hq, Sq, Dv))
+    o = _like(q, Dv)
     fn = "k4_flash_attention_bf16" if q.dtype == torch.bfloat16 \
         else "k4_flash_attention_f32"
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -203,10 +244,58 @@ def _kernel(q, k, v, causal: bool, sm_scale, with_lse: bool):
     return o, lse
 
 
+def _backward_kernel(q, k, v, o, lse, do, causal: bool, sm_scale):
+    """Launch K4's backward on bf16 CUDA tensors: (dq, dk, dv), each in the
+    order of dims of its input.  ``do`` in a layout the tensor maps cannot
+    read (an expanded or sliced gradient) is copied to a contiguous one
+    first; every other operand is checked as the forward's are."""
+    _check(q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_backward: the kernel takes bf16 "
+                         "(f32 CUDA inputs take the plain version)")
+    if (D, Dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head dims (D {D}, Dv "
+                         f"{Dv}) not in the bf16 kernel's {BWD_HEAD_DIMS} "
+                         "(ROADMAP: K4's backward at head dims 160 and 192)")
+    for t, name in ((o, "o"), (do, "do")):
+        if t.shape != (B, Hq, Sq, Dv) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_backward: {name} must be "
+                             f"bf16 of {(B, Hq, Sq, Dv)}, not {t.dtype} of "
+                             f"{tuple(t.shape)}")
+    align = 8                            # bf16 elements in 16 bytes
+    if do.stride(3) != 1 or do.data_ptr() % 16 or any(
+            s == 0 or s % align for s in do.stride()[:3]):
+        do = do.contiguous()
+    for t in (o, do):
+        _check_layout(t, q.device)
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention_backward: lse must be contiguous "
+                         f"f32 of {(B, Hq, Sq)} on the inputs' device")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    dq, dk, dv = _like(q, D), _like(k, D), _like(v, Dv)
+    if Sq == 0 or Skv == 0 or B == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    sq_pad = -(-Sq // 128) * 128          # the kernel's stats rows a head
+    if B * Hq * 2 * sq_pad > _INT_MAX:
+        raise ValueError("flash_attention_backward: offsets exceed int32")
+    stats = torch.empty(B * Hq * 2 * sq_pad, dtype=torch.float32,
+                        device=q.device)
+    strides = [int(s) for t in (q, k, v, o, do, dq, dk, dv)
+               for s in t.stride()[:3]]
+    _build.launch("flash_attention_bwd", "k4_flash_attention_bwd_bf16", q, k,
+                  v, o, do, lse, dq, dk, dv, stats, B, Hq, Hkv, Sq, Skv, D,
+                  Dv, int(causal), float(scale), *strides)
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """K4 with a gradient: the forward is the kernel (writing the rows'
     log-sum-exp) on CUDA tensors and the plain version on CPU tensors; the
-    backward is ``flash_attention_backward``."""
+    backward is ``flash_attention_backward`` (the backward kernel on bf16
+    CUDA tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):

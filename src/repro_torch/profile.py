@@ -39,10 +39,11 @@ window:
 
 - ``train_step``: one step of 8 × 2,048 tokens of ``batch_at``'s stream,
   after two warm-up steps (K4 48 launches: forward and remat recompute;
-  the attention backward in tensor code; the chunked CE; AdamW).
+  its backward kernel 24; the chunked CE; AdamW).
 
-Its device time is also summed by kind: K4's kernel, the matrix
-products (cuBLAS and CUTLASS kernels) and the rest.
+Its device time is also summed by kind: K4's kernel, K4's backward
+kernel (its three launches), the matrix products (cuBLAS and CUTLASS
+kernels) and the rest.
 
 For each window it prints the wall time, the device busy time (the union
 of the device-side kernel, copy and fill events, so no work is counted
@@ -162,6 +163,9 @@ def _profile_lm(dev) -> None:
 
 
 def _kernel_kind(name: str) -> str:
+    if "bwd_prep_kernel" in name or "bwd_dkdv_kernel" in name \
+            or "bwd_dq_kernel" in name:
+        return "K4 backward"
     if "flash_" in name:
         return "K4"
     if any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass", "Gemm")):

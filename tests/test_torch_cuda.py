@@ -1290,10 +1290,12 @@ def test_flash_attention_lse_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
 def test_flash_attention_backward_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
                                           dtype):
     """dq, dk, dv through K4's ``FlashAttention`` (the kernel's forward and
-    log-sum-exp, then ``flash_attention_backward``) against autograd of
-    the plain version on the same card: 2e-2 in bf16 (K4's bf16
-    tolerance: the kernel rounds p before P·V, the backward reads its
-    output), 1e-4 of each gradient's largest magnitude in f32."""
+    log-sum-exp, then ``flash_attention_backward``: the backward kernel in
+    bf16, the plain version in f32) against autograd of the plain version
+    on the same card: 2e-2 in bf16 (K4's bf16 tolerance: the kernels round
+    p, and the backward dS, to bf16), 1e-4 of each gradient's largest
+    magnitude in f32.  One forward launch, and in bf16 one backward
+    launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(S * 3 + D)
 
@@ -1308,7 +1310,10 @@ def test_flash_attention_backward_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
         out = fn(*leaves, causal=causal)
         grads.append(torch.autograd.grad(out, leaves, do))
         if fn is ops.flash_attention:
-            assert ops.launch_counts() == {"flash_attention": 1}
+            want = {"flash_attention": 1}
+            if dtype == torch.bfloat16:
+                want["flash_attention_bwd"] = 1
+            assert ops.launch_counts() == want
     torch.cuda.synchronize()
     for got, want in zip(*grads):
         if dtype == torch.bfloat16:
@@ -1324,9 +1329,10 @@ def test_flash_attention_backward_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
 def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
     """One ``make_train_step`` of a 2-layer stablelm-like model (head dim
     64) on the card: K4 twice a layer (the forward and the remat
-    recompute), every gradient leaf finite and non-zero, and in f32 every
-    leaf within 1e-4 of its largest magnitude of the same step with the
-    plain version (differentiated by autograd) in K4's place."""
+    recompute) and in bf16 its backward kernel once a layer (f32 takes the
+    plain backward), every gradient leaf finite and non-zero, and in f32
+    every leaf within 1e-4 of its largest magnitude of the same step with
+    the plain version (differentiated by autograd) in K4's place."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1350,7 +1356,10 @@ def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
 
     ops.reset_launch_counts()
     make_train_step(cfg, spy, dtype=dtype)(params, spy.init(params), batch, 0)
-    assert ops.launch_counts() == {"flash_attention": 2 * cfg.n_layers}
+    want = {"flash_attention": 2 * cfg.n_layers}
+    if dtype == torch.bfloat16:
+        want["flash_attention_bwd"] = cfg.n_layers
+    assert ops.launch_counts() == want
     for g in seen[0]:
         assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
     if dtype == torch.float32:
@@ -1360,6 +1369,104 @@ def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
         for got, want in zip(*seen):
             torch.testing.assert_close(
                 got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+# K4's backward kernel: (B, Hq, Hkv, Sq, Skv, D, causal, (B, S, H, D) views)
+# — groups 1, 4 and 7, Sq ≠ Skv both ways (causal with Sq < Skv leaves
+# KV tiles no q row sees: their dK and dV are zeros), every head-dim pair
+# the kernel takes
+BWD_CASES = [(2, 8, 8, 256, 256, 64, True, True),
+             (2, 8, 8, 256, 256, 64, False, False),
+             (1, 28, 4, 300, 300, 128, True, True),
+             (1, 28, 4, 300, 300, 128, False, False),
+             (2, 8, 2, 200, 333, 64, False, True),
+             (2, 8, 2, 200, 333, 64, True, False),
+             (1, 4, 1, 333, 150, 128, True, True),
+             (1, 4, 1, 150, 333, 128, True, False),
+             (1, 7, 1, 129, 77, 32, False, True),
+             (1, 7, 1, 77, 129, 32, True, False),
+             (2, 14, 2, 517, 517, 64, True, True),
+             (1, 8, 8, 64, 512, 128, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,views", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_its_rounding_twin(
+        dev, B, Hq, Hkv, Sq, Skv, D, causal, views):
+    """The bf16 backward kernel (one launch) against the plain version on
+    the same bf16 inputs and the forward kernel's o and log-sum-exp:
+    against ``round_dtype=torch.bfloat16`` held in f32 (P and dS rounded
+    as the kernel rounds them), dq, dk, dv within 5e-3 of each gradient's
+    largest magnitude (the two differ in the order of their f32 sums,
+    and the kernel rounds its results to bf16: at most half a bf16 step,
+    2⁻⁹ of a value); against the unrounded plain version within 2e-2
+    (K4's bf16 tolerance)."""
+    from repro_torch.kernels import flash_attention as K4
+    gen = torch.Generator(device=dev).manual_seed(Sq * 7 + Skv + D)
+
+    def act(h, s, d):
+        if views:
+            return torch.randn(B, s, h, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+        return torch.randn(B, h, s, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    q, do = act(Hq, Sq, D), act(Hq, Sq, D)
+    k, v = act(Hkv, Skv, D), act(Hkv, Skv, D)
+    o, lse = K4._kernel(q, k, v, causal, None, with_lse=True)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"flash_attention_bwd": 1}
+    f32 = [t.float() for t in (q, k, v, o, lse, do)]
+    twin = ops.flash_attention_backward_plain(*f32, causal,
+                                              round_dtype=torch.bfloat16)
+    plain = ops.flash_attention_backward_plain(*f32, causal)
+    for name, g, t, w, x in zip(("dq", "dk", "dv"), got, twin, plain,
+                                (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        assert torch.isfinite(g).all(), name
+        scale = float(t.abs().max())
+        err = float((g.float() - t).abs().max())
+        assert err <= 5e-3 * scale, f"{name}: {err:.3e} vs 5e-3 × {scale:.3e}"
+        torch.testing.assert_close(g.float(), w, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_takes_an_expanded_gradient(dev):
+    """``out.sum()``'s gradient reaches the backward as an expanded tensor
+    (stride 0), which no tensor map can read: the wrapper copies it and
+    the kernel gives the gradients of a contiguous all-ones ``do`` bit
+    for bit."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 130, 64, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    ops.flash_attention(*leaves).sum().backward()
+    assert ops.launch_counts() == {"flash_attention": 1,
+                                   "flash_attention_bwd": 1}
+    from repro_torch.kernels import flash_attention as K4
+    o, lse = K4._kernel(q, k, v, True, None, with_lse=True)
+    want = ops.flash_attention_backward(q, k, v, o, lse, torch.ones_like(o))
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(160, 160), (192, 128)])
+def test_flash_attention_bwd_refuses_head_dims_it_is_not_built_for(dev, D,
+                                                                   Dv):
+    """A bf16 CUDA input at a head-dim pair the backward kernel does not
+    take raises (naming the ROADMAP item); nothing runs tensor code."""
+    from repro_torch.kernels import flash_attention as K4
+    q = torch.randn(1, 2, 64, D, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 64, D, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(1, 2, 64, Dv, device=dev, dtype=torch.bfloat16)
+    o, lse = K4._kernel(q, k, v, True, None, with_lse=True)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.flash_attention_backward(q, k, v, o, lse, torch.ones_like(o))
+    assert ops.launch_counts() == {}
 
 
 @pytest.mark.cuda

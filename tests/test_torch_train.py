@@ -282,6 +282,130 @@ def test_flash_attention_backward_matches_jax_grad(D, Dv, causal, group,
         _leaf_close(g.numpy(), w, 1e-5, f"d{name}")
 
 
+def _bf16_exact(rng, shape):
+    """Seeded normals rounded to bf16 values, held in f32."""
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return a.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 7])
+def test_rounding_backward_twin_matches_jax_grad(D, causal, group):
+    """The plain backward with ``round_dtype=torch.bfloat16`` (P and dS
+    rounded to bf16 before their products, as the bf16 backward kernel
+    rounds them) on bf16-exact inputs, from the plain forward's f32 output
+    and log-sum-exp, against ``jax.vjp`` of the reference's
+    ``chunked_attention`` (f32): dq, dk, dv within 2e-2 of each one's
+    largest magnitude (K4's bf16 tolerance; the rounding of P and dS is
+    all that separates the two)."""
+    rng = np.random.default_rng(D + group + 10 * causal)
+    B, Hkv, Sq, Skv = 2, 1, 37, 53
+    Hq = group * Hkv
+    q, do = (_bf16_exact(rng, (B, Sq, Hq, D)) for _ in range(2))
+    k, v = (_bf16_exact(rng, (B, Skv, Hkv, D)) for _ in range(2))
+    scale = 1.0 / np.sqrt(D)
+
+    def jattn(q, k, v):
+        return JA.chunked_attention(q, JA.expand_kv(k, Hq),
+                                    JA.expand_kv(v, Hq), causal=causal,
+                                    block_kv=16, sm_scale=scale)
+    _, vjp = jax.vjp(jattn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (_t(a).transpose(1, 2) for a in (q, k, v, do))
+    o, lse = K4.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      sm_scale=scale, return_lse=True)
+    got = K4.flash_attention_backward_plain(tq, tk, tv, o, lse, tdo, causal,
+                                            scale, round_dtype=torch.bfloat16)
+    for name, g, w in zip("qkv", got, want):
+        _leaf_close(g.transpose(1, 2).numpy(), w, 2e-2, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_on_cpu_is_the_plain_version(dtype, causal):
+    """``flash_attention_backward`` on CPU tensors (f32 and bf16) returns
+    ``flash_attention_backward_plain``'s gradients bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    q, do = (torch.randn(2, 4, 21, 32, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, 34, 32, generator=g).to(dtype)
+            for _ in range(2))
+    o, lse = K4.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    got = K4.flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = K4.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def _parent_backward(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """``flash_attention_backward`` as it stood before the rounding option
+    and the kernel dispatch: the f32 tensor code, kept here verbatim so
+    that ``round_dtype=None`` is held to it bit for bit."""
+    import math
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    f32, dev = torch.float32, q.device
+    qf = (q.to(f32) * scale).reshape(B, Hkv, g, Sq, D)
+    dof = do.to(f32).reshape(B, Hkv, g, Sq, Dv)
+    delta = (dof * o.to(f32).reshape(B, Hkv, g, Sq, Dv)).sum(-1)
+    lse = lse.reshape(B, Hkv, g, Sq)
+    qpos = torch.arange(Sq, device=dev)
+    dq = torch.zeros((B, Hkv, g, Sq, D), dtype=f32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, Dv), dtype=f32, device=dev)
+    for start in range(0, Skv, K4.BACKWARD_BLOCK_KV):
+        end = min(start + K4.BACKWARD_BLOCK_KV, Skv)
+        q0 = min(start, Sq) if causal else 0
+        n = Sq - q0
+        if n == 0:
+            continue
+
+        def rows(t):
+            return t[:, :, :, q0:].reshape(B, Hkv, g * n, *t.shape[4:])
+
+        kb = k[:, :, start:end].to(f32)
+        vb = v[:, :, start:end].to(f32)
+        qs, dos = rows(qf), rows(dof)
+        s = qs @ kb.transpose(-1, -2)
+        if causal:
+            kpos = torch.arange(start, end, device=dev)
+            s.view(B, Hkv, g, n, end - start).masked_fill_(
+                kpos[None, :] > qpos[q0:, None], K4.NEG_INF)
+        p = s.sub_(rows(lse[..., None])).exp_()
+        dv[:, :, start:end] = p.transpose(-1, -2) @ dos
+        ds = (dos @ vb.transpose(-1, -2)).sub_(rows(delta[..., None])).mul_(p)
+        del p, s
+        dq[:, :, :, q0:] += (ds @ kb).view(B, Hkv, g, n, D)
+        dk[:, :, start:end] = ds.transpose(-1, -2) @ qs
+    return ((dq * scale).reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group,D,Dv", [(1, 64, 64), (4, 192, 128)])
+def test_backward_without_rounding_is_the_parents_bit_for_bit(
+        causal, group, D, Dv, monkeypatch):
+    """``flash_attention_backward_plain(..., round_dtype=None)`` equals the
+    f32 tensor code it replaced (``_parent_backward``) bit for bit, over
+    several KV blocks of 16 rows."""
+    monkeypatch.setattr(K4, "BACKWARD_BLOCK_KV", 16)
+    g = torch.Generator().manual_seed(group + D)
+    q, do = torch.randn(1, 2 * group, 45, D, generator=g), \
+        torch.randn(1, 2 * group, 45, Dv, generator=g)
+    k = torch.randn(1, 2, 40, D, generator=g)
+    v = torch.randn(1, 2, 40, Dv, generator=g)
+    o, lse = K4.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    got = K4.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    want = _parent_backward(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_lse_is_the_rows_log_sum_exp(causal):
     """``return_lse``: log Σ exp(s·scale) over each row's unmasked columns
