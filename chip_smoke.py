@@ -167,35 +167,38 @@ Phases (any failure raises and exits non-zero):
 8a. ``[lm-mesh]``, the LM half of the mesh: qwen2-7b served tensor- and
    sequence-parallel over ``make_test_mesh(2, 4)``, 8 ranks sharing this
    card over gloo (the kernels built before the spawn; every rank sets
-   the parent's TF32 flags).  Phase 6 keeps its witness on the host: its
-   prefill logits, prompt, greedy tokens and logits after the prompt, the
-   checksums of the blocks each model rank keeps of its tree, and the
-   same weights' exact f32 twin's prefill logits and logits after the
-   prompt.  On the ranks: f32 at full width on 2 layers, the prefill's
-   logits and 4 decode steps' within 1e-4 of the largest |logit| of the
-   one card's on the same weights; then bf16 at full width and depth,
-   each rank replaying every draw of ``init_params`` (seed 0) and keeping
-   its blocks (``place_params``; the blocks' checksums equal the
-   witness's), a warm-up and the timed prefill of 4 × 2,048 (2
-   rows a data rank; K4 exactly 28 times a rank at (2, 7/1, 2048, 128)):
-   logits within 2e-2 of the largest of phase 6's, and within 1.5× of the
-   one card's distance to the f32 twin, as are the logits after the
-   prompt; ``generate`` (the 16-token prompt, 4 greedy tokens, cut from
-   phase 6's 32 for time; no K4; how many tokens equal phase 6's is
-   logged, not gated: random weights make near-ties): each rank's block
-   of its cache is (28, 2, 5, 4, 128), positions 5·m .. 5·m + 4 on model
-   rank m, every one written.  Logged: prefill ms and tokens/s, decode ms/token-step,
-   peak memory and, by call site, every rank's collective seconds,
-   bytes and calls; K4 at the rank's shape against its plain version and
-   SDPA, alone on the card.
-8a'. ``[pp]``: qwen2-7b's 28 layers as 4 ``pipeline_apply`` stages of 7
-   on 4 ranks sharing the card (a "stage" mesh), 4 microbatches of (1,
-   2,048, 3,584) hidden states in 7 ticks; each layer drawn from its own
-   seed, so the parent's ``reference_apply`` on one rank runs the same
-   model: f32 with 1 layer a stage within 1e-4 of the largest |h|, bf16
-   at full depth within 2e-2 (both bit-equal so far), timed beside
-   ``reference_apply`` alone; K4 exactly 7 times a stage a microbatch, 7
-   ring hops; the bubble (S − 1)/(M + S − 1).
+   the parent's TF32 flags), cut to its first 4 of 28 layers for the
+   script's time (``LM_MESH_LAYERS``).  Phase 6 keeps its witness on the
+   host (``lm_mesh_witness``, from its tree's first 4 layers): their
+   prefill logits, the prompt, greedy tokens and logits after the
+   prompt on the one card, the checksums of the blocks each model rank
+   keeps, and the same weights' exact f32 twin's prefill logits and
+   logits after the prompt.  On the ranks: f32 at full width on 2
+   layers, the prefill's logits and 4 decode steps' within 1e-4 of the
+   largest |logit| of the one card's on the same weights; then bf16 at
+   full width, each rank replaying every draw of ``init_params`` (seed 0)
+   and keeping its blocks (``place_params``; the blocks' checksums equal
+   the witness's), a warm-up and the timed prefill of 4 × 2,048 (2 rows
+   a data rank; K4 exactly 4 times a rank at (2, 7/1, 2048, 128)):
+   logits within 2e-2 of the largest of the one card's, and within 1.2×
+   of the one card's distance to the f32 twin, as are the logits after
+   the prompt; ``generate`` (the 16-token prompt, 4 greedy tokens, cut
+   from phase 6's 32 for time; no K4; how many tokens equal the one
+   card's is logged, not gated: random weights make near-ties): each
+   rank's block of its cache is (4, 2, 5, 4, 128), positions 5·m .. 5·m
+   + 4 on model rank m, every one written.  Logged: prefill ms and
+   tokens/s, decode ms/token-step, peak memory and, by call site, every
+   rank's collective seconds, bytes and calls; K4 at the rank's shape
+   against its plain version and SDPA, alone on the card.
+8a'. ``[pp]``: 8 of qwen2-7b's 28 layers (``PP_LAYERS``; 28 until
+   ``[family-mesh]`` joined, cut for time) as 4 ``pipeline_apply`` stages
+   of 2 on 4 ranks sharing the card (a "stage" mesh), 4 microbatches of
+   (1, 2,048, 3,584) hidden states in 7 ticks; each layer drawn from its
+   own seed, so the parent's ``reference_apply`` on one rank runs the
+   same model: f32 with 1 layer a stage within 1e-4 of the largest |h|,
+   bf16 at the phase's depth within 2e-2 (both bit-equal so far), timed
+   beside ``reference_apply`` alone; K4 exactly 2 times a stage a
+   microbatch, 7 ring hops; the bubble (S − 1)/(M + S − 1).
 8b. ``[moe]``, with the qwen2 phases' memory freed: llama4-scout (16
    experts top-1 + a shared expert, GQA 40/8) at published width and 12
    of its 48 layers (the only cut), bf16, seeded.  The parameter count
@@ -212,9 +215,9 @@ Phases (any failure raises and exits non-zero):
    version within 2e-2, timed beside its bound and SDPA.
    ``[moe-mesh]`` then serves llama4-scout at published width over
    make_test_mesh(2, 4) (8 ranks on this card over gloo) with its 16
-   experts 4 a model rank (expert parallelism), cut to 4 of 48 layers
+   experts 4 a model rank (expert parallelism), cut to 1 of 48 layers
    (each data rank holds a whole copy of its model block; 12 layers would
-   need ≈ 114 GB).  f32 at 1 layer: prefill logits and 4 decode steps
+   need ≈ 114 GB; 4 until ``[family-mesh]`` joined, cut for time).  f32 at 1 layer: prefill logits and 4 decode steps
    within 1e-4 of the largest |logit| of the one card's on the same
    weights, the routing's kept pairs equal.  bf16: every rank's blocks
    equal the one-card tree's by checksum (the ranks draw in turns);
@@ -300,7 +303,44 @@ Phases (any failure raises and exits non-zero):
    decode loop's within 2e-3; K4 at (4, 32, 2048, 160) over k/v (4, 8,
    2048, 160) against its plain version (2e-2; f32 2e-5), timed beside
    its bound and SDPA.
-8g. ``[train]``, with ``[vlm]``'s weights freed: stablelm-1.6b at full
+8f'. ``[family-mesh]``, with ``[vlm]``'s weights freed: the other
+   families served tensor- and sequence-parallel over the mesh, in bf16
+   at published width, prefill 4 × 2,048 (seamless 1,024 frames + 1,024
+   tokens) and ``generate`` (2-token prompts, 2 greedy tokens):
+   deepseek-v3 (MLA + MoE; 1 dense + 1 MoE layer of 61, all 256
+   experts, 64 a model rank), mamba2-130m (SSD, whole) and
+   seamless-m4t-large-v2 (encoder–decoder, whole; decode attending the
+   encoder's output of the prefill's frames) on make_test_mesh(2, 4), 8
+   ranks in one spawn, then jamba (the hybrid: one period with 4 of its
+   16 experts, one a model rank) on that spawn's first data line, a (1,
+   4) mesh (``line_mesh``: two copies beside eight ranks'
+   activations pass the card's 80 GB).
+   The first data line's ranks draw in turns; the second's take their
+   model peers' blocks over "data" (``drawn_over_data``).  Before the
+   spawns the one card answers on the same draws (``family_one_card``)
+   and K4 at the MLA rank's (2, 32/32, 2048, 192/128), jamba rank's
+   (4, 16/2, 2048, 128) and seamless rank's shapes (2, 4/4, 1024, 64)
+   non-causal (encoder, cross-attention) and causal (decoder), and Sq =
+   1 over 1,024 keys (decode's cross-attention) is held against its
+   plain version with p in f32 and in bf16 (2e-2), its profiler device
+   time beside SDPA's and its bound.  Gates a model: f32 at the check's depth (deepseek's dense
+   layer, mamba2's 2 layers, seamless 1 + 1, jamba's period cut to 2
+   sublayers with the 4-expert MoE) the prefill logits and 4 decode
+   steps' within 1e-4 of the one card's; bf16 prefill logits within
+   2e-2 of the one card's at one layer (the f32 check's first layer or
+   period in bf16), and at the phase's depth for the attention stacks
+   (deepseek, seamless); mamba2's first ``FM_SSD_DEPTH`` layers held
+   to their f32 twin within ``FM_SSD_TWIN_TOL``, the mesh and the one
+   card alike (random SSD stacks are chaotic in bf16: its 24 layers and
+   jamba's period are logged); every
+   decode logit finite; K4 exactly once an attention layer a rank in
+   prefill (seamless also once a decoder layer a decode step), no other
+   kernel; the plan splits heads, experts and SSD's d_inner; each
+   family's collective sites called (``ssd.norm``,
+   ``ssd.out``, ``decode.ssd``, ``xattn.o``, ``decode.qkv`` ...).
+   Logged: per rank and model prefill ms, decode ms/token-step, peak
+   memory, collectives by site; the phase's seconds.
+8g. ``[train]``, with ``[family-mesh]``'s weights freed: stablelm-1.6b at full
    width and depth (24 layers, d_model 2,048, 32 heads of 64, layernorm,
    ungated FFN 5,632, vocab 100,352; 1,367,543,808 parameters; nothing
    cut) trained on the card: f32 masters, bf16 compute
@@ -327,20 +367,21 @@ Phases (any failure raises and exits non-zero):
    ``fail_at_step`` and resumed: the uninterrupted run's losses within
    rtol 1e-4.
 8h. ``[train-mesh]``, with ``[train]``'s weights freed: stablelm-1.6b at
-   full width and depth trained ZeRO-3 over make_test_mesh(2, 4)
+   full width, its first 2 of 24 layers (``TRAIN_MESH_LAYERS``; cut for
+   the script's time), trained ZeRO-3 over make_test_mesh(2, 4)
    (``place_params(mesh, zero=True)``: each weight's TP dim on "model",
-   its other dim on "data"), 8 ranks on this card over gloo.  f32 at 2
-   layers: the mesh's loss within rtol 1e-5 of the one card's
-   ``make_train_step`` loss on the same weights and batch, every
-   gradient leaf gathered by ``gather_tree`` within 1e-4 of its largest
-   magnitude.  bf16 at full depth: every rank's blocks equal ``[train]``'s
-   seed-0 tree cut on both axes by checksum; 2 AdamW steps under
-   ``[train]``'s schedule (3 until the graph dry-run joined, cut for
-   time), the counts zeroed before each and read after
-   (K4 exactly 48 times a rank a step and its backward kernel 24, no
-   graph kernel); every loss
-   finite and within 1e-3 of ``[train]``'s at its step, five leaves
-   (``TRAIN_WITNESS``) after the last step within 0.05 of ``[train]``'s
+   its other dim on "data"), 8 ranks on this card over gloo, held to the
+   one card's run of the same 2 layers (``train_twin``: ``[train]``'s
+   optimizer, schedule and batches).  f32 at 2 layers: the mesh's loss
+   within rtol 1e-5 of the one card's ``make_train_step`` loss on the
+   same weights and batch, every gradient leaf gathered by
+   ``gather_tree`` within 1e-4 of its largest magnitude.  bf16: every
+   rank's blocks equal the seed-0 tree cut on both axes by checksum; 2
+   AdamW steps (3 until the graph dry-run joined, cut for time), the
+   counts zeroed before each and read after (K4 exactly 4 times a rank a
+   step and its backward kernel 2, no graph kernel); every loss finite
+   and within 1e-3 of the one card's at its step, five leaves
+   (``TRAIN_WITNESS``) after the last step within 0.05 of the one card's
    update after the same step, every gradient leaf gathered at step 0
    finite and non-zero;
    s/step and tokens/s beside ``train_flops``' ceiling, every rank's
@@ -361,8 +402,11 @@ Phases (any failure raises and exits non-zero):
    ``flash_attention_d160`` (the ``[vlm]`` prefill's launches); K4's
    row also counts the ``[lm-mesh]`` ranks' timed prefill and the ``[pp]``
    stages' timed forward, with the rank shape's record, the
-   ``[moe-mesh]`` ranks' timed prefill and the ``[train-mesh]`` ranks'
-   steps, with their rank shapes' records; K4's backward kernel is the
+   ``[moe-mesh]`` ranks' timed prefill, ``[family-mesh]``'s jamba ranks'
+   prefill and the ``[train-mesh]`` ranks' steps, with their rank
+   shapes' records; the MLA row counts ``[family-mesh]``'s deepseek
+   ranks' prefill with the MLA rank shape's record, the encoder–decoder
+   row its seamless ranks' prefill and decode; K4's backward kernel is the
    row ``flash_attention_bwd``, timed at ``[train]``'s shape, with the
    ``[train]`` and ``[train-mesh]`` steps' launches), then the device
    JSON line last.
@@ -3265,9 +3309,6 @@ def train_phase(torch, ops, dev) -> dict:
     want_k4 = {"flash_attention": 2 * cfg.n_layers,
                "flash_attention_bwd": cfg.n_layers}
     losses, ms, k4_launches, bwd_launches = [], [], 0, 0
-    # [train-mesh]'s witness: TRAIN_WITNESS's leaves before step 0 and
-    # after its last step, on the host
-    witness = {"init": [leaf_at(params, k).cpu() for k in TRAIN_WITNESS]}
     for i in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in batch_at(dcfg, i).items()}
@@ -3281,9 +3322,6 @@ def train_phase(torch, ops, dev) -> dict:
         ms.append((time.perf_counter() - t) * 1e3)
         launches = ops.launch_counts()
         losses.append(loss.item())
-        if i == TRAIN_MESH_STEPS - 1:
-            witness["after"] = [leaf_at(params, k).cpu()
-                                for k in TRAIN_WITNESS]
         log(f"[train] step {i}: loss {losses[-1]:.4f}, {ms[-1]:.1f} ms, "
             f"launches {json.dumps(launches)}")
         check(launches == want_k4, f"train step {i} launched {launches}, "
@@ -3433,7 +3471,7 @@ def train_phase(torch, ops, dev) -> dict:
     log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": k4_launches, "bwd_launches": bwd_launches,
             "shapes": records, "losses": losses, "ms": ms, "peak_gib": peak,
-            "witness": witness, "bwd_step_share": bwd_step / (t_step * 1e3)}
+            "bwd_step_share": bwd_step / (t_step * 1e3)}
 
 
 # ------------------------------------------------------------- [dist]
@@ -3812,6 +3850,10 @@ def dist_phase(g, main_res, main_seconds, pr_ref):
 
 MESH_DATA, MESH_MODEL = 2, 4         # make_test_mesh(2, 4): 8 ranks
 MESH_F32_STEPS = 4                   # decode steps of the f32 check
+# [lm-mesh] serves qwen2-7b's first 4 of its 28 layers (all 28 until
+# [family-mesh] joined: cut for the script's time), held to the one
+# card's run of the same 4 layers
+LM_MESH_LAYERS = 4
 # greedy tokens after the 16-token prompt ([serve]'s 32; 16 until the
 # graph dry-run joined [dist], cut for the script's time; Smax = 20 keeps
 # 5 cache rows a model rank)
@@ -3821,6 +3863,9 @@ MESH_TOKENS = 4
 # phase on an H100 80GB HBM3 at 700 W; the limit leaves a fifth of slack)
 MESH_NOISE = 1.2
 PP_STAGES, PP_MICRO = 4, 4           # pipeline stages, microbatches
+# layers a stage (7 until [family-mesh] joined: qwen2's 28 layers; cut for
+# the script's time)
+PP_LAYERS = 2
 CHECKSUM_CHUNK = 1 << 24
 
 
@@ -3878,6 +3923,28 @@ def f32_twin(torch, cfg, params, tokens, prompt) -> dict:
     return twin
 
 
+def lm_mesh_witness(torch, cfg, params, tokens, prompt) -> dict:
+    """``[lm-mesh]``'s witness from phase 6's bf16 tree: its first
+    LM_MESH_LAYERS layers (the cut model's seed-0 draws), their prefill
+    logits on ``tokens`` and greedy decode after ``prompt`` on the one
+    card, the checksums of the blocks each model rank keeps, and the same
+    weights' f32 twin (the one card's own bf16 error), on the host."""
+    import dataclasses
+    from repro_torch.launch.serve import generate
+    from repro_torch.train import make_prefill_step
+    cut = dataclasses.replace(cfg, n_layers=LM_MESH_LAYERS)
+    p = dict(params, g_dense=params["g_dense"][:LM_MESH_LAYERS])
+    served = generate(p, cut, prompt, MESH_TOKENS, dtype=torch.bfloat16)
+    out = dict(tokens=tokens.cpu(), prompt=prompt.cpu(),
+               logits=make_prefill_step(cut, dtype=torch.bfloat16)(
+                   p, {"tokens": tokens}).float().cpu(),
+               served_tokens=served.tokens.cpu(),
+               prompt_logits=served.prompt_logits.float().cpu(),
+               checksums=mesh_checksums(torch, p))
+    out.update(f32_twin(torch, cut, p, tokens, prompt))
+    return out
+
+
 def mesh_probe(smax: int) -> list:
     """One cache position in each model rank's block of ``smax`` rows: the
     first rank's first row, the last rank's last, others between."""
@@ -3889,9 +3956,10 @@ def mesh_probe(smax: int) -> list:
 def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
     """``[lm-mesh]`` on one rank of make_test_mesh(2, 4) (SPMD): the f32
     check at full width on 2 layers (prefill logits and MESH_F32_STEPS
-    decode steps, gathered whole), then qwen2-7b at full width and depth
-    in bf16 from the card generator's seed-0 draws (every draw of the
-    one-card tree replayed, this rank's blocks kept): the checksums of its
+    decode steps, gathered whole), then qwen2-7b at full width and
+    LM_MESH_LAYERS layers in bf16 from the card generator's seed-0 draws
+    (every draw of the one-card tree replayed, this rank's blocks kept):
+    the checksums of its
     blocks, a warm-up and a timed prefill (K4 counted), a warm-up of the
     decode step (``make_decode_fn``) at the ``mesh_probe`` positions of a
     cache of the serving run's rows, which reports this rank's block of
@@ -3940,7 +4008,7 @@ def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
         del p32, cache, logits, steps
         torch.cuda.empty_cache()
 
-        # bf16 at full width and depth
+        # bf16 at full width, LM_MESH_LAYERS layers
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
@@ -4004,17 +4072,17 @@ def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
     return out
 
 
-def k4_rank_times(torch, ops, F, q, k, v) -> dict:
-    """K4 and ``scaled_dot_product_attention`` on (q, k, v), causal, each
+def k4_rank_times(torch, ops, F, q, k, v, causal=True) -> dict:
+    """K4 and ``scaled_dot_product_attention`` on (q, k, v), each
     timed two ways: CUDA events around 20 back-to-back calls (which read
     the host's launch rate where a call is shorter than its launch) and
     the profiler's device time of a call; with the card's SM clock, its
     maximum, temperature and power draw as nvidia-smi reads them."""
     def k4():
-        return ops.flash_attention(q, k, v, causal=True)
+        return ops.flash_attention(q, k, v, causal=causal)
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
     return dict(k4_events=event_ms(torch, k4, 20),
                 k4_device=device_ms(torch, k4, 20, "flash_bf16_kernel"),
@@ -4025,8 +4093,10 @@ def k4_rank_times(torch, ops, F, q, k, v) -> dict:
 
 
 def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
-    """``[lm-mesh]``: qwen2-7b served tensor- and sequence-parallel over
-    make_test_mesh(2, 4), 8 ranks sharing this card over gloo."""
+    """``[lm-mesh]``: qwen2-7b (its first LM_MESH_LAYERS layers at full
+    width) served tensor- and sequence-parallel over make_test_mesh(2,
+    4), 8 ranks sharing this card over gloo, held to the one card's run
+    of the same layers (``witness``, from phase 6)."""
     import dataclasses
 
     import numpy as np
@@ -4038,7 +4108,8 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
     from repro_torch.train import make_decode_fn, make_prefill_step
 
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_MESH_LAYERS)
     small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
     rng = np.random.default_rng(3)
     f32_tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (
@@ -4107,7 +4178,8 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
         check(not bad, f"[lm-mesh] rank {r['coords']}: blocks differ from "
               f"the one-card tree at {bad[:3]}")
     log(f"[lm-mesh] every rank's {len(reports[0]['checksums'])} blocks "
-        "equal the one-card tree's ([serve]'s seed-0 draws) by checksum; "
+        "equal the one-card tree's ([serve]'s seed-0 draws, its first "
+        f"{LM_MESH_LAYERS} layers) by checksum; "
         f"per rank {reports[0]['weight_bytes'] / 1e9:.3f} GB of weights, "
         f"built in {max(r['init_s'] for r in reports):.1f} s (peak "
         f"{max(r['init_peak_gib'] for r in reports):.2f} GiB)")
@@ -4126,11 +4198,12 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
           and bool(torch.isfinite(logits).all()), "[lm-mesh] prefill logits")
     check(served.finite and served.tokens.shape == (SERVE_B, MESH_TOKENS)
           and int(served.tokens.max()) < cfg.vocab, "[lm-mesh] decode output")
-    # the first step (the prefill) against [serve]'s within 2e-2; the mesh's
+    # the first step (the prefill) against the one card's at the same depth
+    # within 2e-2; the mesh's
     # and the one card's bf16 runs against the same weights' f32 twin: the
     # mesh no farther than MESH_NOISE times the one card (two bf16 runs
     # differ by up to twice that error, so the logits after the prompt are
-    # held to the twin, and their distance to [serve]'s is logged)
+    # held to the twin, and their distance to the one card's is logged)
     e_pre = rel(logits, witness["logits"])
     e_first = rel(served.prompt_logits, witness["prompt_logits"])
     noise = (rel(witness["logits"], witness["twin_logits"]),
@@ -4138,7 +4211,7 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
     mesh = (rel(logits, witness["twin_logits"]),
             rel(served.prompt_logits, witness["twin_prompt_logits"]))
     check(e_pre <= 2e-2, f"[lm-mesh] bf16: prefill logits {e_pre:.3e} of "
-          "the largest from [serve]'s")
+          "the largest from the one card's")
     check(all(m <= MESH_NOISE * n for m, n in zip(mesh, noise)),
           f"[lm-mesh] bf16 against the f32 twin: the mesh {mesh}, the one "
           f"card {noise}")
@@ -4146,17 +4219,18 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
         f"|logit|): prefill logits the one card {noise[0]:.3e}, the mesh "
         f"{mesh[0]:.3e}; logits after the prompt the one card "
         f"{noise[1]:.3e}, the mesh {mesh[1]:.3e} (held within "
-        f"{MESH_NOISE}x the one card's); mesh to [serve]'s after the prompt "
-        f"{e_first:.3e} (logged)")
+        f"{MESH_NOISE}x the one card's); mesh to the one card's after the "
+        f"prompt {e_first:.3e} (logged)")
     agree = int((served.tokens.cpu()
                  == witness["served_tokens"][:, :MESH_TOKENS]).sum())
     t_pre = max(r["prefill_s"] for r in reports)
-    log(f"[lm-mesh] bf16 {cfg.name}, {cfg.n_layers} layers at full width: "
+    log(f"[lm-mesh] bf16 {cfg.name}, {cfg.n_layers} of its {full.n_layers} "
+        f"layers at full width (cut for the script's time): "
         f"prefill {PREFILL_B} x {PREFILL_S} ({PREFILL_B // MESH_DATA} rows a "
         f"data rank) {t_pre * 1e3:.1f} ms = "
         f"{PREFILL_B * PREFILL_S / t_pre:.1f} tokens/s (the slowest rank); "
-        f"logits {e_pre:.3e} of the largest |logit| from [serve]'s one-card "
-        f"prefill (tolerance 2e-2); "
+        f"logits {e_pre:.3e} of the largest |logit| from the one card's "
+        f"prefill of the same layers (tolerance 2e-2); "
         f"K4 {cfg.n_layers} launches a rank at ({PREFILL_B // MESH_DATA}, "
         f"{cfg.n_heads // MESH_MODEL}/{cfg.n_kv_heads // MESH_MODEL}, "
         f"{PREFILL_S}, {cfg.hd}), {launches} in all; {note}")
@@ -4165,7 +4239,8 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
         f"{MESH_TOKENS} greedy tokens (cut from [serve]'s {SERVE_TOKENS} "
         f"for time): {ms_step:.3f} ms/token-step (the "
         f"slowest rank); {agree} of {served.tokens.numel()} greedy tokens "
-        f"equal [serve]'s (near-ties of random weights, not gated); first "
+        f"equal the one card's (near-ties of random weights, not gated); "
+        f"first "
         f"tokens {served.tokens[0][:16].tolist()}")
     smax = SERVE_PROMPT + MESH_TOKENS
     rows = smax // MESH_MODEL
@@ -4289,7 +4364,8 @@ def pp_phase(torch, ops, dev, k4_row) -> None:
     from repro_torch.models.lm import run_layers
 
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=PP_STAGES * PP_LAYERS)
     f32_layers = 1
     t = time.perf_counter()
     out = run_on_ranks(pp_job, make_mesh({"stage": PP_STAGES}), cfg,
@@ -4359,10 +4435,14 @@ def pp_phase(torch, ops, dev, k4_row) -> None:
 # training over the mesh: stablelm-1.6b ZeRO-3 on make_test_mesh(2, 4); and
 # llama4-scout served over it with its experts on "model"
 
-# bf16 steps of the mesh at full depth (3 before the graph dry-run joined
+# bf16 steps of the mesh (3 before the graph dry-run joined
 # [dist]: cut for the script's time; step 0 makes the gradient checks,
 # step 1 is timed)
 TRAIN_MESH_STEPS = 2
+# [train-mesh] trains stablelm's first 2 of its 24 layers (all 24 until
+# [family-mesh] joined: cut for the script's time), held to the one card's
+# run of the same 2 layers (``train_twin``)
+TRAIN_MESH_LAYERS = 2
 # the mesh's bf16 loss at each step within this of [train]'s, relative
 # (every run on an H100 80GB HBM3 at 700 W: 2.77e-05, 9.00e-06, 3.33e-05)
 TRAIN_MESH_LOSS_RTOL = 1e-3
@@ -4381,9 +4461,10 @@ TRAIN_WITNESS = (("g_dense", 0, "attn", "q", "w"),
                  ("lm_head", "w"))
 TRAIN_MESH_UPDATE_TOL = 0.05
 # llama4-scout on the mesh: each data rank holds a whole copy of its model
-# block, so 12 layers would need ≈ 114 GB over the 8 ranks; 4 need ≈ 43.5
-# GB.  The f32 check at 1 layer (≈ 34 GB over the ranks)
-MOE_MESH_LAYERS, MOE_MESH_F32_LAYERS = 4, 1
+# block, so 12 layers would need ≈ 114 GB over the 8 ranks; 4 ≈ 43.5 GB
+# (served until [family-mesh] joined; 1 since, cut for the script's time).
+# The f32 check at 1 layer (≈ 34 GB over the ranks)
+MOE_MESH_LAYERS, MOE_MESH_F32_LAYERS = 1, 1
 MOE_MESH_PROMPT, MOE_MESH_TOKENS = 16, 16
 # the bf16 mesh's kept pairs in each MoE layer may differ from the one
 # card's by this share of the layer's routed pairs: its rank-order sums
@@ -4394,12 +4475,44 @@ MOE_MESH_PROMPT, MOE_MESH_TOKENS = 16, 16
 MOE_MESH_DROP_SLACK = 2e-3
 
 
+def train_twin(torch, dev, cfg, steps) -> dict:
+    """``[train]``'s run at ``cfg``'s depth on one card: the seed-0 tree
+    (the first layers of ``[train]``'s), the checksums of the blocks each
+    rank of the ZeRO-3 mesh keeps of it, then ``steps`` AdamW steps under
+    ``[train]``'s schedule on its batches: the losses, and
+    ``TRAIN_WITNESS``'s leaves before the first and after the last, on
+    the host."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.profile import TRAIN_B, TRAIN_LR, TRAIN_S, TRAIN_STEPS
+    from repro_torch.train import adamw, cosine_schedule, make_train_step
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    out = {"checksums": mesh_checksums(torch, params, zero=True),
+           "init": [leaf_at(params, k).cpu() for k in TRAIN_WITNESS],
+           "losses": []}
+    opt = adamw(schedule=cosine_schedule(
+        TRAIN_LR, warmup=TRAIN_STEPS // 10, total=TRAIN_STEPS))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16)
+    dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_at(dcfg, i).items()}
+        params, state, loss = step_fn(params, state, batch, i)
+        out["losses"].append(loss.item())
+    out["after"] = [leaf_at(params, k).cpu() for k in TRAIN_WITNESS]
+    del params, state, batch, loss
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
     """``[train-mesh]`` on one rank of make_test_mesh(2, 4) (SPMD), under
     ``SINGLE_POD_RULES`` with ZeRO-3 placement: the f32 gradient check at
     2 layers of full width (seed-1 draws; the loss and every gradient leaf,
     gathered whole by ``gather_tree``, saved by rank 0 to ``grads_path``
-    for the parent), then stablelm at full width and depth in bf16 from
+    for the parent), then stablelm at full width (TRAIN_MESH_LAYERS
+    layers) in bf16 from
     the card generator's seed-0 draws (this rank's blocks kept): their
     checksums, ``steps`` AdamW steps under ``[train]``'s cosine schedule on
     ``batch_at``'s stream, each with the counts zeroed before and read
@@ -4448,7 +4561,7 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
         del p32, grads, whole, batch
         torch.cuda.empty_cache()
 
-        # bf16 at full width and depth, ZeRO-3
+        # bf16 at full width, TRAIN_MESH_LAYERS layers, ZeRO-3
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
@@ -4554,10 +4667,11 @@ def k4_mesh_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed,
 
 def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     """``[train-mesh]``, after ``[train]`` with its weights freed:
-    stablelm-1.6b at full width and depth trained over make_test_mesh(2,
-    4), 8 ranks sharing this card over gloo, ZeRO-3 (``place_params(mesh,
-    zero=True)``), f32 masters, bf16 compute, AdamW, ``[train]``'s batch
-    (8 × 2,048, 4 rows a data rank)."""
+    stablelm-1.6b at full width, its first TRAIN_MESH_LAYERS layers,
+    trained over make_test_mesh(2, 4), 8 ranks sharing this card over
+    gloo, ZeRO-3 (``place_params(mesh, zero=True)``), f32 masters, bf16
+    compute, AdamW, ``[train]``'s batch (8 × 2,048, 4 rows a data rank);
+    held to the one card's run of the same layers (``train_twin``)."""
     import dataclasses
     import shutil
     import tempfile
@@ -4573,13 +4687,13 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     from repro_torch.train import make_grad_fn
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_MESH_LAYERS)
     small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
-    # the blocks' witness: [train]'s seed-0 tree cut as each rank cuts it
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    sums = mesh_checksums(torch, params, zero=True)
-    del params
-    torch.cuda.empty_cache()
+    # the blocks' and the steps' witness: the one card's run of the same
+    # layers (the seed-0 tree cut as each rank cuts it)
+    twin = train_twin(torch, dev, cfg, TRAIN_MESH_STEPS)
+    sums = twin["checksums"]
     # the one card's f32 answer on the same weights and batch, on the host
     grad_batch = {k: torch.from_numpy(v) for k, v in batch_at(DataConfig(
         cfg.vocab, GRAD_CHECK_S, GRAD_CHECK_B, seed=1), 0).items()}
@@ -4645,14 +4759,15 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
         check(not bad, f"[train-mesh] rank {r['coords']}: blocks differ "
               f"from the one-card tree at {bad[:3]}")
     log(f"[train-mesh] every rank's {len(reports[0]['checksums'])} ZeRO-3 "
-        f"blocks equal [train]'s seed-0 tree cut on both axes, by checksum; "
+        f"blocks equal [train]'s seed-0 tree (its first {cfg.n_layers} "
+        f"layers) cut on both axes, by checksum; "
         f"per rank {reports[0]['master_bytes'] / 1e9:.3f} GB of f32 masters, "
         f"built in {max(r['init_s'] for r in reports):.1f} s (peak "
         f"{max(r['init_peak_gib'] for r in reports):.2f} GiB)")
 
-    # bf16 at full depth: everything logged first, then the gates
+    # bf16: everything logged first, then the gates
     losses = [s["loss"] for s in reports[0]["steps"]]
-    one = train["losses"][:TRAIN_MESH_STEPS]
+    one = twin["losses"]
     t_step = float(np.mean([max(r["steps"][i]["s"] for r in reports)
                             for i in range(1, TRAIN_MESH_STEPS)]))
     tokens = TRAIN_B * TRAIN_S
@@ -4663,18 +4778,20 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     note = ("ranks share this one card over gloo (staged through host "
             "memory): these times measure that transport, not an "
             "interconnect")
-    log(f"[train-mesh] bf16 {cfg.name} at full width and depth ({cfg.n_layers}"
-        f" layers), ZeRO-3 over (data {MESH_DATA}, model {MESH_MODEL}), "
+    log(f"[train-mesh] bf16 {cfg.name} at full width, {cfg.n_layers} of its "
+        f"{full.n_layers} layers (cut for the script's time), ZeRO-3 over "
+        f"(data {MESH_DATA}, model {MESH_MODEL}), "
         f"AdamW under [train]'s cosine schedule, {TRAIN_MESH_STEPS} steps of "
         f"{TRAIN_B} × {TRAIN_S} tokens ({TRAIN_B // MESH_DATA} rows a data "
-        f"rank): losses {[round(x, 6) for x in losses]} against [train]'s "
-        f"{[round(x, 6) for x in one]} at the same steps (rel "
+        f"rank): losses {[round(x, 6) for x in losses]} against the one "
+        f"card's at the same depth {[round(x, 6) for x in one]} at the same "
+        f"steps (rel "
         f"{', '.join(f'{x:.2e}' for x in rel)}; tolerance "
         f"{TRAIN_MESH_LOSS_RTOL}); steps "
         f"1–{TRAIN_MESH_STEPS - 1}: {t_step:.3f} s/step (the slowest rank) "
         f"= {tokens / t_step:.1f} tokens/s (ceiling {ceiling * 1e3:.3f} ms "
         f"= {tokens / ceiling:.1f} tokens/s; {ceiling / t_step:.2%} of it; "
-        f"[train] on one card "
+        f"[train] on one card at {full.n_layers} layers "
         f"{np.mean(train['ms'][TRAIN_TIMED_FROM:]):.1f} ms/step); peak "
         f"{peak:.2f} GiB a rank; the f32 check {max(r['f32_s'] for r in reports):.1f} s, "
         f"step 0's gather of every gradient leaf "
@@ -4700,26 +4817,25 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
                   f"{cfg.n_layers}")
     # [train]'s own losses rise at step 2 under the schedule's warmup (its
     # last-below-first holds over its 10 steps), so the mesh's are held to
-    # [train]'s at each step, and its parameters after the last step to
-    # [train]'s after the same step
+    # the one card's at each step, and its parameters after the last step
+    # to the one card's after the same step
     ups = []
-    for keys, init, one_p, got_p in zip(TRAIN_WITNESS,
-                                        train["witness"]["init"],
-                                        train["witness"]["after"], witness):
+    for keys, init, one_p, got_p in zip(TRAIN_WITNESS, twin["init"],
+                                        twin["after"], witness):
         check(got_p.shape == one_p.shape, f"[train-mesh] {keys}: shape "
               f"{tuple(got_p.shape)}, not {tuple(one_p.shape)}")
         ups.append(float((got_p - one_p).norm() / (one_p - init).norm()))
     log(f"[train-mesh] after step {TRAIN_MESH_STEPS - 1}, "
-        f"‖mesh − [train]‖ / ‖[train] − init‖ of "
+        f"‖mesh − one card‖ / ‖one card − init‖ of "
         + ", ".join(f"{'/'.join(map(str, k))} {u:.4e}"
                     for k, u in zip(TRAIN_WITNESS, ups))
         + f" (tolerance {TRAIN_MESH_UPDATE_TOL})")
     check(all(np.isfinite(losses)) and max(rel) <= TRAIN_MESH_LOSS_RTOL,
-          f"[train-mesh] losses {losses} against [train]'s {one}: not "
+          f"[train-mesh] losses {losses} against the one card's {one}: not "
           f"finite or beyond {TRAIN_MESH_LOSS_RTOL}")
     check(all(u <= TRAIN_MESH_UPDATE_TOL for u in ups), f"[train-mesh] "
           f"parameters after step {TRAIN_MESH_STEPS - 1}: {ups} of "
-          f"[train]'s update, beyond {TRAIN_MESH_UPDATE_TOL}")
+          f"the one card's update, beyond {TRAIN_MESH_UPDATE_TOL}")
     bad = [n for n, (finite, nonzero) in out["flags"]
            if not (finite and nonzero)]
     check(len(out["flags"]) == len(reports[0]["checksums"]) and not bad,
@@ -4748,15 +4864,16 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     log(f"[train-mesh] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def in_turns(torch, mesh, draw):
-    """``draw()`` on one rank at a time, each emptying its cache after:
-    ``init_params(place=)`` draws every part whole before a rank keeps its
-    blocks, and eight ranks drawing llama4-scout's 8 GB f32 expert banks
-    at once would not fit on the card."""
+def in_turns(torch, mesh, draw, drawing: bool = True):
+    """``draw()`` on one rank at a time (the ranks with ``drawing``), each
+    emptying its cache after: ``init_params(place=)`` draws every part
+    whole before a rank keeps its blocks, and eight ranks drawing
+    llama4-scout's 8 GB f32 expert banks at once would not fit on the
+    card."""
     from repro_torch.dist import collectives as coll
     out = None
     for turn in range(mesh.size):
-        if turn == mesh.rank:
+        if turn == mesh.rank and drawing:
             out = draw()
             torch.cuda.synchronize(mesh.device)
             torch.cuda.empty_cache()
@@ -5102,6 +5219,642 @@ def moe_mesh_phase(torch, ops, dev, k4_row) -> None:
     del q, k, v
     torch.cuda.empty_cache()
     log(f"[moe-mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------------
+# [family-mesh]: MLA, SSD, the hybrid and the encoder–decoder served over the
+# (data, model) mesh as ranks on one card
+
+# deepseek-v3: 1 dense + 1 MoE layer of its 61 (first_k_dense 1, all 256
+# experts, 64 a model rank: ≈ 27.8 GB a copy, one a data line).  jamba:
+# one 8-sublayer period with 4 of its 16 experts, one a model rank (≈ 32.2
+# GB), on make_test_mesh(1, 4): two copies (≈ 64.4 GB) beside eight ranks'
+# prefill activations pass the card's 80 GB.  mamba2-130m and
+# seamless-m4t-large-v2 whole.  The f32 checks at 1 layer (deepseek: its
+# dense MLA layer), 2 (mamba2), 1 + 1 (seamless), and jamba's period cut to
+# 2 sublayers (SSD with the dense FFN, attention with the 4-expert MoE:
+# ≈ 18.6 GB; the 8-sublayer period is ≈ 64.6 GB in f32)
+FM_MLA_LAYERS = 2
+FM_HYB_EXPERTS = 4
+FM_F32_S, FM_F32_SRC = 128, 64       # the f32 prompt (a chunk), frames
+FM_WARM_S = 256                      # the warm-up prefill's positions
+FM_PROMPT, FM_TOKENS = 2, 2          # the decode: prompt, greedy tokens
+# random-weight SSD stacks amplify bf16 rounding chaotically, in the JAX
+# package as in the port (tests/test_torch_ssd_bf16_noise.py: mamba2-130m's
+# bf16 prefill on the CPU is 1.2e-2 / 3.6e-2 / 5.4e-2 / 0.637 of the
+# largest logit from its f32 twin at 1 / 2 / 4 / 24 layers in the
+# reference, 1.0e-2 / 1.9e-2 / 3.0e-2 / 0.713 in the port); on an H100
+# 80GB HBM3 at 700 W (scripts/ssd_bf16_noise.py) the one card reads
+# 8.1e-3–9.6e-3 (1 layer), 1.5e-2–2.8e-2 (2), 3.2e-2–4.3e-2 (4) and 0.945
+# (24), the mesh 0.95–1.23 times as far, the mesh to the one card
+# 6.7e-3–6.9e-3 at 1 layer, 1.0e-2 at 2 and 2.5e-2–3.6e-2 at 4.  So every
+# model's bf16 is held to the one card's at one layer (its f32 check's
+# first layer or period, the seed-1 weights in bf16) within 2e-2, the
+# attention stacks at the phase's depth within 2e-2 too, and mamba2's
+# first FM_SSD_DEPTH layers (the seed-0 tree's) to their f32 twin within
+# FM_SSD_TWIN_TOL, the mesh and the one card alike (the band the test
+# holds the reference and the port to at that depth; the mesh read
+# 4.65e-2 there, 1.49 times the one card's 3.12e-2); a whole SSD stack's
+# bf16 (mamba2's 24 layers, jamba's period of 7 SSD sublayers) is logged
+FM_SSD_STACKS = ("mamba2", "jamba")
+FM_SSD_DEPTH, FM_SSD_TWIN_TOL = {"mamba2": 4}, 0.1
+# the collective sites each family's prefill and decode must call
+FM_SITES = {
+    "deepseek": ({"attn.o", "ffn.down", "moe.combine"},
+                 {"decode.qkv", "decode.merge", "attn.o", "moe.combine"}),
+    "mamba2": ({"ssd.norm", "ssd.out"}, {"decode.ssd", "ssd.out"}),
+    "seamless": ({"attn.o", "xattn.o", "ffn.down"},
+                 {"decode.qkv", "decode.merge", "xattn.o", "ffn.down"}),
+    "jamba": ({"ssd.norm", "ssd.out", "attn.o", "ffn.down", "moe.combine"},
+              {"decode.ssd", "ssd.out", "decode.qkv", "decode.merge",
+               "moe.combine"}),
+}
+
+
+def family_mesh_models(get_config) -> list:
+    """(tag, bf16 config, f32 config, mesh (data, model)) of each model
+    ``[family-mesh]`` serves, in its order."""
+    import dataclasses
+    ds, mb, sm, jb = (get_config(a) for a in (
+        "deepseek_v3_671b", "mamba2_130m", "seamless_m4t_large_v2",
+        "jamba_1_5_large_398b"))
+    ds_moe = dataclasses.replace(ds.moe, first_k_dense=1)
+    jb_moe = dataclasses.replace(jb.moe, n_experts=FM_HYB_EXPERTS)
+    line = (MESH_DATA, MESH_MODEL)
+    return [
+        ("deepseek", dataclasses.replace(ds, n_layers=FM_MLA_LAYERS,
+                                         moe=ds_moe),
+         dataclasses.replace(ds, n_layers=1, moe=ds_moe), line),
+        ("mamba2", mb, dataclasses.replace(mb, n_layers=CHECK_LAYERS), line),
+        ("seamless", sm, dataclasses.replace(sm, n_layers=1,
+                                             n_encoder_layers=1), line),
+        ("jamba", dataclasses.replace(jb, n_layers=jb.attn_period,
+                                      moe=jb_moe),
+         dataclasses.replace(jb, n_layers=2, attn_period=2, attn_index=1,
+                             moe=jb_moe), (1, MESH_MODEL)),
+    ]
+
+
+def family_batches(torch, np, cfg, rng) -> tuple:
+    """(the prefill batch, the f32 check's batch, the decode's prompt) of
+    ``cfg``, CPU tensors from ``rng``: the prefill at [serve]'s 4 × 2,048
+    (an encoder–decoder's at [encdec]'s 1,024 frames + 1,024 tokens)."""
+    enc = cfg.family == "encdec"
+
+    def tokens(b, s):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+
+    def frames(b, s):
+        return torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32))
+    batch = {"tokens": tokens(PREFILL_B, ENCDEC_S if enc else PREFILL_S)}
+    f32 = {"tokens": tokens(SERVE_B, FM_F32_S)}
+    if enc:
+        batch["src_embeds"] = frames(PREFILL_B, ENCDEC_SRC)
+        f32["src_embeds"] = frames(SERVE_B, FM_F32_SRC)
+    return batch, f32, tokens(SERVE_B, FM_PROMPT)
+
+
+def tree_like(tree, fn):
+    """``fn`` of every leaf of a tree of dicts and lists, in its shape."""
+    if isinstance(tree, dict):
+        return {k: tree_like(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_like(v, fn) for v in tree]
+    return fn(tree)
+
+
+def drawn_over_data(torch, mesh, draw):
+    """``draw()`` on the first data line only, one rank at a time
+    (``in_turns``); each rank of the other line takes its model peer's
+    blocks (the lines hold the same ones) over "data", leaf by leaf
+    (``broadcast``): a rank drawing deepseek-v3's 22.6 GB MoE layer whole
+    in its turn beside seven ranks' blocks would need ≈ 78 GB."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.mesh import as_axis
+    first = mesh.coords["data"] == 0
+    tree = in_turns(torch, mesh, draw, drawing=first)
+    if mesh.shape["data"] == 1:
+        return tree
+    data = as_axis(mesh, "data")
+    like = coll.broadcast_objects(None if not first else tree_like(
+        tree, lambda x: (tuple(x.shape), str(x.dtype))), data)
+    if not first:
+        tree = tree_like(like, lambda sd: torch.empty(
+            sd[0], dtype=getattr(torch, sd[1].split(".")[-1]),
+            device=mesh.device))
+    tree = tree_like(tree, lambda x: coll.broadcast(x, data,
+                                                    site="init.copy"))
+    torch.cuda.synchronize(mesh.device)
+    return tree
+
+
+def family_mesh_job(mesh, models):
+    """``[family-mesh]`` on one rank of make_test_mesh(2, 4) (SPMD): each
+    model in turn (``family_model``) on the whole mesh, or, where its
+    mesh is (1, 4), on the first data line (``line_mesh``) while the
+    other line's ranks wait.  Rank 0 returns the gathered values;
+    every rank's reports come through ``gather_objects``."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.mesh import line_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"started": float(coll.pmax(torch.tensor(
+        [time.time()], dtype=torch.float64), mesh))}
+    line = line_mesh(mesh, "model", 0)
+    reports = []
+    for model in models:
+        on = mesh if model[-1] == tuple(mesh.shape.values()) else line
+        if on is not None:
+            reports.append(family_model(on, model, out))
+    out["reports"] = coll.gather_objects(reports, mesh)
+    return out
+
+
+def family_model(mesh, model, out):
+    """One model of ``[family-mesh]`` on ``mesh`` under
+    ``SINGLE_POD_RULES``: its plan; the f32 check (seed-1 draws of its f32
+    config: the prefill logits and MESH_F32_STEPS decode steps, gathered
+    whole, and the bf16 prefill logits of the same weights' first layer);
+    then bf16 from the card generator's seed-0 draws (every draw of the
+    one-card tree replayed, this rank's blocks kept), a warm-up prefill
+    of FM_WARM_S positions and a timed one (K4 and the collectives
+    counted), an SSD stack's first FM_SSD_DEPTH layers' prefill, a
+    warm-up decode step and a timed ``generate`` (an
+    encoder–decoder's steps attending the encoder's output of the
+    prefill's frames); then its weights freed.  The gathered values go
+    into ``out``; returns this rank's report."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import SINGLE_POD_RULES, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train import (make_decode_fn, make_prefill_step,
+                                   place_params)
+    from repro_torch.train.step import batch_rows, gather_rows
+    dev = mesh.device
+    tag, cfg, small, batch, f32_batch, prompt, _dims = model
+
+    def to(batch):
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    def counted(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll.reset_counts()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, dict(s=time.perf_counter() - t,
+                         launches=ops.launch_counts(),
+                         collectives=coll.counts(),
+                         peak_gib=torch.cuda.max_memory_allocated(dev)
+                         / 2**30)
+
+    t_model = time.perf_counter()
+    enc = cfg.family == "encdec"
+    report = {"coords": mesh.coords, "tag": tag}
+    with use_rules(SINGLE_POD_RULES, mesh):
+        tp = lm.tensor_parallel(cfg)
+        report["plan"] = {k: getattr(tp, k) for k in (
+            "hp", "heads", "kv", "kv_gather", "rows", "ffn", "vocab",
+            "experts", "ssd")}
+        # f32 at the check's depth: the mesh against the one card
+        p32 = drawn_over_data(torch, mesh, lambda: lm.init_params(
+            small, torch.Generator(device=dev).manual_seed(1),
+            place=place_params(mesh)))
+        fb = to(f32_batch)
+        out[tag, "f32_logits"] = make_prefill_step(
+            small, dtype=torch.float32)(p32, fb).cpu()
+        rows, spec = batch_rows(fb)
+        mem = (lm.encode(p32, rows["src_embeds"], small,
+                         dtype=torch.float32) if enc else None)
+        cache = lm.init_cache(small, SERVE_B, MESH_F32_STEPS,
+                              dtype=torch.float32, device=dev)
+        step = make_decode_fn(small, dtype=torch.float32,
+                              max_len=MESH_F32_STEPS)
+        tp32 = lm.tensor_parallel(small)
+        steps = []
+        for t in range(MESH_F32_STEPS):
+            logits, cache = step(p32, cache, rows["tokens"][:, t:t + 1],
+                                 t, mem)
+            (logits,) = lm.L.gather_cols([logits], tp32.axis(
+                tp32.vocab), site="check")
+            steps.append(gather_rows(logits, spec).cpu())
+        out[tag, "f32_steps"] = torch.cat(steps, 1)
+        out[tag, "check_logits"] = first_layer_bf16(torch, lm, small,
+                                                    p32, fb)
+        del p32, cache, logits, mem, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bf16 at the phase's depth
+        torch.cuda.synchronize(dev)
+        report["free_gib"] = torch.cuda.mem_get_info(dev)[0] / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        params = drawn_over_data(torch, mesh, lambda: lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            dtype=torch.bfloat16, place=place_params(mesh)))
+        report["init_s"] = time.perf_counter() - t
+        report["init_peak_gib"] = \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+        report["weight_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in lm.tree_leaves(params))
+        prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+        b = to(batch)
+        prefill_step(params, {k: v[:, :FM_WARM_S] for k, v in b.items()})
+        logits, report["prefill"] = counted(
+            lambda: prefill_step(params, b))
+        out[tag, "logits"] = logits.float().cpu()
+        if tag in FM_SSD_DEPTH:   # the first layers, held to their f32 twin
+            cut, p = first_layers(lm, cfg, params, FM_SSD_DEPTH[tag])
+            out[tag, "depth_logits"] = make_prefill_step(
+                cut, dtype=torch.bfloat16)(p, b).float().cpu()
+            del p
+        memory = None
+        if enc:                   # the encoder's output of the frames
+            rows, spec = batch_rows(b)
+            memory = gather_rows(lm.encode(
+                params, rows["src_embeds"], cfg, dtype=torch.bfloat16),
+                spec)
+            del rows
+        p = prompt.to(dev)
+        generate(params, cfg, p[:, :1], 1, dtype=torch.bfloat16,
+                 memory=memory)
+        served, report["decode"] = counted(lambda: generate(
+            params, cfg, p, FM_TOKENS, dtype=torch.bfloat16,
+            memory=memory))
+        out[tag, "served"] = served._replace(
+            tokens=served.tokens.cpu(),
+            prompt_logits=served.prompt_logits.float().cpu())
+        del params, memory, logits, b, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["model_s"] = time.perf_counter() - t_model
+    return report
+
+
+def first_layers(lm, cfg, params, n=None) -> tuple:
+    """``cfg`` and ``params`` cut to their first ``n`` layers (by default
+    the first layer: a hybrid's first period, an encoder–decoder's first
+    encoder and decoder layers; a model's layers are drawn in order, so
+    the cut tree is the first layers' draws)."""
+    import dataclasses
+    one = dataclasses.replace(cfg, n_layers=min(n or cfg.attn_period or 1,
+                                                cfg.n_layers),
+                              n_encoder_layers=min(cfg.n_encoder_layers, 1))
+    counts = dict(lm.layer_groups(one))
+    return one, {k: v[:counts[k[2:]]] if k.startswith("g_") else v
+                 for k, v in params.items()}
+
+
+def first_layer_bf16(torch, lm, cfg, params, batch):
+    """The bf16 prefill logits (on the host) of ``params``' first layer
+    (``first_layers``) cast to bf16 (``as_bf16``), on ``batch``; the cut
+    tree and its cast live only here."""
+    from repro_torch.train import make_prefill_step
+    one, p1 = first_layers(lm, cfg, params)
+    return make_prefill_step(one, dtype=torch.bfloat16)(
+        as_bf16(torch, p1), batch).float().cpu()
+
+
+def as_bf16(torch, tree):
+    """``tree`` with its matrices in bf16 and its vectors (norm scales,
+    biases, SSD's per-head leaves) as they are, as ``init_params(...,
+    dtype=torch.bfloat16)`` keeps them; block by block on a rank, the
+    same bits as the whole tree's."""
+    return tree_like(tree, lambda t: t.to(torch.bfloat16) if t.dim() >= 2
+                     else t)
+
+
+def family_one_card(torch, dev, cfg, small, batch, f32_batch, prompt,
+                    depth=None) -> dict:
+    """The one card's answers ``[family-mesh]`` holds the mesh to, on the
+    same draws: f32 (seed 1, ``small``) prefill logits on ``f32_batch`` and
+    MESH_F32_STEPS decode steps' logits, and the bf16 prefill logits of
+    the same weights' first layer (``first_layers``); bf16 (seed 0,
+    ``cfg``) prefill logits on ``batch``, where ``depth`` is given those
+    of its first ``depth`` layers and of their f32 twin, and the greedy
+    tokens after ``prompt``."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import encode, init_cache, init_params, lm
+    from repro_torch.models import tree_leaves
+    from repro_torch.train import make_decode_fn, make_prefill_step
+
+    def to(b):
+        return {k: v.to(dev) for k, v in b.items()}
+    enc = cfg.family == "encdec"
+    out = {}
+    p32 = init_params(small, torch.Generator(device=dev).manual_seed(1))
+    fb = to(f32_batch)
+    out["f32_logits"] = make_prefill_step(small, dtype=torch.float32)(
+        p32, fb).cpu()
+    mem = encode(p32, fb["src_embeds"], small, dtype=torch.float32) \
+        if enc else None
+    cache = init_cache(small, SERVE_B, MESH_F32_STEPS, dtype=torch.float32,
+                       device=dev)
+    step = make_decode_fn(small, dtype=torch.float32)
+    steps = []
+    for t in range(MESH_F32_STEPS):
+        logits, cache = step(p32, cache, fb["tokens"][:, t:t + 1], t, mem)
+        steps.append(logits.cpu())
+    out["f32_steps"] = torch.cat(steps, 1)
+    out["check_logits"] = first_layer_bf16(torch, lm, small, p32, fb)
+    del p32, cache, mem, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    out["weight_bytes"] = sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params))
+    b = to(batch)
+    out["logits"] = make_prefill_step(cfg, dtype=torch.bfloat16)(
+        params, b).float().cpu()
+    if depth:                 # the first layers and their f32 twin
+        cut, p = first_layers(lm, cfg, params, depth)
+        out["depth_logits"] = make_prefill_step(cut, dtype=torch.bfloat16)(
+            p, b).float().cpu()
+        out["depth_twin"] = make_prefill_step(cut, dtype=torch.float32)(
+            tree_like(p, lambda t: t.float()), b).cpu()
+        del p
+    memory = encode(params, b["src_embeds"], cfg, dtype=torch.bfloat16) \
+        if enc else None
+    out["tokens"] = generate(params, cfg, prompt.to(dev), FM_TOKENS,
+                             dtype=torch.bfloat16,
+                             memory=memory).tokens.cpu()
+    del params, memory, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_k4(torch, ops, F, dev, tag, B, H, Hkv, Dqk, Dv, nope, seed,
+              Sq=None, Skv=None, causal=True) -> dict:
+    """K4 at a rank's shape (bf16; q of Sq rows over Skv keys, causal or
+    not, both PREFILL_S by default; MLA's v a slice of kv_b's rows, as
+    ``mla_attention`` passes it)
+    against its plain version (``k4_yardstick``: p in f32 within 2e-2,
+    and with p rounded to bf16 as the kernel rounds it, within 2e-2 too),
+    its profiler device time beside ``scaled_dot_product_attention``'s
+    and its bound; q, k and v laid out as the model passes them (heads
+    the second dim of a (B, S, heads, ·) tensor; v after ``nope`` columns
+    of each head's row)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Sq, Skv = Sq or PREFILL_S, Skv or PREFILL_S
+
+    def heads(h, s, d, skip=0):
+        return torch.randn(B, s, h, skip + d, generator=gen, device=dev,
+                           dtype=torch.bfloat16)[..., skip:].transpose(1, 2)
+    q, k, v = heads(H, Sq, Dqk), heads(Hkv, Skv, Dqk), heads(Hkv, Skv, Dv,
+                                                            nope)
+    err, err_r, _ms, plain, _lib, _got = k4_yardstick(torch, ops, F, q, k,
+                                                      v, causal)
+    what = f"{tag}'s rank shape ({'causal' if causal else 'not causal'}, " \
+        f"Sq {Sq}, Skv {Skv})"
+    check(err_r <= 2e-2, f"[family-mesh] K4 at {what}: max |d| "
+          f"{err_r:.3e} to the plain version with p in bf16")
+    times = k4_rank_times(torch, ops, F, q, k, v, causal)
+    assert Sq == Skv or not causal     # a causal mask aligned top-left
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+    flops = 2 * (Dqk + Dv) * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * H * Sq * Dv)
+    bms, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    rec = dict(model=tag, shape=[B, H, Hkv, Sq, Skv, Dqk, Dv],
+               causal=causal, max_abs_err=err, max_abs_err_p_bf16=err_r,
+               ms=times["k4_device"], plain_ms=plain, bound_ms=bms,
+               bound_by=by, library_ms=times["sdpa_device"],
+               timed_by="profiler device time")
+    log(f"[K4] {what} q {tuple(q.shape)} k {tuple(k.shape)} v "
+        f"{tuple(v.shape)}: max |d| {err:.3e} (p in bf16: {err_r:.3e}); "
+        f"device time {rec['ms']:.4f} ms/launch = "
+        f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}), "
+        f"{bms / rec['ms']:.1%} of it; plain {plain:.3f} ms; "
+        f"scaled_dot_product_attention device time "
+        f"{rec['library_ms']:.4f} ms; {times}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_mesh_phase(torch, ops, dev, rows) -> None:
+    """``[family-mesh]``, after ``[vlm]`` with every earlier phase's
+    weights freed: deepseek-v3 (MLA + MoE), mamba2-130m (SSD) and
+    seamless-m4t-large-v2 (encoder–decoder) served tensor- and
+    sequence-parallel over make_test_mesh(2, 4), 8 ranks sharing this card
+    over gloo in one spawn, then jamba (the hybrid) on that spawn's first
+    data line, a (1, 4) mesh; each at published width in bf16
+    (FM_* give the depths), held to the one card's answers on the same
+    draws."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import run_on_ranks
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    models, want, cfgs, positions = [], {}, {}, {}
+    for tag, cfg, small, dims in family_mesh_models(get_config):
+        batch, f32_batch, prompt = family_batches(torch, np, cfg, rng)
+        positions[tag] = sum(x.shape[1] for x in batch.values())
+        t = time.perf_counter()
+        want[tag] = family_one_card(torch, dev, cfg, small, batch,
+                                    f32_batch, prompt, FM_SSD_DEPTH.get(tag))
+        cfgs[tag] = (cfg, small, dims)
+        log(f"[family-mesh] {tag}: the one card's answers on the same draws "
+            f"({want[tag]['weight_bytes'] / 1e9:.3f} GB of bf16 weights) in "
+            f"{time.perf_counter() - t:.1f} s")
+        models.append((tag, cfg, small, batch, f32_batch, prompt, dims))
+
+    # K4 at the MLA and jamba ranks' prefill shapes, alone on the card
+    ds, jb = cfgs["deepseek"][0], cfgs["jamba"][0]
+    m = ds.mla
+    k4_mla = family_k4(torch, ops, F, dev, "deepseek",
+                       PREFILL_B // MESH_DATA, ds.n_heads // MESH_MODEL,
+                       ds.n_heads // MESH_MODEL, m.nope_dim + m.rope_dim,
+                       m.v_dim, m.nope_dim, 41)
+    k4_hyb = family_k4(torch, ops, F, dev, "jamba", PREFILL_B,
+                       jb.n_heads // MESH_MODEL,
+                       max(1, jb.n_kv_heads // MESH_MODEL), jb.hd, jb.hd, 0,
+                       42)
+    # seamless's ranks: the encoder's self-attention and the decoder's
+    # cross-attention not causal (ENCDEC_S tokens over ENCDEC_SRC frames,
+    # both 1,024), the decoder's self-attention causal, the decode's
+    # cross-attention one q row over the memory's frames
+    sm = cfgs["seamless"][0]
+    sm_rank = (sm.n_heads // MESH_MODEL,
+               max(1, sm.n_kv_heads // MESH_MODEL), sm.hd, sm.hd, 0)
+    k4_sm = [family_k4(torch, ops, F, dev, "seamless", b, *sm_rank, seed,
+                       Sq=sq, Skv=skv, causal=c)
+             for b, sq, skv, c, seed in (
+                 (PREFILL_B // MESH_DATA, ENCDEC_S, ENCDEC_SRC, False, 43),
+                 (PREFILL_B // MESH_DATA, ENCDEC_S, ENCDEC_S, True, 44),
+                 (SERVE_B // MESH_DATA, 1, ENCDEC_SRC, False, 45))]
+
+    note = ("ranks share this one card over gloo (staged through host "
+            "memory): these times measure that transport, not an "
+            "interconnect")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[family-mesh] before the spawn: {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free on the card, this process "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} reserved")
+    t, wall = time.perf_counter(), time.time()
+    out = run_on_ranks(family_mesh_job, make_test_mesh(MESH_DATA, MESH_MODEL),
+                       models, timeout=900)
+    log(f"[family-mesh] {MESH_DATA * MESH_MODEL} ranks of make_test_mesh("
+        f"{MESH_DATA}, {MESH_MODEL}) on this card over gloo in one spawn "
+        f"(each model on the mesh its line below names, a (1, "
+        f"{MESH_MODEL}) one on the first data line's ranks): "
+        f"{time.perf_counter() - t:.1f} s, of which "
+        f"{out['started'] - wall:.1f} s until every rank ran")
+    reports = [r for rank in out["reports"] for r in rank]
+    got = {k: v for k, v in out.items() if isinstance(k, tuple)}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    # each model's K4 launches go to the row of its head dims (deepseek
+    # MLA's 192/128, seamless's D 64, jamba's D 128); mamba2 has none
+    row = {r["name"]: r for r in rows}
+    row = {"deepseek": row["flash_attention_mla"],
+           "seamless": row["flash_attention_encdec"],
+           "jamba": row["flash_attention"]}
+    launches, by_phase = dict.fromkeys(row, 0), {}
+    for tag, (cfg, small, dims) in cfgs.items():
+        mine = [r for r in reports if r["tag"] == tag]
+        w = want[tag]
+        e_pre = rel(got[tag, "f32_logits"], w["f32_logits"])
+        e_dec = rel(got[tag, "f32_steps"], w["f32_steps"])
+        check(e_pre <= 1e-4 and e_dec <= 1e-4, f"[family-mesh] {tag} f32: "
+              f"the mesh's logits are {e_pre:.3e} (prefill) and {e_dec:.3e} "
+              "(decode) of the largest from the one card's")
+        e_check = rel(got[tag, "check_logits"], w["check_logits"])
+        check(e_check <= 2e-2, f"[family-mesh] {tag} bf16 at one layer: "
+              f"prefill logits {e_check:.3e} of the largest from the one "
+              "card's")
+        e_bf16 = rel(got[tag, "logits"], w["logits"])
+        check(got[tag, "logits"].shape == w["logits"].shape and bool(
+            torch.isfinite(got[tag, "logits"]).all()) and (
+                e_bf16 <= 2e-2 or tag in FM_SSD_STACKS),
+            f"[family-mesh] {tag} bf16 prefill logits {e_bf16:.3e} of the "
+            "largest from the one card's")
+        depth = ""
+        if tag in FM_SSD_DEPTH:      # the first layers against their twin
+            n = FM_SSD_DEPTH[tag]
+            one = rel(w["depth_logits"], w["depth_twin"])
+            on_mesh = rel(got[tag, "depth_logits"], w["depth_twin"])
+            to_one = rel(got[tag, "depth_logits"], w["depth_logits"])
+            check(max(one, on_mesh) <= FM_SSD_TWIN_TOL, f"[family-mesh] "
+                  f"{tag}'s first {n} layers in bf16 against their f32 "
+                  f"twin: the one card {one:.3e}, the mesh {on_mesh:.3e} "
+                  f"(at most {FM_SSD_TWIN_TOL})")
+            depth = (f"; its first {n} layers' bf16 prefill logits to their "
+                     f"f32 twin (tolerance {FM_SSD_TWIN_TOL}): the one card "
+                     f"{one:.3e}, the mesh {on_mesh:.3e} "
+                     f"({on_mesh / one:.2f}x), the mesh to the one card "
+                     f"{to_one:.3e}")
+        served = got[tag, "served"]
+        check(served.finite and served.tokens.shape == (SERVE_B, FM_TOKENS)
+              and int(served.tokens.max()) < cfg.vocab, f"[family-mesh] "
+              f"{tag} decode output")
+        agree = int((served.tokens == w["tokens"]).sum())
+        # K4: once an attention layer a rank in prefill (MLA on its own
+        # row); in decode only the cross-attention, once a decoder layer
+        k4_pre = {"deepseek": cfg.n_layers, "mamba2": 0, "jamba": 1,
+                  "seamless": cfg.n_encoder_layers + 2 * cfg.n_layers}[tag]
+        k4_dec = cfg.n_layers * served.steps if tag == "seamless" else 0
+        pre_sites, dec_sites = FM_SITES[tag]
+        for r in mine:
+            for phase, n, sites in (("prefill", k4_pre, pre_sites),
+                                    ("decode", k4_dec, dec_sites)):
+                ran = {k: v for k, v in r[phase]["launches"].items() if v}
+                check(ran == ({"flash_attention": n} if n else {}),
+                      f"[family-mesh] {tag} rank {r['coords']} {phase} "
+                      f"launched {ran}, not K4 {n} times")
+                check(sites <= set(r[phase]["collectives"]), f"[family-mesh]"
+                      f" {tag} rank {r['coords']} {phase} called no "
+                      f"{sorted(sites - set(r[phase]['collectives']))}")
+            plan = r["plan"]
+            split = {"deepseek": plan["heads"][1] == plan["hp"] // MESH_MODEL
+                     and plan["experts"] and plan["rows"],
+                     "mamba2": plan["ssd"],
+                     "jamba": plan["ssd"] and plan["experts"],
+                     "seamless": plan["heads"][1] == plan["hp"] // MESH_MODEL
+                     and plan["ffn"]}[tag]
+            check(split and plan["vocab"], f"[family-mesh] {tag} rank "
+                  f"{r['coords']}: plan {plan}")
+        if tag in launches:
+            by_phase[tag] = [sum(r[ph]["launches"].get("flash_attention", 0)
+                                 for r in mine)
+                             for ph in ("prefill", "decode")]
+            launches[tag] = sum(by_phase[tag])
+        t_pre = max(r["prefill"]["s"] for r in mine)
+        ms_step = max(r["decode"]["s"] for r in mine) * 1e3 / served.steps
+        B, S = got[tag, "logits"].shape[0], positions[tag]
+        log(f"[family-mesh] {tag} ({cfg.name}, {cfg.n_layers} layers"
+            + (f" + {cfg.n_encoder_layers} encoder layers" if
+               cfg.n_encoder_layers else "")
+            + f" at published width) on make_test_mesh{dims}: f32 at the "
+            f"check's depth ({small.n_layers} layers"
+            + (f", a period of {small.attn_period}" if small.attn_period
+               else "")
+            + f") prefill logits {e_pre:.3e} and {MESH_F32_STEPS} decode "
+            f"steps' {e_dec:.3e} of the largest |logit| from the one "
+            f"card's (tolerance 1e-4); bf16 prefill {B} x {S} positions "
+            f"({B // dims[0]} rows a data rank) {t_pre * 1e3:.1f} ms (the "
+            f"slowest rank), logits {e_bf16:.3e} of the largest from the "
+            f"one card's ("
+            + ("a random SSD stack at depth: logged" if tag in FM_SSD_STACKS
+               else "tolerance 2e-2") + f"{depth});"
+            f" at one layer in bf16 {e_check:.3e} (tolerance 2e-2); decode "
+            f"B={SERVE_B}, prompt "
+            f"{FM_PROMPT} + {FM_TOKENS} greedy tokens: {ms_step:.3f} "
+            f"ms/token-step (the slowest rank), every logit finite; "
+            f"{agree} of {served.tokens.numel()} greedy tokens equal the "
+            f"one card's (not gated); K4 {k4_pre} launches a rank in "
+            f"prefill, {k4_dec} in decode; {note}")
+        for r in mine:
+            sites = {ph: {site: (round(c["seconds"], 4), c["bytes"],
+                                 c["calls"])
+                          for site, c in r[ph]["collectives"].items()}
+                     for ph in ("prefill", "decode")}
+            log(f"[family-mesh] {tag} rank {r['coords']}: weights "
+                f"{r['weight_bytes'] / 1e9:.3f} GB built in "
+                f"{r['init_s']:.1f} s (peak {r['init_peak_gib']:.2f} GiB; "
+                f"{r['free_gib']:.2f} GiB free on the card before); "
+                f"prefill {r['prefill']['s'] * 1e3:.1f} ms, decode "
+                f"{r['decode']['s'] * 1e3 / served.steps:.3f} ms/token-step,"
+                f" peak {r['prefill']['peak_gib']:.2f} / "
+                f"{r['decode']['peak_gib']:.2f} GiB; {r['model_s']:.1f} s "
+                f"in all; collectives (seconds, bytes, calls) by site "
+                f"{json.dumps(sites)}; plan {json.dumps(r['plan'])}")
+
+    for tag, n in launches.items():
+        row[tag]["launches"] += n
+    row["deepseek"]["mesh_shape"] = dict(k4_mla, launches=launches[
+        "deepseek"])
+    row["jamba"]["family_mesh_shape"] = dict(k4_hyb, launches=launches[
+        "jamba"])
+    # seamless's prefill launches at its two shapes: the encoder's and
+    # the cross-attention's not causal, the decoder's causal (checked a
+    # rank above); its decode's at Sq = 1
+    pre, dec = by_phase["seamless"]
+    ranks = pre // (sm.n_encoder_layers + 2 * sm.n_layers)
+    row["seamless"]["family_mesh_shapes"] = [
+        dict(rec, launches=n) for rec, n in zip(k4_sm, (
+            ranks * (sm.n_encoder_layers + sm.n_layers),
+            ranks * sm.n_layers, dec))]
+    log(f"[family-mesh] K4 launches on the ranks' paths: {launches} "
+        f"(rows flash_attention_mla, flash_attention_encdec, "
+        f"flash_attention); phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -5679,13 +6432,7 @@ def main() -> int:
           and int(served.tokens.max()) < cfg.vocab, "decode output")
     ms_step = served.seconds * 1e3 / served.steps
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-    # [lm-mesh]'s witness: this one-card run, its blocks' checksums and
-    # the same weights' f32 twin (the one card's own bf16 error)
-    witness = dict(tokens=tokens.cpu(), logits=logits.float().cpu(),
-                   prompt=prompt.cpu(), served_tokens=served.tokens.cpu(),
-                   prompt_logits=served.prompt_logits.float().cpu(),
-                   checksums=mesh_checksums(torch, params))
-    witness.update(f32_twin(torch, cfg, params, tokens, prompt))
+    witness = lm_mesh_witness(torch, cfg, params, tokens, prompt)
     log(f"[serve] B={SERVE_B}, prompt {SERVE_PROMPT} + {SERVE_TOKENS} tokens: "
         f"{served.steps} steps in {served.seconds:.3f} s = {ms_step:.3f} "
         f"ms/token-step (floor: {step_bytes / 1e9:.3f} GB of weights per "
@@ -5798,6 +6545,9 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8f
     rows.append(vlm_phase(torch, ops, dev))
+
+    # ---------------------------------------------------------- phase 8f'
+    family_mesh_phase(torch, ops, dev, rows)
 
     # ---------------------------------------------------------- phase 8g
     train = train_phase(torch, ops, dev)

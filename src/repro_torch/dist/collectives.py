@@ -6,7 +6,8 @@ the axis-wide reductions the shared stage and engine bodies call
 (``psum``, ``pmax``, ``pmin``, ``axis_index``; each the identity when
 ``axis`` is None, so one body serves one device and a mesh), the two
 wire primitives of the mirror exchanges (``all_to_all`` over equal lanes
-and ``ring_hop`` to rank ± d) and the gathers to rank 0.  The lint's
+and ``ring_hop`` to rank ± d), the gathers to rank 0 and the broadcasts
+from a root (a copy of blocks one rank holds, ``broadcast``).  The lint's
 RAW-COLLECTIVE rule (``python -m repro_torch.analysis``) holds that no
 other module of the port calls ``torch.distributed``.
 
@@ -299,6 +300,29 @@ def gather_objects(obj, axis) -> list | None:
     out = [None] * axis.size if axis.rank == 0 else None
     dist.gather_object(obj, out, dst=_global(axis, 0), group=axis.group)
     return out
+
+
+def broadcast(x, axis, root: int = 0, *, site: str):
+    """Rank ``root``'s ``x`` written into ``x`` on every other rank of
+    ``axis`` (each passes a tensor of its shape and dtype, whose values
+    are overwritten); returns ``x``.  Root's payload counts once for each
+    other rank."""
+    raw = _as_bytes(x[None])
+    nbytes = raw.numel() * (axis.size - 1) if axis.rank == root else 0
+    with _Timed(axis, site, nbytes, "broadcast"):
+        h = _host(axis, raw)
+        dist.broadcast(h, src=_global(axis, root), group=axis.group)
+    if axis.rank != root:
+        x.copy_(h.to(x.device).view(x.dtype).reshape(x.shape))
+    return x
+
+
+def broadcast_objects(obj, axis, root: int = 0):
+    """Rank ``root``'s picklable ``obj`` on every rank of ``axis``."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_global(axis, root),
+                               group=axis.group)
+    return box[0]
 
 
 def reduce_scatter(x, axis, dim: int = 0, *, site: str):

@@ -245,6 +245,27 @@ def as_axis(mesh: Mesh, axis: str) -> Mesh:
                 ranks=members)
 
 
+def line_mesh(mesh: Mesh, axis: str, index: int = 0) -> Mesh | None:
+    """The ``index``-th line of a bound multi-axis mesh along ``axis``
+    (``axis_lines``' order) as a mesh of its own: ``axis`` at its size on
+    the line's group, every other axis of size 1 on a one-rank group;
+    its whole-mesh collectives run on the line's group.  None on a rank
+    off the line.  Every rank of ``mesh`` calls it, in one order: it
+    makes one group a rank of the line (``new_group`` is collective)."""
+    members = axis_lines(mesh.shape, axis)[index]
+    singles = [coll.new_group([r], GROUP_TIMEOUT_S) for r in members]
+    if mesh.rank not in members:
+        return None
+    line = as_axis(mesh, axis)
+    single = (singles[line.rank], (mesh.rank,))
+    return replace(mesh, size=line.size, rank=line.rank, group=line.group,
+                   ranks=line.ranks,
+                   dims=tuple(line.size if a == axis else 1
+                              for a in mesh.axes),
+                   lines=tuple((line.group, line.ranks) if a == axis
+                               else single for a in mesh.axes))
+
+
 # ------------------------------------------------------------- spawning
 
 def _rank_main(rank, mesh, store, job, results, threads):

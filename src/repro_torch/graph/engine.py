@@ -1094,20 +1094,31 @@ def reference_cc(src, dst, num_vertices) -> np.ndarray:
 
 
 def _reference_relax(src, dst, num_vertices, iters, source, weights):
-    """Bellman-Ford oracle iterating the engine's exact per-round
-    relaxation, so it matches at any iteration count; unreachable
-    vertices keep CC_SENTINEL."""
+    """Bellman-Ford oracle giving the engine's exact per-round relaxation,
+    so it matches at any iteration count; unreachable vertices keep
+    CC_SENTINEL.  A round relaxes only the out-edges of the vertices the
+    last round lowered: every other edge's candidate is the one it gave
+    the round before, which its head already holds."""
     src = np.asarray(src, dtype=np.int64)
-    by_dst = _MinByDst(np.asarray(dst, dtype=np.int64))
+    dst = np.asarray(dst, dtype=np.int64)
+    weights = np.asarray(weights, dtype=np.int64)
+    order = np.argsort(src, kind="stable")
+    starts = np.r_[0, np.cumsum(np.bincount(src, minlength=num_vertices))]
     dist = np.full(num_vertices, CC_SENTINEL, dtype=np.int64)
     dist[source] = 0
+    front = np.array([source], dtype=np.int64)
     for _ in range(iters):
-        du = dist[src]
-        cand = np.where(du < CC_SENTINEL,
-                        np.minimum(du, CC_SENTINEL - 64) + weights,
-                        CC_SENTINEL)
-        dist = by_dst.into(dist.copy(), cand)
-        dist[source] = 0
+        if not front.size:
+            break
+        n = starts[front + 1] - starts[front]
+        at = np.repeat(starts[front] - np.cumsum(n) + n, n) \
+            + np.arange(n.sum())
+        e = order[at]
+        cand = np.minimum(dist[src[e]], CC_SENTINEL - 64) + weights[e]
+        new = _MinByDst(dst[e]).into(dist.copy(), cand)
+        new[source] = 0
+        front = np.flatnonzero(new != dist)
+        dist = new
     return dist
 
 

@@ -30,7 +30,8 @@ import torch
 
 from ..kernels.flash_attention import (NEG_INF, flash_attention,
                                        flash_attention_plain)
-from .layers import Params, apply_rope, linear, linear_init, round_up
+from .layers import (Params, apply_rope, linear, linear_init, linear_rows,
+                     round_up)
 
 
 def gqa_init(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
@@ -103,24 +104,27 @@ def full_attention(q, k, v, *, causal: bool,
 # ------------------------------------------------------------------- MLA
 
 def mla_init(gen, d_model: int, n_heads: int, *, q_lora: int, kv_lora: int,
-             nope_dim: int, rope_dim: int, v_dim: int,
+             nope_dim: int, rope_dim: int, v_dim: int, pad_heads_to: int = 1,
              dtype=torch.float32) -> Params:
     """The reference's tree: ``q_a`` (D, q_lora), ``q_b`` (q_lora,
-    H·(nope + rope)), ``kv_a`` (D, kv_lora + rope), ``kv_b`` (kv_lora,
-    H·(nope + v)), ``o`` (H·v, D); no biases, no latent norms."""
+    Hp·(nope + rope)), ``kv_a`` (D, kv_lora + rope), ``kv_b`` (kv_lora,
+    Hp·(nope + v)), ``o`` (Hp·v, D); no biases, no latent norms.  Hp is
+    ``n_heads`` padded to a multiple of ``pad_heads_to``; the padded
+    heads are drawn like the others, as the reference draws them."""
+    hp = round_up(n_heads, pad_heads_to)
     return {
         "q_a": linear_init(gen, d_model, q_lora, dtype=dtype),
-        "q_b": linear_init(gen, q_lora, n_heads * (nope_dim + rope_dim),
+        "q_b": linear_init(gen, q_lora, hp * (nope_dim + rope_dim),
                            dtype=dtype),
         "kv_a": linear_init(gen, d_model, kv_lora + rope_dim, dtype=dtype),
-        "kv_b": linear_init(gen, kv_lora, n_heads * (nope_dim + v_dim),
+        "kv_b": linear_init(gen, kv_lora, hp * (nope_dim + v_dim),
                             dtype=dtype),
-        "o": linear_init(gen, n_heads * v_dim, d_model, dtype=dtype),
+        "o": linear_init(gen, hp * v_dim, d_model, dtype=dtype),
     }
 
 
 def mla_attention(p: Params, x, *, n_heads, q_lora, kv_lora, nope_dim,
-                  rope_dim, v_dim, positions, causal=True):
+                  rope_dim, v_dim, positions, causal=True, axis=None):
     """DeepSeek-V3 Multi-head Latent Attention in the decompressed form:
     x (B, S, D) → (B, S, D).  ``q_b(q_a(x))`` splits into nope and rope
     heads, ``kv_a(x)`` into the latent and one shared rope head, and
@@ -128,7 +132,15 @@ def mla_attention(p: Params, x, *, n_heads, q_lora, kv_lora, nope_dim,
     parts, as the reference applies it.  The shared rope head is
     broadcast into every head of k (materialised, as the reference does),
     and the attention is K4 at (nope + rope, v) head dims, scale
-    1/sqrt(nope + rope), reading v in place as a slice of kv_b's rows."""
+    1/sqrt(nope + rope), reading v in place as a slice of kv_b's rows.
+
+    ``n_heads`` are the heads this call attends, the columns of ``q_b``
+    and ``kv_b`` it is given.  Under a mesh (``axis``, the bound "model"
+    axis) they are this rank's block of the padded heads: ``q_a`` and
+    ``kv_a`` are whole on every rank, the shared rope head is broadcast
+    into the rank's heads only, and ``o`` (its rows of those heads) is
+    row-parallel, the partial products summed over the axis in rank order
+    (``attn.o``)."""
     B, S, _ = x.shape
     q = linear(p["q_b"], linear(p["q_a"], x)).reshape(
         B, S, n_heads, nope_dim + rope_dim)
@@ -145,4 +157,5 @@ def mla_attention(p: Params, x, *, n_heads, q_lora, kv_lora, nope_dim,
     out = flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
                           v.transpose(1, 2), causal=causal,
                           sm_scale=scale).transpose(1, 2)
-    return linear(p["o"], out.reshape(B, S, n_heads * v_dim))
+    return linear_rows(p["o"], out.reshape(B, S, n_heads * v_dim), axis,
+                       site="attn.o")

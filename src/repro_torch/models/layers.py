@@ -92,21 +92,23 @@ def linear_rows(p: Params, x, axis, *, site: str):
 
 
 def gather_cols(ys: list, axis, *, site: str, alike: bool = False) -> list:
-    """Column-parallel products (each this rank's columns of its whole)
-    → the whole products, each the ranks' columns joined in rank order,
-    in one all-gather; ``ys`` as they are when ``axis`` is None.  The
+    """Column-parallel products (each this rank's columns of its whole;
+    their leading dims may differ) → the whole products, each the ranks'
+    columns joined in rank order, in one all-gather; ``ys`` as they are
+    when ``axis`` is None.  The
     gradient is reduce-scattered back to the columns (the ranks use
     different parts of the whole), or cut to them where every rank uses
     the whole ``alike``."""
     if axis is None:
         return list(ys)
-    g = coll.all_gather_grad(torch.cat(ys, -1)[None], axis, 0, site=site,
-                             alike=alike)
+    g = coll.all_gather_grad(torch.cat([y.reshape(-1) for y in ys])[None],
+                             axis, 0, site=site, alike=alike)
     out, at = [], 0
     for y in ys:
-        w = y.shape[-1]
-        out.append(torch.cat(list(g[..., at:at + w].unbind(0)), -1))
-        at += w
+        n = y.numel()
+        parts = g[:, at:at + n].reshape(axis.size, *y.shape)
+        out.append(torch.cat(list(parts.unbind(0)), -1))
+        at += n
     return out
 
 
@@ -114,11 +116,23 @@ def rmsnorm_init(d: int, device=None) -> Params:
     return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
 
 
-def rmsnorm(p: Params, x, eps: float = 1e-6):
+def rmsnorm(p: Params, x, eps: float = 1e-6, *, axis=None,
+            site: str = "norm"):
+    """RMSNorm in f32 over x's last dim.  ``axis``: x holds this rank's
+    columns of rows split evenly over it, and ``p`` the whole scale; the
+    mean of squares is the ranks' sums of squares summed in rank order
+    (``site``) over the whole width, each rank scaling its columns."""
     xf = x.to(torch.float32)
-    var = xf.square().mean(-1, keepdim=True)
+    scale = p["scale"]
+    if axis is None:
+        var = xf.square().mean(-1, keepdim=True)
+    else:
+        n = x.shape[-1]
+        var = coll.psum(xf.square().sum(-1, keepdim=True), axis,
+                        site=site) / (n * axis.size)
+        scale = scale[axis.rank * n:(axis.rank + 1) * n]
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    return (y * scale.to(torch.float32)).to(x.dtype)
 
 
 def layernorm_init(d: int, device=None) -> Params:

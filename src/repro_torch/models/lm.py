@@ -61,12 +61,15 @@ loss (``lm_loss``, ``forward_train``) is the reference's chunked
 cross-entropy, each chunk's logits recomputed in the backward.
 
 Under a mesh (an active ``dist.sharding.use_rules(rules, mesh)`` on a
-bound mesh with a "model" axis; the dense GQA families, qwen2 and the
-like, the VLM, and llama4-scout's MoE family for serving) each rank
-holds its blocks of the parameters
-(``train.shardings.param_specs``: columns of q, k, v, gate and up, rows
-of o and down, rows of the embedding table, columns of ``lm_head``, each
-split over "model" where it divides) and runs on its batch rows; the
+bound mesh with a "model" axis; every family serves there: the dense GQA
+families, qwen2 and the like, the VLM, MoE, MLA, SSD, the hybrid and the
+encoder–decoder) each rank holds its blocks of the parameters
+(``train.shardings.param_specs``: columns of q, k, v, gate and up, of
+MLA's ``q_b`` and ``kv_b`` and of SSD's ``x_proj`` and ``z_proj``, rows
+of o, down and ``out_proj``, rows of the embedding table, columns of
+``lm_head``, each split over "model" where it divides; ``q_a``,
+``kv_a``, ``bc_proj``, ``dt_proj`` and every 1-D leaf whole) and runs on
+its batch rows; the
 step builders (``train.step``) and the launcher (``launch.serve``) split
 the batch over "data" and gather what comes back.  PyTorch has no GSPMD,
 so at each of the reference's ``shard`` points the collective its
@@ -113,6 +116,29 @@ named by call site (``TensorParallel`` holds the decisions):
   every rank attends its block for every head and the partials are
   merged (``dist.decode``, ``decode.merge``); each rank keeps its own
   heads' rows for the row-parallel o.
+- MLA (``repro/models/attention.py:127-166``, no ``shard`` point: its
+  weights' placement decides): the heads are padded to a multiple of
+  ``mp`` (drawn like the others) and must divide the axis.  In prefill
+  each rank forms its heads' q, k and v (the shared rope head broadcast
+  into them only) and attends them on K4; ``o`` is row-parallel
+  (``attn.o``).  In decode the latent and rope caches are split over
+  the sequence; each rank's q_lat and q_rope are gathered in one call
+  (``decode.qkv``), every rank attends every head over its block and
+  the partials are merged (``decode.merge``); the rank keeps its heads'
+  rows of the latent output for its W_uv and its rows of o.
+- SSD (``repro/models/mamba.py:9-10``, the ``ssd`` body's ``shard`` at
+  ``lm.py:227``): ``models.mamba``'s module docstring — the scan over the
+  rank's heads, the gated norm's sum of squares summed (``ssd.norm``),
+  ``out_proj`` row-parallel (``ssd.out``); decode gathers x's and z's
+  columns (``decode.ssd``) and keeps the whole state on every model
+  rank, as ``cache_specs`` places it.  A hybrid period runs its SSD,
+  GQA and (expert-parallel) MoE sublayers as above.
+- The encoder–decoder: the encoder's layers are the non-causal GQA
+  block, the FFN split; the cross-attention (``:267-280``) takes q at the
+  heads this rank attends, k and v from the memory (whole on every model
+  rank, its batch rows) under the self-attention's KV decisions, and
+  attends non-causally on K4, at Sq = S in prefill and Sq = 1 in decode;
+  its o is row-parallel (``xattn.o``).
 
 Training under a mesh (the dense GQA families) takes the gradient
 through every one of these points (``layers``' module docstring gives
@@ -127,10 +153,10 @@ table and ``lm_head`` are gathered once a step, outside the loss's
 chunk checkpoints.
 
 bf16 partial sums are added in rank order in f32 and rounded once, where
-the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  MLA,
-SSD, the hybrid and the encoder–decoder raise under a mesh (MLA's
-tensor-parallel path is not ported), MoE raises there when a gradient
-is taken, and so do context-parallel rules (``CP_SERVE_RULES``).
+the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  Under a
+mesh a gradient through MoE (ROADMAP Queue 1 item 1.1) or through the
+layers of MLA, SSD, hybrid and encoder–decoder models (item 2) raises,
+and so do context-parallel rules (``CP_SERVE_RULES``, item 1.5).
 """
 from __future__ import annotations
 
@@ -215,19 +241,13 @@ def _norm(cfg, p, x):
     return L.rmsnorm(p, x) if cfg.norm == "rmsnorm" else L.layernorm(p, x)
 
 
-def _require_unpadded_mla(cfg: ModelConfig, mp: int) -> None:
-    if cfg.mla is not None and mp != 1:
-        raise ValueError(f"{cfg.name}: MLA with padded heads (mp={mp}) is "
-                         "part of MLA's tensor-parallel path, not ported")
-
-
 def _attn_init(cfg: ModelConfig, gen, dtype, mp: int) -> Params:
     if cfg.mla is not None:
-        _require_unpadded_mla(cfg, mp)
         m = cfg.mla
         return A.mla_init(gen, cfg.d_model, cfg.n_heads, q_lora=m.q_lora,
                           kv_lora=m.kv_lora, nope_dim=m.nope_dim,
-                          rope_dim=m.rope_dim, v_dim=m.v_dim, dtype=dtype)
+                          rope_dim=m.rope_dim, v_dim=m.v_dim,
+                          pad_heads_to=mp, dtype=dtype)
     return A.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                       cfg.qkv_bias, dtype, pad_heads_to=mp)
 
@@ -352,7 +372,6 @@ def param_count(cfg: ModelConfig, mp: int = 1) -> int:
     """Number of parameters of ``init_params(cfg, ..., mp=mp)``, from the
     config alone."""
     require_ported(cfg)
-    _require_unpadded_mla(cfg, mp)
     return 2 * cfg.padded_vocab * cfg.d_model + _norm_param_count(cfg) + sum(
         count * _layer_param_count(cfg, group, mp)
         for group, count in layer_groups(cfg))
@@ -380,6 +399,7 @@ class TensorParallel:
     vocab: bool = False          # table rows and lm_head columns split
     experts: bool = False        # the expert banks split (by expert)
     shared: bool = False         # the shared expert's columns/rows split
+    ssd: bool = False            # SSD x/z columns and out_proj rows split
 
     @property
     def kv_cols(self) -> bool:
@@ -407,36 +427,46 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
     are split over "model" where ``train.shardings.param_specs`` splits
     them and the dim divides; q and k/v activations follow the rules'
     "heads" and ``kv_heads(_sharded)`` tags, as the reference's ``shard``
-    points resolve them.  Raises for what does not run under a mesh (a
-    gradient through MoE there raises in ``_ffn_apply``)."""
-    _require_unpadded_mla(cfg, mp)
+    points resolve them; MLA's heads (``q_b``'s and ``kv_b``'s columns,
+    ``o``'s rows) must divide the axis, as the reference's padding to
+    ``mp`` makes them.  Raises for context-parallel rules (a gradient
+    under a mesh raises in ``_run_layer`` and ``_ffn_apply``)."""
     hp, n_kv, hd = L.round_up(cfg.n_heads, mp), cfg.n_kv_heads, cfg.hd
     whole = TensorParallel(hp, n_kv, hd, heads=(0, hp), kv=(0, n_kv))
     ctx = active_rules()
     if ctx is None:
         return whole
     rules, mesh = ctx
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla:
-        raise ValueError(f"{cfg.name}: under a mesh only the dense GQA "
-                         "families and GQA MoE run (MLA's tensor-parallel "
-                         "path and the SSD, hybrid and encoder–decoder "
-                         "families are not ported)")
     if rules.get("seq") is not None:
         raise ValueError("context-parallel rules (the sequence on a mesh "
-                         "axis) are not ported")
+                         "axis) are not ported (ROADMAP Queue 1 item 1.5)")
     n = mesh.shape.get("model", 1)
     if n == 1:
         return whole
+    if cfg.mla is not None and hp % n:
+        raise ValueError(f"{cfg.name}: {hp} MLA heads (padded to a "
+                         f"multiple of mp={mp}) do not divide the {n} "
+                         "ranks of the model axis")
     if not mesh.bound:
         raise ValueError("a model runs on a bound mesh (inside a rank)")
     model = as_axis(mesh, "model")
+    r = model.rank
+    mo, s = cfg.moe, cfg.ssm
+    d_inner = s.expand * cfg.d_model if s is not None else 0
+    split = dict(ffn=cfg.d_ff % n == 0, vocab=cfg.padded_vocab % n == 0,
+                 experts=mo is not None and mo.n_experts % n == 0,
+                 shared=mo is not None
+                 and mo.n_shared * mo.d_expert % n == 0,
+                 ssd=s is not None and d_inner % n == 0)
+    if cfg.mla is not None:
+        return TensorParallel(hp, n_kv, hd, model, (r * hp // n, hp // n),
+                              kv=(0, n_kv), rows=True, **split)
     heads_on = active_spec((1, 1, hp, hd), "batch", "seq", "heads", None)[2]
     kv_tag = "kv_heads_sharded" if n_kv % mp == 0 else "kv_heads"
     kv_on = active_spec((1, 1, n_kv, hd), "batch", None, kv_tag, None)[2]
     if {heads_on, kv_on} - {None, "model"}:
         raise ValueError(f"heads on {heads_on!r} and KV heads on {kv_on!r}: "
                          "only the model axis is ported")
-    r = model.rank
     heads = (r * hp // n, hp // n) if heads_on else (0, hp)
     kv = (r * n_kv // n, n_kv // n) if kv_on else (0, n_kv)
     reps = -(-hp // n_kv)           # expand_kv's map
@@ -444,15 +474,10 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
                       and (sum(heads) - 1) // reps < sum(kv)):
         kv, kv_on = (0, n_kv), None   # the heads read KV heads held elsewhere
     rows = hp * hd % n == 0
-    mo = cfg.moe
     return TensorParallel(hp, n_kv, hd, model, heads,
                           q_gather=rows and not heads_on, kv=kv,
                           kv_gather=n_kv * hd % n == 0 and not kv_on,
-                          rows=rows, ffn=cfg.d_ff % n == 0,
-                          vocab=cfg.padded_vocab % n == 0,
-                          experts=mo is not None and mo.n_experts % n == 0,
-                          shared=mo is not None
-                          and mo.n_shared * mo.d_expert % n == 0)
+                          rows=rows, **split)
 
 
 # ---------------------------------------------------------------- blocks
@@ -470,12 +495,14 @@ def _attend(q, k, v, tp: TensorParallel, causal: bool):
 
 
 def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
-                *, every_head: bool = False):
+                *, every_head: bool = False, kv_x=None):
     """x (B, S, d_model) → q, k, v (B, S, heads, Dh), RoPE applied to q
-    and k: this rank's columns of q, k and v (each with its columns of the
-    bias), then one all-gather over the model axis of those that must come
-    back whole — in prefill q where its heads are not split (``q_gather``)
-    and k/v where their columns are split and their heads not
+    and k (none where ``positions`` is None); k and v from ``kv_x`` (B,
+    Skv, d_model) where it is given (a cross-attention's memory, whole on
+    every model rank): this rank's columns of q, k and v (each with its
+    columns of the bias), then one all-gather over the model axis of those
+    that must come back whole — in prefill q where its heads are not split
+    (``q_gather``) and k/v where their columns are split and their heads not
     (``kv_gather``): q at the heads this rank attends, k/v at the KV heads
     it holds; with ``every_head`` (decode, whose cache keeps heads whole)
     every split one, so q, k and v come back at every head.
@@ -486,9 +513,14 @@ def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
     gradient summed over "model" (``copy_grad``) and the gathers
     reduce-scatter theirs; otherwise every rank runs the whole attention
     alike and a gather keeps the rank's slice of its gradient."""
-    B, S, _ = x.shape
+    B = x.shape[0]
     part = tp.axis(tp.rows)
     x = coll.copy_grad(x, part, site="attn.in")
+    if kv_x is None:
+        kv_x = x
+    else:
+        kv_x = coll.copy_grad(kv_x, part, site="attn.mem")
+    src = {"q": x, "k": kv_x, "v": kv_x}
     split = {"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols}
 
     def shared(n):                  # a projection every rank holds whole
@@ -496,7 +528,7 @@ def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
             return p[n]
         return {k: coll.copy_grad(t, part, site="attn.kv")
                 for k, t in p[n].items()}
-    y = {n: L.linear_cols(shared(n), x, tp.axis(s))
+    y = {n: L.linear_cols(shared(n), src[n], tp.axis(s))
          for n, s in split.items()}
     whole = ({"q": tp.rows, "k": tp.kv_cols, "v": tp.kv_cols} if every_head
              else {"q": tp.q_gather, "k": tp.kv_gather, "v": tp.kv_gather})
@@ -506,7 +538,10 @@ def gqa_project(p, x, tp: TensorParallel, positions, rope_theta: float,
             [y[n] for n in names], tp.model,
             site="decode.qkv" if every_head else "attn.qkv",
             alike=part is None)))
-    q, k, v = (y[n].reshape(B, S, -1, tp.hd) for n in ("q", "k", "v"))
+    q, k, v = (y[n].reshape(B, y[n].shape[1], -1, tp.hd)
+               for n in ("q", "k", "v"))
+    if positions is None:
+        return q, k, v
     return (L.apply_rope(q, positions, rope_theta),
             L.apply_rope(k, positions, rope_theta), v)
 
@@ -515,10 +550,11 @@ def _self_attention(p, x, cfg: ModelConfig, tp: TensorParallel, positions,
                     causal: bool = True):
     if cfg.mla is not None:
         m = cfg.mla
-        return A.mla_attention(p, x, n_heads=cfg.n_heads, q_lora=m.q_lora,
+        return A.mla_attention(p, x, n_heads=tp.heads[1], q_lora=m.q_lora,
                                kv_lora=m.kv_lora, nope_dim=m.nope_dim,
                                rope_dim=m.rope_dim, v_dim=m.v_dim,
-                               positions=positions, causal=causal)
+                               positions=positions, causal=causal,
+                               axis=tp.axis(tp.rows))
     q, k, v = gqa_project(p, x, tp, positions, cfg.rope_theta)
     out = _attend(q, k, v, tp, causal)
     return L.linear_rows(p["o"], tp.o_input(out), tp.axis(tp.rows),
@@ -529,23 +565,25 @@ def _cross_attention(p, x, memory, cfg: ModelConfig, tp: TensorParallel):
     """A decoder layer's attention over the encoder's output: q from x
     (B, S, D) with no RoPE, k and v from ``memory`` (B, Sm, D) at the KV
     heads, non-causal on K4 (Sq = S, Skv = Sm; the group folded in the
-    kernel).  The memory is cast to x's dtype first (the reference
-    promotes a mixed pair instead; the two agree where they match, as in
-    every caller here)."""
-    B, S, _ = x.shape
-    mem = memory.to(x.dtype)
-    Sm = mem.shape[1]
-    q = L.linear(p["q"], x).reshape(B, S, tp.hp, cfg.hd)
-    k = L.linear(p["k"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
-    v = L.linear(p["v"], mem).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)
-    return L.linear(p["o"], _attend(q, k, v, tp, causal=False))
+    kernel), in prefill and in a decode step (S = 1) alike.  The memory is
+    cast to x's dtype first (the reference promotes a mixed pair instead;
+    the two agree where they match, as in every caller here).  Under a
+    mesh q is at the heads this rank attends and k/v under the
+    self-attention's KV decisions (``gqa_project``, the memory whole on
+    every model rank), and o is row-parallel (``xattn.o``)."""
+    q, k, v = gqa_project(p, x, tp, None, cfg.rope_theta,
+                          kv_x=memory.to(x.dtype))
+    return L.linear_rows(p["o"], tp.o_input(_attend(q, k, v, tp,
+                                                     causal=False)),
+                         tp.axis(tp.rows), site="xattn.o")
 
 
 def _ffn_apply(p, x, cfg: ModelConfig, tp: TensorParallel, kind: str):
     if kind == "moe":
         if active_rules() is not None and _needs_grad(x, p):
             raise ValueError(f"{cfg.name}: a gradient through MoE under a "
-                             "mesh is not ported (serving only)")
+                             "mesh is not ported (serving only; ROADMAP "
+                             "Queue 1 item 1.1)")
         mo = cfg.moe
         return M.moe_apply(p, x, n_experts=mo.n_experts, top_k=mo.top_k,
                            capacity_factor=mo.capacity_factor,
@@ -562,8 +600,9 @@ def _block(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
     return x + _ffn_apply(lp["ffn"], _norm(cfg, lp["ln2"], x), cfg, tp, kind)
 
 
-def _ssd_apply(p, x, cfg: ModelConfig):
-    return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk)
+def _ssd_apply(p, x, cfg: ModelConfig, tp: TensorParallel):
+    return SSM.ssd_apply(p, x, **_ssd_dims(cfg), chunk=cfg.ssm.chunk,
+                         axis=tp.axis(tp.ssd))
 
 
 def gather_blocks(tree, plan):
@@ -593,7 +632,7 @@ def _layer(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
     are gathered first, here, inside the layer's checkpoint."""
     lp = gather_blocks(lp, plan)
     if group == "ssd":
-        return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg)
+        return x + _ssd_apply(lp["ssd"], _norm(cfg, lp["ln1"], x), cfg, tp)
     if group == "enc":
         return _block(x, lp, cfg, tp, positions, "ffn", causal=False)
     if group == "dec":
@@ -601,13 +640,15 @@ def _layer(x, lp, cfg: ModelConfig, tp: TensorParallel, positions,
                                 tp, positions)
         x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
                                  memory, cfg, tp)
-        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
+        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x),
+                         tp.axis(tp.ffn))
     if group != "hyb":
         return _block(x, lp, cfg, tp, positions, _kind(group))
     for i, sub in enumerate(lp["sub"]):
         h = _norm(cfg, sub["ln1"], x)
         x = x + (_self_attention(sub["attn"], h, cfg, tp, positions)
-                 if i == cfg.attn_index else _ssd_apply(sub["ssd"], h, cfg))
+                 if i == cfg.attn_index else _ssd_apply(sub["ssd"], h, cfg,
+                                                        tp))
         x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg, tp,
                            _sub_kind(cfg, i))
     return x
@@ -643,8 +684,16 @@ def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, tp, memory=None,
                plan=None):
     """One layer; when a gradient is being taken, inside a non-reentrant
     checkpoint (only its inputs — the blocks as this rank holds them —
-    are saved; it runs again in the backward, its ZeRO gathers too)."""
+    are saved; it runs again in the backward, its ZeRO gathers too).
+    Under a mesh a gradient through MLA, SSD, hybrid or encoder–decoder
+    layers raises: their collectives carry none."""
     if _needs_grad(x, lp, memory):
+        if active_rules() is not None and (
+                cfg.mla is not None or group in ("ssd", "hyb", "enc", "dec")):
+            raise ValueError(f"{cfg.name}: a gradient through its "
+                             f"{'MLA' if cfg.mla else group} layers under "
+                             "a mesh is not ported (ROADMAP Queue 1 item 2:"
+                             " the other families' gradients)")
         return checkpoint(_layer, x, lp, cfg, tp, pos, group, memory, plan,
                           use_reentrant=False)
     return _layer(x, lp, cfg, tp, pos, group, memory, plan)
@@ -807,34 +856,48 @@ def _attn_decode(lp, x, ck, cv, cfg: ModelConfig, tp: TensorParallel,
                          tp.axis(tp.rows), site="attn.o")
 
 
-def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int):
-    """The absorbed form: x (B, 1, D); clat (B, Smax, kv_lora) and crope
-    (B, Smax, rope), written in place at index.  q_nope is taken into the
-    latent space through W_uk and the latent output out of it through
-    W_uv (both split out of ``kv_b``), in f32; the result is cast to x's
-    dtype before ``o``."""
-    m = cfg.mla
-    B, H = x.shape[0], cfg.n_heads
+def _mla_decode(lp, x, clat, crope, cfg: ModelConfig, index: int,
+                tp: TensorParallel | None = None,
+                max_len: int | None = None):
+    """The absorbed form: x (B, 1, D); clat (B, Sl, kv_lora) and crope
+    (B, Sl, rope), this rank's block of the caches (the whole on one
+    device), written in place at index by its owner.  q_nope is taken
+    into the latent space through W_uk and the latent output out of it
+    through W_uv (both split out of ``kv_b``), in f32; the result is cast
+    to x's dtype before ``o``.  Under a mesh each rank forms q_lat and
+    q_rope at its heads, the two are gathered over "model" in one call
+    (``decode.qkv``), every rank attends every head over its block and
+    the partials are merged (``decode.merge``); the rank keeps its heads'
+    rows of o_lat for its W_uv and its rows of the row-parallel o.
+    ``tp``: the plan (``tensor_parallel(cfg)`` when None)."""
+    m, tp = cfg.mla, tp or tensor_parallel(cfg)
+    (B, h0, hl), axis = (x.shape[0], *tp.heads), tp.axis(tp.rows)
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
     q = L.linear(lp["q_b"], L.linear(lp["q_a"], x)).reshape(
-        B, 1, H, m.nope_dim + m.rope_dim)
+        B, 1, hl, m.nope_dim + m.rope_dim)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    q_rope = L.apply_rope(q_rope, pos)
+    q_rope = L.apply_rope(q_rope, pos)[:, 0].to(torch.float32)
     kv = L.linear(lp["kv_a"], x)
     lat_row, k_rope_row = kv[..., :m.kv_lora], kv[..., m.kv_lora:]
     k_rope_row = L.apply_rope(k_rope_row[:, :, None, :], pos)[:, :, 0, :]
-    clat = DEC.sp_latent_cache_update(clat, lat_row, index)
-    crope = DEC.sp_latent_cache_update(crope, k_rope_row, index)
-    # W_uk (kv_lora, H, nope) and W_uv (kv_lora, H, v)
-    wkv = lp["kv_b"]["w"].reshape(m.kv_lora, H, m.nope_dim + m.v_dim)
+    clat = DEC.sp_latent_cache_update(clat, lat_row, index, max_len=max_len)
+    crope = DEC.sp_latent_cache_update(crope, k_rope_row, index,
+                                       max_len=max_len)
+    # W_uk (kv_lora, H, nope) and W_uv (kv_lora, H, v) at this rank's heads
+    wkv = lp["kv_b"]["w"].reshape(m.kv_lora, hl, m.nope_dim + m.v_dim)
     w_uk, w_uv = wkv[..., :m.nope_dim], wkv[..., m.nope_dim:]
     q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0].to(torch.float32),
                          w_uk.to(torch.float32))
+    if axis is not None:
+        q_lat, q_rope = (t.reshape(B, tp.hp, -1) for t in L.gather_cols(
+            [q_lat.reshape(B, -1), q_rope.reshape(B, -1)], axis,
+            site="decode.qkv", alike=True))
     o_lat = DEC.sp_decode_attention_latent(
-        q_lat, q_rope[:, 0], clat, crope, index, nope_dim=m.nope_dim,
-        rope_dim=m.rope_dim)
+        q_lat, q_rope, clat, crope, index, nope_dim=m.nope_dim,
+        rope_dim=m.rope_dim, max_len=max_len)[:, h0:h0 + hl]
     o = torch.einsum("bhc,chv->bhv", o_lat, w_uv.to(torch.float32))
-    return L.linear(lp["o"], o.reshape(B, 1, H * m.v_dim).to(x.dtype))
+    return L.linear_rows(lp["o"], o.reshape(B, 1, hl * m.v_dim).to(x.dtype),
+                         axis, site="attn.o")
 
 
 def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
@@ -844,20 +907,23 @@ def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
     ``i`` the layer's row in it.  A hybrid period's SSD sublayers take the
     rows of its state in order; a decoder layer attends ``memory`` on K4
     at Sq = 1, its k and v recomputed from it (as in the reference)."""
+    ssd = tp.axis(tp.ssd)
     if group == "ssd":
         return x + SSM.ssd_decode_step(lp["ssd"], _norm(cfg, lp["ln1"], x),
-                                       c["state"][i], **_ssd_dims(cfg))[0]
+                                       c["state"][i], **_ssd_dims(cfg),
+                                       axis=ssd)[0]
     if group == "dec":
         x = x + _attn_decode(lp["attn"], _norm(cfg, lp["ln1"], x), c["k"][i],
                              c["v"][i], cfg, tp, index, max_len)
         x = x + _cross_attention(lp["xattn"], _norm(cfg, lp["ln2"], x),
                                  memory, cfg, tp)
-        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x))
+        return x + L.ffn(lp["ffn"], _norm(cfg, lp["ln3"], x),
+                         tp.axis(tp.ffn))
     if group != "hyb":
         h = _norm(cfg, lp["ln1"], x)
         if cfg.mla is not None:
             x = x + _mla_decode(lp["attn"], h, c["lat"][i], c["rope"][i],
-                                cfg, index)
+                                cfg, index, tp, max_len)
         else:
             x = x + _attn_decode(lp["attn"], h, c["k"][i], c["v"][i], cfg,
                                  tp, index, max_len)
@@ -869,7 +935,7 @@ def _decode_layer(x, lp, c, i: int, cfg: ModelConfig, group: str,
         x = x + (_attn_decode(sub["attn"], h, c["k"][i], c["v"][i], cfg,
                               tp, index, max_len) if j == cfg.attn_index else
                  SSM.ssd_decode_step(sub["ssd"], h, next(states),
-                                     **_ssd_dims(cfg))[0])
+                                     **_ssd_dims(cfg), axis=ssd)[0])
         x = x + _ffn_apply(sub["ffn"], _norm(cfg, sub["ln2"], x), cfg, tp,
                            _sub_kind(cfg, j))
     return x

@@ -24,13 +24,32 @@ Where the port and the reference differ:
 - ``ssd_chunked`` raises ``ValueError`` where the reference's ``assert``
   raises ``AssertionError``.
 - ``ssd_decode_step`` writes the state in place and returns it.
+
+Under a mesh (``axis``, the bound "model" axis; ``models.lm`` passes it
+where ``train.shardings.param_specs`` splits ``x_proj``'s and
+``z_proj``'s columns and ``out_proj``'s rows over it) a rank holds its
+columns of d_inner; ``bc_proj``, ``dt_proj`` and the per-head vectors are
+whole on every rank.  Where the heads divide the axis prefill runs the
+scan over the rank's heads only (the
+reference's docstring: no collective inside the scan), ``dt_proj``'s
+output and ``A_log``, ``D`` and ``dt_bias`` cut to them; the gated
+RMSNorm's sum of squares is summed over the axis in rank order
+(``ssd.norm``) and divided by the whole d_inner.  Otherwise, and in every
+decode step (``cache_specs`` keeps the SSM state whole on every model
+rank), x's and z's columns are gathered in one call (``ssd.xz``,
+``decode.ssd``) and every rank runs the whole layer alike, the state's
+same bits on each.  Either way ``out_proj`` is row-parallel: the rank's
+rows of the normalised y, the partial products summed over the axis in
+rank order (``ssd.out``).  No gradient runs through these collectives
+(``models.lm`` refuses one under a mesh).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, linear, linear_init, rmsnorm, rmsnorm_init
+from .layers import (Params, gather_cols, linear, linear_init, linear_rows,
+                     rmsnorm, rmsnorm_init)
 
 NEG_BIG = -1e30      # the reference's mask value for the upper triangle
 
@@ -141,32 +160,62 @@ def ssd_reference(x, dt, A, B, C, D):
     return y + x * D[None, None, :, None]
 
 
+def _block(n: int, axis) -> slice:
+    """This rank's block of n (heads or columns) split over ``axis``; the
+    whole when ``axis`` is None."""
+    if axis is None:
+        return slice(0, n)
+    m = n // axis.size
+    return slice(axis.rank * m, (axis.rank + 1) * m)
+
+
+def _gated_norm_out(p: Params, y, z, d_inner: int, axis, part):
+    """``rmsnorm(y · silu(z))`` over the whole d_inner, then ``out_proj``.
+    ``part`` (the axis y's and z's columns are split over, or None where
+    they are whole): the mean of squares is the ranks' sums of squares
+    summed in rank order over the whole d_inner, each rank scaling its
+    columns.  ``axis``: ``out_proj``'s rows split over it (the rank's
+    columns of a whole y are cut first); None on one device."""
+    g = rmsnorm(p["norm"], y * F.silu(z), axis=part, site="ssd.norm")
+    if axis is not None and part is None:
+        g = g[..., _block(d_inner, axis)]
+    return linear_rows(p["out_proj"], g, axis, site="ssd.out")
+
+
 def ssd_apply(p: Params, x, *, d_inner: int, d_state: int, head_dim: int,
-              chunk: int = 128):
+              chunk: int = 128, axis=None):
     """Full Mamba-2 block (no conv1d, as in the reference): in-projections
     → SSD in f32 → gated RMSNorm → out-projection.  x: (B, S, d_model).
     y is cast to x's dtype before the ``silu(z)`` gate and the norm, in the
-    reference's order."""
+    reference's order.  ``axis``: the mesh's split (module docstring)."""
     n_heads = d_inner // head_dim
     xi, z, B, C, dt = _project(p, x, d_state)
+    part = axis if axis is not None and n_heads % axis.size == 0 else None
+    if axis is not None and part is None:
+        xi, z = gather_cols([xi, z], axis, site="ssd.xz", alike=True)
+    hs = _block(n_heads, part)
     bsz, S, _ = xi.shape
-    xi = xi.reshape(bsz, S, n_heads, head_dim)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"].to(torch.float32))
+    xi = xi.reshape(bsz, S, -1, head_dim)
+    dt = F.softplus(dt[..., hs].to(torch.float32)
+                    + p["dt_bias"][hs].to(torch.float32))
+    A = -torch.exp(p["A_log"][hs].to(torch.float32))
     y = ssd_chunked(xi.to(torch.float32), dt, A, B.to(torch.float32),
-                    C.to(torch.float32), p["D"].to(torch.float32),
+                    C.to(torch.float32), p["D"][hs].to(torch.float32),
                     chunk=chunk)
-    y = y.reshape(bsz, S, d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y)
+    y = y.reshape(bsz, S, -1).to(x.dtype)
+    return _gated_norm_out(p, y, z, d_inner, axis, part)
 
 
 def ssd_decode_step(p: Params, x, state, *, d_inner: int, d_state: int,
-                    head_dim: int):
+                    head_dim: int, axis=None):
     """Single-token decode: x (B, 1, d_model), state (B, H, N, dh) f32,
-    written in place.  Returns (y (B, 1, d_model), state)."""
+    every head, written in place.  Returns (y (B, 1, d_model), state).
+    Under a mesh (``axis``) x's and z's columns are gathered first and
+    ``out_proj`` is row-parallel (module docstring)."""
     n_heads = d_inner // head_dim
     xi, z, B, C, dt = _project(p, x, d_state)
+    if axis is not None:
+        xi, z = gather_cols([xi, z], axis, site="decode.ssd", alike=True)
     bsz = xi.shape[0]
     xi = xi.reshape(bsz, n_heads, head_dim).to(torch.float32)
     B, C = B[:, 0].to(torch.float32), C[:, 0].to(torch.float32)
@@ -179,5 +228,4 @@ def ssd_decode_step(p: Params, x, state, *, d_inner: int, d_state: int,
     y = torch.einsum("bn,bhnd->bhd", C, state)
     y = y + xi * p["D"].to(torch.float32)[None, :, None]
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y), state
+    return _gated_norm_out(p, y, z, d_inner, axis, None), state

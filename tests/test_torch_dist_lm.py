@@ -64,6 +64,11 @@ MODELS = (("gathered_kv", 2, 4), ("divisible_kv", 4, 4),
 MOE_MODELS = (("moe_no_drop", 8, 8.0), ("moe_default", 8, None),
               ("moe_whole", 6, None))
 MOE_MP = 4
+# the families whose serving paths run on a bound mesh since MLA, SSD, the
+# hybrid and the encoder–decoder joined (their runs are
+# test_torch_dist_families.py's)
+FAMILY_ARCHS = ("deepseek_v3_671b", "mamba2_130m", "jamba_1_5_large_398b",
+                "seamless_m4t_large_v2")
 
 
 def _t(a):
@@ -290,16 +295,12 @@ def test_meshes_match_the_reference_constants(monkeypatch):
 
 @pytest.mark.parametrize("arch", [a for a in ALL_ARCHS])
 def test_param_count_with_padded_heads_matches_reference(arch):
-    """``param_count(cfg, mp)`` counts the reference's padded tree; MLA
-    with padded heads (its tensor-parallel path) raises."""
+    """``param_count(cfg, mp)`` counts the reference's padded tree, MLA's
+    padded heads included (``q_b``, ``kv_b`` and ``o`` at Hp heads)."""
     from repro import configs as jconfigs
     from repro.models import lm as JLM
     cfg = configs.get_config(arch)
     for mp in (1, 8, 16):
-        if cfg.mla is not None and mp > 1:
-            with pytest.raises(ValueError, match="MLA"):
-                lm.param_count(cfg, mp)
-            continue
         assert lm.param_count(cfg, mp) == JLM.param_count(
             jconfigs.get_config(arch), mp)
 
@@ -375,20 +376,36 @@ def test_pipeline_reference_apply_matches_reference():
                                atol=2e-5)
 
 
-def test_the_mesh_refuses_what_is_not_ported():
-    """Under a mesh with a model axis: MLA, SSD, hybrid and encdec raise,
-    as do context-parallel rules and a gradient through an MoE layer;
-    MoE serving and the dense families run (a spec mesh is no rank's, so
-    they ask for a bound one)."""
+def test_the_mesh_refuses_what_is_not_ported(sp):
+    """Under a mesh with a model axis every family runs — dense, MoE, MLA,
+    SSD, hybrid and encoder–decoder: on the bound make_test_mesh(1, 4)
+    the four families MLA, SSD, the hybrid and the encoder–decoder
+    joined make their plans (rank 0's heads, MLA's and the
+    encoder–decoder's o row-parallel, SSD's heads split; their serving
+    runs are ``test_torch_dist_families.py``'s), and on a spec mesh,
+    which is no rank's, each family asks for a bound one; MLA's heads
+    that do not divide the axis raise first.  Context-parallel rules and
+    a gradient through an MoE layer, or through the layers of MLA, SSD,
+    hybrid and encoder–decoder models, still raise, naming their ROADMAP
+    items."""
+    plans = sp[2]["plans"]
+    assert plans == {"deepseek_v3_671b": ((0, 1), True, False),
+                     "mamba2_130m": ((0, 1), True, True),
+                     "jamba_1_5_large_398b": ((0, 1), True, True),
+                     "seamless_m4t_large_v2": ((0, 1), True, False)}
     spec = make_test_mesh(2, 4, device="cpu")
     with S.use_rules(S.SINGLE_POD_RULES, spec):
         for arch in ("deepseek_v3_671b", "mamba2_130m",
-                     "jamba_1_5_large_398b", "seamless_m4t_large_v2"):
-            with pytest.raises(ValueError, match="not ported"):
-                lm.tensor_parallel(configs.get_config(arch).reduced())
-        for arch in ("qwen2_7b", "llama4_scout_17b_a16e"):
+                     "jamba_1_5_large_398b", "seamless_m4t_large_v2",
+                     "qwen2_7b", "llama4_scout_17b_a16e"):
             with pytest.raises(ValueError, match="bound mesh"):
                 lm.tensor_parallel(configs.get_config(arch).reduced())
+    mla = configs.get_config("deepseek_v3_671b").reduced()
+    with S.use_rules(S.SINGLE_POD_RULES, make_test_mesh(1, 8, device="cpu")):
+        with pytest.raises(ValueError, match="do not divide"):
+            lm.tensor_parallel(mla)                 # 4 heads on 8 ranks
+        with pytest.raises(ValueError, match="bound mesh"):
+            lm.tensor_parallel(mla, 8)              # padded to 8
     cfg = configs.get_config("llama4_scout_17b_a16e").reduced()
     ffn = lm.init_params(cfg, torch.Generator().manual_seed(0))[
         "g_moe"][0]["ffn"]
@@ -396,12 +413,23 @@ def test_the_mesh_refuses_what_is_not_ported():
     tp = lm.tensor_parallel(cfg)
     with S.use_rules(S.SINGLE_POD_RULES, spec):
         with pytest.raises(ValueError, match="MoE under a mesh is not "
-                           "ported"):
+                           "ported .*item 1.1"):
             lm._ffn_apply(ffn, x, cfg, tp, "moe")
         with torch.no_grad():
             assert lm._ffn_apply(ffn, x, cfg, tp, "moe").shape == x.shape
+    pos = torch.arange(4)[None, :]
+    for arch in ("deepseek_v3_671b", "mamba2_130m", "jamba_1_5_large_398b",
+                 "seamless_m4t_large_v2"):
+        cfg = configs.get_config(arch).reduced()
+        tp = lm.tensor_parallel(cfg)
+        group = lm.layer_groups(cfg)[0][0]
+        layer = lm.init_layer(cfg, group, torch.Generator().manual_seed(0))
+        memory = torch.zeros(1, 4, cfg.d_model)
+        with S.use_rules(S.SINGLE_POD_RULES, spec):
+            with pytest.raises(ValueError, match="Queue 1 item 2"):
+                lm._run_layer(x, layer, cfg, pos, group, tp, memory)
     with S.use_rules(S.CP_SERVE_RULES, spec):
-        with pytest.raises(ValueError, match="context-parallel"):
+        with pytest.raises(ValueError, match="context-parallel.*item 1.5"):
             lm.tensor_parallel(configs.get_config("qwen2_7b").reduced())
     assert lm.tensor_parallel(configs.get_config("qwen2_7b")).model is None
 
@@ -468,6 +496,11 @@ def _sp_job(mesh, d, w):
         out["latent_update"] = S.unshard(
             lat, S.active_spec(t["lat"].shape, "batch", "sp_seq", None),
             mesh)
+    with S.use_rules(S.SINGLE_POD_RULES, mesh):
+        out["plans"] = {}
+        for arch in FAMILY_ARCHS:
+            tp = lm.tensor_parallel(configs.get_config(arch).reduced())
+            out["plans"][arch] = (tp.heads, tp.rows, tp.ssd)
     stage = make_mesh({"stage": mesh.size}, device="cpu")
     ws = [torch.from_numpy(x) if r == stage.rank else None
           for r, x in enumerate(w[0])]

@@ -2,11 +2,13 @@
 comm table each prints equals the reference session's ``comm_bytes()``
 on the same graph and partition, byte for byte.
 
-Each twin runs in this process (``runpy``, ``--device cpu``) with
+Each graph twin runs in this process (``runpy``, ``--device cpu``) with
 ``GraphSession.comm_bytes`` watched: every table it returned is held
 against ``repro.session.GraphSession(...).with_partition(...)
 .comm_bytes()`` on that session's edges and assignment, and against the
-numbers the twin printed.
+numbers the twin printed.  The serving twin's greedy tokens equal those
+``examples/serve_lm.py`` prints, on the reference launcher's own weights
+(its ``init_params(cfg, key(seed))``, converted).
 """
 import re
 import runpy
@@ -104,3 +106,32 @@ def test_distributed_pagerank_twin(monkeypatch, capsys):
     assert "label match=100.0%" in text
     it = int(re.search(r"\((\d+) of 60 capped iters\)", text).group(1))
     assert it < 60
+
+
+def test_serve_lm_twin(monkeypatch, capsys):
+    """``serve_lm_torch.py`` on the CPU, the launcher's weights replaced
+    by the reference launcher's seed-0 draws (converted): the same
+    sample of greedy tokens as ``examples/serve_lm.py`` prints."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import lm as JLM
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", ["serve_lm"])
+    runpy.run_path(str(EXAMPLES / "serve_lm.py"), run_name="__main__")
+    want = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("sample:")]
+    jcfg = jconfigs.get_config("qwen2-7b").reduced()
+    params = lm_params_from_reference(jax.tree_util.tree_map(
+        np.asarray, JLM.init_params(jcfg, jax.random.key(0))),
+        configs.get_config("qwen2-7b").reduced())
+    monkeypatch.setattr(serve, "init_params", lambda *a, **k: params)
+    path = EXAMPLES / "serve_lm_torch.py"
+    monkeypatch.setattr(sys, "argv", [str(path), "--device", "cpu"])
+    runpy.run_path(str(path), run_name="__main__")
+    lines = capsys.readouterr().out.splitlines()
+    assert any(x.startswith("arch=qwen2-7b batch=4 40 steps")
+               and x.endswith("on cpu") for x in lines), lines
+    assert len(want) == 1
+    assert [x for x in lines if x.startswith("sample:")] == want
