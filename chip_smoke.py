@@ -182,11 +182,11 @@ Phases (any failure raises and exits non-zero):
    a data rank; K4 exactly 4 times a rank at (2, 7/1, 2048, 128)):
    logits within 2e-2 of the largest of the one card's, and within 1.2×
    of the one card's distance to the f32 twin, as are the logits after
-   the prompt; ``generate`` (the 16-token prompt, 4 greedy tokens, cut
-   from phase 6's 32 for time; no K4; how many tokens equal the one
-   card's is logged, not gated: random weights make near-ties): each
-   rank's block of its cache is (4, 2, 5, 4, 128), positions 5·m .. 5·m
-   + 4 on model rank m, every one written.  Logged: prefill ms and
+   the prompt; ``generate`` (the prompt's first 4 tokens and 4 greedy
+   tokens, cut from phase 6's 16 and 32 for time; no K4; how many tokens
+   equal the one card's is logged, not gated: random weights make
+   near-ties): each rank's block of its cache is (4, 2, 2, 4, 128),
+   positions 2·m and 2·m + 1 on model rank m, every one written.  Logged: prefill ms and
    tokens/s, decode ms/token-step, peak memory and, by call site, every
    rank's collective seconds, bytes and calls; K4 at the rank's shape
    against its plain version and SDPA, alone on the card.
@@ -224,7 +224,7 @@ Phases (any failure raises and exits non-zero):
    prefill 4 × 2,048 with the counts zeroed before and read after (K4
    exactly once a layer a rank, no graph kernel), logits within 2e-2 of
    the one card's, each layer's kept pairs within 2e-3 of its routed
-   pairs of the one card's; ``generate`` (16-token prompts, 16 greedy
+   pairs of the one card's; ``generate`` (4-token prompts, 4 greedy
    tokens), every logit finite, the tokens equal to the one card's
    counted; per rank the
    collectives by site (``moe.combine`` among them); K4 at the rank's
@@ -410,6 +410,16 @@ Phases (any failure raises and exits non-zero):
    row ``flash_attention_bwd``, timed at ``[train]``'s shape, with the
    ``[train]`` and ``[train-mesh]`` steps' launches), then the device
    JSON line last.
+
+The mesh phases (``[lm-mesh]``, ``[moe-mesh]``, ``[family-mesh]``,
+``[train-mesh]``) each hold every rank's counted windows to their dry
+twin: the same rank's program run on the meta device under
+``collectives.dry`` (``repro_torch.launch.dryrun``), in a thread beside
+the rank's untimed f32 check (``dry_start``), joined before its first
+timed window (``dry_join``); each window's collectives by site (bytes,
+calls, ops) and the rank's parameter bytes must equal the real ones
+(``dry_report``, ``dry_verdict``), and the dry peak estimate is logged
+beside ``max_memory_allocated``.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -3854,9 +3864,11 @@ MESH_F32_STEPS = 4                   # decode steps of the f32 check
 # [family-mesh] joined: cut for the script's time), held to the one
 # card's run of the same 4 layers
 LM_MESH_LAYERS = 4
-# greedy tokens after the 16-token prompt ([serve]'s 32; 16 until the
-# graph dry-run joined [dist], cut for the script's time; Smax = 20 keeps
-# 5 cache rows a model rank)
+# the prompt's first tokens the decode takes ([serve]'s 16 until the
+# dry twins joined the mesh phases, cut for the script's time) and the
+# greedy tokens after them ([serve]'s 32; 16 until the graph dry-run
+# joined [dist]); Smax = 8 keeps 2 cache rows a model rank
+LM_MESH_PROMPT = 4
 MESH_TOKENS = 4
 # the mesh's bf16 distance to the f32 twin over the one card's (the ratio
 # read 1.030 on the prefill logits and 0.975 after the prompt in this
@@ -3926,12 +3938,14 @@ def f32_twin(torch, cfg, params, tokens, prompt) -> dict:
 def lm_mesh_witness(torch, cfg, params, tokens, prompt) -> dict:
     """``[lm-mesh]``'s witness from phase 6's bf16 tree: its first
     LM_MESH_LAYERS layers (the cut model's seed-0 draws), their prefill
-    logits on ``tokens`` and greedy decode after ``prompt`` on the one
-    card, the checksums of the blocks each model rank keeps, and the same
-    weights' f32 twin (the one card's own bf16 error), on the host."""
+    logits on ``tokens`` and greedy decode after ``prompt``'s first
+    LM_MESH_PROMPT tokens on the one card, the checksums of the blocks
+    each model rank keeps, and the same weights' f32 twin (the one card's
+    own bf16 error), on the host."""
     import dataclasses
     from repro_torch.launch.serve import generate
     from repro_torch.train import make_prefill_step
+    prompt = prompt[:, :LM_MESH_PROMPT]
     cut = dataclasses.replace(cfg, n_layers=LM_MESH_LAYERS)
     p = dict(params, g_dense=params["g_dense"][:LM_MESH_LAYERS])
     served = generate(p, cut, prompt, MESH_TOKENS, dtype=torch.bfloat16)
@@ -3951,6 +3965,155 @@ def mesh_probe(smax: int) -> list:
     rows = smax // MESH_MODEL
     return [m * rows + (rows - 1) * m // (MESH_MODEL - 1)
             for m in range(MESH_MODEL)]
+
+
+def meta_like(torch, tree):
+    """Meta tensors of ``tree``'s shapes and dtypes (a tensor or a dict)."""
+    return tree_like(tree, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                 device="meta"))
+
+
+def dry_start(jobs):
+    """Start, in a thread, the dry twins of a rank job's counted windows:
+    for each ``(mesh, draw, windows)`` of ``jobs``, as this rank of
+    ``mesh`` under ``collectives.dry`` on the meta device (the thread's
+    own counts; the rank's real calls keep counting into the process's),
+    ``draw(dm)`` makes the rank's arguments (a dict, its "params" drawn
+    and cut as the real rank's) and each ``(name, fn, peak)`` of
+    ``windows`` runs ``fn(args)`` with the dry counts zeroed before and
+    read after, under ``launch.dryrun.measure``'s meter where ``peak``.
+    Torch's meta kernels are Python (≈ 150 µs an op, the meter ≈ 40% on
+    top, and ≈ 5 s of a core to load on first use on the card's host),
+    so the job starts the twin before its untimed f32 check and joins it
+    (``dry_join``) before its first timed window, and the long decode
+    windows run without the meter."""
+    import threading
+    import traceback
+    box = {}
+
+    def run():
+        from repro_torch.dist import collectives as coll
+        from repro_torch.dist.sharding import SINGLE_POD_RULES, use_rules
+        from repro_torch.launch.dryrun import by_site, measure, nbytes
+        try:
+            t, out = time.perf_counter(), []
+            for mesh, draw, windows in jobs:
+                with coll.dry(mesh, mesh.coords) as dm, \
+                        use_rules(SINGLE_POD_RULES, dm):
+                    args = draw(dm)
+                    res = {"weight_bytes": nbytes(args["params"])}
+                    for name, fn, peak in windows:
+                        coll.reset_counts()
+                        gib = None
+                        if peak:
+                            _r, m = measure(fn, (args,), flops=False)
+                            gib = (res["weight_bytes"]
+                                   + m["temp_bytes"]) / 2**30
+                        else:
+                            fn(args)
+                        res[name] = (by_site(coll.counts()), gib)
+                out.append(res)
+                del args
+            box["out"], box["s"] = out, time.perf_counter() - t
+        except BaseException:   # noqa: BLE001 — raised again by dry_join
+            box["error"] = traceback.format_exc()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def dry_join(twin):
+    """The twins' results (``dry_start``), once its thread has ended;
+    raises with the thread's traceback if a twin failed."""
+    thread, box = twin
+    t = time.perf_counter()
+    thread.join()
+    if "error" in box:
+        raise RuntimeError(f"the dry twin failed:\n{box['error']}")
+    box.setdefault("wait_s", time.perf_counter() - t)
+    return box
+
+
+def dry_report(twin, i, real) -> dict:
+    """Twin ``i``'s windows held against ``real``, ``{name: (the real
+    window's collectives.counts(), its max_memory_allocated in GiB)}``:
+    each window's verdict (bytes, calls and ops by site equal), differing
+    sites, calls, and the dry peak estimate (the parameters plus
+    ``launch.dryrun.measure``'s temp bytes; None where the window ran
+    without the meter) beside the real one; the
+    parameter bytes; the twin's seconds in its thread and the seconds the
+    job waited for it."""
+    from repro_torch.launch.dryrun import by_site
+    box = dry_join(twin)
+    dry = box["out"][i]
+    out = {"weight_bytes": dry["weight_bytes"], "windows": {},
+           "s": box["s"], "wait_s": box["wait_s"]}
+    for name, (counts, peak_gib) in real.items():
+        sites, dry_peak = dry[name]
+        want = by_site(counts)
+        out["windows"][name] = dict(
+            equal=sites == want, calls=sum(c["calls"]
+                                           for c in sites.values()),
+            diff=sorted(x for x in set(sites) | set(want)
+                        if sites.get(x) != want.get(x)),
+            peak_gib=dry_peak, real_peak_gib=peak_gib)
+    return out
+
+
+def serving_twin(torch, mesh, cfg, batch, prompt, new_tokens,
+                 memory=None):
+    """``dry_start``'s job for a serving rank's two windows on ``mesh``:
+    its bf16 blocks drawn on meta as ``place_params`` cuts them, the
+    prefill step on ``batch`` (under the meter), then ``generate`` of
+    ``prompt`` and ``new_tokens`` attending ``memory`` (without it); each
+    input a meta tensor of the real one's shape."""
+    from repro_torch.launch.dryrun import meta_generator
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train import make_prefill_step, place_params
+    m_batch, m_prompt = meta_like(torch, batch), meta_like(torch, prompt)
+    m_memory = None if memory is None else meta_like(torch, memory)
+    return (mesh, lambda dm: {"params": lm.init_params(
+        cfg, meta_generator(), dtype=torch.bfloat16,
+        place=place_params(dm))}, [
+        ("prefill", lambda a: make_prefill_step(
+            cfg, dtype=torch.bfloat16)(a["params"], m_batch), True),
+        ("decode", lambda a: generate(
+            a["params"], cfg, m_prompt, new_tokens, dtype=torch.bfloat16,
+            memory=m_memory), False)])
+
+
+def dry_verdict(tag, reports, weight_key="weight_bytes") -> None:
+    """``check`` every rank's ``dry_report``: each window's collectives by
+    site and the parameter bytes equal the real rank's; the peaks logged
+    beside each other, not gated."""
+    for r in reports:
+        d = r["dry"]
+        check(d["weight_bytes"] == r[weight_key], f"{tag} rank "
+              f"{r['coords']}: the dry run's parameter bytes "
+              f"{d['weight_bytes']} != the rank's {r[weight_key]}")
+        for name, w in d["windows"].items():
+            check(w["equal"] and w["calls"], f"{tag} rank {r['coords']}: "
+                  f"the dry {name}'s collectives differ from the real "
+                  f"window's at {w['diff']} ({w['calls']} calls)")
+    names = list(reports[0]["dry"]["windows"])
+
+    def most(n, key):
+        return max(r["dry"]["windows"][n][key] for r in reports)
+    peaks = "; ".join(f"{n}: dry {most(n, 'peak_gib'):.2f} GiB, "
+                      f"max_memory_allocated {most(n, 'real_peak_gib'):.2f}"
+                      " GiB" for n in names
+                      if reports[0]["dry"]["windows"][n]["peak_gib"]
+                      is not None)
+    log(f"{tag} dry = real: every rank's {' and '.join(names)} run again as "
+        "that rank on the meta device (collectives.dry) hand the same "
+        "bytes, calls and ops by site as its real window, and its "
+        f"{reports[0]['dry']['weight_bytes']} B of parameters equal the "
+        "rank's; the job's dry twins (every model of it) "
+        f"{max(r['dry']['s'] for r in reports):.2f} s a rank in their "
+        "thread beside its untimed work, the job waited "
+        f"{max(r['dry']['wait_s'] for r in reports):.2f} s for them; peak "
+        f"a rank (the largest, estimate not gated) {peaks}")
 
 
 def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
@@ -3983,6 +4146,8 @@ def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
     out = {"started": float(coll.pmax(torch.tensor(
         [time.time()], dtype=torch.float64), mesh))}
     report = {"coords": mesh.coords}
+    twin = dry_start([serving_twin(torch, mesh, cfg, {"tokens": tokens},
+                                   prompt, new_tokens)])
     with use_rules(SINGLE_POD_RULES, mesh):
         # f32, 2 layers at full width: the mesh against the one card
         p32 = lm.init_params(f32_cfg, torch.Generator(device=dev)
@@ -4026,6 +4191,7 @@ def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
                                      for x in lm.tree_leaves(params))
         toks = tokens.to(dev)
         prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+        dry_join(twin)              # before the first timed window
         prefill_step(params, {"tokens": toks})            # warm-up
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4068,6 +4234,11 @@ def lm_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt, new_tokens):
         report["decode_peak_gib"] = \
             torch.cuda.max_memory_allocated(dev) / 2**30
         out["served"] = served
+        report["dry"] = dry_report(twin, 0, {
+            "prefill": (report["prefill_collectives"],
+                        report["prefill_peak_gib"]),
+            "decode": (report["decode_collectives"],
+                       report["decode_peak_gib"])})
     out["reports"] = coll.gather_objects(report, mesh)
     return out
 
@@ -4155,6 +4326,7 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
     log(f"[lm-mesh] {len(reports)} ranks of make_test_mesh({MESH_DATA}, "
         f"{MESH_MODEL}) on this card over gloo in one spawn: {s_spawn:.1f} "
         f"s, of which {out['started'] - wall:.1f} s until every rank ran")
+    dry_verdict("[lm-mesh]", reports)
 
     def rel(got, want):
         return float((got.float().cpu() - want.float().cpu()).abs().max()
@@ -4235,14 +4407,14 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
         f"{cfg.n_heads // MESH_MODEL}/{cfg.n_kv_heads // MESH_MODEL}, "
         f"{PREFILL_S}, {cfg.hd}), {launches} in all; {note}")
     ms_step = max(r["decode_s"] for r in reports) * 1e3 / served.steps
-    log(f"[lm-mesh] decode B={SERVE_B}, prompt {SERVE_PROMPT} + "
+    log(f"[lm-mesh] decode B={SERVE_B}, prompt {LM_MESH_PROMPT} + "
         f"{MESH_TOKENS} greedy tokens (cut from [serve]'s {SERVE_TOKENS} "
         f"for time): {ms_step:.3f} ms/token-step (the "
         f"slowest rank); {agree} of {served.tokens.numel()} greedy tokens "
         f"equal the one card's (near-ties of random weights, not gated); "
         f"first "
         f"tokens {served.tokens[0][:16].tolist()}")
-    smax = SERVE_PROMPT + MESH_TOKENS
+    smax = LM_MESH_PROMPT + MESH_TOKENS
     rows = smax // MESH_MODEL
     for r in reports:
         m = r["coords"]["model"]
@@ -4465,7 +4637,9 @@ TRAIN_MESH_UPDATE_TOL = 0.05
 # (served until [family-mesh] joined; 1 since, cut for the script's time).
 # The f32 check at 1 layer (≈ 34 GB over the ranks)
 MOE_MESH_LAYERS, MOE_MESH_F32_LAYERS = 1, 1
-MOE_MESH_PROMPT, MOE_MESH_TOKENS = 16, 16
+# the decode's prompt and greedy tokens (16 and 16 until the dry twin
+# of the window joined the phase, cut for the script's time)
+MOE_MESH_PROMPT, MOE_MESH_TOKENS = 4, 4
 # the bf16 mesh's kept pairs in each MoE layer may differ from the one
 # card's by this share of the layer's routed pairs: its rank-order sums
 # round attention's output otherwise, so near-ties route to other experts
@@ -4525,6 +4699,7 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
     from repro_torch.dist import collectives as coll
     from repro_torch.dist.sharding import SINGLE_POD_RULES, use_rules
     from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import meta_generator
     from repro_torch.models import lm
     from repro_torch.profile import TRAIN_B, TRAIN_LR, TRAIN_S, TRAIN_STEPS
     from repro_torch.train import (adamw, cosine_schedule, gather_tree,
@@ -4539,6 +4714,24 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
     out = {"started": float(coll.pmax(torch.tensor(
         [time.time()], dtype=torch.float64), mesh))}
     report = {"coords": mesh.coords, "rank": mesh.rank}
+    dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    m_batch = meta_like(torch, {k: torch.from_numpy(v) for k, v in
+                                batch_at(dcfg, 0).items()})
+
+    def schedule():
+        return cosine_schedule(TRAIN_LR, warmup=TRAIN_STEPS // 10,
+                               total=TRAIN_STEPS)
+
+    def dry_draw(dm):           # the rank's f32 masters, ZeRO-3, AdamW
+        place = place_params(dm, zero=True)
+        p = lm.init_params(cfg, meta_generator(), place=place)
+        sp, opt = placed_specs(place), adamw(schedule=schedule())
+        return {"params": p, "state": opt.init(p, axes=mesh_axes(sp)[1]),
+                "step": make_train_step(cfg, opt, dtype=torch.bfloat16,
+                                        specs=sp)}
+    # the last step's window (step 0's also gathers every gradient leaf)
+    twin = dry_start([(mesh, dry_draw, [(f"step {steps - 1}", lambda a: a[
+        "step"](a["params"], a["state"], m_batch, steps - 1), True)])])
     with use_rules(SINGLE_POD_RULES, mesh):
         # f32, 2 layers at full width: the mesh against the one card
         place = place_params(mesh, zero=True)
@@ -4578,8 +4771,7 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
         report["checksums"] = sums
         report["master_bytes"] = sum(x.numel() * x.element_size()
                                      for x in lm.tree_leaves(params))
-        base = adamw(schedule=cosine_schedule(
-            TRAIN_LR, warmup=TRAIN_STEPS // 10, total=TRAIN_STEPS))
+        base = adamw(schedule=schedule())
         flags = []
 
         def update(grads, state, p, step, axes=None):
@@ -4600,7 +4792,7 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
         state = opt.init(params, axes=axes)
         step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16,
                                   specs=specs)
-        dcfg = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+        dry_join(twin)              # before the first timed window
         report["steps"] = []
         for i in range(steps):
             batch = {k: torch.from_numpy(v).to(dev)
@@ -4616,6 +4808,9 @@ def train_mesh_job(mesh, cfg, small, grad_batch, steps, out_dir):
                 s=time.perf_counter() - t, loss=loss.item(),
                 launches=ops.launch_counts(), collectives=coll.counts(),
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+        last = report["steps"][-1]
+        report["dry"] = dry_report(twin, 0, {f"step {steps - 1}": (
+            last["collectives"], last["peak_gib"])})
         whole = gather_tree([leaf_at(params, k) for k in TRAIN_WITNESS],
                             [leaf_at(specs, k) for k in TRAIN_WITNESS],
                             mesh, site="check.gather")
@@ -4726,6 +4921,7 @@ def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
     log(f"[train-mesh] {len(reports)} ranks of make_test_mesh({MESH_DATA}, "
         f"{MESH_MODEL}) on this card over gloo in one spawn: {s_spawn:.1f} "
         f"s, of which {out['started'] - wall:.1f} s until every rank ran")
+    dry_verdict("[train-mesh]", reports, "master_bytes")
 
     # f32 at 2 layers: the loss and every gathered gradient leaf
     check(abs(got["loss"] / want_loss - 1) <= 1e-5, f"[train-mesh] f32 "
@@ -4908,6 +5104,8 @@ def moe_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt,
         [time.time()], dtype=torch.float64), mesh))}
     report = {"coords": mesh.coords}
     mo = cfg.moe
+    twin = dry_start([serving_twin(torch, mesh, cfg, {"tokens": tokens},
+                                   prompt, new_tokens)])
     with use_rules(SINGLE_POD_RULES, mesh):
         report["experts_split"] = lm.tensor_parallel(cfg).experts
         p32 = in_turns(torch, mesh, lambda: lm.init_params(
@@ -4959,6 +5157,7 @@ def moe_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt,
         capacity = M.expert_capacity(toks.shape[1], mo.top_k, mo.n_experts,
                                      mo.capacity_factor)
         prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
+        dry_join(twin)              # before the first timed window
         prefill_step(params, {"tokens": toks})            # warm-up
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4991,6 +5190,11 @@ def moe_mesh_job(mesh, cfg, f32_cfg, tokens, f32_tokens, prompt,
         report["decode_peak_gib"] = \
             torch.cuda.max_memory_allocated(dev) / 2**30
         out["served"] = served
+        report["dry"] = dry_report(twin, 0, {
+            "prefill": (report["prefill_collectives"],
+                        report["prefill_peak_gib"]),
+            "decode": (report["decode_collectives"],
+                       report["decode_peak_gib"])})
     out["reports"] = coll.gather_objects(report, mesh)
     return out
 
@@ -5089,6 +5293,7 @@ def moe_mesh_phase(torch, ops, dev, k4_row) -> None:
         f"{cfg.name} cut to {MOE_MESH_LAYERS} of {full.n_layers} layers "
         f"(each data rank holds a whole copy of its model block: 12 layers "
         f"would need ≈ 114 GB over the ranks)")
+    dry_verdict("[moe-mesh]", reports)
 
     def rel(got, want):
         return float((got.float().cpu() - want.float().cpu()).abs().max()
@@ -5363,16 +5568,23 @@ def family_mesh_job(mesh, models):
     out = {"started": float(coll.pmax(torch.tensor(
         [time.time()], dtype=torch.float64), mesh))}
     line = line_mesh(mesh, "model", 0)
-    reports = []
-    for model in models:
-        on = mesh if model[-1] == tuple(mesh.shape.values()) else line
-        if on is not None:
-            reports.append(family_model(on, model, out))
+
+    def twin_of(on, model):     # the encoder's output: bf16 of the frames
+        _tag, cfg, _small, batch, _f32, prompt, _dims = model
+        memory = None if cfg.family != "encdec" else \
+            batch["src_embeds"].to(torch.bfloat16)
+        return serving_twin(torch, on, cfg, batch, prompt, FM_TOKENS, memory)
+    ons = [(mesh if model[-1] == tuple(mesh.shape.values()) else line, model)
+           for model in models]
+    ons = [(on, model) for on, model in ons if on is not None]
+    twin = dry_start([twin_of(on, model) for on, model in ons])
+    reports = [family_model(on, model, out, twin, i)
+               for i, (on, model) in enumerate(ons)]
     out["reports"] = coll.gather_objects(reports, mesh)
     return out
 
 
-def family_model(mesh, model, out):
+def family_model(mesh, model, out, twin, i):
     """One model of ``[family-mesh]`` on ``mesh`` under
     ``SINGLE_POD_RULES``: its plan; the f32 check (seed-1 draws of its f32
     config: the prefill logits and MESH_F32_STEPS decode steps, gathered
@@ -5383,8 +5595,9 @@ def family_model(mesh, model, out):
     counted), an SSD stack's first FM_SSD_DEPTH layers' prefill, a
     warm-up decode step and a timed ``generate`` (an
     encoder–decoder's steps attending the encoder's output of the
-    prefill's frames); then its weights freed.  The gathered values go
-    into ``out``; returns this rank's report."""
+    prefill's frames); then its weights freed; the timed windows held to
+    the dry twin ``twin``'s ``i``-th (``dry_start``).  The gathered
+    values go into ``out``; returns this rank's report."""
     import torch
     from repro_torch.dist import collectives as coll
     from repro_torch.dist.sharding import SINGLE_POD_RULES, use_rules
@@ -5466,6 +5679,7 @@ def family_model(mesh, model, out):
                                      for x in lm.tree_leaves(params))
         prefill_step = make_prefill_step(cfg, dtype=torch.bfloat16)
         b = to(batch)
+        dry_join(twin)              # before the first timed window
         prefill_step(params, {k: v[:, :FM_WARM_S] for k, v in b.items()})
         logits, report["prefill"] = counted(
             lambda: prefill_step(params, b))
@@ -5491,6 +5705,11 @@ def family_model(mesh, model, out):
         out[tag, "served"] = served._replace(
             tokens=served.tokens.cpu(),
             prompt_logits=served.prompt_logits.float().cpu())
+        report["dry"] = dry_report(twin, i, {
+            "prefill": (report["prefill"]["collectives"],
+                        report["prefill"]["peak_gib"]),
+            "decode": (report["decode"]["collectives"],
+                       report["decode"]["peak_gib"])})
         del params, memory, logits, b, served
         gc.collect()
         torch.cuda.empty_cache()
@@ -5715,6 +5934,9 @@ def family_mesh_phase(torch, ops, dev, rows) -> None:
         f"{time.perf_counter() - t:.1f} s, of which "
         f"{out['started'] - wall:.1f} s until every rank ran")
     reports = [r for rank in out["reports"] for r in rank]
+    for tag in dict.fromkeys(r["tag"] for r in reports):
+        dry_verdict(f"[family-mesh] {tag}",
+                    [r for r in reports if r["tag"] == tag])
     got = {k: v for k, v in out.items() if isinstance(k, tuple)}
 
     def rel(a, b):

@@ -40,23 +40,47 @@ Each call counts, by its call site, the bytes it hands to other ranks
 stays home; ``ring_hop``: the whole payload; ``all_gather`` and a
 gathered sum: the payload once for each other rank; an ``all_reduce``:
 its payload), its wall seconds and its calls, by primitive too (the
-graph dry-run reads a ring's hops as ``ring_hop`` calls);
+graph dry-run reads a ring's hops as ``ring_hop`` calls; each call
+counts under the primitive the caller named, ``psum`` for a gathered
+sum, ``reduce_scatter`` for its ``all_to_all``);
 ``counts()`` reads them, ``reset_counts()`` zeroes them.  The counts
 live in the process, one set a rank.
+
+The dry mode (``dry(mesh, coords)``) runs one rank of a mesh with no
+process group and nothing on a wire: inside it the mesh is the rank's
+``dist.mesh.simulate`` view (transport ``"dry"``, device ``meta``), and
+every primitive given one of its axes moves nothing, returns a meta
+tensor of the shape and dtype the real call returns on that rank, and
+counts the bytes the real call would hand to the other ranks, by the
+same byte rules (the transport call is the one thing skipped), into a
+count set of its own, the calling thread's alone.  The picklable object
+calls (``gather_objects``, ``broadcast_objects``) refuse it.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
 
-_bytes: Counter = Counter()
-_seconds: Counter = Counter()
-_calls: Counter = Counter()
-_ops: Counter = Counter()
+DRY = "dry"         # the transport of a dry mesh: nothing moves
+
+
+class _Counts:
+    """One set of counts: bytes, seconds and calls by site; calls and
+    bytes by (site, primitive)."""
+
+    def __init__(self):
+        self.bytes, self.seconds, self.calls = Counter(), Counter(), Counter()
+        self.ops, self.op_bytes = Counter(), Counter()
+
+
+_live = _Counts()          # the process's counts: every real call's
+_dry = threading.local()   # a thread's dry mode: its own counts
 
 
 # ------------------------------------------------------------ the group
@@ -97,21 +121,61 @@ def nccl_available() -> bool:
 
 # ------------------------------------------------------------ counting
 
+def _current() -> _Counts:
+    """The counts this thread's calls go to: its dry mode's, else the
+    process's."""
+    return getattr(_dry, "counts", None) or _live
+
+
 def reset_counts() -> None:
-    _bytes.clear()
-    _seconds.clear()
-    _calls.clear()
-    _ops.clear()
+    global _live
+    if getattr(_dry, "counts", None) is not None:
+        _dry.counts = _Counts()
+    else:
+        _live = _Counts()
 
 
 def counts() -> dict:
-    """``{site: {"bytes", "seconds", "calls", "ops"}}`` since the last
-    reset; ``ops`` splits the calls by primitive (``{"ring_hop": n}``)."""
-    return {s: {"bytes": int(_bytes[s]), "seconds": float(_seconds[s]),
-                "calls": int(_calls[s]),
-                "ops": {op: int(n) for (site, op), n in _ops.items()
-                        if site == s}}
-            for s in _calls}
+    """``{site: {"bytes", "seconds", "calls", "ops", "op_bytes"}}`` since
+    the last reset; ``ops`` splits the calls by primitive (``{"ring_hop":
+    n}``) and ``op_bytes`` the bytes."""
+    c = _current()
+    return {s: {"bytes": int(c.bytes[s]), "seconds": float(c.seconds[s]),
+                "calls": int(c.calls[s]),
+                "ops": {op: int(n) for (site, op), n in c.ops.items()
+                        if site == s},
+                "op_bytes": {op: int(n) for (site, op), n in
+                             c.op_bytes.items() if site == s}}
+            for s in c.calls}
+
+
+@contextmanager
+def dry(mesh, coords):
+    """Run as the rank at ``coords`` (``{axis: index}``, or a rank number)
+    of ``mesh`` (a spec, or a bound mesh whose shape is taken) on the meta
+    device (module docstring): yields that rank's dry mesh
+    (``dist.mesh.simulate``), every call in this thread counted into a
+    fresh set that ``counts()`` and ``reset_counts()`` act on inside the
+    context.  Other threads keep counting into the process's counts, so a
+    rank may run its dry twin beside its real work."""
+    from .mesh import simulate
+    saved = getattr(_dry, "counts", None)
+    _dry.counts = _Counts()
+    try:
+        yield simulate(mesh, coords)
+    finally:
+        _dry.counts = saved
+
+
+def _moves(axis) -> bool:
+    """Whether a call on ``axis`` goes on the wire (False on a dry mesh,
+    which only the dry mode may use)."""
+    if axis.transport != DRY:
+        return True
+    if getattr(_dry, "counts", None) is None:
+        raise RuntimeError("a dry mesh's collectives run only inside "
+                           "collectives.dry(...)")
+    return False
 
 
 class _Timed:
@@ -128,10 +192,12 @@ class _Timed:
 
     def __exit__(self, *exc):
         self._sync()
-        _seconds[self.site] += time.perf_counter() - self.t
-        _bytes[self.site] += self.nbytes
-        _calls[self.site] += 1
-        _ops[self.site, self.op] += 1
+        c = _current()
+        c.seconds[self.site] += time.perf_counter() - self.t
+        c.bytes[self.site] += self.nbytes
+        c.calls[self.site] += 1
+        c.ops[self.site, self.op] += 1
+        c.op_bytes[self.site, self.op] += self.nbytes
 
     def _sync(self):
         if self.axis.transport == "nccl":
@@ -164,11 +230,8 @@ def psum(x, axis=None, *, site: str = "psum"):
     if axis is None:
         return x
     if x.dtype in (torch.int32, torch.int64):
-        with _Timed(axis, site, x.numel() * x.element_size(), "all_reduce"):
-            out = _host(axis, x.reshape(-1)).clone()
-            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
-        return out.to(x.device).reshape(x.shape)
-    parts = all_gather(x, axis, site=site)
+        return _all_reduce(x, axis, dist.ReduceOp.SUM, site, "psum")
+    parts = _all_gather(x, axis, site, "psum")
     wide = x.dtype in (torch.bfloat16, torch.float16)
     out = parts[0].float() if wide else parts[0]
     for p in parts[1:]:      # in rank order: the same bits on every rank
@@ -176,23 +239,28 @@ def psum(x, axis=None, *, site: str = "psum"):
     return out.to(x.dtype) if wide else out
 
 
-def _extremum(x, axis, op, site):
-    if axis is None:
-        return x
-    with _Timed(axis, site, x.numel() * x.element_size(), "all_reduce"):
+def _all_reduce(x, axis, op, site, name):
+    """``all_reduce`` of ``x`` over ``axis`` (its payload counted once),
+    counted as primitive ``name``."""
+    with _Timed(axis, site, x.numel() * x.element_size(), name):
         out = _host(axis, x.reshape(-1)).clone()
-        dist.all_reduce(out, op=op, group=axis.group)
+        if _moves(axis):
+            dist.all_reduce(out, op=op, group=axis.group)
     return out.to(x.device).reshape(x.shape)
 
 
 def pmax(x, axis=None, *, site: str = "pmax"):
     """Max of ``x`` across ``axis``; identity when ``axis`` is None."""
-    return _extremum(x, axis, dist.ReduceOp.MAX, site)
+    if axis is None:
+        return x
+    return _all_reduce(x, axis, dist.ReduceOp.MAX, site, "pmax")
 
 
 def pmin(x, axis=None, *, site: str = "pmin"):
     """Min of ``x`` across ``axis``; identity when ``axis`` is None."""
-    return _extremum(x, axis, dist.ReduceOp.MIN, site)
+    if axis is None:
+        return x
+    return _all_reduce(x, axis, dist.ReduceOp.MIN, site, "pmin")
 
 
 def axis_index(axis) -> int:
@@ -239,11 +307,16 @@ def all_to_all(x, axis, *, site: str):
     if x.shape[0] != n:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} != axis "
                          f"size {n}")
+    return _all_to_all(x, axis, site, "all_to_all")
+
+
+def _all_to_all(x, axis, site, name):
     raw = _as_bytes(x)
-    with _Timed(axis, site, raw.shape[1] * (n - 1), "all_to_all"):
+    with _Timed(axis, site, raw.shape[1] * (axis.size - 1), name):
         h = _host(axis, raw)
         out = torch.empty_like(h)
-        dist.all_to_all_single(out, h, group=axis.group)
+        if _moves(axis):
+            dist.all_to_all_single(out, h, group=axis.group)
     return out.to(x.device).view(x.dtype).reshape(x.shape)
 
 
@@ -258,22 +331,28 @@ def ring_hop(x, axis, d: int, *, site: str):
     with _Timed(axis, site, raw.numel(), "ring_hop"):
         h = _host(axis, raw)
         out = torch.empty_like(h)
-        ops = [dist.P2POp(dist.isend, h, _global(axis, (r + d) % n),
-                          axis.group),
-               dist.P2POp(dist.irecv, out, _global(axis, (r - d) % n),
-                          axis.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        if _moves(axis):
+            ops = [dist.P2POp(dist.isend, h, _global(axis, (r + d) % n),
+                              axis.group),
+                   dist.P2POp(dist.irecv, out, _global(axis, (r - d) % n),
+                              axis.group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return out.to(x.device).view(x.dtype).reshape(x.shape)
 
 
 def all_gather(x, axis, *, site: str):
     """(n, *x.shape): every rank's ``x`` in rank order."""
+    return _all_gather(x, axis, site, "all_gather")
+
+
+def _all_gather(x, axis, site, name):
     raw = _as_bytes(x[None])
-    with _Timed(axis, site, raw.numel() * (axis.size - 1), "all_gather"):
+    with _Timed(axis, site, raw.numel() * (axis.size - 1), name):
         h = _host(axis, raw)
         parts = [torch.empty_like(h) for _ in range(axis.size)]
-        dist.all_gather(parts, h, group=axis.group)
+        if _moves(axis):
+            dist.all_gather(parts, h, group=axis.group)
         out = torch.cat(parts)
     return out.to(x.device).view(x.dtype).reshape(axis.size, *x.shape)
 
@@ -283,20 +362,28 @@ def gather_to_root(x, axis, *, site: str):
     the others."""
     raw = _as_bytes(x[None])
     root = axis.rank == 0
-    with _Timed(axis, site, 0 if root else raw.numel(), "gather"):
+    with _Timed(axis, site, 0 if root else raw.numel(), "gather_to_root"):
         h = _host(axis, raw)
         parts = [torch.empty_like(h) for _ in range(axis.size)] \
             if root else None
-        dist.gather(h, parts, dst=_global(axis, 0), group=axis.group)
+        if _moves(axis):
+            dist.gather(h, parts, dst=_global(axis, 0), group=axis.group)
     if not root:
         return None
     return torch.cat(parts).to(x.device).view(x.dtype) \
         .reshape(axis.size, *x.shape)
 
 
+def _objects(axis):
+    if axis.transport == DRY:
+        raise RuntimeError("a dry mesh moves no Python objects: their "
+                           "values are the other ranks'")
+
+
 def gather_objects(obj, axis) -> list | None:
     """Every rank's picklable ``obj`` on rank 0, in rank order; None on
     the others."""
+    _objects(axis)
     out = [None] * axis.size if axis.rank == 0 else None
     dist.gather_object(obj, out, dst=_global(axis, 0), group=axis.group)
     return out
@@ -311,7 +398,8 @@ def broadcast(x, axis, root: int = 0, *, site: str):
     nbytes = raw.numel() * (axis.size - 1) if axis.rank == root else 0
     with _Timed(axis, site, nbytes, "broadcast"):
         h = _host(axis, raw)
-        dist.broadcast(h, src=_global(axis, root), group=axis.group)
+        if _moves(axis):
+            dist.broadcast(h, src=_global(axis, root), group=axis.group)
     if axis.rank != root:
         x.copy_(h.to(x.device).view(x.dtype).reshape(x.shape))
     return x
@@ -319,6 +407,7 @@ def broadcast(x, axis, root: int = 0, *, site: str):
 
 def broadcast_objects(obj, axis, root: int = 0):
     """Rank ``root``'s picklable ``obj`` on every rank of ``axis``."""
+    _objects(axis)
     box = [obj]
     dist.broadcast_object_list(box, src=_global(axis, root),
                                group=axis.group)
@@ -340,7 +429,7 @@ def reduce_scatter(x, axis, dim: int = 0, *, site: str):
     m = x.shape[dim] // n
     lanes = x.movedim(dim, 0).reshape(n, m, *x.shape[:dim],
                                       *x.shape[dim + 1:])
-    parts = all_to_all(lanes, axis, site=site)
+    parts = _all_to_all(lanes, axis, site, "reduce_scatter")
     wide = x.dtype in (torch.bfloat16, torch.float16)
     out = parts[0].float() if wide else parts[0]
     for p in parts[1:]:      # in rank order: the same bits on every rank

@@ -13,6 +13,9 @@ re-exports).
                           the LM's (16, 16) ("data", "model") mesh, or
                           (2, 16, 16) ("pod", "data", "model"): a spec of
                           256 or 512 ranks that nothing here spawns
+    simulate(mesh, coords)
+                          one rank of a spec with no process group: the
+                          dry mode's mesh (``collectives.dry``)
     run_on_ranks(fn, mesh, *args)
                           spawn the mesh's ranks in this machine and
                           return rank 0's ``fn(bound_mesh, *args)``
@@ -30,7 +33,9 @@ on (every rank makes every line's group, in one order), and
 ``as_axis(mesh, "model")`` is the bound one-axis view of this rank's
 line along "model": the ``Mesh`` that ``dist.collectives`` takes.  Made
 in a single process, a mesh is a spec the drivers hand to
-``run_on_ranks``.
+``run_on_ranks``; ``simulate`` binds a spec to one of its ranks without
+a process group (transport ``"dry"``, device ``meta``), the mesh the
+dry mode of ``dist.collectives`` runs that rank's program on.
 
 The transport is chosen, never guessed silently: ``nccl`` when every rank
 has a card of its own, ``gloo`` when ranks share a card (NCCL refuses
@@ -97,7 +102,7 @@ class Mesh:
     axis: str | tuple
     size: int
     kind: str = "cuda"           # the ranks' device kind: "cuda" | "cpu"
-    transport: str = "gloo"      # "nccl" | "gloo"
+    transport: str = "gloo"      # "nccl" | "gloo" | "dry" (``simulate``)
     rank: int | None = None      # this rank's index in the mesh
     group: Any = None
     device: torch.device | None = None
@@ -224,6 +229,36 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     if multi_pod:
         return make_mesh({"pod": 2, "data": 16, "model": 16}, device=device)
     return make_mesh({"data": 16, "model": 16}, device=device)
+
+
+def simulate(mesh: Mesh, coords) -> Mesh:
+    """The rank of ``mesh``'s axes at ``coords`` (``{axis: index}``, or
+    its row-major rank number) bound with no process group: transport
+    ``"dry"``, device ``meta``, and per axis this rank's line (its
+    members, no group), so ``as_axis``, ``use_rules`` and the placements
+    take it as they take a bound mesh.  ``mesh`` is a spec, or a bound
+    mesh whose shape is taken (a rank checking itself).  Only
+    ``collectives.dry`` runs collectives on it."""
+    if isinstance(coords, int):
+        rank = coords
+    else:
+        if set(coords) != set(mesh.shape):
+            raise ValueError(f"coordinates {coords} do not name the axes "
+                             f"of {mesh.shape}")
+        rank = 0
+        for name, n in mesh.shape.items():
+            if not 0 <= coords[name] < n:
+                raise ValueError(f"{name} {coords[name]} outside 0..{n - 1}")
+            rank = rank * n + coords[name]
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    dry = replace(mesh, transport=coll.DRY, rank=rank, group=None,
+                  device=torch.device("meta"), ranks=None, lines=())
+    if len(mesh.axes) == 1:
+        return dry
+    return replace(dry, lines=tuple(
+        (None, tuple(next(m for m in axis_lines(mesh.shape, name)
+                          if rank in m))) for name in mesh.axes))
 
 
 def as_axis(mesh: Mesh, axis: str) -> Mesh:

@@ -72,6 +72,16 @@ CP_SERVE_RULES: dict = {
 _state = threading.local()
 
 
+class NotPorted(ValueError):
+    """A path the port refuses yet, raised where it would start: ``item``
+    names its entry in ROADMAP Queue 1 (the dry-run records the cell as
+    skipped with it)."""
+
+    def __init__(self, message: str, item: str):
+        super().__init__(message)
+        self.item = item
+
+
 def _stack() -> list:
     if not hasattr(_state, "stack"):
         _state.stack = []
@@ -88,6 +98,19 @@ def use_rules(rules: dict, mesh):
         yield
     finally:
         _stack().pop()
+
+
+@contextmanager
+def no_rules():
+    """No rule table in this thread within the context: every entry point
+    sees whole arrays, as outside any ``use_rules``."""
+    stack = _stack()
+    saved = stack[:]
+    stack.clear()
+    try:
+        yield
+    finally:
+        stack[:] = saved
 
 
 def active_rules():

@@ -4,7 +4,8 @@ Port of ``repro.kernels.flash_attention``: q (B, Hq, Sq, D), k
 (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), Hq % Hkv == 0, q head h reads KV
 head h // (Hq // Hkv); online softmax with f32 state, masked scores −1e30,
 l clamped at 1e-20, output (B, Hq, Sq, Dv) in q's dtype.
-``flash_attention`` runs the plain version on CPU tensors and launches
+``flash_attention`` runs the plain version on CPU tensors (and on meta
+tensors, which compute nothing: the shapes of a dry run) and launches
 ``csrc/flash_attention.cu`` on CUDA tensors (f32 or bf16; (D, Dv) in
 ``HEAD_DIMS``: D = Dv in 32, 64, 128, 160 (pixtral), or MLA's (192,
 128); any Sq and Skv, Sq = 1 included).  bf16 runs the Hopper kernel: a
@@ -56,6 +57,8 @@ def kernel_block_kv(dv: int) -> int:
     accumulator leaves room for 64 score columns only)."""
     return 64 if dv > 128 else 128
 _INT_MAX = 2**31 - 1
+# devices whose tensors take the plain version; every other one launches
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -170,14 +173,14 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
                              sm_scale: float | None = None):
     """The gradient of ``flash_attention`` with respect to (q, k, v) (see
     ``flash_attention_backward_plain``), by the dtype and device of q:
-    CPU tensors take the plain version; bf16 CUDA tensors launch the
-    Hopper kernel ``csrc/flash_attention_bwd.cu`` (P and dS rounded to
+    CPU and meta tensors take the plain version; bf16 CUDA tensors launch
+    the Hopper kernel ``csrc/flash_attention_bwd.cu`` (P and dS rounded to
     bf16 before their products, as ``round_dtype=torch.bfloat16`` rounds
     them), or raise when it does not take their head dims or layout; f32
     CUDA tensors take the plain version on the card (no f32 backward
     kernel yet: ROADMAP's open item "K4's f32 backward kernel"), as the
     f32 gradient checks of training expect its exact f32 arithmetic."""
-    if q.device.type == "cpu" or q.dtype == torch.float32:
+    if q.device.type in PLAIN_DEVICES or q.dtype == torch.float32:
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal,
                                               sm_scale)
     return _backward_kernel(q, k, v, o, lse, do, causal, sm_scale)
@@ -293,13 +296,13 @@ def _backward_kernel(q, k, v, o, lse, do, causal: bool, sm_scale):
 
 class FlashAttention(torch.autograd.Function):
     """K4 with a gradient: the forward is the kernel (writing the rows'
-    log-sum-exp) on CUDA tensors and the plain version on CPU tensors; the
-    backward is ``flash_attention_backward`` (the backward kernel on bf16
-    CUDA tensors)."""
+    log-sum-exp) on CUDA tensors and the plain version on CPU and meta
+    tensors; the backward is ``flash_attention_backward`` (the backward
+    kernel on bf16 CUDA tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        if q.device.type == "cpu":
+        if q.device.type in PLAIN_DEVICES:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            sm_scale=sm_scale, return_lse=True)
         else:
@@ -326,7 +329,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, sm_scale)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale)
     return _kernel(q, k, v, causal, sm_scale, with_lse=False)[0]

@@ -1,22 +1,81 @@
-"""Graph dry-run: every (program × wire) cell's wire bytes, counted on
-ranks and held to the layout's byte model.
+"""The dry-run: every (arch × shape × mesh) LM cell run as one rank on the
+meta device, and every (program × wire) graph cell's wire bytes, counted
+on ranks and held to the layout's byte model.
 
-Port of ``repro.launch.dryrun``'s graph half (``--graph``): the eight
-programs on the five wires, the fused quantized bundle, the overlapped
-ragged cells and the executed early-exit cell, with the same records
-under the same keys and the same regression gate
-(``check_graph_ordering``).
+Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
+cell against stand-ins of its inputs and reads its memory, cost and
+collective bytes out of the compiler; the port compiles nothing, so it
+finds answers of its own that real ranks can check.
+
+**The LM cells** (``--arch``, ``--shape``, ``--mesh``, ``--all``,
+``--probe``, ``--rules``, ``--compress-grads``): ``run_cell`` builds rank
+(0, 0)'s program of the cell on the production mesh
+(``make_production_mesh``, (16, 16) over ("data", "model")), under the
+reference's rule table, and runs it once on the meta device inside
+``collectives.dry`` (no process group; nothing allocated).  ``build_cell``
+is the reference's: train cells the ZeRO-3 step (f32 masters,
+``zero_default``, ``optimizer_default``), serving cells bf16 weights (the
+reference's ``abstract_params(dtype=bf16)``: every f32 leaf of a layer
+cast) with data-axis weight sharding kept only where the bf16 weights do
+not fit a rank replicated over "data", prefill the prefill step, decode
+one decode step at the last position of a cache of ``seq_len`` rows
+(``index`` = S − 1; the reference's index is a traced scalar).  A record
+(``{arch}__{shape}__{mesh}[__tag].json`` under ``results/dryrun_torch``)
+holds, for that rank:
+
+- ``collective_bytes``: the bytes it hands to other ranks, under the
+  reference's ``COLLECTIVE_KINDS`` keys plus ``total`` (``psum``,
+  ``pmax``, ``pmin`` → all-reduce; ``all_gather``, ``gather_to_root``,
+  ``broadcast`` → all-gather; ``reduce_scatter``; ``all_to_all``;
+  ``ring_hop`` → collective-permute), and ``by_site``: bytes, calls and
+  ops by call site.  These are the port's own bytes (its float ``psum``
+  gathers every rank's part: (n − 1)× the payload), counted by the byte
+  rules the real calls count by, so a real rank's ``counts()`` equal
+  them; they are not the reference's HLO bytes.
+- ``memory``: ``argument_bytes`` (exact: the rank's parameters, optimizer
+  state, batch rows, cache and memory blocks; each group in
+  ``arguments``), ``output_bytes`` (exact: what the step returns, the
+  decode cache it writes in place included), and ``temp_bytes`` and
+  ``peak_bytes`` (argument bytes + temp bytes): an eager estimate, the
+  largest sum of the storages the step's ops had made and not yet freed
+  (``Meter``).
+- ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the run:
+  the plain twins' products, K4's masked blocks included.
+- ``bytes_accessed``: the operand plus result bytes of every aten op that
+  is not a view, unfused.
+- ``n_devices``, ``status``, ``lower_s`` (the meta run's seconds) and
+  ``compile_s`` (0: nothing compiles).
+
+A cell the port refuses is recorded, not dropped: where the model path
+raises ``dist.sharding.NotPorted`` (context-parallel rules, a gradient
+through MoE or through the MLA, SSD, hybrid or encoder–decoder layers
+under a mesh, the multi-pod placement) the status is
+``skipped(not ported: ROADMAP Queue 1 item N)``.  Any other exception is
+``FAIL: ...`` with its traceback, and ``main`` exits 1.  ``--probe`` is
+the reference's extrapolation from layer counts 1 and 2; on the meta
+device each layer costs the same, so its totals equal the full-depth
+cell's (the probe configurations keep the full one's ZeRO and optimizer
+choices, where the reference's decide their own).  The reference's
+``block_kv``, ``unroll`` and ``mp_override`` have no counterpart.
+
+    python -m repro_torch.launch.dryrun --arch qwen2-7b --shape decode_32k \
+        --mesh single
+    python -m repro_torch.launch.dryrun --all --mesh single
+
+**The graph cells** (``--graph``): the eight programs on the five wires,
+the fused quantized bundle, the overlapped ragged cells and the executed
+early-exit cell, with the same records under the same keys and the same
+regression gate (``check_graph_ordering``).
 
     python -m repro_torch.launch.dryrun --graph --graph-scale 13 --check
-    python -m repro_torch.launch.dryrun --device cpu --graph \\
+    python -m repro_torch.launch.dryrun --device cpu --graph \
         --graph-scale 13 --graph-k 8 --check
 
-The reference lowers and compiles one GAS step a cell and parses the
-collective bytes out of the post-SPMD HLO.  The port lowers nothing: it
-runs each cell's step (``iters`` iterations, default 1) one partition a
-rank on a k-rank graph mesh, through ``GraphSession.dryrun_step``, and
-reads what the ranks handed to the wire (``dist.collectives`` counts
-every call by call site, from a reset just before the cell's loop):
+The port runs each graph cell's step (``iters`` iterations, default 1)
+one partition a rank on a k-rank graph mesh, through
+``GraphSession.dryrun_step``, and reads what the ranks handed to the wire
+(``dist.collectives`` counts every call by call site, from a reset just
+before the cell's loop):
 
 - ``collective_bytes_wire`` is the sum over the ranks of the bytes each
   handed to the other ranks at the mirror exchange's sites
@@ -38,8 +97,8 @@ every call by call site, from a reset just before the cell's loop):
 - ``compile_s`` keeps the reference's key: the cell's wall seconds on the
   ranks (nothing compiles).
 
-A cell that fails raises, where the reference records the failure and
-goes on: a rank that stops would leave its peers waiting in a
+A graph cell that fails raises, where the reference records the failure
+and goes on: a rank that stops would leave its peers waiting in a
 collective, so ``run_on_ranks`` stops every rank and raises.
 
 The per-rank body (``graph_cells``: a bound mesh and a session holding
@@ -51,23 +110,43 @@ atomics, so there the tol run is held to the fixed run within rtol 1e-5
 (``early_exit_rtol``), not bit for bit; on the CPU bit for bit, as the
 reference gates it.
 
-``--device`` (default ``cuda``) places the session and the ranks;
-``--assign`` adopts an edge → partition assignment of the graph's stream
-(a ``.npy``) in place of the session's own partition; ``--json`` moves
-``results/BENCH_dryrun_torch.json``.  The LM cells (``--arch``,
-``--shape``, ``--all``, ``--probe``) are not ported and raise.
+``--device`` (default ``cuda``) places the graph session and its ranks
+(the LM cells run on the meta device whatever it names); ``--assign``
+adopts an edge → partition assignment of the graph's stream (a
+``.npy``) in place of the session's own partition; ``--json`` moves
+``results/BENCH_dryrun_torch.json``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import threading
 import time
+import traceback
+import weakref
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
+from ..configs import ARCHS, get_config
+from ..dist import collectives as coll
+from ..dist.compress import make_grad_compressor
 from ..dist.halo import EXCHANGE_NAMES, lossy_payload
+from ..dist.mesh import make_production_mesh
+from ..dist.sharding import (CP_SERVE_RULES, MULTI_POD_RULES,
+                             SINGLE_POD_RULES, NotPorted, use_rules)
+from ..models import init_params, layer_groups, param_count
+from ..train import (batch_specs, cache_specs, get_optimizer, local_tree,
+                     make_decode_fn, make_prefill_step, make_train_step,
+                     place_params, placed_specs)
+from ..train.step import _compute_copy, mesh_axes
+from .specs import SHAPES, cell_is_skipped, input_specs
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
 BENCH_JSON = "BENCH_dryrun_torch.json"
@@ -97,10 +176,6 @@ EARLY_EXIT_TOL = 1e-6
 EARLY_EXIT_CAP = 60
 # on the card the two runs' float atomics add in different orders
 EARLY_EXIT_RTOL = 1e-5
-
-LM_CELLS = ("the LM cells of the dry-run (--arch, --shape, --all, --probe) "
-            "and launch/specs.py are not ported yet: ROADMAP Queue 1 item 3")
-
 
 def _is_wire(site: str) -> bool:
     """A mirror exchange's call site (``halo.reduce``, ...)."""
@@ -403,13 +478,423 @@ def check_graph_ordering(recs: list[dict]) -> list[str]:
     return msgs
 
 
+# ------------------------------------------------------------ LM cells
+
+# the reference's HLO collective kinds (``repro.analysis.ir``), and the
+# kind of each of the port's primitives
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+KIND_OF = {"psum": "all-reduce", "pmax": "all-reduce", "pmin": "all-reduce",
+           "all_gather": "all-gather", "gather_to_root": "all-gather",
+           "broadcast": "all-gather", "reduce_scatter": "reduce-scatter",
+           "all_to_all": "all-to-all", "ring_hop": "collective-permute"}
+NOTES = {
+    "collective_bytes": "this rank's bytes handed to other ranks by "
+                        "dist.collectives' byte rules (a float psum gathers "
+                        "every part: (n - 1)x its payload); not HLO bytes",
+    "flops": "FlopCounterMode over the plain twins' products, K4's masked "
+             "blocks included",
+    "bytes_accessed": "operand + result bytes of every aten op that is not "
+                      "a view, unfused",
+    "memory": "argument and output bytes exact; temp_bytes an eager "
+              "estimate (the largest sum of op outputs made and not yet "
+              "freed), peak_bytes = argument_bytes + temp_bytes",
+}
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator for shapes only: ``init_params`` makes every draw on
+    ``gen.device`` (its documented contract), and this one's reads meta,
+    so the tree lands on the meta device with no values.  Its CPU state
+    is never used (a meta draw reads no generator)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def meta_generator() -> torch.Generator:
+    return _MetaGenerator()
+
+
+def _tensors(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples (an op's
+    arguments and results too; ``repro_torch.tree`` keeps tuples as
+    leaves)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def nbytes(tree) -> int:
+    """The bytes of every tensor in a tree of dicts, lists and tuples."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+class Meter(TorchDispatchMode):
+    """Counts, over the aten ops run inside it, the operand plus result
+    bytes of every op that is not a view (``bytes_accessed``) and the
+    storages the ops make: each added when an op first returns it, dropped
+    when it is freed (a finalizer on the storage, whose Python object
+    lives as long as the storage does), the largest sum kept
+    (``temp_bytes``).  The storages of ``keep`` (the arguments) are not
+    counted.  A finalizer may run in another thread (the garbage
+    collector's), so the sums are updated under a lock."""
+
+    def __init__(self, keep=()):
+        super().__init__()
+        self.bytes_accessed = 0
+        self.now = self.temp_bytes = 0
+        self._live: dict = {}
+        self._lock = threading.Lock()
+        self._keep = [t.untyped_storage() for t in _tensors(keep)]
+        self._kept = {id(st) for st in self._keep}
+
+    def _free(self, key):
+        with self._lock:
+            self.now -= self._live.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        made = _tensors(out)
+        if not func.is_view:
+            self.bytes_accessed += sum(
+                t.numel() * t.element_size()
+                for t in _tensors(args) + _tensors(kwargs) + made)
+        for t in made:
+            st = t.untyped_storage()
+            key = id(st)
+            if key not in self._live and key not in self._kept:
+                with self._lock:
+                    self._live[key] = st.nbytes()
+                    self.now += self._live[key]
+                weakref.finalize(st, self._free, key)
+        self.temp_bytes = max(self.temp_bytes, self.now)
+        return out
+
+
+def by_site(counts: dict) -> dict:
+    """``collectives.counts()`` cut to what a dry run and a real rank must
+    agree on: bytes, calls and ops (calls by primitive) of each site."""
+    return {s: {"bytes": c["bytes"], "calls": c["calls"], "ops": c["ops"]}
+            for s, c in sorted(counts.items())}
+
+
+def collective_kinds(counts: dict) -> dict:
+    """``collectives.counts()`` by the reference's collective kinds, plus
+    ``total``."""
+    out = dict.fromkeys(COLLECTIVE_KINDS, 0)
+    for c in counts.values():
+        for op, b in c["op_bytes"].items():
+            out[KIND_OF[op]] += b
+    out["total"] = sum(out.values())
+    return out
+
+
+def zero_default(cfg) -> bool:
+    """ZeRO-shard anything ≥ ~8B parameters (replicated f32 would not fit
+    a card)."""
+    return param_count(cfg, mp=16) >= 8e9
+
+
+def optimizer_default(cfg) -> str:
+    return "adafactor" if param_count(cfg, mp=16) >= 3e10 else "adamw"
+
+
+def serve_zero(cfg, mp: int, mesh) -> bool:
+    """Serving keeps data-axis weight sharding only where the bf16 weights
+    a model rank holds pass 8 GiB (the reference's rule)."""
+    return 2 * param_count(cfg, mp=mp) / mesh.shape["model"] > 8 * 2**30
+
+
+def cfg_with_counts(cfg, counts: dict):
+    """A config whose ``layer_groups()`` counts equal ``counts`` — the
+    probe models."""
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_encoder_layers=counts["enc"],
+                                   n_layers=counts["dec"])
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg,
+                                   n_layers=counts["hyb"] * cfg.attn_period)
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, n_layers=counts["ssd"])
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        moe = dataclasses.replace(cfg.moe, first_k_dense=counts["dense"])
+        return dataclasses.replace(
+            cfg, moe=moe, n_layers=counts["dense"] + counts["moe"])
+    if cfg.moe is not None:
+        return dataclasses.replace(cfg, n_layers=counts["moe"])
+    return dataclasses.replace(cfg, n_layers=counts["dense"])
+
+
+def build_cell(cfg, shape_name: str, mesh, rules, *, mp: int,
+               multi_pod: bool, loss_chunk: int = 512,
+               zero: bool | None = None, compress: bool = False,
+               optimizer: str | None = None, sizes: dict | None = None):
+    """This rank's step on the bound ``mesh`` (a spawned rank's, or the
+    dry mode's ``simulate``), inside ``use_rules(rules, mesh)``: returns
+    (fn, args, held), ``fn(*args)`` the step, ``held`` the bytes of each
+    group of arguments this rank holds.  The parameters are drawn from
+    seed 0 on the mesh's device (the same draws on every rank) and cut by
+    ``place_params``; the inputs (``input_specs`` on that device, at
+    ``sizes`` when given) are whole, and the rank holds its blocks of them
+    (the reference's ``in_shardings``)."""
+    kind = SHAPES[shape_name]["kind"]
+    dev = mesh.device
+    gen = meta_generator() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(0)
+    inputs = input_specs(cfg, shape_name, mp=mp, device=dev, sizes=sizes)
+    train = kind == "train"
+    if zero is None:
+        zero = zero_default(cfg) if train else serve_zero(cfg, mp, mesh)
+    place = place_params(mesh, zero=zero)
+    params = init_params(cfg, gen, dtype=torch.float32 if train
+                         else torch.bfloat16, mp=mp, place=place)
+    specs = placed_specs(place)
+    if not train:           # bf16 weights: every f32 leaf of a layer cast
+        params = _compute_copy(params, torch.bfloat16)
+    held = {"params": nbytes(params)}
+
+    def rows(tree):         # this rank's blocks of whole batch tensors
+        return local_tree(tree, batch_specs(tree, multi_pod=multi_pod),
+                          mesh)
+
+    if train:
+        opt = get_optimizer(optimizer or optimizer_default(cfg))
+        _mesh, axes = mesh_axes(specs)
+        state = opt.init(params, axes=axes)
+        held["opt_state"] = nbytes(state)
+        held["batch"] = nbytes(rows(inputs["batch"]))
+        step = make_train_step(
+            cfg, opt, mp=mp, loss_chunk=loss_chunk, specs=specs,
+            compress_grads=make_grad_compressor() if compress else None)
+        return step, (params, state, inputs["batch"], 0), held
+    serve = specs if zero else None
+    if kind == "prefill":
+        held["batch"] = nbytes(rows(inputs["batch"]))
+        return (make_prefill_step(cfg, mp=mp, specs=serve),
+                (params, inputs["batch"]), held)
+    S = (sizes or SHAPES[shape_name])["seq_len"]
+    cache = local_tree(inputs["cache"],
+                       cache_specs(inputs["cache"], multi_pod=multi_pod),
+                       mesh)
+    args = [params, cache, rows({"t": inputs["tokens"]})["t"]]
+    held.update(cache=nbytes(cache), tokens=nbytes(args[2]))
+    if "memory" in inputs:
+        args.append(rows({"m": inputs["memory"]})["m"])
+        held["memory"] = nbytes(args[3])
+    step = make_decode_fn(cfg, mp=mp, max_len=S, specs=serve)
+
+    def decode(params, cache, tokens, memory=None):
+        return step(params, cache, tokens, S - 1, memory)
+    return decode, tuple(args), held
+
+
+def measure(fn, args, flops: bool = True) -> tuple:
+    """``fn(*args)`` under a ``Meter`` and, with ``flops``, a
+    ``FlopCounterMode`` (its first use in a process costs ≈ 1 s): (its
+    output, {"flops" (None without), "bytes_accessed", "temp_bytes",
+    "output_bytes"})."""
+    meter = Meter(keep=args)
+    counter = FlopCounterMode(display=False) if flops else nullcontext()
+    with counter, meter:
+        out = fn(*args)
+    return out, {"flops": float(counter.get_total_flops()) if flops
+                 else None,
+                 "bytes_accessed": float(meter.bytes_accessed),
+                 "temp_bytes": meter.temp_bytes,
+                 "output_bytes": nbytes(out)}
+
+
+def dry_cell(cfg, shape_name: str, mesh, rules, *, coords=None,
+             **kw) -> dict:
+    """Rank ``coords`` (default rank 0) of the spec ``mesh`` runs its step
+    of the cell once on the meta device (``collectives.dry``;
+    ``build_cell``'s keywords in ``kw``): its record's numbers."""
+    coords = coords if coords is not None else 0
+    t = time.perf_counter()
+    with coll.dry(mesh, coords) as rank, use_rules(rules, rank):
+        fn, args, held = build_cell(cfg, shape_name, rank, rules, **kw)
+        _out, m = measure(fn, args)
+        counts = coll.counts()
+        rec = {"coords": rank.coords}
+    arg = sum(held.values())
+    rec.update(
+        lower_s=time.perf_counter() - t, compile_s=0.0, flops=m["flops"],
+        bytes_accessed=m["bytes_accessed"],
+        collective_bytes=collective_kinds(counts), by_site=by_site(counts),
+        memory={"argument_bytes": arg, "output_bytes": m["output_bytes"],
+                "temp_bytes": m["temp_bytes"],
+                "peak_bytes": arg + m["temp_bytes"], "arguments": held},
+        n_devices=mesh.size, notes=NOTES)
+    return rec
+
+
+def _mesh_and_rules(mesh_kind: str, rules_name: str):
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi",
+                                device="meta")
+    rules = MULTI_POD_RULES if mesh_kind == "multi" else SINGLE_POD_RULES
+    return mesh, (CP_SERVE_RULES if rules_name == "cp" else rules)
+
+
+def _not_ported(e: NotPorted) -> str:
+    return f"skipped(not ported: ROADMAP Queue 1 item {e.item})"
+
+
+def _write(out_dir: Path, name: str, rec: dict) -> None:
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=1))
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
+             loss_chunk: int = 512, tag: str = "",
+             rules_name: str = "tp", compress: bool = False) -> dict:
+    """One (arch × shape × mesh) cell as rank 0 of the production mesh on
+    the meta device (``dry_cell``), recorded under the reference's keys
+    in ``out_dir``; ``compress`` (train cells) runs the step with the
+    int8 gradient compressor and again without it."""
+    cfg = get_config(arch)
+    compress = compress and SHAPES[shape_name]["kind"] == "train"
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "tag": tag or "baseline", "compress_grads": compress}
+    skip = cell_is_skipped(cfg, shape_name)
+    if skip:
+        rec["status"] = skip
+        _write(out_dir, f"{arch}__{shape_name}__{mesh_kind}", rec)
+        print(f"[{arch} × {shape_name} × {mesh_kind}] {skip}")
+        return rec
+    multi_pod = mesh_kind == "multi"
+    mesh, rules = _mesh_and_rules(mesh_kind, rules_name)
+    mp = 1 if rules_name == "cp" else mesh.shape["model"]
+    kw = dict(mp=mp, multi_pod=multi_pod, loss_chunk=loss_chunk)
+    try:
+        rec.update(dry_cell(cfg, shape_name, mesh, rules, compress=compress,
+                            **kw))
+        if compress:
+            base = dry_cell(cfg, shape_name, mesh, rules, **kw)
+            rec["collective_bytes_uncompressed"] = base["collective_bytes"]
+            rec["collective_delta_bytes"] = (
+                base["collective_bytes"]["total"]
+                - rec["collective_bytes"]["total"])
+        rec["status"] = "ok"
+        print(f"[{arch} × {shape_name} × {mesh_kind} × {rec['tag']}] OK  "
+              f"meta run {rec['lower_s']:.1f}s  flops={rec['flops']:.3e}  "
+              f"coll={rec['collective_bytes']['total']:.3e}B  "
+              f"args={rec['memory']['argument_bytes']:.3e}B a rank")
+    except NotPorted as e:
+        rec["status"] = _not_ported(e)
+        rec["reason"] = str(e)
+        print(f"[{arch} × {shape_name} × {mesh_kind}] {rec['status']}")
+    except Exception as e:  # noqa: BLE001 — record the failure, keep going
+        rec["status"] = f"FAIL: {type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+        print(f"[{arch} × {shape_name} × {mesh_kind}] FAIL: {e}",
+              file=sys.stderr)
+    _write(out_dir, f"{arch}__{shape_name}__{mesh_kind}"
+           f"{('__' + tag) if tag else ''}", rec)
+    return rec
+
+
+def _probe_numbers(rec: dict) -> dict:
+    return {"flops": rec["flops"], "bytes": rec["bytes_accessed"],
+            "coll": float(rec["collective_bytes"]["total"])}
+
+
+def run_probe_cell(arch: str, shape_name: str, out_dir: Path,
+                   loss_chunk: int = 512, tag: str = "",
+                   rules_name: str = "tp") -> dict:
+    """Per-layer cost extrapolation on the single-pod mesh, the
+    reference's: total = outside + Σ_g L_g · layer_g, layer_g from the
+    cells at counts[g] = 2 and counts = 1.  Each probe keeps the full
+    configuration's ZeRO and optimizer choices, so the totals equal the
+    full-depth cell's."""
+    cfg = get_config(arch)
+    rec = {"arch": arch, "shape": shape_name, "mesh": "single",
+           "tag": (tag or "baseline") + "-probe"}
+    skip = cell_is_skipped(cfg, shape_name)
+    if skip:
+        rec["status"] = skip
+        return rec
+    mesh, rules = _mesh_and_rules("single", rules_name)
+    mp = 1 if rules_name == "cp" else mesh.shape["model"]
+    train = SHAPES[shape_name]["kind"] == "train"
+    kw = dict(mp=mp, multi_pod=False, loss_chunk=loss_chunk,
+              zero=zero_default(cfg) if train else serve_zero(cfg, mp, mesh),
+              optimizer=optimizer_default(cfg))
+    groups = layer_groups(cfg)
+    base_counts = {name: 1 for name, _ in groups}
+    t0 = time.perf_counter()
+
+    def probe(counts):
+        return _probe_numbers(dry_cell(cfg_with_counts(cfg, counts),
+                                       shape_name, mesh, rules, **kw))
+    try:
+        base = probe(base_counts)
+        per_layer = {}
+        for name, _ in groups:
+            bumped = probe({**base_counts, name: 2})
+            per_layer[name] = {k: bumped[k] - base[k] for k in base}
+        outside = {k: base[k] - sum(per_layer[n][k] for n, _ in groups)
+                   for k in base}
+        totals = {k: outside[k] + sum(cnt * per_layer[n][k]
+                                      for n, cnt in groups)
+                  for k in base}
+        rec.update(status="ok", probe_s=time.perf_counter() - t0,
+                   base=base, per_layer=per_layer, outside=outside,
+                   totals=totals, groups=dict(groups), n_devices=mesh.size)
+        print(f"[probe {arch} × {shape_name} × {rec['tag']}] "
+              f"flops={totals['flops']:.3e} bytes={totals['bytes']:.3e} "
+              f"coll={totals['coll']:.3e} ({rec['probe_s']:.1f}s)")
+    except NotPorted as e:
+        rec["status"] = _not_ported(e)
+        rec["reason"] = str(e)
+        print(f"[probe {arch} × {shape_name}] {rec['status']}")
+    except Exception as e:  # noqa: BLE001
+        rec["status"] = f"FAIL: {type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+        print(f"[probe {arch} × {shape_name}] FAIL: {e}", file=sys.stderr)
+    _write(out_dir, f"{arch}__{shape_name}__probe"
+           f"{('__' + tag) if tag else ''}", rec)
+    return rec
+
+
+def cell_table(recs: list) -> list[str]:
+    """One line a record: status, argument bytes a rank, collective bytes
+    a rank and the meta run's seconds."""
+    lines = ["arch | shape | mesh | status | argument B/rank | "
+             "collective B/rank | s"]
+    for r in recs:
+        ok = r["status"] == "ok"
+        lines.append(" | ".join([
+            r["arch"], r["shape"], r["mesh"], r["status"],
+            str(r["memory"]["argument_bytes"]) if ok else "-",
+            str(r["collective_bytes"]["total"]) if ok else "-",
+            f"{r['lower_s']:.2f}" if ok else "-"]))
+    return lines
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    for flag in ("--arch", "--shape"):
-        ap.add_argument(flag, default=None, help=f"not ported: {LM_CELLS}")
-    for flag in ("--all", "--probe"):
-        ap.add_argument(flag, action="store_true",
-                        help=f"not ported: {LM_CELLS}")
+    ap.add_argument("--arch", default=None,
+                    help="one arch (default: every arch of configs.ARCHS)")
+    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None],
+                    help="one shape (default: every shape of specs.SHAPES)")
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true",
+                    help="every (arch × shape) cell")
+    ap.add_argument("--probe", action="store_true",
+                    help="per-layer cost probes (single-pod only)")
+    ap.add_argument("--rules", default="tp", choices=["tp", "cp"])
+    ap.add_argument("--loss-chunk", type=int, default=512)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="train cells: the int8 gradient compressor; the "
+                         "record also holds the step's collective bytes "
+                         "without it and the delta")
     ap.add_argument("--graph", action="store_true",
                     help="GAS-engine cells: run one step per (program × "
                          "wire) for the full program library plus the "
@@ -429,27 +914,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "twins in bytes and ring hops, and the tol cell "
                          "early-exits under its cap matching the fixed run")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--out", default=str(RESULTS / "dryrun_torch"))
+    ap.add_argument("--out", default=None,
+                    help="the records' directory (default "
+                         "results/dryrun_torch)")
     ap.add_argument("--json", dest="bench_json", default=None,
-                    help=f"the table's path (default results/{BENCH_JSON})")
+                    help=f"the graph table's path (default results/"
+                         f"{BENCH_JSON})")
     ap.add_argument("--assign", default=None,
                     help="a .npy edge → partition assignment of the "
                          "graph's stream, adopted in place of the "
                          "session's own partition")
     ap.add_argument("--device", default="cuda",
-                    help="the session's and the ranks' device (default "
-                         "cuda; cpu runs gloo ranks on the CPU)")
+                    help="the graph session's and its ranks' device "
+                         "(default cuda; cpu runs gloo ranks on the CPU); "
+                         "the LM cells run on the meta device")
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.arch or args.shape or args.all or args.probe or not args.graph:
-        raise NotImplementedError(LM_CELLS)
+def _graph_main(args) -> int:
     assign = None if args.assign is None else np.load(args.assign)
-    recs = run_graph_cell(Path(args.out), scale=args.graph_scale,
-                          k=args.graph_k, tag=args.tag, device=args.device,
-                          assign=assign, bench_json=args.bench_json)
+    recs = run_graph_cell(Path(args.out or RESULTS / "dryrun_torch"),
+                          scale=args.graph_scale, k=args.graph_k,
+                          tag=args.tag, device=args.device, assign=assign,
+                          bench_json=args.bench_json)
     if not args.check:
         return 0
     msgs = check_graph_ordering(recs)
@@ -463,6 +950,35 @@ def main(argv=None) -> int:
               "and ring hops, and tol early-exits under the cap matching "
               "the fixed run")
     return 1 if msgs else 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.graph:
+        return _graph_main(args)
+    out_dir = Path(args.out or RESULTS / "dryrun_torch")
+    archs = ARCHS if (args.all or not args.arch) else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    recs = []
+    for arch in archs:
+        for shape in shapes:
+            if args.probe:
+                recs.append(run_probe_cell(arch, shape, out_dir,
+                                           loss_chunk=args.loss_chunk,
+                                           tag=args.tag,
+                                           rules_name=args.rules))
+                continue
+            for mk in meshes:
+                recs.append(run_cell(arch, shape, mk, out_dir,
+                                     loss_chunk=args.loss_chunk,
+                                     tag=args.tag, rules_name=args.rules,
+                                     compress=args.compress_grads))
+    if not args.probe:
+        for line in cell_table(recs):
+            print(line)
+    return 1 if any(str(r.get("status", "")).startswith("FAIL")
+                    for r in recs) else 0
 
 
 if __name__ == "__main__":

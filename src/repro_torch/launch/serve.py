@@ -53,7 +53,8 @@ class Generation(NamedTuple):
     prompt_logits: torch.Tensor  # (B, V) logits after the last prompt token
     seconds: float               # wall time of all steps, synchronized
     steps: int                   # decode steps: prompt + new tokens
-    finite: bool                 # every step's logits were finite
+    finite: bool | None          # every step's logits were finite (None
+    #                              on the meta device, which computes none)
 
 
 def greedy_tokens(logits, cfg: ModelConfig, tp: TensorParallel):
@@ -123,7 +124,8 @@ def generate(params, cfg: ModelConfig, prompt, new_tokens: int, *,
     if ctx is not None and ctx[1].bound:       # every rank's logits
         finite = coll.pmin(finite.to(torch.int32), ctx[1]) > 0
     return Generation(tokens, gather_rows(prompt_logits, spec), seconds,
-                      P + new_tokens, bool(finite))
+                      P + new_tokens,
+                      None if finite.is_meta else bool(finite))
 
 
 def main(argv=None):

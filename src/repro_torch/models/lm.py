@@ -150,13 +150,17 @@ the plan ``train.shardings.gather_plan`` gives), so the gathered layer
 lives only while it runs and is gathered again in the recompute; the
 gradient comes back reduce-scattered over "data" in rank order.  The
 table and ``lm_head`` are gathered once a step, outside the loss's
-chunk checkpoints.
+chunk checkpoints.  Serving takes the same plan (``prefill``'s and
+``decode_step``'s ``gather``): the reference keeps data-axis weight
+sharding for the archs whose bf16 weights do not fit a rank replicated
+over "data", and each layer's blocks are gathered right before it runs.
 
 bf16 partial sums are added in rank order in f32 and rounded once, where
 the reference's GSPMD sums in its own order (ROADMAP, Queue 3).  Under a
 mesh a gradient through MoE (ROADMAP Queue 1 item 1.1) or through the
 layers of MLA, SSD, hybrid and encoder–decoder models (item 2) raises,
-and so do context-parallel rules (``CP_SERVE_RULES``, item 1.5).
+and so do context-parallel rules (``CP_SERVE_RULES``, item 1.5): each a
+``dist.sharding.NotPorted`` naming its item.
 """
 from __future__ import annotations
 
@@ -170,7 +174,8 @@ from ..core.partitioner import resolve_device
 from ..dist import collectives as coll
 from ..dist import decode as DEC
 from ..dist.mesh import as_axis
-from ..dist.sharding import active_rules, active_spec, entry_axes
+from ..dist.sharding import (NotPorted, active_rules, active_spec,
+                             entry_axes)
 from ..kernels.flash_attention import flash_attention
 from ..tree import tree_leaves
 from . import attention as A
@@ -298,7 +303,9 @@ def init_layer(cfg: ModelConfig, group: str, gen, dtype=torch.float32,
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32, mp: int = 1, place=None) -> Params:
     """Random weights on ``gen``'s device, q heads padded to a multiple of
-    ``mp``.  Matrices take ``dtype`` (the reference serves with weights in
+    ``mp``: every draw and every constant leaf is made on ``gen.device``,
+    so a generator whose device reads meta (``launch.dryrun.
+    meta_generator``) gives the tree's shapes and dtypes only.  Matrices take ``dtype`` (the reference serves with weights in
     the compute type, ``abstract_params(dtype=...)``); norm scales and
     biases stay f32.  ``place(path, part)``, when given, maps each part
     right after it is drawn (the embedding, the head, the final norm, one
@@ -438,8 +445,9 @@ def tensor_parallel(cfg: ModelConfig, mp: int = 1) -> TensorParallel:
         return whole
     rules, mesh = ctx
     if rules.get("seq") is not None:
-        raise ValueError("context-parallel rules (the sequence on a mesh "
-                         "axis) are not ported (ROADMAP Queue 1 item 1.5)")
+        raise NotPorted("context-parallel rules (the sequence on a mesh "
+                        "axis) are not ported (ROADMAP Queue 1 item 1.5)",
+                        "1.5")
     n = mesh.shape.get("model", 1)
     if n == 1:
         return whole
@@ -581,9 +589,9 @@ def _cross_attention(p, x, memory, cfg: ModelConfig, tp: TensorParallel):
 def _ffn_apply(p, x, cfg: ModelConfig, tp: TensorParallel, kind: str):
     if kind == "moe":
         if active_rules() is not None and _needs_grad(x, p):
-            raise ValueError(f"{cfg.name}: a gradient through MoE under a "
-                             "mesh is not ported (serving only; ROADMAP "
-                             "Queue 1 item 1.1)")
+            raise NotPorted(f"{cfg.name}: a gradient through MoE under a "
+                            "mesh is not ported (serving only; ROADMAP "
+                            "Queue 1 item 1.1)", "1.1")
         mo = cfg.moe
         return M.moe_apply(p, x, n_experts=mo.n_experts, top_k=mo.top_k,
                            capacity_factor=mo.capacity_factor,
@@ -690,10 +698,10 @@ def _run_layer(x, lp, cfg: ModelConfig, pos, group: str, tp, memory=None,
     if _needs_grad(x, lp, memory):
         if active_rules() is not None and (
                 cfg.mla is not None or group in ("ssd", "hyb", "enc", "dec")):
-            raise ValueError(f"{cfg.name}: a gradient through its "
-                             f"{'MLA' if cfg.mla else group} layers under "
-                             "a mesh is not ported (ROADMAP Queue 1 item 2:"
-                             " the other families' gradients)")
+            raise NotPorted(f"{cfg.name}: a gradient through its "
+                            f"{'MLA' if cfg.mla else group} layers under "
+                            "a mesh is not ported (ROADMAP Queue 1 item 2:"
+                            " the other families' gradients)", "2")
         return checkpoint(_layer, x, lp, cfg, tp, pos, group, memory, plan,
                           use_reentrant=False)
     return _layer(x, lp, cfg, tp, pos, group, memory, plan)
@@ -713,12 +721,14 @@ def run_layers(x, layers, cfg: ModelConfig, group: str = "dense",
 
 
 def encode(params, src_embeds, cfg: ModelConfig, dtype=torch.bfloat16,
-           mp: int = 1) -> torch.Tensor:
+           mp: int = 1, gather=None) -> torch.Tensor:
     """encdec: ``src_embeds`` (B, Sm, D) through the encoder layers (RoPE
     positions 0..Sm-1, non-causal attention; no final norm, as in the
     reference) → the decoder's memory (B, Sm, D) in ``dtype``; decode
-    takes it as ``memory``."""
-    return run_layers(src_embeds.to(dtype), params["g_enc"], cfg, "enc", mp)
+    takes it as ``memory``.  ``gather``: the ZeRO gather plan of
+    ``params`` (``forward``)."""
+    return run_layers(src_embeds.to(dtype), params["g_enc"], cfg, "enc", mp,
+                      plan=(gather or {}).get("g_enc"))
 
 
 def forward(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -738,7 +748,7 @@ def forward(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
         {"embed": gather_blocks(params["embed"], plan.get("embed"))}, batch,
         cfg, dtype, tp)
     if cfg.family == "encdec":
-        memory = encode(params, memory, cfg, dtype, mp)
+        memory = encode(params, memory, cfg, dtype, mp, gather)
     for group, _count in layer_groups(cfg):
         if group != "enc":
             x = run_layers(x, params[f"g_{group}"], cfg, group, mp, memory,
@@ -993,7 +1003,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
                 dtype=torch.bfloat16, memory=None, mp: int = 1,
-                max_len: int | None = None):
+                max_len: int | None = None, gather=None):
     """tokens (B, 1) → (logits (B, 1, V), cache).  ``index`` is the
     position being written; unlike the reference, the cache's tensors (KV
     rows and SSM states) are written in place and the same dict is
@@ -1002,31 +1012,40 @@ def decode_step(params, cache, tokens, index: int, cfg: ModelConfig,
     does.  Under a mesh ``params``, ``cache`` and ``tokens`` are the
     rank's (``max_len`` the whole cache's rows: a block's rows do not say
     whether the rules split them), and the logits are the rank's columns
-    of the vocabulary (B, 1, V / model) where ``lm_head``'s are split."""
+    of the vocabulary (B, 1, V / model) where ``lm_head``'s are split;
+    ``gather`` is the ZeRO gather plan of ``params`` (``forward``): each
+    layer's blocks are gathered over "data" right before it runs."""
     require_ported(cfg)
     if cfg.family == "encdec" and memory is None:
         raise ValueError(f"{cfg.name}: an encdec decode step needs memory")
     tp = tensor_parallel(cfg, mp)
-    x = L.embed(params["embed"], tokens, dtype, tp.axis(tp.vocab))
-    for group, _count in layer_groups(cfg):
+    plan = gather or {}
+    x = L.embed(gather_blocks(params["embed"], plan.get("embed")), tokens,
+                dtype, tp.axis(tp.vocab))
+    for group, count in layer_groups(cfg):
         if group == "enc":
             continue
-        for i, lp in enumerate(params[f"g_{group}"]):
-            x = _decode_layer(x, lp, cache[group], i, cfg, group, index, tp,
-                              max_len, memory)
-    x = _norm(cfg, params["ln_f"], x)
-    return L.linear(params["lm_head"], x), cache
+        layers = zip(params[f"g_{group}"],
+                     plan.get(f"g_{group}") or [None] * count)
+        for i, (lp, lplan) in enumerate(layers):
+            x = _decode_layer(x, gather_blocks(lp, lplan), cache[group], i,
+                              cfg, group, index, tp, max_len, memory)
+    x = _norm(cfg, gather_blocks(params["ln_f"], plan.get("ln_f")), x)
+    return L.linear(gather_blocks(params["lm_head"], plan.get("lm_head")),
+                    x), cache
 
 
 def prefill(params, batch, cfg: ModelConfig, dtype=torch.bfloat16,
-            mp: int = 1):
+            mp: int = 1, gather=None):
     """Forward pass returning (last-position logits (B, 1, V), final
     hidden (B, S, D)), as the reference's code does (its module docstring
     speaks of emitted caches; the code emits none).  Under a mesh the
     logits are gathered over the model axis (every column), of the rank's
-    batch rows."""
+    batch rows; ``gather`` is the ZeRO gather plan of ``params``
+    (``forward``)."""
     tp = tensor_parallel(cfg, mp)
-    x = forward(params, batch, cfg, dtype, mp)
-    (logits,) = L.gather_cols([L.linear(params["lm_head"], x[:, -1:])],
+    x = forward(params, batch, cfg, dtype, mp, gather)
+    head = gather_blocks(params["lm_head"], (gather or {}).get("lm_head"))
+    (logits,) = L.gather_cols([L.linear(head, x[:, -1:])],
                               tp.axis(tp.vocab), site="logits")
     return logits, x

@@ -38,7 +38,7 @@ import torch
 
 from ..dist import collectives as coll
 from ..dist.mesh import as_axis
-from ..dist.sharding import block, entry_axes
+from ..dist.sharding import NotPorted, block, entry_axes
 
 _KEY_RE = re.compile(r"\['([^']+)'\]|\[(\d+)\]")
 PARAM_LEAF = {"w", "b", "table", "scale", "bias", "A_log", "D", "dt_bias",
@@ -197,7 +197,12 @@ def place_params(mesh, zero: bool = False):
     ``param_specs`` (tensor-parallel, and with ``zero`` each weight's
     other dim over "data" too; the multi-pod axes are not ported),
     sanitized, so one part is whole at a time.  The sanitized specs of
-    every part it cut are kept on it (``placed_specs``)."""
+    every part it cut are kept on it (``placed_specs``).  A mesh with a
+    "pod" axis raises: ``MULTI_POD_RULES``' placement is not ported."""
+    if "pod" in mesh.axes:
+        raise NotPorted("the multi-pod placement (weights over ('pod', "
+                        "'data')) is not ported (ROADMAP Queue 1 item "
+                        "1.6)", "1.6")
     cut: dict = {}
 
     def place(path, sub):

@@ -209,32 +209,46 @@ def gather_rows(x, spec: tuple, *, site: str = "batch.gather"):
                    site=site)
 
 
+def _serve_plan(specs):
+    """The ZeRO gather plan of serving blocks cut by ``specs`` (None: the
+    blocks are the tensor-parallel ones, nothing to gather)."""
+    if specs is None:
+        return None
+    _mesh, axes = mesh_axes(specs)
+    return None if axes is None else gather_plan(axes)
+
+
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
-                      mp: int = 1):
+                      mp: int = 1, specs=None):
     """Returns prefill_step(params, batch) → last-position logits
     (B, 1, V).  ``batch`` passes through whole: "tokens", and an
     encdec's "src_embeds" or a vlm's "prefix_embeds".  Its attention is
     K4, once an attention layer (none in an SSM model, once a period in a
     hybrid one, three times an encoder–decoder layer pair: encoder,
     decoder and cross-attention).  Under a mesh each rank runs its rows
-    of the batch and the logits come back whole."""
+    of the batch and the logits come back whole; ``specs`` (the sanitized
+    specs of ZeRO-3 blocks, ``train.shardings.placed_specs``) has each
+    layer's blocks gathered over "data" before it runs."""
     def prefill_step(params, batch):
         rows, spec = batch_rows(batch)
-        logits, _hidden = _prefill(params, rows, cfg, dtype=dtype, mp=mp)
+        logits, _hidden = _prefill(params, rows, cfg, dtype=dtype, mp=mp,
+                                   gather=_serve_plan(specs))
         return gather_rows(logits, spec)
 
     return prefill_step
 
 
 def make_decode_fn(cfg: ModelConfig, *, dtype=torch.bfloat16, mp: int = 1,
-                   max_len: int | None = None):
+                   max_len: int | None = None, specs=None):
     """Returns serve_step(params, cache, tokens, index, memory=None) →
     (logits, cache); the cache (KV rows, SSM states) is written in place;
     an encdec step attends ``memory``, the encoder's output.  Under a mesh
-    the cache and tokens are the rank's (``models.lm.decode_step``) and
-    ``max_len`` is the whole cache's rows."""
+    the cache and tokens are the rank's (``models.lm.decode_step``),
+    ``max_len`` is the whole cache's rows and ``specs`` those of ZeRO-3
+    blocks (``make_prefill_step``)."""
     def serve_step(params, cache, tokens, index, memory=None):
         return _decode_step(params, cache, tokens, index, cfg, dtype=dtype,
-                            memory=memory, mp=mp, max_len=max_len)
+                            memory=memory, mp=mp, max_len=max_len,
+                            gather=_serve_plan(specs))
 
     return serve_step

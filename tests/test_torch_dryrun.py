@@ -13,6 +13,12 @@ One CLI run a scale, each one spawn of 8 ranks.
 Tolerances: bytes, ring hops and the gates' messages exactly; the
 early-exit cell within ±1 iteration of the reference's ``sess.run`` and
 bit for bit against the fixed run.
+
+The LM cells' command line (``--arch``, ``--shape``, ``--mesh``,
+``--rules``, ``--compress-grads``) writes its records under the
+reference's keys, records the port's refusals as skipped with their
+ROADMAP item, and exits 1 on a failing cell
+(``tests/test_torch_dryrun_lm.py`` holds the cells' numbers).
 """
 import json
 import os
@@ -347,8 +353,76 @@ if given is not None:
         assert D.check_graph_ordering(recs) == jref["check"](recs)
 
 
-def test_lm_cells_raise_naming_the_roadmap_item(tmp_path):
-    for argv in (["--arch", "qwen2_7b"], ["--shape", "decode_32k"],
-                 ["--all"], ["--probe"], []):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            D.main(argv + ["--out", str(tmp_path)])
+# the reference's keys of an ok LM record (src/repro/launch/dryrun.py:206,
+# :253-270) and of its memory analysis
+LM_KEYS = {"arch", "shape", "mesh", "tag", "compress_grads", "status",
+           "lower_s", "compile_s", "flops", "bytes_accessed",
+           "collective_bytes", "memory", "n_devices"}
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes"}
+KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute", "total"}
+# (case, argv, record file, status)
+LM_CLI = [
+    ("record", ["--arch", "stablelm_1_6b", "--shape", "decode_32k"],
+     "stablelm_1_6b__decode_32k__single", "ok"),
+    ("compress", ["--arch", "stablelm_1_6b", "--shape", "train_4k",
+                  "--compress-grads", "--tag", "c"],
+     "stablelm_1_6b__train_4k__single__c", "ok"),
+    ("cp", ["--arch", "qwen2_7b", "--shape", "prefill_32k", "--rules", "cp"],
+     "qwen2_7b__prefill_32k__single",
+     "skipped(not ported: ROADMAP Queue 1 item 1.5)"),
+    ("moe_train", ["--arch", "llama4_scout_17b_a16e", "--shape",
+                   "train_4k"], "llama4_scout_17b_a16e__train_4k__single",
+     "skipped(not ported: ROADMAP Queue 1 item 1.1)"),
+    ("mla_train", ["--arch", "deepseek_v3_671b", "--shape", "train_4k"],
+     "deepseek_v3_671b__train_4k__single",
+     "skipped(not ported: ROADMAP Queue 1 item 2)"),
+    ("multi", ["--arch", "qwen2_7b", "--shape", "decode_32k", "--mesh",
+               "multi"], "qwen2_7b__decode_32k__multi",
+     "skipped(not ported: ROADMAP Queue 1 item 1.6)"),
+    ("long_500k", ["--arch", "qwen2_7b", "--shape", "long_500k"],
+     "qwen2_7b__long_500k__single",
+     "skipped(full-attention: 500k dense KV is out of scope)"),
+]
+
+
+@pytest.mark.parametrize("case,argv,name,status", LM_CLI,
+                         ids=[c[0] for c in LM_CLI])
+def test_lm_cells_record_under_the_references_keys(tmp_path, case, argv,
+                                                   name, status):
+    """``--arch/--shape`` writes ``{arch}__{shape}__{mesh}[__tag].json``
+    under the reference's keys and exits 0; the port's refusals are
+    recorded as skipped, naming their ROADMAP item, the full-attention
+    archs at ``long_500k`` with the reference's reason."""
+    assert D.main(argv + ["--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / f"{name}.json").read_text())
+    assert rec["status"] == status
+    if status != "ok":
+        return
+    assert LM_KEYS <= set(rec) and MEMORY_KEYS <= set(rec["memory"])
+    assert set(rec["collective_bytes"]) == KINDS
+    assert rec["compile_s"] == 0.0 and rec["n_devices"] == 256
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == sum(mem["arguments"].values())
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert rec["collective_bytes"]["total"] == sum(
+        c["bytes"] for c in rec["by_site"].values())
+    if case == "compress":
+        base = rec["collective_bytes_uncompressed"]["total"]
+        assert rec["compress_grads"]
+        assert rec["collective_delta_bytes"] == \
+            base - rec["collective_bytes"]["total"]
+        # the int8 scale is the compressor's one collective (its pmax)
+        assert rec["by_site"]["compress.scale"]["ops"] == {"pmax": 1}
+
+
+def test_a_failing_lm_cell_is_recorded_and_exits_1(tmp_path, monkeypatch):
+    def broken(*a, **k):
+        raise RuntimeError("planted")
+    monkeypatch.setattr(D, "build_cell", broken)
+    assert D.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--out",
+                   str(tmp_path)]) == 1
+    rec = json.loads((tmp_path / "qwen2_7b__decode_32k__single.json")
+                     .read_text())
+    assert rec["status"] == "FAIL: RuntimeError: planted"
+    assert "planted" in rec["traceback"]

@@ -8,7 +8,9 @@ against ``repro.session.GraphSession(...).with_partition(...)
 .comm_bytes()`` on that session's edges and assignment, and against the
 numbers the twin printed.  The serving twin's greedy tokens equal those
 ``examples/serve_lm.py`` prints, on the reference launcher's own weights
-(its ``init_params(cfg, key(seed))``, converted).
+(its ``init_params(cfg, key(seed))``, converted), and the training
+twin's losses equal those ``examples/train_lm.py --tiny`` trains to on the
+same weights within rtol 1e-5.
 """
 import re
 import runpy
@@ -135,3 +137,62 @@ def test_serve_lm_twin(monkeypatch, capsys):
                and x.endswith("on cpu") for x in lines), lines
     assert len(want) == 1
     assert [x for x in lines if x.startswith("sample:")] == want
+
+
+def _capture(module, monkeypatch, losses):
+    """Record the losses of ``module.ft_run`` (a launcher's run)."""
+    run = module.ft_run
+
+    def watched(*a, **k):
+        out = run(*a, **k)
+        losses.extend(float(x) for x in out[2])
+        return out
+    monkeypatch.setattr(module, "ft_run", watched)
+
+
+def test_train_lm_twin(monkeypatch, capsys, tmp_path):
+    """``train_lm_torch.py --tiny`` on the CPU, the launcher's weights
+    replaced by the reference launcher's seed-0 draws (converted): its
+    losses equal those of ``examples/train_lm.py --tiny`` on the same run
+    (the data and the steps are the same by construction), within rtol
+    1e-5, the tolerance ``tests/test_torch_train.py`` (``LOSS_RTOL``)
+    holds the launcher's ``ft.run`` to the reference's by.  Each run's
+    checkpoints go under ``tmp_path``."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.launch import train as jtrain
+    from repro.models import lm as JLM
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch import train as ttrain
+    steps = "6"
+    want, got = [], []
+    _capture(jtrain, monkeypatch, want)
+    main = jtrain.main
+
+    def redirected():       # the reference example's fixed /tmp directory
+        i = sys.argv.index("--ckpt-dir")
+        sys.argv[i + 1] = str(tmp_path / "reference")
+        return main()
+    monkeypatch.setattr(jtrain, "main", redirected)
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", "--tiny", "--steps",
+                                      steps])
+    runpy.run_path(str(EXAMPLES / "train_lm.py"), run_name="__main__")
+
+    jcfg = jconfigs.get_config("stablelm-1.6b").reduced()
+    params = lm_params_from_reference(jax.tree_util.tree_map(
+        np.asarray, JLM.init_params(jcfg, jax.random.key(0))),
+        configs.get_config("stablelm-1.6b").reduced())
+    monkeypatch.setattr(ttrain, "init_params", lambda *a, **k: params)
+    _capture(ttrain, monkeypatch, got)
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    path = EXAMPLES / "train_lm_torch.py"
+    monkeypatch.setattr(sys, "argv", [str(path), "--tiny", "--steps", steps,
+                                      "--device", "cpu"])
+    runpy.run_path(str(path), run_name="__main__")
+    out = capsys.readouterr().out
+    assert f"done: {steps} steps" in out
+    assert (tmp_path / "repro_torch_train_lm_tiny").is_dir()
+    assert len(got) == len(want) == int(steps)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
