@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero):
 
 1. Print the card's name and power limit; build the eight CUDA kernels
-   (one ``nvcc`` per source, in parallel, into ``build/repro_torch/``).
+   (one ``nvcc`` per source, in parallel, into ``build/repro_torch/``),
+   logging each entry function's registers and spilled bytes (ptxas);
+   K4's backward kernel must spill none at any head-dim pair.
 2. The graph path at full size: ``web_graph(scale=20)`` (1,048,576
    vertices, ~6.4 M edges) → ``GraphSession`` CLUGP partition at k = 64
    (one restream) → ``build_layout`` → 30 PageRank iterations over the
@@ -366,6 +368,33 @@ Phases (any failure raises and exits non-zero):
    backward kernel's share of a step.  Last, ``ft.run`` at the reduced config killed at step 5 by
    ``fail_at_step`` and resumed: the uninterrupted run's losses within
    rtol 1e-4.
+8g'. ``[train-families]``, with ``[train]``'s weights freed: every other
+   family trained at published width on the card, f32 masters and bf16
+   compute through ``make_train_step``, the optimizer
+   ``launch.dryrun.optimizer_default`` picks for the full config
+   (Adafactor for llama4-scout, deepseek-v3 and jamba, AdamW for the
+   rest), 3 steps of 4 × 2,048 positions (seamless 1,024 seeded frames +
+   1,024 tokens a row, pixtral its 256 seeded prefix embeddings + 1,792
+   tokens): mamba2-130m and seamless-m4t-large-v2 whole, pixtral-12b at 4
+   of 40 layers, llama4-scout at 1 of 48 (all 16 experts), deepseek-v3 at
+   1 dense + 1 MoE layer with 32 of 256 experts (top-8, the shared expert
+   kept), jamba-1.5-large's period cut to 2 sublayers with 4 of 16
+   experts.  Checks a model: the parameter count = ``param_count``;
+   every loss finite (whether it falls is logged); at step 0 every
+   gradient leaf finite and non-zero but the experts the routing gave no
+   token, which are exactly zero (counted); each step K4 exactly twice
+   an attention call (forward and remat recompute; seamless 3 calls a
+   layer pair) and its backward kernel once a call, no other kernel
+   (mamba2 none); an f32 witness at one layer (jamba its period,
+   deepseek an MoE layer): every gradient leaf through K4 against
+   autograd through the plain version within 1e-4.  Logged: ms/step,
+   tokens/s beside ``train_flops``' ceiling, peak memory, the backward
+   kernel's share of a step.  Then K4's backward kernel at pixtral's (4,
+   32/8, 2048, 160) and MLA's (4, 128/128, 2048, 192/128) (v a slice of
+   ``kv_b``'s rows, k the materialised ``kf``) against its rounding twin
+   (5e-3) and plain autograd (2e-2), timed by the profiler's device time
+   beside its bound, the tensor code and SDPA's backward (the backend
+   the dispatcher takes, or "none accepts").
 8h. ``[train-mesh]``, with ``[train]``'s weights freed: stablelm-1.6b at
    full width, its first 2 of 24 layers (``TRAIN_MESH_LAYERS``; cut for
    the script's time), trained ZeRO-3 over make_test_mesh(2, 4)
@@ -408,7 +437,9 @@ Phases (any failure raises and exits non-zero):
    ranks' prefill with the MLA rank shape's record, the encoder–decoder
    row its seamless ranks' prefill and decode; K4's backward kernel is the
    row ``flash_attention_bwd``, timed at ``[train]``'s shape, with the
-   ``[train]`` and ``[train-mesh]`` steps' launches), then the device
+   ``[train]``, ``[train-families]`` and ``[train-mesh]`` steps' launches
+   and ``[train-families]``' two shapes; the ``[train-families]`` steps'
+   forward launches go to K4's row of their head dims), then the device
    JSON line last.
 
 The mesh phases (``[lm-mesh]``, ``[moe-mesh]``, ``[family-mesh]``,
@@ -430,6 +461,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -576,6 +608,27 @@ def check_path_launches(ops, launches, path):
           f"the {path} path launched another path's kernel: {launches}")
 
 
+def ptxas_entries(text) -> list:
+    """(mangled kernel name, registers, spill bytes stored and loaded) of
+    every entry function in ``nvcc -Xptxas -v`` output."""
+    out, kernel, spill = [], None, 0
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            kernel, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel is not None:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
+
+
 def smi(query):
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -598,10 +651,31 @@ def event_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-# device_ms: untimed calls at a profiler session's start, and the length
-# of the marker kernels (≈ 50.5 µs at 1,980 MHz) around the timed calls
+# device_ms: untimed calls at a profiler session's start, the length of
+# the marker kernels (≈ 50.5 µs at 1,980 MHz) and how many of them make
+# each boundary of the timed calls
 PROFILER_WARM_CALLS = 2
 PROFILER_MARK_CYCLES = 100_000
+PROFILER_MARKS = 2
+# the timings that no profiler session read whole, timed by CUDA events
+# instead (``device_ms``); ``main`` lists them at the end
+PROFILER_FALLBACKS: list = []
+
+
+class Timed(float):
+    """A time in ms and the timer that read it (``timed_by``)."""
+
+    def __new__(cls, ms, timed_by):
+        t = super().__new__(cls, ms)
+        t.timed_by = timed_by
+        return t
+
+
+def timed_by(*times) -> str:
+    """The timers that read ``times`` (``Timed``), each named once; a
+    plain float is a host timer's (a CPU rehearsal's stand-in)."""
+    return "; ".join(dict.fromkeys(getattr(t, "timed_by", "host timer")
+                                   for t in times))
 
 
 @functools.lru_cache(maxsize=1)
@@ -638,7 +712,7 @@ def sessions_ms(sessions, reps, kernel=None, min_sessions=2):
     return None
 
 
-def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
+def device_ms(torch, fn, reps, kernel=None, max_sessions=12):
     """Mean device time of one launch of the kernels whose name holds
     ``kernel`` over ``reps`` calls of ``fn`` traced by torch.profiler; with
     ``kernel`` None, the device time of one call, every device activity
@@ -650,14 +724,25 @@ def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
     without one fail the run.  The profiler loses a session's first
     records (the first call's one or two launches of a kind, in every
     session alike), so a session traces ``PROFILER_WARM_CALLS`` calls,
-    then a marker kernel (``torch.cuda._sleep``), the ``reps`` calls and a
-    second marker, and keeps the records between the two.  Now and then
+    then ``PROFILER_MARKS`` marker kernels (``torch.cuda._sleep``) back to
+    back, the ``reps`` calls and as many markers again, and keeps the
+    records between the two boundaries.  It also loses markers' records
+    (with one marker a boundary, 27 of the 59 sessions of one whole run
+    of this script on an H100 kept one or none of two); a boundary holds while one of its markers is
+    kept, and the calls after the first boundary are kept when the last
+    one is lost whole.  Now and then
     every duration of a session reads half its length (K4 and SDPA at
     0.020 ms against 0.040 in one session, 0.0288 against 0.060 in
     another); a marker spins ``PROFILER_MARK_CYCLES`` cycles, so it lasts
-    at least that many at the top SM clock.  A session that lost a
-    marker's record, or whose marker reads shorter than 0.9 of that, keeps
-    none."""
+    at least that many at the top SM clock.  A session that lost the
+    first boundary's every marker, or whose marker reads shorter than 0.9
+    of that, keeps none.  Where ``max_sessions`` read none whole (on one
+    H100 all six of a session cap lost SDPA's records at qwen2's mesh rank
+    shape), the time is CUDA events' around ``reps`` back-to-back calls
+    (with ``kernel``, over the launches a call counts), which reads the
+    host's launch rate where a call is shorter than its launch; the
+    result's ``timed_by`` says which timer read it, and the fallback is
+    logged and listed at the end of the run."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -672,22 +757,33 @@ def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
                 for _ in range(PROFILER_WARM_CALLS):
                     fn()
                 torch.cuda.synchronize()
-                torch.cuda._sleep(PROFILER_MARK_CYCLES)
+                for _ in range(PROFILER_MARKS):
+                    torch.cuda._sleep(PROFILER_MARK_CYCLES)
                 for _ in range(reps):
                     fn()
-                torch.cuda._sleep(PROFILER_MARK_CYCLES)
+                for _ in range(PROFILER_MARKS):
+                    torch.cuda._sleep(PROFILER_MARK_CYCLES)
                 torch.cuda.synchronize()
-        records = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        marks = sorted((e.time_range.start, e.time_range.end)
-                       for e in records if "spin_kernel" in e.name)
+        # the kept markers by boundary (markers with no other record
+        # between them), and the other records after each boundary
+        marks, after = [], []
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            if "spin_kernel" not in e.name:
+                if marks:
+                    after[-1].append((e.name, e.time_range.elapsed_us()))
+                continue
+            if not marks or after[-1]:
+                marks.append([])
+                after.append([])
+            marks[-1].append(e.time_range.elapsed_us())
         floor_us = 0.9 * PROFILER_MARK_CYCLES / sm_max_hz() * 1e6
-        short = [round(b - a, 2) for a, b in marks if b - a < floor_us]
-        sessions.append([] if len(marks) != 2 or short else [
-            (e.name, e.time_range.elapsed_us()) for e in records
-            if "spin_kernel" not in e.name
-            and e.time_range.start >= marks[0][1]
-            and e.time_range.end <= marks[1][0]])
+        short = [round(us, 2) for b in marks for us in b if us < floor_us]
+        # one boundary alone is the first (the timed calls follow it) or
+        # the last (nothing follows it: the session keeps nothing)
+        whole = len(marks) == 1 or len(marks) == 2 and not after[1]
+        sessions.append(after[0] if whole and not short else [])
         read = sessions_ms(sessions, reps, kernel)
         if read is not None:
             break
@@ -695,11 +791,12 @@ def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
                        if kernel is None or kernel in n)
         log(f"[profiler] session {attempt}, {kernel or 'every kind'} in "
             f"{reps} calls between the markers"
-            f"{'' if len(marks) == 2 else f' ({len(marks)} marker records)'}"
+            f" ({sum(map(len, marks))} of {2 * PROFILER_MARKS} marker records "
+            f"in {len(marks)} boundaries)"
             f"{f' (markers read {short} µs, < {floor_us:.1f})' * bool(short)}"
             f": { {n[:60]: c for n, c in seen.items()} }")
-    check(read is not None, f"the profiler saw {kernel or 'every kind'} "
-          f"whole in none of {len(sessions)} sessions of {reps} calls")
+    if read is None:
+        return device_ms_by_events(torch, fn, reps, kernel, len(sessions))
     ms, per_call = read
     spread = ""
     if kernel:
@@ -708,7 +805,28 @@ def device_ms(torch, fn, reps, kernel=None, max_sessions=6):
     log(f"[profiler] {kernel or 'a call'}: {ms:.4f} ms after "
         f"{len(sessions)} sessions{spread}; launches a call "
         f"{ {n[:80]: c for n, c in per_call.items()} }")
-    return ms
+    return Timed(ms, "profiler device time")
+
+
+def device_ms_by_events(torch, fn, reps, kernel, sessions) -> Timed:
+    """``device_ms``'s time where the profiler read no session whole: CUDA
+    events around ``reps`` back-to-back calls, with ``kernel`` divided by
+    the launches one call counts in the wrappers' counters."""
+    from repro_torch.kernels import _build
+    before = sum(_build.launch_counts().values())
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(1, sum(_build.launch_counts().values()) - before) \
+        if kernel else 1
+    ms = event_ms(torch, fn, reps) / per_call
+    what = f"{kernel or 'every kind'} ({reps} calls)"
+    timed_by = (f"CUDA events around back-to-back calls (the profiler read "
+                f"no whole session in {sessions})")
+    PROFILER_FALLBACKS.append(f"{what}: {ms:.4f} ms")
+    log(f"[profiler] {what}: no whole session in {sessions}; {timed_by}: "
+        f"{ms:.4f} ms" + (f" a launch, {per_call} launches a call"
+                          if kernel else " a call"))
+    return Timed(ms, timed_by)
 
 
 def game_gs_in_partition(torch, run) -> dict:
@@ -1886,23 +2004,45 @@ def prefill_flops(cfg, B, S, capacity, Sm=0) -> int:
                       for group, count in layer_groups(cfg))
 
 
-def train_flops(cfg, B, S) -> int:
-    """Operations of one training step of B × S tokens of a dense model as
-    the code runs it: every matrix product of a layer (q, k, v, o and the
-    FFN's two or three) and the LM head, 2 a weight a token in the
-    forward, 2 again in the remat recompute (each layer's checkpoint, and
-    each CE chunk's) and 4 in the backward (the input's and the weight's
-    gradients) — 6·N·T plus the remat forward; and causal attention over
-    the unmasked (q, k) pairs of every head, 4·D a pair in the forward and
-    again in the recompute, 10·D in the backward (S recomputed, dP, dV,
-    dQ, dK).  The embedding is a gather: no operations.  A multiply-add
-    counts two."""
-    d, H, hd, T = cfg.d_model, cfg.n_heads, cfg.hd, B * S
-    mats = 3 if cfg.norm == "rmsnorm" else 2       # gated or not
-    layer = d * 2 * (H + cfg.n_kv_heads) * hd + mats * d * cfg.d_ff
-    n_matmul = cfg.n_layers * layer + d * cfg.padded_vocab
-    pairs = B * H * (S * (S + 1) // 2)
-    return 8 * n_matmul * T + cfg.n_layers * 18 * hd * pairs
+def attention_calls(cfg) -> list:
+    """(q/k head dim, v head dim, causal, Sq, Skv) of every call of K4 in
+    one forward of ``cfg`` on positions S over Sm source frames (``S``,
+    ``Sm`` standing for them): a dense or MoE layer's self-attention, a
+    hybrid period's one, an encoder layer's over the frames (not causal),
+    a decoder layer's self-attention and its cross-attention over the
+    frames (not causal); none in an SSM model."""
+    from repro_torch.models import layer_groups
+    D = cfg.mla.nope_dim + cfg.mla.rope_dim if cfg.mla else cfg.hd
+    Dv = cfg.mla.v_dim if cfg.mla else cfg.hd
+    per = {"dense": [(D, Dv, True, "S", "S")], "moe": [(D, Dv, True, "S", "S")],
+           "hyb": [(D, Dv, True, "S", "S")], "ssd": [],
+           "enc": [(D, Dv, False, "Sm", "Sm")],
+           "dec": [(D, Dv, True, "S", "S"), (D, Dv, False, "S", "Sm")]}
+    return [c for group, count in layer_groups(cfg)
+            for c in per[group] * count]
+
+
+def train_flops(cfg, B, S, capacity=0, Sm=0) -> int:
+    """Operations of one training step of B × S positions (over B × Sm
+    source frames for an encoder–decoder; ``capacity`` an MoE layer's
+    slots an expert a row) as the code runs it: the forward as
+    ``prefill_flops`` counts it, with the LM head at every position, runs
+    once, again in the remat recompute (each layer's checkpoint, and each
+    CE chunk's) and twice over in the backward (the input's and the
+    weight's gradients) — 4× the forward; K4's backward recomputes S, so
+    an unmasked (q, k) pair costs 2·(3·Dqk + 2·Dv) there against the
+    forward's 2·(Dqk + Dv), 2·Dqk above 4×.  For a dense model: 8 a
+    weight a token and 18·D a pair.  The embedding is a gather: no
+    operations.  A multiply-add counts two."""
+    head = 2 * B * cfg.d_model * cfg.padded_vocab
+    fwd = prefill_flops(cfg, B, S, capacity, Sm) - head
+    n = {"S": S, "Sm": Sm}
+    extra = 0
+    for D, _Dv, causal, sq, skv in attention_calls(cfg):
+        pairs = B * cfg.n_heads * (n[sq] * (n[sq] + 1) // 2 if causal
+                                   else n[sq] * n[skv])
+        extra += 2 * D * pairs
+    return 4 * fwd + extra + 4 * head * S
 
 
 @contextlib.contextmanager
@@ -3065,9 +3205,14 @@ def k4_train_shape_f32(torch, ops, q, k, v, do) -> dict:
     return out
 
 
-def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
-    """K4 at a training shape, bf16, causal, as the model passes it
-    (transposed views of seeded (B, S, H, D)): the forward against the
+def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed, Dv=None,
+                   nope=0, causal=True, twin_excuses=False):
+    """K4 at a training shape, bf16, causal unless ``causal`` is False, as
+    the model passes it
+    (transposed views of seeded (B, S, H, D); with ``nope``, MLA's: v a
+    slice of ``kv_b``'s rows past the ``nope`` columns, k the materialised
+    ``kf`` whose last D − nope columns broadcast one shared rope head;
+    v's head dim ``Dv``, D's by default): the forward against the
     plain version's output (2e-2, K4's bf16 tolerance) and log-sum-exp
     (1e-3 absolute: f32 arithmetic on both sides); the backward kernel
     (``flash_attention_backward``, one launch) from them against its
@@ -3076,20 +3221,32 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
     dk, dv within 5e-3 of each one's largest magnitude (the two sum in
     another order, and the kernel rounds its results to bf16, at most
     2⁻⁹ of a value), and against autograd of the plain version (2e-2,
-    K4's bf16 tolerance).  Returns (q, k, v, do), K4's (o, lse), each max
-    |d| by name (``twin``: each gradient's max |d| over its largest
-    magnitude, and the max |d| of all three) and the plain version's
+    K4's bf16 tolerance; with ``twin_excuses``, an element may lie outside
+    it only where the rounding twin's does too: the tolerance is fixed and
+    absolute, and at large GQA groups the bf16 rounding of P and dS alone
+    can put an element of dk or dv past it).  Returns (q, k, v, do), K4's
+    (o, lse), each max |d| by name (``twin``: each gradient's max |d| over
+    its largest magnitude, and the max |d| of all three; ``excused_d*``:
+    the elements outside 2e-2) and the plain version's
     forward + backward as a function."""
     from repro_torch.kernels import flash_attention as K4
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    Dv = Dv or D
 
-    def act(h):
-        return torch.randn(B, S, h, D, generator=gen, device=dev,
+    def act(h, d=D, s=S):
+        return torch.randn(B, s, h, d, generator=gen, device=dev,
                            dtype=torch.bfloat16).transpose(1, 2)
-    q, k, v, do = act(H), act(Hkv), act(Hkv), act(H)
-    o, lse = K4._kernel(q, k, v, True, None, with_lse=True)
-    want_o, want_lse = ops.flash_attention_plain(q, k, v, causal=True,
+    if nope:
+        kv = act(Hkv, nope + Dv).transpose(1, 2)
+        k = torch.cat([kv[..., :nope], act(1, D - nope).transpose(
+            1, 2).expand(B, S, Hkv, D - nope)], -1).transpose(1, 2)
+        v = kv[..., nope:].transpose(1, 2)
+        q, do = act(H), act(H, Dv)
+    else:
+        q, k, v, do = act(H), act(Hkv), act(Hkv, Dv), act(H, Dv)
+    o, lse = K4._kernel(q, k, v, causal, None, with_lse=True)
+    want_o, want_lse = ops.flash_attention_plain(q, k, v, causal=causal,
                                                  return_lse=True)
     torch.testing.assert_close(o.float(), want_o.float(), rtol=2e-2,
                                atol=2e-2)
@@ -3098,14 +3255,15 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
            "lse": float((lse - want_lse).abs().max())}
     del want_o, want_lse
     ops.reset_launch_counts()
-    got = ops.flash_attention_backward(q, k, v, o, lse, do, True)
+    got = ops.flash_attention_backward(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
     check(ops.launch_counts() == {"flash_attention_bwd": 1}, f"K4's "
           f"backward at {tuple(q.shape)} launched {ops.launch_counts()}")
     f32 = [t.float() for t in (q, k, v, o, lse, do)]
     twin = {"max_abs": 0.0}
-    for name, g, w in zip("qkv", got, ops.flash_attention_backward_plain(
-            *f32, True, round_dtype=torch.bfloat16)):
+    twins = ops.flash_attention_backward_plain(*f32, causal,
+                                               round_dtype=torch.bfloat16)
+    for name, g, w in zip("qkv", got, twins):
         scale = float(w.abs().max())
         d = float((g.float() - w).abs().max())
         check(d <= 5e-3 * scale, f"K4's backward kernel d{name} at "
@@ -3115,17 +3273,30 @@ def k4_train_check(torch, ops, dev, B, H, Hkv, S, D, seed):
         twin["max_abs"] = max(twin["max_abs"], d)
     err["twin"] = twin
     del f32
+    if not twin_excuses:
+        twins = (None,) * 3
     torch.cuda.empty_cache()
 
     def plain_grads():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         return torch.autograd.grad(ops.flash_attention_plain(
-            *leaves, causal=True), leaves, do)
-    for name, g, w in zip("qkv", got, plain_grads()):
-        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
-                                   atol=2e-2)
+            *leaves, causal=causal), leaves, do)
+    for name, g, w, t in zip("qkv", got, plain_grads(), twins):
+        if t is None:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+        else:
+            w = w.float()
+            tol = 2e-2 + 2e-2 * w.abs()
+            out = (g.float() - w).abs() > tol
+            twin_out = (t - w).abs() > tol
+            bad = int((out & ~twin_out).sum())
+            check(not bad, f"K4's backward kernel d{name} at "
+                  f"{tuple(q.shape)}: {bad} elements outside 2e-2 of "
+                  f"plain autograd where its rounding twin is within it")
+            err[f"excused_d{name}"] = int(out.sum())
         err[f"d{name}"] = float((g.float() - w.float()).abs().max())
-    del got
+    del got, twins
     torch.cuda.empty_cache()
     return (q, k, v, do), (o, lse), err, plain_grads
 
@@ -3157,16 +3328,18 @@ def k4_bwd_yardsticks(torch, ops, F, q, k, v, o, lse, do, causal=True):
 
 
 def k4_bounds(q, k, v, o, lse, do, pairs):
-    """K4's bounds at bf16 (forward 4·D a unmasked pair, backward 10·D,
-    forward + backward 12·D, at the bf16 peak; each input read once, each
-    output written once): ((ms, by) of each)."""
-    D = q.shape[-1]
+    """K4's bounds at bf16 (an unmasked pair: forward 2·(D + Dv), backward
+    2·(3·D + 2·Dv), forward + backward 6·(D + Dv) — 4·D, 10·D and 12·D
+    where D = Dv — at the bf16 peak; each input read once, each output
+    written once): ((ms, by) of each)."""
+    D, Dv = q.shape[-1], v.shape[-1]
     qkvo = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
     grads = 2 * (q.numel() + k.numel() + v.numel())
-    return (bound_ms(qkvo + 4 * lse.numel(), 4 * D * pairs, BF16_OPS_PER_S),
+    return (bound_ms(qkvo + 4 * lse.numel(), 2 * (D + Dv) * pairs,
+                     BF16_OPS_PER_S),
             bound_ms(qkvo + 2 * do.numel() + 4 * lse.numel() + grads,
-                     10 * D * pairs, BF16_OPS_PER_S),
-            bound_ms(qkvo + 2 * do.numel() + grads, 12 * D * pairs,
+                     2 * (3 * D + 2 * Dv) * pairs, BF16_OPS_PER_S),
+            bound_ms(qkvo + 2 * do.numel() + grads, 6 * (D + Dv) * pairs,
                      BF16_OPS_PER_S))
 
 
@@ -3226,7 +3399,7 @@ def k4_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed, reps=10):
                sdpa_bwd_ms=lib_bwd, sdpa_fwd_bwd_ms=lib,
                fwd_bwd_bound_ms=both_b[0], o_max_abs_err=o_err,
                lse_max_abs_err=lse_err, **grad_err, twin=twin,
-               f32_rel_err=f32_err, bwd_timed_by="profiler device time")
+               f32_rel_err=f32_err, bwd_timed_by=timed_by(bwd))
     log(f"[train] K4 q {tuple(q.shape)} k/v {tuple(k.shape)} causal, bf16: "
         f"forward with LSE {fwd:.4f} ms (bound {fwd_b[0]:.4f}, {fwd_b[1]}, "
         f"{fwd_b[0] / fwd:.1%}; o max |d| {o_err:.3e}, lse {lse_err:.3e}); "
@@ -3277,7 +3450,7 @@ def train_phase(torch, ops, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, batch_at
     from repro_torch.dist import ft
-    from repro_torch.models import init_params, lm, param_count, tree_leaves
+    from repro_torch.models import init_params, param_count, tree_leaves
     from repro_torch.profile import (TRAIN_ARCH, TRAIN_B, TRAIN_LR, TRAIN_S,
                                      TRAIN_STEPS)
     from repro_torch.train import (Optimizer, adamw, cosine_schedule,
@@ -3383,15 +3556,11 @@ def train_phase(torch, ops, dev) -> dict:
         p32, state0, batch, 0)
     check(ops.launch_counts() == {"flash_attention": 2 * small.n_layers},
           f"the f32 check's step launched {ops.launch_counts()}")
-    real = lm.flash_attention
-    lm.flash_attention = ops.flash_attention_plain
-    try:
+    with plain_attention(ops):
         ops.reset_launch_counts()
         make_train_step(small, spy32, dtype=torch.float32)(p32, state0,
                                                            batch, 0)
         check(not ops.launch_counts(), "the plain step launched a kernel")
-    finally:
-        lm.flash_attention = real
     worst = 0.0
     for (name, got), want in zip(named_leaves(seen[0]), tree_leaves(seen[1])):
         err = float((got - want).abs().max())
@@ -3482,6 +3651,471 @@ def train_phase(torch, ops, dev) -> dict:
     return {"launches": k4_launches, "bwd_launches": bwd_launches,
             "shapes": records, "losses": losses, "ms": ms, "peak_gib": peak,
             "bwd_step_share": bwd_step / (t_step * 1e3)}
+
+
+# ---------------------------------------------------------- [train-families]
+# every other LM family trained on one card after [train] (its weights
+# freed): each model at published width, bf16 compute with f32 masters
+# through make_train_step, the optimizer launch.dryrun.optimizer_default
+# picks for its full config (Adafactor from 3e10 parameters at mp 16)
+# under the launcher's cosine schedule (warmup steps // 10, so none) from
+# TF_LR, TF_STEPS steps
+# of PREFILL_B × PREFILL_S positions (seamless ENCDEC_SRC seeded frames +
+# ENCDEC_S tokens a row, pixtral its 256 seeded prefix embeddings + 1,792
+# tokens).  Cut so that the f32 masters, their gradients and the
+# optimizer's state (≈ 16 B a parameter with AdamW, 8 with Adafactor, + 2
+# for the bf16 copy) fit the card: pixtral 4 of its 40 layers; llama4-scout
+# 1 of 48 layers with all 16 experts; deepseek-v3 1 dense + 1 MoE layer
+# with 32 of its 256 experts (top-8, the shared expert kept); jamba's
+# period cut to 2 sublayers (SSD with the dense FFN, attention with the
+# MoE, 4 of 16 experts), as [family-mesh]'s f32 check; mamba2-130m and
+# seamless-m4t-large-v2 whole.  The f32 witness at one layer (deepseek:
+# an MoE layer; seamless: 1 + 1; jamba: the period) on GRAD_CHECK_B ×
+# GRAD_CHECK_S positions
+TF_STEPS = 3
+TF_TIMED_FROM = 1                   # steps from it make ms/step
+# the first updates of a random init move every weight by about ± lr
+# (AdamW's first is exactly that), so a layer's output by about lr times
+# its fan-in: at published width [train]'s 3e-3 sent 4 of the 6 losses up
+# after the first step and 3e-4 sent 5; at TF_LR each falls at every step
+TF_LR = 1e-5
+TF_VLM_LAYERS, TF_MLA_EXPERTS, TF_HYB_EXPERTS = 4, 32, 4
+TF_PARAMS = {"mamba2": 167_616_960, "seamless": 1_632_356_352,
+             "pixtral": 2_485_171_200, "llama4": 4_273_044_480,
+             "deepseek": 4_077_521_920, "jamba": 4_651_574_016}
+# each model's peak device memory at PREFILL_B rows stays below this
+# (every cut above is sized for it)
+TF_PEAK_GIB = 70
+# K4's forward row of each model's head dims in the kernels line
+TF_K4_ROW = {"seamless": "flash_attention_encdec",
+             "pixtral": "flash_attention_d160", "llama4": "flash_attention",
+             "deepseek": "flash_attention_mla", "jamba": "flash_attention"}
+
+
+def train_family_models(get_config) -> list:
+    """(tag, full config, the trained cut, the f32 witness's config) of
+    each model ``[train-families]`` trains, in its order."""
+    import dataclasses as dc
+    mb, sm, px, l4, ds, jb = (get_config(a) for a in (
+        "mamba2_130m", "seamless_m4t_large_v2", "pixtral_12b",
+        "llama4_scout_17b_a16e", "deepseek_v3_671b", "jamba_1_5_large_398b"))
+    ds_moe = dc.replace(ds.moe, first_k_dense=1, n_experts=TF_MLA_EXPERTS)
+    jb_cut = dc.replace(jb, n_layers=2, attn_period=2, attn_index=1,
+                        moe=dc.replace(jb.moe, n_experts=TF_HYB_EXPERTS))
+    return [
+        ("mamba2", mb, mb, dc.replace(mb, n_layers=1)),
+        ("seamless", sm, sm, dc.replace(sm, n_layers=1, n_encoder_layers=1)),
+        ("pixtral", px, dc.replace(px, n_layers=TF_VLM_LAYERS),
+         dc.replace(px, n_layers=1)),
+        ("llama4", l4, dc.replace(l4, n_layers=1), dc.replace(l4, n_layers=1)),
+        ("deepseek", ds, dc.replace(ds, n_layers=2, moe=ds_moe),
+         dc.replace(ds, n_layers=1, moe=dc.replace(ds_moe, first_k_dense=0))),
+        ("jamba", jb, jb_cut, jb_cut),
+    ]
+
+
+def family_train_batch(torch, cfg, rows, S, Sm, step, gen, dev) -> dict:
+    """One step's batch of ``cfg`` on the card, S positions a row:
+    ``batch_at``'s tokens and labels (seed 0, step ``step``); an
+    encoder–decoder's over Sm seeded source frames; a vlm's
+    ``prefix_tokens`` seeded prefix embeddings ahead of S − P tokens, their
+    labels −1."""
+    from repro_torch.data import DataConfig, batch_at
+    extra, P = {}, 0
+    if cfg.family == "encdec":
+        extra["src_embeds"] = torch.randn(rows, Sm, cfg.d_model,
+                                          generator=gen, device=dev)
+    elif cfg.prefix_tokens:
+        P = cfg.prefix_tokens
+        extra["prefix_embeds"] = torch.randn(rows, P, cfg.d_model,
+                                             generator=gen, device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(
+        DataConfig(cfg.vocab, S - P, rows, seed=0), step).items()}
+    if P:
+        b["labels"] = torch.cat([torch.full((rows, P), -1, device=dev,
+                                            dtype=b["labels"].dtype),
+                                 b["labels"]], 1)
+    return {**b, **extra}
+
+
+@contextlib.contextmanager
+def plain_attention(ops):
+    """The models' attention on K4's plain version (GQA in ``models.lm``,
+    MLA in ``models.attention``) while the block runs."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    reals = lm.flash_attention, A.flash_attention
+    lm.flash_attention = A.flash_attention = ops.flash_attention_plain
+    try:
+        yield
+    finally:
+        lm.flash_attention, A.flash_attention = reals
+
+
+def family_witness(torch, ops, dev, tag, cfg) -> float:
+    """The f32 witness of ``[train-families]``: ``cfg`` (one layer at
+    full width) on GRAD_CHECK_B × GRAD_CHECK_S positions, every gradient
+    leaf of ``make_grad_fn`` through K4's f32 kernel (and its backward, the
+    f32 tensor code) against the same with the plain version under
+    autograd, within 1e-4 of the leaf's largest magnitude.  Returns the
+    worst leaf's share."""
+    from repro_torch.models import init_params
+    from repro_torch.train import make_grad_fn
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = family_train_batch(torch, cfg, GRAD_CHECK_B, GRAD_CHECK_S,
+                               GRAD_CHECK_S, 0, gen, dev)
+    grad_fn = make_grad_fn(cfg, dtype=torch.float32)
+    calls = len(attention_calls(cfg))
+    ops.reset_launch_counts()
+    _, got = grad_fn(params, batch)
+    check(ops.launch_counts() == ({"flash_attention": 2 * calls} if calls
+                                  else {}),
+          f"[train-families] {tag} f32 witness launched "
+          f"{ops.launch_counts()}, not K4 {2 * calls} times")
+    with plain_attention(ops):
+        ops.reset_launch_counts()
+        _, want = grad_fn(params, batch)
+        check(not ops.launch_counts(), f"[train-families] {tag}: the plain "
+              f"witness launched {ops.launch_counts()}")
+    worst = 0.0
+    for (name, _), g, w in zip(named_leaves(params), got, want):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        check(err <= 1e-4 * scale, f"[train-families] {tag} f32 gradient "
+              f"{name}: max |d| {err:.3e} between K4 and the plain version, "
+              f"above 1e-4 × {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    del params, got, want, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_family(torch, ops, dev, tag, full, cfg, witness) -> dict:
+    """One model of ``[train-families]`` (see ``train_families_phase``).
+    Returns its launches, step times, losses, peak and the f32 witness's
+    worst share."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as K4
+    from repro_torch.launch.dryrun import optimizer_default
+    from repro_torch.models import init_params, param_count, tree_leaves
+    from repro_torch.models import moe as M
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.train import (Optimizer, cosine_schedule,
+                                   get_optimizer, make_train_step)
+
+    t_model = time.perf_counter()
+    rows = PREFILL_B
+    S, Sm = (ENCDEC_S, ENCDEC_SRC) if cfg.family == "encdec" else (
+        PREFILL_S, 0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == param_count(cfg) == TF_PARAMS[tag], f"[train-families]"
+          f" {tag} parameter count {n_params}, param_count "
+          f"{param_count(cfg)}, want {TF_PARAMS[tag]}")
+    name = optimizer_default(full)
+    base = get_optimizer(name, schedule=cosine_schedule(
+        TF_LR, warmup=TF_STEPS // 10, total=TF_STEPS))
+    step0 = {}
+
+    def update(grads, state, p, step):
+        if step == 0:                   # one host read for every leaf
+            names, leaves = zip(*named_leaves(grads))
+            flags = torch.stack([torch.stack([torch.isfinite(g).all(),
+                                              (g != 0).any()])
+                                 for g in leaves])
+            experts = [(n, (g != 0).flatten(1).any(1))
+                       for n, g in zip(names, leaves) if "/experts/" in n]
+            flat = torch.cat([flags.flatten()] + [e for _, e in experts])
+            flat = flat.cpu().tolist()
+            step0["leaves"] = list(zip(names, zip(flat[0::2][:len(names)],
+                                                  flat[1::2][:len(names)])))
+            at = 2 * len(names)
+            step0["experts"] = []
+            for n, e in experts:
+                step0["experts"].append((n, flat[at:at + e.numel()]))
+                at += e.numel()
+            step0["load"] = layer_loads(p)
+        return base.update(grads, state, p, step)
+
+    def layer_loads(p):
+        """Each MoE layer's expert load of step 0 by its path: the first
+        recorded call (the forward's; the checkpoint runs it again in the
+        backward) whose router is the layer's master cast as the step
+        casts it."""
+        masters = dict(named_leaves(p))
+        loads = {}
+        for n in masters:
+            if n.endswith("/router/w"):
+                w = masters[n]
+                hits = [load for r, (*_, load) in zip(routers, routing)
+                        if r.equal(w.to(r.dtype))]
+                check(hits, f"[train-families] {tag}: no recorded MoE call "
+                      f"routes with {n}")
+                loads[n[:-len("/router/w")]] = hits[0]
+        return loads
+    opt = Optimizer(name, base.init, update)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    calls = len(attention_calls(cfg))
+    want = ({"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+            if calls else {})
+    mo = cfg.moe
+    capacity = (expert_capacity(S, mo.top_k, mo.n_experts,
+                                mo.capacity_factor) if mo else 0)
+    routing, routers = [], []
+    record_routing = routing_recorder(torch, M, mo, capacity, routing)
+
+    def record_layer(args, kw):         # and the router it routed with
+        record_routing(args, kw)
+        routers.append(args[0]["router"]["w"])
+    bwd_events, at_step = [], [0]
+    real_bwd = K4._backward_kernel
+
+    def timed_bwd(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*args)
+        ev[1].record()
+        bwd_events.append((at_step[0], *ev))
+        return out
+    losses, ms, launches = [], [], {}
+    K4._backward_kernel = timed_bwd
+    try:
+        for i in range(TF_STEPS):
+            at_step[0] = i
+            batch = family_train_batch(torch, cfg, rows, S, Sm, i, gen, dev)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            watch = (spy((M, "moe_apply", record_layer)) if i == 0 and mo
+                     else contextlib.nullcontext())
+            t = time.perf_counter()
+            with watch:
+                params, opt_state, loss = step_fn(params, opt_state, batch, i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss.item())
+            got = ops.launch_counts()
+            check(got == want, f"[train-families] {tag} step {i} launched "
+                  f"{got}, not K4 twice an attention call and its backward "
+                  f"once {want}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        K4._backward_kernel = real_bwd
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"[train-families] {tag} losses "
+          f"{losses} not finite")
+    check(peak <= TF_PEAK_GIB, f"[train-families] {tag} peak device "
+          f"memory {peak:.2f} GiB above {TF_PEAK_GIB} GiB at {rows} rows")
+    bad = [n for n, (finite, nonzero) in step0["leaves"]
+           if not finite or (not nonzero and "/experts/" not in n)]
+    check(len(step0["leaves"]) == len(tree_leaves(params)) and not bad,
+          f"[train-families] {tag} step 0: gradient leaves not finite or "
+          f"all zero: {bad}")
+    # an expert's slices are zero exactly where its layer's routing gave
+    # it no token
+    idle = 0
+    for n, nonzero in step0["experts"]:
+        load = step0["load"][n.rsplit("/experts/", 1)[0]]
+        zero = [e for e, nz in enumerate(nonzero) if not nz]
+        empty = [e for e in range(len(nonzero)) if int(load[e]) == 0]
+        check(zero == empty, f"[train-families] {tag} step 0 {n}: zero "
+              f"gradient at experts {zero}, no token routed to {empty}")
+        idle += len(zero)
+    t_step = sum(ms[TF_TIMED_FROM:]) / (TF_STEPS - TF_TIMED_FROM) / 1e3
+    bwd_ms = sum(s.elapsed_time(e) for i, s, e in bwd_events
+                 if i >= TF_TIMED_FROM) / (TF_STEPS - TF_TIMED_FROM)
+    tokens = rows * (S + Sm)
+    flops = train_flops(cfg, rows, S, capacity, Sm)
+    ceiling = flops / BF16_OPS_PER_S
+    falls = losses[-1] < losses[0]
+    del params, opt_state, step_fn, loss, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = family_witness(torch, ops, dev, tag, witness)
+    log(f"[train-families] {tag} ({cfg.name}: {n_params} parameters = "
+        f"param_count; {name}, lr {TF_LR:g}): {rows} × {S} positions"
+        + (f" over {Sm} source frames" if Sm else "")
+        + f", {TF_STEPS} steps; losses {[round(x, 4) for x in losses]} "
+        f"({'fall' if falls else 'do not fall'}; not gated); steps "
+        f"{TF_TIMED_FROM}–{TF_STEPS - 1}: {t_step * 1e3:.1f} ms/step = "
+        f"{tokens / t_step:.1f} tokens/s (ceiling {flops:.4e} FLOP at 989 "
+        f"TFLOP/s = {ceiling * 1e3:.3f} ms, {ceiling / t_step:.1%} of it); "
+        f"peak device memory {peak:.2f} GiB (within {TF_PEAK_GIB} GiB); "
+        f"step 0: {len(step0['leaves'])} gradient leaves finite and "
+        f"non-zero, {idle} expert slices with no token routed exactly zero; "
+        f"launches a step {json.dumps(want)}; the backward kernel "
+        f"{bwd_ms:.3f} ms a step (CUDA events around its launches) = "
+        f"{bwd_ms / (t_step * 1e3):.1%} of the step; f32 witness at "
+        f"{witness.n_layers} layer(s): every gradient leaf through K4 "
+        f"within {worst:.3e} of its largest magnitude of the plain "
+        f"version's (1e-4); {time.perf_counter() - t_model:.1f} s")
+    return {"tag": tag, "launches": launches, "losses": losses,
+            "ms": ms, "ms_step": t_step * 1e3, "peak_gib": peak,
+            "bwd_ms_step": bwd_ms, "ceiling_ms": ceiling * 1e3,
+            "witness": worst, "params": n_params, "optimizer": name,
+            "rows": rows}
+
+
+def sdpa_backward(torch, F, q, k, v, do, causal=True, reps=10):
+    """``scaled_dot_product_attention``'s backward as the dispatcher runs
+    it on these inputs, a yardstick the port never calls: (the fused
+    backend it takes, its backward's profiler device time), or ("none
+    accepts", None) where only the math backend would take them."""
+    from torch.nn.attention import SDPBackend
+    gqa = q.shape[1] != k.shape[1]
+    name = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, None, 0.0, causal, scale=None, enable_gqa=gqa)).name
+    if name in ("MATH", "ERROR"):
+        return "none accepts", None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=gqa)
+        ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps)
+    except RuntimeError as e:
+        return f"{name} refused: {str(e).strip().splitlines()[0]}", None
+    finally:
+        del leaves
+        torch.cuda.empty_cache()
+    return name, ms
+
+
+def k4_bwd_shape(torch, ops, F, dev, tag, B, H, Hkv, S, D, Dv, nope, seed,
+                 causal=True, twin_excuses=False, reps=10) -> dict:
+    """K4's backward kernel at a training shape of ``[train-families]``
+    (``k4_train_check``: against its rounding twin within 5e-3 and plain
+    autograd within 2e-2), timed by the profiler's device time beside its
+    bound, the tensor code (CUDA events) and ``sdpa_backward``."""
+    (q, k, v, do), (o, lse), err, plain_grads = k4_train_check(
+        torch, ops, dev, B, H, Hkv, S, D, seed, Dv=Dv, nope=nope,
+        causal=causal, twin_excuses=twin_excuses)
+    excused = {n: err[n] for n in ("excused_dq", "excused_dk", "excused_dv")
+               if n in err}
+    if twin_excuses:    # the library's bf16 backward under the same gate
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_grads = torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=H != Hkv), leaves, do)
+        excused["sdpa_outside"] = [
+            int(((g.float() - w.float()).abs()
+                 > 2e-2 + 2e-2 * w.float().abs()).sum())
+            for g, w in zip(lib_grads, plain_grads())]
+        del leaves, lib_grads
+    bwd = device_ms(torch, lambda: ops.flash_attention_backward(
+        q, k, v, o, lse, do, causal), reps)
+    tensor_code = event_ms(torch, lambda: ops.flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal), 2, warmup=1)
+    backend, lib = sdpa_backward(torch, F, q, k, v, do, causal, reps)
+    _, (bms, by), _ = k4_bounds(q, k, v, o, lse, do, B * H * (
+        S * (S + 1) // 2 if causal else S * S))
+    rec = dict(q_shape=list(q.shape), kv_shape=list(k.shape),
+               v_shape=list(v.shape), causal=causal, bwd_ms=bwd,
+               bwd_bound_ms=bms, bwd_bound_by=by,
+               tensor_code_bwd_ms=tensor_code, sdpa_bwd_ms=lib,
+               sdpa_backend=backend, twin=err["twin"],
+               **{n: err[n] for n in ("dq", "dk", "dv")}, **excused,
+               bwd_timed_by=timed_by(bwd))
+    log(f"[train-families] K4 backward kernel at {tag}'s q "
+        f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+        f"{'causal' if causal else 'not causal'}, bf16"
+        + ("; v a slice of kv_b's rows, k the materialised kf" if nope
+           else "") + f": {bwd:.4f} ms, profiler device "
+        f"time (bound {bms:.4f}, {by}, {bms / bwd:.1%}); dq/dk/dv within "
+        f"{err['twin']['dq']:.3e}/{err['twin']['dk']:.3e}/"
+        f"{err['twin']['dv']:.3e} of their largest magnitudes of the "
+        f"rounding twin (5e-3), max |d| {err['dq']:.3e}/{err['dk']:.3e}/"
+        f"{err['dv']:.3e} against autograd of the plain version (2e-2"
+        + (f"; outside it, where the rounding twin is too: dq/dk/dv "
+           f"{excused['excused_dq']}/{excused['excused_dk']}/"
+           f"{excused['excused_dv']} elements; scaled_dot_product_"
+           f"attention's backward has "
+           f"{'/'.join(map(str, excused['sdpa_outside']))} outside it"
+           if excused else "")
+        + "); the "
+        f"tensor code {tensor_code:.3f} ms ({tensor_code / bwd:.1f}× the "
+        f"kernel); scaled_dot_product_attention backward: {backend}"
+        + (f", {lib:.4f} ms ({bwd / lib:.2f}×)" if lib else ""))
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_families_phase(torch, ops, dev, rows) -> None:
+    """``[train-families]``, after ``[train]`` with its weights freed:
+    mamba2-130m, seamless-m4t-large-v2, pixtral-12b (4 of 40 layers),
+    llama4-scout (1 of 48 layers, 16 experts), deepseek-v3 (1 dense + 1
+    MoE layer, 32 of 256 experts) and jamba-1.5-large (a period of 2
+    sublayers, 4 of 16 experts), each trained at published width on this
+    card: f32 masters, bf16 compute (``make_train_step``), the optimizer
+    ``optimizer_default`` picks for the full config, TF_STEPS steps of
+    4 × 2,048 positions (``train_family``).  Checks: the parameter count
+    against ``param_count``; every loss finite (whether it falls is
+    logged); at step 0 every gradient leaf finite and non-zero but the
+    experts the routing gave no token, whose slices are exactly zero;
+    each step K4 exactly twice an attention call (the forward and the
+    remat recompute) and its backward kernel once, no other kernel
+    (mamba2 none); the f32 witness at one layer (``family_witness``).
+    Logged: ms/step, tokens/s beside ``train_flops``' ceiling, peak
+    memory, the backward kernel's share of a step.  Then K4's backward
+    at pixtral's (4, 32/8, 2048, 160), deepseek MLA's (4, 128/128, 2048,
+    192/128), seamless's non-causal (4, 16/16, 1024, 64), llama4's (4,
+    40/8, 2048, 128) and jamba's (4, 64/8, 2048, 128) (``k4_bwd_shape``;
+    jamba's with the twin's excuses).  The kernels line's K4 rows gain
+    the steps' forward launches by head dims, and ``flash_attention_bwd``
+    its launches and the five shapes."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-families] before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    runs = [train_family(torch, ops, dev, tag, full, cfg, witness)
+            for tag, full, cfg, witness in train_family_models(get_config)]
+    models = {r["tag"]: c for r, (_, _, c, _) in zip(
+        runs, train_family_models(get_config))}
+    sm, px, l4, ds, jb = (models[t] for t in (
+        "seamless", "pixtral", "llama4", "deepseek", "jamba"))
+    m = ds.mla
+    shapes = [k4_bwd_shape(torch, ops, F, dev, "pixtral", PREFILL_B,
+                           px.n_heads, px.n_kv_heads, PREFILL_S, px.hd,
+                           px.hd, 0, 51),
+              k4_bwd_shape(torch, ops, F, dev, "deepseek", PREFILL_B,
+                           ds.n_heads, ds.n_heads, PREFILL_S,
+                           m.nope_dim + m.rope_dim, m.v_dim, m.nope_dim, 52),
+              # the encoder's self-attention and the cross-attention (its
+              # ENCDEC_S queries over as many source frames)
+              k4_bwd_shape(torch, ops, F, dev, "seamless", PREFILL_B,
+                           sm.n_heads, sm.n_kv_heads, ENCDEC_S, sm.hd,
+                           sm.hd, 0, 53, causal=False),
+              k4_bwd_shape(torch, ops, F, dev, "llama4", PREFILL_B,
+                           l4.n_heads, l4.n_kv_heads, PREFILL_S, l4.hd,
+                           l4.hd, 0, 54),
+              k4_bwd_shape(torch, ops, F, dev, "jamba", PREFILL_B,
+                           jb.n_heads, jb.n_kv_heads, PREFILL_S, jb.hd,
+                           jb.hd, 0, 55, twin_excuses=True)]
+    row = {r["name"]: r for r in rows}
+    bwd = sum(r["launches"].get("flash_attention_bwd", 0) for r in runs)
+    for r in runs:
+        if r["tag"] in TF_K4_ROW:
+            row[TF_K4_ROW[r["tag"]]]["launches"] += r["launches"][
+                "flash_attention"]
+    row["flash_attention_bwd"]["launches"] += bwd
+    row["flash_attention_bwd"]["family_shapes"] = shapes
+    row["flash_attention_bwd"]["family_launches"] = {
+        r["tag"]: r["launches"].get("flash_attention_bwd", 0) for r in runs}
+    log(f"[train-families] K4 backward kernel launches in the phase {bwd} "
+        f"(row flash_attention_bwd), K4's by model "
+        + json.dumps({r["tag"]: r["launches"].get("flash_attention", 0)
+                      for r in runs})
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------- [dist]
@@ -4452,7 +5086,7 @@ def lm_mesh_phase(torch, ops, dev, witness, k4_row) -> None:
     k4_row["mesh_shape"] = dict(shape=[B, Hq, Hkv, PREFILL_S, cfg.hd],
                                 launches=launches, max_abs_err=err, ms=ms,
                                 plain_ms=plain, bound_ms=bms, bound_by=by,
-                                library_ms=lib)
+                                library_ms=lib, timed_by=timed_by(ms, lib))
     log(f"[K4] the rank's shape q {tuple(q.shape)} k/v {tuple(k.shape)}: "
         f"max |d| {err:.3e}; device time {ms:.4f} ms/launch = "
         f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}), "
@@ -4857,7 +5491,7 @@ def k4_mesh_train_shape(torch, ops, F, dev, B, H, Hkv, S, D, seed,
                 tensor_code_bwd_ms=tensor_code, plain_fwd_bwd_ms=plain,
                 sdpa_bwd_ms=lib_bwd, sdpa_fwd_bwd_ms=lib,
                 o_max_abs_err=o_err, **grad_err, twin=twin,
-                timed_by="profiler device time")
+                timed_by=timed_by(fwd, bwd))
 
 
 def train_mesh_phase(torch, ops, dev, train, k4_row, bwd_row) -> None:
@@ -5415,7 +6049,7 @@ def moe_mesh_phase(torch, ops, dev, k4_row) -> None:
                                     launches=launches, max_abs_err=err,
                                     ms=ms, plain_ms=plain, bound_ms=bms,
                                     bound_by=by, library_ms=lib,
-                                    timed_by="profiler device time")
+                                    timed_by=timed_by(ms, lib))
     log(f"[K4] the MoE rank's shape q {tuple(q.shape)} k/v {tuple(k.shape)}"
         f": max |d| {err:.3e}; device time {ms:.4f} ms/launch = "
         f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}), "
@@ -5846,7 +6480,7 @@ def family_k4(torch, ops, F, dev, tag, B, H, Hkv, Dqk, Dv, nope, seed,
                causal=causal, max_abs_err=err, max_abs_err_p_bf16=err_r,
                ms=times["k4_device"], plain_ms=plain, bound_ms=bms,
                bound_by=by, library_ms=times["sdpa_device"],
-               timed_by="profiler device time")
+               timed_by=timed_by(times["k4_device"], times["sdpa_device"]))
     log(f"[K4] {what} q {tuple(q.shape)} k {tuple(k.shape)} v "
         f"{tuple(v.shape)}: max |d| {err:.3e} (p in bf16: {err_r:.3e}); "
         f"device time {rec['ms']:.4f} ms/launch = "
@@ -6121,9 +6755,14 @@ def main() -> int:
     report = ops.build_all()
     log(f"[build] {time.perf_counter() - t:.1f} s")
     for name, r in report.items():
-        regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
+        entries = ptxas_entries(r["ptxas"])
         log(f"[build] {name}: {r['seconds']:.1f} s "
-            f"{'cached' if r['cached'] else ''} {' | '.join(regs)}")
+            f"{'cached' if r['cached'] else ''} " + " | ".join(
+                f"{k} {regs} registers, {spill} B spilled"
+                for k, regs, spill in entries))
+        check(name != "flash_attention_bwd" or (entries and not any(
+            spill for *_, spill in entries)), f"{name} spills registers "
+            f"(or ptxas reported nothing): {entries}")
 
     # ---------------------------------------------------------- phase 2
     t = time.perf_counter()
@@ -6796,10 +7435,15 @@ def main() -> int:
                                "twin")} for r in train["shapes"]],
         train_step_share=train["bwd_step_share"]))
 
+    # ---------------------------------------------------------- phase 8g'
+    train_families_phase(torch, ops, dev, rows)
+
     # ---------------------------------------------------------- phase 8h
     train_mesh_phase(torch, ops, dev, train, k4_row, rows[-1])
 
     # ---------------------------------------------------------- phase 9
+    log(f"[profiler] timings read by CUDA events where no profiler session "
+        f"was whole: {PROFILER_FALLBACKS or 'none'}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,9 +27,9 @@
 //    (B·Hq, 2, Sq_pad) (Sq_pad: Sq rounded up to 128; pad rows are 0), so
 //    the main kernels take both by aligned bulk copies or plain loads.
 // 2. dkdv: one CTA owns one (b, KV head, 128-row KV tile), walks every q
-//    tile (64 rows) of its group's g heads (from the diagonal when causal)
-//    and keeps dK and dV in registers across all of them: no atomics, no
-//    second pass.  Its 256 threads are two warpgroups of 64 KV rows each;
+//    tile (BQ rows, 64 or 32: see Head dims) of its group's g heads (from
+//    the diagonal when causal) and keeps dK and dV in registers across
+//    all of them: no atomics, no second pass.  Its 256 threads are two warpgroups of 64 KV rows each;
 //    thread 0 also loads: the K and V tiles once, then Q and dO tiles with
 //    TMA and the tiles' lse/delta with bulk copies into a ring of STAGES
 //    (mbarrier full/empty pairs, as the forward's ring), refilling a stage
@@ -43,7 +43,7 @@
 //    (the descriptor's transpose bit): the coincidence of the accumulator
 //    and A-fragment layouts that the forward's P·V uses.
 // 3. dq: one CTA owns one (b, q head, 128-row q tile), keeps Q and dO in
-//    shared memory and walks 64-row KV tiles (to the diagonal when
+//    shared memory and walks KV tiles of QBKV rows (to the diagonal when
 //    causal): warps 0-7 are two consumer warpgroups of 64 q rows, warp 8
 //    loads the K/V ring.  S = Q·K^T and dP = dO·V^T, P and dS on the
 //    fragments (lse and delta are per row here: two of each a thread, from
@@ -57,14 +57,20 @@
 // Registers: ptxas budgets a 288-thread block as if it had 384 threads
 // (168 a thread) whatever setmaxnreg says (see flash_attention.cu), so the
 // dkdv kernel, whose warpgroups hold dK and dV (64 x D f32 each) beside
-// the S^T and dP^T tiles (64 x 64), runs 256 threads and no producer warp:
+// the S^T and dP^T tiles (64 x BQ), runs 256 threads and no producer warp:
 // 231 registers a thread at D = 128, no spills.  The dq kernel (dQ and two
-// 64 x 64 tiles) fits in 168 with its producer warp.  The grids run the
+// 64 x QBKV tiles) fits in 168 with its producer warp.  The grids run the
 // longest CTAs first: KV tile 0 sees every q tile; the last q tile sees
 // every KV tile.
 //
-// Head dims: (32, 32), (64, 64), (128, 128).  The pairs (160, 160) and
-// (192, 128) are not built (the wrapper raises on them in bf16).
+// Head dims: (32, 32), (64, 64), (128, 128) with 64-row q steps in dkdv
+// and 64-row KV steps in dq; (160, 160) (pixtral) and (192, 128) (MLA)
+// with 32-row steps in both.  At those pairs dK and dV alone take
+// DQK/2 + DV/2 = 160 registers a thread, which leaves no room for two
+// 64 x 64 tiles (64 more) within 255; 64 x 32 tiles take 32, and the dq
+// kernel's dQ (96 at D 192) beside two 64 x 32 tiles stays within its
+// 168.  The narrower steps halve each wgmma's N (32) and double the
+// steps, so they cost time, not bytes: the tiles are read from L2.
 #include "common.cuh"
 #include "hopper.cuh"  // mbarrier, TMA, wgmma and tensor-map helpers
 
@@ -77,6 +83,8 @@ constexpr int PAD = 128;           // Sq_pad: Sq rounded up to this
 
 template <int DQK, int DV>
 struct Bwd {
+  // 32-row steps where dK and dV take 160 registers (see the header)
+  static constexpr int STEP = DQK + DV > 256 ? 32 : 64;
   static constexpr int PW = panel_width(DQK);
   static_assert(panel_width(DV) == PW, "q/k and v tiles share one swizzle");
   static constexpr int ROWB = 2 * PW;             // bytes of one panel row
@@ -85,7 +93,7 @@ struct Bwd {
 
   // dkdv: 128 KV rows a CTA, BQ q rows a step, a ring of STAGES steps
   static constexpr int KV_ROWS = 128;
-  static constexpr int BQ = 64;
+  static constexpr int BQ = STEP;
   static constexpr int STAGES = 4;
   static constexpr int K_BYTES = KV_ROWS * DQK * 2;
   static constexpr int V_BYTES = KV_ROWS * DV * 2;
@@ -103,7 +111,7 @@ struct Bwd {
 
   // dq: 128 q rows a CTA (a warpgroup each 64), QBKV KV rows a step
   static constexpr int QROWS = 128;
-  static constexpr int QBKV = 64;
+  static constexpr int QBKV = STEP;
   static constexpr int QSTAGES = 2;
   static constexpr int QQ_BYTES = QROWS * DQK * 2;
   static constexpr int QDO_BYTES = QROWS * DV * 2;
@@ -610,6 +618,8 @@ int dispatch_bwd_dims(int D, int Dv, F&& f) {
   if (D == 32 && Dv == 32) return f(Dim<32>{}, Dim<32>{});
   if (D == 64 && Dv == 64) return f(Dim<64>{}, Dim<64>{});
   if (D == 128 && Dv == 128) return f(Dim<128>{}, Dim<128>{});
+  if (D == 160 && Dv == 160) return f(Dim<160>{}, Dim<160>{});
+  if (D == 192 && Dv == 128) return f(Dim<192>{}, Dim<128>{});
   return (int)cudaErrorInvalidValue;
 }
 

@@ -303,11 +303,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "r"(1));
 }
 
-// O (64 x D) += P (64 x 16) * V (16 x D); db describes V's first panel.
-// At D = 160 (five 32-column panels of ROWS KV rows, 64 bytes a row) the
-// first four panels are one N = 128 product and the fifth, whose address
-// is four panels on (in the descriptor's 16-byte units), one N = 32
-// product into accumulator columns 128-159.
+// O (64 x D) += P (64 x 16) * V (16 x D); db describes V's first panel
+// (ROWS rows of the operand a panel).  At D = 160 (five 32-column panels,
+// 64 bytes a row) the first four panels are one N = 128 product and the
+// fifth, whose address is four panels on (in the descriptor's 16-byte
+// units), one N = 32 product into accumulator columns 128-159; at D = 192
+// (three 64-column panels, 128 bytes a row) the first two are one N = 128
+// product and the third one N = 64 product into columns 128-191.
 template <int D, int ROWS>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
@@ -318,7 +320,11 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   } else if constexpr (D == 160) {
     wgmma_rs_n128(d, a, db);
     wgmma_rs_n32(d + 64, a, db + ((4u * ROWS * 64u) >> 4));
+  } else if constexpr (D == 192) {
+    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n64(d + 64, a, db + ((2u * ROWS * 128u) >> 4));
   } else {
+    static_assert(D == 128, "wgmma_rs: D in 32, 64, 128, 160, 192");
     wgmma_rs_n128(d, a, db);
   }
 }

@@ -26,8 +26,8 @@ K4 on CUDA tensors (the kernel then also writes the rows' log-sum-exp,
 f32 (B, Hq, Sq)) and the plain version on CPU tensors; its backward is
 ``flash_attention_backward`` (the TPU kernel has no backward: the
 reference differentiates ``chunked_attention``): on bf16 CUDA tensors
-the Hopper kernel ``csrc/flash_attention_bwd.cu`` ((D, Dv) in
-``BWD_HEAD_DIMS``), on f32 CUDA tensors and on CPU tensors the plain
+the Hopper kernel ``csrc/flash_attention_bwd.cu`` (every (D, Dv) in
+``HEAD_DIMS``), on f32 CUDA tensors and on CPU tensors the plain
 version, tensor code by KV blocks.  The serving path, which takes no
 gradient, launches the forward kernel with no log-sum-exp buffer.
 """
@@ -42,9 +42,10 @@ from . import _build
 NEG_INF = -1e30
 # (D of q and k, Dv of v and o) pairs the kernel is built for
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (160, 160), (192, 128))
-# the pairs the bf16 backward kernel is built for; (160, 160) and (192,
-# 128) are ROADMAP's open item "K4's backward at head dims 160 and 192"
-BWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
+# the pairs the bf16 backward kernel is built for: every pair the forward
+# takes (32-row steps at (160, 160) and (192, 128); csrc/
+# flash_attention_bwd.cu)
+BWD_HEAD_DIMS = HEAD_DIMS
 
 
 # KV rows a step of ``flash_attention_backward_plain`` takes at once
@@ -176,7 +177,8 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
     CPU and meta tensors take the plain version; bf16 CUDA tensors launch
     the Hopper kernel ``csrc/flash_attention_bwd.cu`` (P and dS rounded to
     bf16 before their products, as ``round_dtype=torch.bfloat16`` rounds
-    them), or raise when it does not take their head dims or layout; f32
+    them) at every head-dim pair of ``HEAD_DIMS``, or raise when it does
+    not take their layout; f32
     CUDA tensors take the plain version on the card (no f32 backward
     kernel yet: ROADMAP's open item "K4's f32 backward kernel"), as the
     f32 gradient checks of training expect its exact f32 arithmetic."""
@@ -258,10 +260,6 @@ def _backward_kernel(q, k, v, o, lse, do, causal: bool, sm_scale):
     if q.dtype != torch.bfloat16:
         raise ValueError("flash_attention_backward: the kernel takes bf16 "
                          "(f32 CUDA inputs take the plain version)")
-    if (D, Dv) not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward: head dims (D {D}, Dv "
-                         f"{Dv}) not in the bf16 kernel's {BWD_HEAD_DIMS} "
-                         "(ROADMAP: K4's backward at head dims 160 and 192)")
     for t, name in ((o, "o"), (do, "do")):
         if t.shape != (B, Hq, Sq, Dv) or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_backward: {name} must be "

@@ -1285,6 +1285,8 @@ def test_flash_attention_lse_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,Dv,causal,dtype", [
     (2, 8, 8, 256, 64, 64, True, torch.bfloat16),
     (1, 28, 4, 300, 128, 128, True, torch.bfloat16),
+    (1, 8, 2, 150, 160, 160, True, torch.bfloat16),
+    (1, 8, 8, 200, 192, 128, True, torch.bfloat16),
     (1, 8, 8, 200, 192, 128, False, torch.float32),
     (2, 7, 1, 150, 64, 64, True, torch.float32)])
 def test_flash_attention_backward_on_card(dev, B, Hq, Hkv, S, D, Dv, causal,
@@ -1371,28 +1373,34 @@ def test_every_parameter_gets_a_gradient_on_card(dev, dtype, monkeypatch):
                 got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
-# K4's backward kernel: (B, Hq, Hkv, Sq, Skv, D, causal, (B, S, H, D) views)
-# — groups 1, 4 and 7, Sq ≠ Skv both ways (causal with Sq < Skv leaves
-# KV tiles no q row sees: their dK and dV are zeros), every head-dim pair
-# the kernel takes
-BWD_CASES = [(2, 8, 8, 256, 256, 64, True, True),
-             (2, 8, 8, 256, 256, 64, False, False),
-             (1, 28, 4, 300, 300, 128, True, True),
-             (1, 28, 4, 300, 300, 128, False, False),
-             (2, 8, 2, 200, 333, 64, False, True),
-             (2, 8, 2, 200, 333, 64, True, False),
-             (1, 4, 1, 333, 150, 128, True, True),
-             (1, 4, 1, 150, 333, 128, True, False),
-             (1, 7, 1, 129, 77, 32, False, True),
-             (1, 7, 1, 77, 129, 32, True, False),
-             (2, 14, 2, 517, 517, 64, True, True),
-             (1, 8, 8, 64, 512, 128, True, True)]
+# K4's backward kernel: (B, Hq, Hkv, Sq, Skv, D, Dv, causal, (B, S, H, D)
+# views) — groups 1, 4 and 7, Sq ≠ Skv both ways (causal with Sq < Skv
+# leaves KV tiles no q row sees: their dK and dV are zeros), every head-dim
+# pair the kernel takes
+BWD_CASES = [(2, 8, 8, 256, 256, 64, 64, True, True),
+             (2, 8, 8, 256, 256, 64, 64, False, False),
+             (1, 28, 4, 300, 300, 128, 128, True, True),
+             (1, 28, 4, 300, 300, 128, 128, False, False),
+             (2, 8, 2, 200, 333, 64, 64, False, True),
+             (2, 8, 2, 200, 333, 64, 64, True, False),
+             (1, 4, 1, 333, 150, 128, 128, True, True),
+             (1, 4, 1, 150, 333, 128, 128, True, False),
+             (1, 7, 1, 129, 77, 32, 32, False, True),
+             (1, 7, 1, 77, 129, 32, 32, True, False),
+             (2, 14, 2, 517, 517, 64, 64, True, True),
+             (1, 8, 8, 64, 512, 128, 128, True, True),
+             (2, 8, 2, 300, 300, 160, 160, True, True),
+             (1, 4, 1, 200, 333, 160, 160, False, False),
+             (1, 8, 2, 333, 150, 160, 160, True, False),
+             (1, 8, 8, 300, 300, 192, 128, True, True),
+             (2, 4, 4, 150, 333, 192, 128, False, True),
+             (1, 4, 4, 333, 77, 192, 128, True, False)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,views", BWD_CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,Dv,causal,views", BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_its_rounding_twin(
-        dev, B, Hq, Hkv, Sq, Skv, D, causal, views):
+        dev, B, Hq, Hkv, Sq, Skv, D, Dv, causal, views):
     """The bf16 backward kernel (one launch) against the plain version on
     the same bf16 inputs and the forward kernel's o and log-sum-exp:
     against ``round_dtype=torch.bfloat16`` held in f32 (P and dS rounded
@@ -1410,8 +1418,8 @@ def test_flash_attention_bwd_kernel_matches_its_rounding_twin(
                                dtype=torch.bfloat16).transpose(1, 2)
         return torch.randn(B, h, s, d, generator=gen, device=dev,
                            dtype=torch.bfloat16)
-    q, do = act(Hq, Sq, D), act(Hq, Sq, D)
-    k, v = act(Hkv, Skv, D), act(Hkv, Skv, D)
+    q, do = act(Hq, Sq, D), act(Hq, Sq, Dv)
+    k, v = act(Hkv, Skv, D), act(Hkv, Skv, Dv)
     o, lse = K4._kernel(q, k, v, causal, None, with_lse=True)
     ops.reset_launch_counts()
     got = ops.flash_attention_backward(q, k, v, o, lse, do, causal)
@@ -1453,20 +1461,38 @@ def test_flash_attention_bwd_takes_an_expanded_gradient(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,Dv", [(160, 160), (192, 128)])
-def test_flash_attention_bwd_refuses_head_dims_it_is_not_built_for(dev, D,
-                                                                   Dv):
-    """A bf16 CUDA input at a head-dim pair the backward kernel does not
-    take raises (naming the ROADMAP item); nothing runs tensor code."""
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_takes_mla_operands_as_they_lie(dev, causal):
+    """MLA's operands as the model passes them: v a strided slice of
+    ``kv_b``'s output rows past the nope columns, k the materialised
+    ``kf`` (nope columns, then the shared rope head broadcast), q and dO
+    transposed views of (B, S, H, D).  The kernel reads them as they lie
+    (one launch, no copy): its gradients equal those of contiguous copies
+    of the same values bit for bit."""
     from repro_torch.kernels import flash_attention as K4
-    q = torch.randn(1, 2, 64, D, device=dev, dtype=torch.bfloat16)
-    k = torch.randn(1, 2, 64, D, device=dev, dtype=torch.bfloat16)
-    v = torch.randn(1, 2, 64, Dv, device=dev, dtype=torch.bfloat16)
-    o, lse = K4._kernel(q, k, v, True, None, with_lse=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, S, H, nope, rope, dv = 2, 200, 8, 128, 64, 128
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    kv = rand(B, S, H, nope + dv)
+    k_rope = rand(B, S, 1, rope)
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)],
+                  -1).transpose(1, 2)
+    v = kv[..., nope:].transpose(1, 2)
+    q, do = rand(B, S, H, nope + rope).transpose(1, 2), \
+        rand(B, S, H, dv).transpose(1, 2)
+    assert not v.is_contiguous() and v.stride(1) == nope + dv
+    o, lse = K4._kernel(q, k, v, causal, None, with_lse=True)
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.flash_attention_backward(q, k, v, o, lse, torch.ones_like(o))
-    assert ops.launch_counts() == {}
+    got = ops.flash_attention_backward(q, k, v, o, lse, do, causal)
+    assert ops.launch_counts() == {"flash_attention_bwd": 1}
+    want = ops.flash_attention_backward(
+        *(t.contiguous() for t in (q, k, v, o)), lse, do.contiguous(),
+        causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -254,3 +254,42 @@ def test_device_time_reads_only_whole_sessions(case):
                     2) is None
     else:
         assert read([[(fill, 1.0), (fwd, 10.0)] * 2], 2) is None
+
+
+@pytest.mark.parametrize("kernel", [None, "flash_bf16_kernel"])
+def test_device_time_falls_back_to_events_when_no_session_is_whole(
+        monkeypatch, kernel):
+    """Where the profiler loses every session's records, chip_smoke's
+    ``device_ms`` does not fail the run: it times the calls by CUDA
+    events instead (a kernel's launch over the launches a call counts),
+    says so in the result's ``timed_by`` and lists the fallback."""
+    import contextlib
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import _build
+    cs = _chip_smoke()
+    prof = SimpleNamespace(events=lambda: [])    # every record lost
+    stub = SimpleNamespace(
+        cuda=SimpleNamespace(synchronize=lambda: None,
+                             _sleep=lambda cycles: None),
+        profiler=SimpleNamespace(
+            ProfilerActivity=SimpleNamespace(CUDA="cuda"),
+            profile=lambda activities: contextlib.nullcontext(prof)))
+    monkeypatch.setattr(cs, "sm_max_hz", lambda: 1.98e9)
+    monkeypatch.setattr(cs, "event_ms", lambda torch, fn, reps: 0.5)
+    monkeypatch.setattr(_build, "_launches", Counter())
+    calls = []
+
+    def fn():       # two launches a call, as the wrappers count them
+        calls.append(1)
+        _build._launches["flash_attention"] += 2
+
+    ms = cs.device_ms(stub, fn, 20, kernel, max_sessions=3)
+    per_call = 2 if kernel else 1
+    assert float(ms) == pytest.approx(0.5 / per_call)
+    assert "CUDA events" in ms.timed_by and "in 3" in ms.timed_by
+    assert len(cs.PROFILER_FALLBACKS) == 1
+    assert len(calls) == 1 + 3 * (cs.PROFILER_WARM_CALLS + 20) + 1
+    assert cs.timed_by(ms, cs.Timed(1.0, "profiler device time"), 2.0) == \
+        f"{ms.timed_by}; profiler device time; host timer"
